@@ -1,0 +1,112 @@
+"""Packed models carried across from the JAX package, or made synthetically.
+
+from_jax_packed        the JAX engine's pack() output (as a tree of numpy
+                       arrays) -> the port's packed dict, canonical keys only
+build_synthetic_packed a full-width packed model with seeded random weights
+                       and plausible static ranges, made on the target device
+                       (real checkpoints are not in the repository)
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from mobilequant_tpu_torch.models import get_config
+from mobilequant_tpu_torch.ops.qops import pack_nibbles
+from mobilequant_tpu_torch.quant.policy import default_policy, static_range_sites
+from mobilequant_tpu_torch.quant.quantizer import QuantConfig
+from mobilequant_tpu_torch.runtime import engine as E
+
+# TPU-layout packs of the JAX whole-layer kernels; the port reads the
+# canonical qkv_proj / o_proj packs instead
+_TPU_ONLY_KEYS = ("qkvp", "op", "qkv_seg", "rvec")
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def from_jax_packed(tree: dict, device="cuda") -> dict:
+    """The JAX engine's packed dict, with numpy leaves, -> the port's packed
+    dict on `device` (ranges stay on the host as fp32 numpy)."""
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items() if k not in _TPU_ONLY_KEYS}
+        return _tensor(v, device)
+    out = {k: conv(v) for k, v in tree.items()
+           if k not in _TPU_ONLY_KEYS and k != "ranges"}
+    out["ranges"] = E.host_ranges(tree["ranges"])
+    return out
+
+
+def build_synthetic_packed(model_name: str = "tinyllama-1.1b", w_bits: int = 4,
+                           head_bits: int = 4, max_seq_len: int = 1024,
+                           seed: int = 0, device="cuda"):
+    """-> (packed, config, policy, ecfg): a W4A8 packed model at the named
+    model's full width with random weights from `seed`. Weights are unsigned
+    nibbles with zero-point 8 and per-channel scales 1/(4.6·√K), so every
+    projection keeps O(1) outputs; static ranges span ±4 at each site's
+    bitwidth; the head is a seeded N(0, 0.02²) matrix through pack_head. The
+    policy is the strict default W4A8 policy (serve with relax_16bit)."""
+    if w_bits != 4:
+        raise NotImplementedError("the port's synthetic builder makes W4 packs")
+    cfg = get_config(model_name)
+    E._check_config(cfg)
+    policy = default_policy(cfg, QuantConfig(bitwidth=4, is_per_channel=True,
+                                             is_symmetric=True), QuantConfig(bitwidth=8))
+    ecfg = E.EngineConfig(model=cfg, max_seq_len=max_seq_len,
+                          head_bits=head_bits)
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L, D, F = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+
+    def proj(din, dout):
+        q = torch.randint(0, 16, (L, din, dout), generator=gen, device=dev, dtype=torch.int8)
+        return {"wq": pack_nibbles(q),
+                "scale": torch.full((L, 1, dout), 1.0 / (4.6 * math.sqrt(din)), device=dev),
+                "offset": torch.full((L, 1, dout), 8.0, device=dev),
+                "colsum": q.to(torch.float32).sum(1),
+                "bias": torch.zeros((L, dout), device=dev)}
+
+    def cat(ps):
+        return {k: torch.cat([p[k] for p in ps], -1) for k in ps[0]}
+
+    ranges = {}
+    for site, role, qc in static_range_sites(policy):
+        qmax = 2 ** qc.bitwidth - 1
+        ranges.setdefault(site, {})[role] = {
+            "scale": np.full((L,), 8.0 / qmax, np.float32),
+            "offset": np.full((L,), float(qmax // 2), np.float32)}
+
+    def fq_vec(sites, widths):
+        sc = [torch.full((L, 1, w), float(ranges[s]["output"]["scale"][0]), device=dev)
+              for s, w in zip(sites, widths)]
+        of = [torch.full((L, 1, w), float(ranges[s]["output"]["offset"][0]), device=dev)
+              for s, w in zip(sites, widths)]
+        return torch.cat(sc, -1), torch.cat(of, -1)
+
+    qkv = cat([proj(D, cfg.q_dim), proj(D, cfg.kv_dim), proj(D, cfg.kv_dim)])
+    qkv["out_scale"], qkv["out_offset"] = fq_vec(
+        ["self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"],
+        [cfg.q_dim, cfg.kv_dim, cfg.kv_dim])
+    w13 = cat([proj(D, F), proj(D, F)])
+    w13["out_scale"], w13["out_offset"] = fq_vec(["mlp.w1", "mlp.w3"], [F, F])
+    ones = {"w": torch.ones((L, D), device=dev), "b": torch.zeros((L, D), device=dev)}
+    packed = {
+        "embed": torch.randn((cfg.vocab_size, D), generator=gen, device=dev) * 0.02,
+        "layers": {"qkv_proj": qkv, "o_proj": proj(cfg.q_dim, D), "w13_proj": w13,
+                   "w2": proj(F, D), "attn_norm": dict(ones),
+                   "mlp_norm": {k: v.clone() for k, v in ones.items()}},
+        "ranges": ranges,
+        "norm": {"w": torch.ones((D,), device=dev), "b": torch.zeros((D,), device=dev)},
+    }
+    head_w = torch.randn((D, cfg.vocab_size), generator=gen, device=dev) * 0.02
+    if head_bits in (4, 8):
+        packed["head_q"] = E.pack_head(head_w, QuantConfig(
+            bitwidth=head_bits, is_symmetric=True, is_per_channel=True))
+    else:
+        packed["lm_head"] = {"w": head_w}
+    return packed, cfg, policy, ecfg

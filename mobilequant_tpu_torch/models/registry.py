@@ -1,0 +1,39 @@
+"""Named model configurations the port serves (own copies of the entries in
+mobilequant_tpu/models/registry.py; the port imports nothing of the JAX
+package).
+
+  tinyllama-1.1b : n_layer=22 n_head=32 n_kv=4 head_dim=64 d=2048 ffn=5632 vocab=32000
+"""
+
+from __future__ import annotations
+
+from mobilequant_tpu_torch.models.config import ModelConfig
+
+MODEL_CONFIGS: dict[str, ModelConfig] = {
+    "tinyllama-1.1b": ModelConfig(
+        vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+        num_layers=22, num_heads=32, num_kv_heads=4, head_dim=64,
+        norm_class="rmsnorm", norm_eps=1e-5, num_linears_per_mlp=3,
+        hidden_act="silu", rope_theta=10000.0, max_position_embeddings=2048,
+    ),
+    "test-llama": ModelConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_layers=3, num_heads=4, num_kv_heads=2, head_dim=16,
+        norm_class="rmsnorm", num_linears_per_mlp=3, hidden_act="silu",
+        max_position_embeddings=128,
+    ),
+    # test-llama at the narrowest widths the prefill kernels take (head_dim
+    # 64, hidden and F multiples of 128): the port's kernel and engine tests
+    "test-llama-256": ModelConfig(
+        vocab_size=256, hidden_size=256, intermediate_size=512,
+        num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+        norm_class="rmsnorm", num_linears_per_mlp=3, hidden_act="silu",
+        max_position_embeddings=128,
+    ),
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in MODEL_CONFIGS:
+        raise KeyError(f"unknown model {name!r}; known: {sorted(MODEL_CONFIGS)}")
+    return MODEL_CONFIGS[name]

@@ -1,0 +1,27 @@
+"""Integer primitives and the four hand-written CUDA kernels of the port.
+
+Each kernel wrapper carries two plain integer counts: `launches` (CUDA kernel
+launches) and `plain_calls` (runs of its plain PyTorch version on CPU
+tensors)."""
+
+from __future__ import annotations
+
+
+def kernel_wrappers() -> dict:
+    """name -> wrapper function of every kernel of the slice."""
+    from mobilequant_tpu_torch.ops.prefill_attention import prefill_attention
+    from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope
+    from mobilequant_tpu_torch.ops.w13_gate import w13_gate
+    from mobilequant_tpu_torch.ops.w4a8_matmul import w4a8_matmul
+    return {"w4a8_matmul": w4a8_matmul, "qkv_rope": qkv_rope,
+            "prefill_attention": prefill_attention, "w13_gate": w13_gate}
+
+
+def reset_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+        fn.plain_calls = 0
+
+
+def counts(kind: str = "launches") -> dict:
+    return {name: getattr(fn, kind) for name, fn in kernel_wrappers().items()}

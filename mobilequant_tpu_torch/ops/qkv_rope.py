@@ -1,0 +1,98 @@
+"""Prefill qkv projection with the attention-input epilogue in one kernel:
+W4A8 matmul -> per-column output fake-quant -> rotate-half RoPE (partial
+rotary) -> per-segment int8 quantization of q | k | v.
+
+Kernel: csrc/qkv_rope.cu, which replaces the JAX package's
+mobilequant_tpu/ops/pallas_qkv.py qkv_rope_stacked (_qkv_rope_kernel). Bound:
+integer operations of the matmul at prefill M. Design: the W4A8 tile core
+with split-K, the tile staged in shared memory so each output reads its RoPE
+partner column (tiles hold whole heads); the int8 rows it writes are the KV
+cache, so the epilogue rounds exactly as the plain version does.
+
+Operands (as the JAX engine builds them): ofq (4, Nq) = [scale, offset, clip
+max, enabled] of the output fake-quant; outq (3, Nq) = [quant scale, quant
+offset, rope mask]; cs (M, 2·head_dim) = [cos | sign-baked sin] per row.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from mobilequant_tpu_torch.ops import _build
+from mobilequant_tpu_torch.ops.w4a8_matmul import (
+    affine_args, check_w4, layer_pack, w4a8_matmul_plain)
+
+
+def qkv_rope_supported(Nq: int, head_dim: int, rotary_dim: int) -> bool:
+    return (head_dim % 2 == 0 and rotary_dim % 2 == 0 and Nq % 128 == 0
+            and 128 % head_dim == 0)
+
+
+def qkv_rope_plain(h8: torch.Tensor, pack: dict, ofq: torch.Tensor,
+                   outq: torch.Tensor, cs: torch.Tensor, h_scale: float,
+                   h_offset: float, head_dim: int,
+                   rotary_dim: int) -> torch.Tensor:
+    """The kernel's function in PyTorch operators (one layer's pack)."""
+    y = w4a8_matmul_plain(h8, pack["wq"], pack["scale"], pack["offset"],
+                          pack["colsum"], pack.get("bias"), h_scale, h_offset)
+    fs, fo, fc, fe = ofq[0], ofq[1], ofq[2], ofq[3]
+    q = torch.minimum(torch.clamp(torch.round(y / fs) + fo, min=0.0), fc)
+    y = torch.where(fe > 0.5, (q - fo) * fs, y)
+    M, Nq = y.shape
+    hd, shift = head_dim, rotary_dim // 2
+    H = Nq // hd
+    yh = y.reshape(M, H, hd)
+    d = torch.arange(hd, device=y.device)
+    partner = torch.where(d < shift, torch.roll(yh, -shift, dims=2),
+                          torch.roll(yh, shift, dims=2))
+    roped = yh * cs[:, None, :hd] + partner * cs[:, None, hd:]
+    yh = torch.where(outq[2].reshape(H, hd) > 0.5, roped, yh)
+    qv = torch.round(yh / outq[0].reshape(H, hd)) + outq[1].reshape(H, hd)
+    qv = torch.clamp(qv, 0.0, 255.0) - 128.0
+    return qv.to(torch.int8).reshape(M, Nq)
+
+
+def qkv_rope(h8: torch.Tensor, pack: dict, ofq: torch.Tensor,
+             outq: torch.Tensor, cs: torch.Tensor, h_scale: float,
+             h_offset: float, layer: Optional[int], head_dim: int,
+             rotary_dim: int) -> torch.Tensor:
+    """h8 (M, K) shifted int8 -> (M, Nq) shifted int8 q | k | v rows, over
+    layer `layer` of the stacked qkv pack."""
+    p = layer_pack(pack, layer)
+    M, K, Nq = check_w4(h8, p["wq"])
+    if not qkv_rope_supported(Nq, head_dim, rotary_dim):
+        raise NotImplementedError(f"qkv_rope: Nq={Nq}, head_dim={head_dim}")
+    if h8.device.type == "cpu":
+        qkv_rope.plain_calls += 1
+        return qkv_rope_plain(h8, p, ofq, outq, cs, h_scale, h_offset,
+                              head_dim, rotary_dim)
+    dev = _build.require_cuda(h8, p["wq"], ofq, outq, cs)
+    if head_dim != 64 and head_dim != 128:
+        raise NotImplementedError(f"qkv_rope kernel: head_dim {head_dim}")
+    lib = _build.lib()
+    x = _build.aligned(h8)
+    w = _build.aligned(p["wq"], 4)
+    sc, of, csum, b, ss = affine_args(p, Nq)
+    ofq_ = _build.aligned(ofq.to(torch.float32), 4)
+    outq_ = _build.aligned(outq.to(torch.float32), 4)
+    cs_ = _build.aligned(cs.to(torch.float32), 4)
+    if ofq_.shape != (4, Nq) or outq_.shape != (3, Nq) or cs_.shape != (M, 2 * head_dim):
+        raise ValueError("qkv_rope: ofq (4, Nq), outq (3, Nq), cs (M, 2 hd)")
+    out = torch.empty((M, Nq), dtype=torch.int8, device=dev)
+    tiles = (Nq // 128) * -(-M // 64)
+    ws = _build.WORKSPACE.get(dev, 65 * tiles + M * Nq + 64)
+    code = lib.mqt_qkv_rope(
+        x.data_ptr(), w.data_ptr(), sc.data_ptr(), of.data_ptr(), csum.data_ptr(),
+        None if b is None else b.data_ptr(), ofq_.data_ptr(), outq_.data_ptr(),
+        cs_.data_ptr(), out.data_ptr(), ws.data_ptr(), M, K, Nq, ss,
+        float(h_scale), float(h_offset), head_dim, rotary_dim,
+        _build.stream_ptr(dev))
+    _build.check(code, "qkv_rope")
+    qkv_rope.launches += 1
+    return out
+
+
+qkv_rope.launches = 0
+qkv_rope.plain_calls = 0

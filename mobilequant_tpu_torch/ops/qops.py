@@ -1,0 +1,172 @@
+"""Integer compute primitives (the port of mobilequant_tpu/ops/qops.py).
+
+These are the plain building blocks of the integer engine: int8 activations,
+int8/int4 weights, exact integer dot products and the affine zero-point
+corrections that make the engine an exact re-expression of the fake-quant
+simulation, `(x_q-o_x)(w_q-o_w)·s_x·s_w ≡ fq(x)@fq(w)`.
+
+Conventions (identical to the JAX package):
+  * asymmetric uint8 values are stored shifted by −128 as int8; the stored
+    zero-point is shifted the same way (o'_x = o_x − 128);
+  * weights are (in, out); W4 is nibble-packed (in/2, out) in the UNSIGNED
+    BLOCK layout: packed row k holds row k (low nibble) and row k + in/2 (high
+    nibble), both unsigned 0..15, the 4-bit zero-point absorbing the sign.
+
+Host scalars. Static activation ranges are frozen at pack time, so the engine
+hands them to these functions (and to the kernels) as Python floats holding
+fp32 values; scalar arithmetic on them goes through `f32` so that it rounds as
+the JAX package's fp32 scalar arithmetic does.
+
+Exact integer dots. PyTorch's CPU int8 matmul returns int8 and wraps, and CUDA
+has no integer matmul, so `int_dot` multiplies in float64 on both devices:
+every partial sum is an integer below 2^53, hence exact in any order.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mobilequant_tpu_torch.quant.quantizer import (
+    QuantConfig, scale_offset_from_min_max, weight_min_max,
+)
+
+
+def f32(v) -> float:
+    """A host scalar rounded to fp32 (returned as a Python float, exact)."""
+    return float(np.float32(v))
+
+
+def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer matmul of int8 tensors -> fp32 (the int32 accumulator of
+    the JAX package converted to fp32, which rounds the same way)."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.float32)
+
+
+def rowsum_i8(x: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis of an int8 tensor, as fp32 (keepdim)."""
+    return x.to(torch.int32).sum(dim=-1, keepdim=True).to(torch.float32)
+
+
+def quantize_act(x: torch.Tensor, scale: float, offset: float) -> torch.Tensor:
+    """fp -> shifted int8 (stored uint8 domain − 128), 8-bit clip."""
+    q = torch.clamp(torch.round(x.to(torch.float32) / scale) + offset, 0.0, 255.0)
+    return (q - 128.0).to(torch.int8)
+
+
+def pack_nibbles(q_i8: torch.Tensor) -> torch.Tensor:
+    """(..., K, N) int8 in [-8, 15] -> (..., K/2, N) int8, two per byte, block
+    layout: packed row k = row k (low nibble) | row k + K/2 (high nibble)."""
+    if q_i8.shape[-2] % 2:
+        raise ValueError("K must be even for nibble packing")
+    half = q_i8.shape[-2] // 2
+    lo = q_i8[..., :half, :].to(torch.int32) & 0x0F
+    hi = q_i8[..., half:, :].to(torch.int32) & 0x0F
+    return (lo | (hi << 4)).to(torch.uint8).view(torch.int8)
+
+
+def unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
+    """(..., K/2, N) packed bytes -> (..., K, N) int8 in [0, 15]."""
+    lo = packed & 0x0F
+    hi = (packed >> 4) & 0x0F
+    return torch.cat([lo, hi], dim=-2)
+
+
+def pack_weight(w: torch.Tensor, qcfg: QuantConfig) -> dict:
+    """Quantize one (in, out) fp weight to its integer representation.
+
+    Returns {wq, scale, offset, colsum}: wq int8 (nibble-packed (in/2, out) for
+    4 bits); scale/offset fp32 () per-tensor or (1, out) per-channel; offset
+    is the shifted zero-point; colsum the per-out-channel sum of the stored
+    integer values."""
+    wf = w.to(torch.float32)
+    scale, offset = scale_offset_from_min_max(*weight_min_max(wf, qcfg), qcfg)
+    q = torch.clamp(torch.round(wf / scale) + offset, qcfg.qmin, qcfg.qmax)
+    if qcfg.bitwidth == 4:
+        shift = float(qcfg.qmin)        # unsigned nibbles q - qmin in [0, 15]
+    elif qcfg.is_symmetric:
+        shift = 0.0
+    else:
+        shift = float(2 ** (qcfg.bitwidth - 1))   # uint8 stored as int8 − 128
+    q = q - shift
+    q_i8 = q.to(torch.int8)
+    wq = pack_nibbles(q_i8) if qcfg.bitwidth == 4 else q_i8
+    return {"wq": wq, "scale": scale.to(torch.float32),
+            "offset": (offset - shift).to(torch.float32), "colsum": q.sum(dim=-2)}
+
+
+def int_linear(x_q: torch.Tensor, x_scale: float, x_offset: float, pack: dict,
+               bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Integer matmul with affine corrections -> fp32:
+
+      out = s_x·s_w·[acc − o'_x·colsum − o_w·rowsum_x + K·o'_x·o_w] + bias
+
+    x_q (..., K) shifted int8 with host-float (scale, offset) in the uint8
+    domain; pack from pack_weight (one layer)."""
+    K = x_q.shape[-1]
+    wq = pack["wq"]
+    if wq.shape[0] * 2 == K:
+        wq = unpack_nibbles(wq)
+    acc = int_dot(x_q, wq)
+    ox = f32(np.float32(x_offset) - np.float32(128.0))
+    ow = pack["offset"].reshape(-1)
+    sw = pack["scale"].reshape(-1)
+    acc = acc - ox * pack["colsum"] - ow * rowsum_i8(x_q) + f32(K * np.float32(ox)) * ow
+    out = acc * (x_scale * sw)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def dynamic_quantize_act(x: torch.Tensor):
+    """Per-row symmetric dynamic int8 quantization: (q int8, scale (..., 1))."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def int_head_linear(x: torch.Tensor, pack: dict,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Quantized lm_head: dynamic per-token symmetric A8 × per-channel
+    symmetric W8/W4 -> fp32 logits, out = s_x·s_w·(x_q @ w_q − o_w·Σ_k x_q)."""
+    x_q, sx = dynamic_quantize_act(x)
+    K = x_q.shape[-1]
+    wq = pack["wq"]
+    if wq.shape[0] * 2 == K:
+        wq = unpack_nibbles(wq)
+    acc = int_dot(x_q, wq)
+    ow = pack["offset"].reshape(-1)
+    sw = pack["scale"].reshape(-1)
+    acc = acc - ow * rowsum_i8(x_q)
+    out = acc * (sx * sw)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def int_matmul_qk(q_i8: torch.Tensor, k_i8: torch.Tensor, q_scale: float,
+                  q_offset: float, k_scale: float, k_offset: float) -> torch.Tensor:
+    """Quantized Q·Kᵀ: q (B,Hkv,GT,hd) × k (B,Hkv,S,hd) -> fp32 (B,Hkv,GT,S)."""
+    hd = q_i8.shape[-1]
+    acc = int_dot(q_i8, k_i8.transpose(-1, -2))
+    oq = f32(np.float32(q_offset) - np.float32(128.0))
+    ok = f32(np.float32(k_offset) - np.float32(128.0))
+    qsum = rowsum_i8(q_i8)                                   # (B,Hkv,GT,1)
+    ksum = rowsum_i8(k_i8)[..., 0]
+    acc = (acc - ok * qsum - oq * ksum[:, :, None, :]
+           + f32(np.float32(hd) * np.float32(oq) * np.float32(ok)))
+    return acc * f32(np.float32(q_scale) * np.float32(k_scale))
+
+
+def int_matmul_pv(p: torch.Tensor, v_i8: torch.Tensor, v_scale: float,
+                  v_offset: float) -> torch.Tensor:
+    """P·V with int8 V: p fp32 (B,Hkv,GT,S) × v (B,Hkv,S,hd) -> (B,Hkv,GT,hd),
+    P@V = (P@v_shifted − (o_v−128)·Σ_s P)·s_v (fp32 product)."""
+    acc = torch.matmul(p, v_i8.to(torch.float32))
+    ov = f32(np.float32(v_offset) - np.float32(128.0))
+    acc = acc - ov * p.sum(dim=-1, keepdim=True)
+    return acc * v_scale

@@ -1,0 +1,124 @@
+"""W4A8 matmul: shifted-int8 activations × nibble-packed W4 -> fp32.
+
+  out = s_x·s_w·[acc − o'_x·colsum − o_w·rowsum_x + K·o'_x·o_w] + bias
+
+Kernel: csrc/w4a8_matmul.cu, which replaces the JAX package's
+mobilequant_tpu/ops/pallas_matmul.py w4a8_matmul (_w4a8_kernel) and
+w4a8_matmul_stacked (_w4a8_kernel_stacked). Bound: device-memory bandwidth at
+decode (M <= 8: the K/2·N packed weight bytes dominate), integer operations at
+prefill M. Design: the decode path streams each weight byte once, coalesced
+along N, unpacks nibbles in registers and splits K across blocks so that even
+a 2048-wide projection fills the card; prefill runs 64 x 128 dp4a tiles. The
+stacked form of the JAX package becomes a layer offset on the weight pointer,
+so no per-layer weight copy exists to avoid.
+
+`w4a8_matmul` launches the kernel for CUDA tensors and runs `w4a8_matmul_plain`
+for CPU tensors; it never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mobilequant_tpu_torch.ops import _build
+from mobilequant_tpu_torch.ops.qops import f32, int_dot, rowsum_i8, unpack_nibbles
+
+
+def w4a8_matmul_plain(x_q: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                      offset: torch.Tensor, colsum: torch.Tensor,
+                      bias: Optional[torch.Tensor], x_scale: float,
+                      x_offset: float) -> torch.Tensor:
+    """The kernel's function in PyTorch operators: x_q (M, K) int8, wq (K/2, N)
+    packed, scale/offset (1, N), (N,) or per-tensor, colsum/bias (N,)."""
+    K = x_q.shape[-1]
+    acc = int_dot(x_q, unpack_nibbles(wq))
+    ox = f32(np.float32(x_offset) - np.float32(128.0))
+    ow = offset.reshape(-1)
+    sw = scale.reshape(-1)
+    acc = (acc - ox * colsum.reshape(-1) - ow * rowsum_i8(x_q)
+           + f32(K * np.float32(ox)) * ow)
+    out = acc * (x_scale * sw)
+    if bias is not None:
+        out = out + bias.reshape(-1)
+    return out
+
+
+def layer_pack(pack: dict, layer: Optional[int]) -> dict:
+    """Layer `layer` of a stacked pack as views (no copy); the pack itself when
+    layer is None."""
+    if layer is None:
+        return pack
+    return {k: v[layer] for k, v in pack.items()
+            if isinstance(v, torch.Tensor) and v.dim() > 0}
+
+
+def _vec(v: torch.Tensor, N: int):
+    """(pointer-ready tensor, stride) of a per-column or per-tensor vector."""
+    v = v.reshape(-1)
+    if v.numel() == 1:
+        return v, 0
+    if v.numel() != N:
+        raise ValueError(f"vector of {v.numel()} entries for N={N}")
+    return _build.aligned(v, 4), 1
+
+
+def affine_args(pack: dict, N: int):
+    """Pointer-ready (scale, offset, colsum, bias, stride) of one layer's pack."""
+    sc, ss = _vec(pack["scale"].to(torch.float32), N)
+    of, os_ = _vec(pack["offset"].to(torch.float32), N)
+    if ss != os_:
+        raise ValueError("scale and offset must both be per-tensor or per-channel")
+    cs = _build.aligned(pack["colsum"].reshape(-1).to(torch.float32), 4)
+    b = pack.get("bias")
+    b = None if b is None else _build.aligned(b.reshape(-1).to(torch.float32), 4)
+    return sc, of, cs, b, ss
+
+
+def check_w4(x_q: torch.Tensor, wq: torch.Tensor) -> tuple:
+    if x_q.dim() != 2 or x_q.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise ValueError("expected x_q (M, K) int8 and packed wq (K/2, N) int8")
+    M, K = x_q.shape
+    K2, N = wq.shape
+    if K2 * 2 != K:
+        raise ValueError(f"packed wq rows {K2} do not match K={K}")
+    if K % 64 or N % 4:
+        raise NotImplementedError(f"W4A8 kernels take K % 64 == 0 and N % 4 == 0 "
+                                  f"(K={K}, N={N})")
+    return M, K, N
+
+
+def w4a8_matmul(x_q: torch.Tensor, pack: dict, x_scale: float, x_offset: float,
+                layer: Optional[int] = None, bias: bool = True) -> torch.Tensor:
+    """x_q (M, K) int8 × layer `layer` of a (stacked) W4 pack
+    {wq (L, K/2, N), scale, offset, colsum, bias} -> fp32 (M, N).
+    bias=False ignores the pack's bias (the quantized head has none)."""
+    p = layer_pack(pack, layer)
+    if not bias:
+        p = {k: v for k, v in p.items() if k != "bias"}
+    M, K, N = check_w4(x_q, p["wq"])
+    if x_q.device.type == "cpu":
+        w4a8_matmul.plain_calls += 1
+        return w4a8_matmul_plain(x_q, p["wq"], p["scale"], p["offset"],
+                                 p["colsum"], p.get("bias"), x_scale, x_offset)
+    dev = _build.require_cuda(x_q, p["wq"])
+    lib = _build.lib()
+    x = _build.aligned(x_q)
+    w = _build.aligned(p["wq"], 4)
+    sc, of, cs, b, ss = affine_args(p, N)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    tiles = -(-N // 128) * -(-M // 64)
+    ws = _build.WORKSPACE.get(dev, 65 * tiles + M * N + 64)
+    code = lib.mqt_w4a8_matmul(
+        x.data_ptr(), w.data_ptr(), sc.data_ptr(), of.data_ptr(), cs.data_ptr(),
+        None if b is None else b.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        M, K, N, ss, float(x_scale), float(x_offset), _build.stream_ptr(dev))
+    _build.check(code, "w4a8_matmul")
+    w4a8_matmul.launches += 1
+    return out
+
+
+w4a8_matmul.launches = 0
+w4a8_matmul.plain_calls = 0

@@ -1,0 +1,104 @@
+"""Uniform quantizer math (the port of mobilequant_tpu/quant/quantizer.py).
+
+Pure functions over fp32 tensors; the arithmetic follows the JAX module op for
+op so that packs built here are bit-identical to the JAX package's:
+  * scale = alpha / q_max, clamped to [1e-5, 1e6]
+  * offset = -round(beta / scale)   (round half to even, as jnp.round)
+  * symmetric: alpha = max(|min|,|max|), q in [-2^(b-1), 2^(b-1)-1], offset = 0
+  * asymmetric: alpha = max-min, q in [0, 2^b-1]
+  * fake quant: deq = (clip(round(x/scale)+offset, qmin, qmax) - offset) * scale
+  * bitwidth > 16 disables quantization
+Linear weights are (in_features, out_features): per-channel statistics reduce
+over axis -2. Grouped (g128) weights belong to the weight-only mode, which is
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import torch
+
+CLIPMIN = 1e-5
+CLIPMAX = 1e6
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    bitwidth: int = 32
+    group_size: int = -1
+    is_symmetric: bool = False
+    is_per_channel: bool = False
+    is_dynamic: bool = False
+
+    @property
+    def enabled(self) -> bool:
+        return self.bitwidth <= 16
+
+    @property
+    def qmin(self) -> int:
+        return -(2 ** (self.bitwidth - 1)) if self.is_symmetric else 0
+
+    @property
+    def qmax(self) -> int:
+        return 2 ** (self.bitwidth - 1) - 1 if self.is_symmetric else 2 ** self.bitwidth - 1
+
+    def replace(self, **kw) -> "QuantConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def _f32(v, like=None) -> torch.Tensor:
+    dev = like.device if like is not None else None
+    return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+
+def scale_offset_from_min_max(min_val, max_val, qcfg: QuantConfig):
+    """-> (scale, offset) fp32 tensors broadcastable against the tensor."""
+    min_val = _f32(min_val)
+    max_val = _f32(max_val, min_val)
+    if qcfg.is_symmetric:
+        alpha = torch.maximum(min_val.abs(), max_val.abs())
+        beta = torch.zeros_like(alpha)
+    else:
+        alpha = max_val - min_val
+        beta = min_val
+    scale = torch.clamp(alpha / qcfg.qmax, CLIPMIN, CLIPMAX)
+    offset = -torch.round(beta / scale)
+    return scale, offset
+
+
+def min_max_from_scale_offset(scale, offset, qcfg: QuantConfig):
+    scale = torch.clamp(_f32(scale), CLIPMIN, CLIPMAX)
+    alpha = scale * qcfg.qmax
+    beta = -_f32(offset, scale) * scale
+    max_val = alpha + beta
+    min_val = -max_val if qcfg.is_symmetric else beta
+    return min_val, max_val
+
+
+def fake_quant(x: torch.Tensor, scale, offset, qcfg: QuantConfig):
+    """Static-range quant -> clip -> dequant."""
+    if not qcfg.enabled:
+        return x
+    q = torch.round(x.to(torch.float32) / scale) + offset
+    q = torch.clamp(q, qcfg.qmin, qcfg.qmax)
+    return ((q - offset) * scale).to(x.dtype)
+
+
+def weight_min_max(w: torch.Tensor, qcfg: QuantConfig):
+    """min/max statistics of a (..., in, out) weight: per-tensor -> scalars,
+    per-channel -> (..., 1, out)."""
+    if qcfg.group_size != -1:
+        raise NotImplementedError("grouped weight quantization is not ported")
+    if qcfg.is_per_channel:
+        return w.amin(dim=-2, keepdim=True), w.amax(dim=-2, keepdim=True)
+    return w.amin(), w.amax()
+
+
+def fake_quant_weight(w: torch.Tensor, qcfg: QuantConfig):
+    """On-the-fly weight fake-quant from the weight's own min/max."""
+    if not qcfg.enabled:
+        return w
+    wf = w.to(torch.float32)
+    scale, offset = scale_offset_from_min_max(*weight_min_max(wf, qcfg), qcfg)
+    q = torch.clamp(torch.round(wf / scale) + offset, qcfg.qmin, qcfg.qmax)
+    return ((q - offset) * scale).to(w.dtype)

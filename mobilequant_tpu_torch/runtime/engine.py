@@ -1,0 +1,674 @@
+"""Integer inference engine (the port of mobilequant_tpu/runtime/engine.py,
+main-path slice).
+
+  pack()            finalized weights + learned ranges -> packed model (W4/W8
+                    ints, scales, zero-point corrections, frozen ranges)
+  init_kv_cache()   the int8 KV cache, (L, B, Hkv, S, hd), head-major
+  forward()         prefill (T > 1) and decode-light (T = 1) passes
+  decode_loop()     non-staged greedy / temperature decode, one forward a step
+
+Numerics follow the JAX engine op for op: every matmul is an exact integer
+dot with affine corrections; enabled fake-quant sites run in fp32. Static
+activation ranges are frozen at pack time and live on the host
+(`packed["ranges"]`: site -> role -> {"scale", "offset"} fp32 numpy arrays of
+length L); they reach the operators and kernels as Python floats, so no step
+reads a scalar back from the card.
+
+Kernel dispatch (runtime/kernel_config.py): gate_kernel runs the prefill qkv
+and w13+gate epilogue kernels, attn_kernel the prefill attention kernel,
+w4_matmul every W4 projection and the W4 head through the W4A8 kernel. With
+no flag set the same function runs in PyTorch operators alone (the plain
+engine, the counterpart of the JAX engine's XLA body).
+
+The cache is updated in place: prefill writes its rows into the layer slice
+before attention, decode writes each step's rows once after the layer loop.
+
+Out of this slice (NotImplementedError): MoE, parallel residual, 2-linear
+MLPs, layernorm models, policies with the q/k/v or w1/w3 output sites off,
+the int4 KV cache, staged/chunked decode, context/tensor parallelism,
+weight-only mode, and any kernel flag on W8 packs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from mobilequant_tpu_torch.models import model as M
+from mobilequant_tpu_torch.models.config import ModelConfig
+from mobilequant_tpu_torch.ops import qops
+from mobilequant_tpu_torch.ops.prefill_attention import prefill_attention
+from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope, qkv_rope_supported
+from mobilequant_tpu_torch.ops.w13_gate import w13_gate, w13_gate_supported
+from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, w4a8_matmul
+from mobilequant_tpu_torch.quant.policy import QPolicy, policy_kv_bits
+from mobilequant_tpu_torch.quant.quantizer import (
+    QuantConfig, fake_quant, fake_quant_weight)
+from mobilequant_tpu_torch.runtime.kernel_config import KernelConfig
+
+
+class EngineKVCache(NamedTuple):
+    """int8 KV cache: k/v (L, B, Hkv, S_max, hd), shifted-uint8 domain."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    model: ModelConfig
+    max_seq_len: int = 1024
+    kv_bits: int = 8            # the port serves the int8 cache only
+    head_bits: int = 16         # 16 = fp head; 8/4 = quantized head (pack_head)
+
+
+# ---------------------------------------------------------------------------
+# Packing
+# ---------------------------------------------------------------------------
+
+_PROJ_SITES = {
+    "q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+    "v_proj": "self_attn.v_proj", "o_proj": "self_attn.o_proj",
+    "w1": "mlp.w1", "w2": "mlp.w2", "w3": "mlp.w3",
+}
+
+
+def _t(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+
+def host_ranges(ranges: dict) -> dict:
+    """ranges tree (array leaves) -> {site: {role: {"scale", "offset"}}} of
+    fp32 numpy (L,) arrays."""
+    return {site: {role: {k: np.asarray(so[k], dtype=np.float32).reshape(-1)
+                          for k in ("scale", "offset")}
+                   for role, so in roles.items()}
+            for site, roles in ranges.items()}
+
+
+def _check_config(c: ModelConfig) -> None:
+    if c.is_moe or c.parallel_residual or c.shared_attention_norm \
+            or c.num_linears_per_mlp != 3 or c.hidden_act not in ("silu", "gelu_tanh") \
+            or c.norm_class == "layernorm":
+        raise NotImplementedError(
+            "the port's engine serves dense gated (silu / gelu_tanh) RMSNorm decoders "
+            "with sequential residuals")
+
+
+def _check_policy(policy: QPolicy) -> None:
+    """The fused q|k|v and w1|w3 packs carry one per-channel output fake-quant
+    per projection; the port applies it only in that fused form."""
+    sites = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+             "mlp.w1", "mlp.w3")
+    if policy_kv_bits(policy) != 8:
+        raise NotImplementedError("the port serves the int8 KV cache only")
+    if not all(_on(policy[s].output) for s in sites):
+        raise NotImplementedError("the port needs the q/k/v and w1/w3 output "
+                                  "fake-quant sites on")
+
+
+def pack(params: dict, ranges: dict, config: ModelConfig, policy: QPolicy,
+         ecfg: Optional[EngineConfig] = None, device="cuda") -> dict:
+    """Finalized params (numpy or torch, layer-stacked) + learned ranges ->
+    the packed model on `device`, bit-identical to the JAX engine's pack on
+    its canonical keys (qkv_proj / o_proj / w13_proj / w2 / norms / head_q)."""
+    ecfg = ecfg or EngineConfig(model=config)
+    c = config
+    _check_config(c)
+    dev = torch.device(device)
+    rr = host_ranges(ranges)
+    L = c.num_layers
+
+    def pack_proj(pkey, site):
+        wcfg = policy[site].weight
+        entry = params["layers"][pkey]
+        w = _t(entry["w"], dev)
+        per = [qops.pack_weight(w[i], wcfg) for i in range(L)]
+        out = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+        out["bias"] = _t(entry["b"], dev).to(torch.float32)
+        return out
+
+    def fuse(entries):
+        def chan(e, key):
+            v = e[key]
+            if v.dim() == 1:                 # per-tensor (L,) -> (L, 1, N)
+                return v[:, None, None].expand(L, 1, e["wq"].shape[-1])
+            return v
+        return {
+            "wq": torch.cat([e["wq"] for e in entries], -1),
+            "scale": torch.cat([chan(e, "scale") for e in entries], -1),
+            "offset": torch.cat([chan(e, "offset") for e in entries], -1),
+            "colsum": torch.cat([e["colsum"] for e in entries], -1),
+            "bias": torch.cat([e["bias"] for e in entries], -1),
+        }
+
+    def fq_vec(sites, widths):
+        scs, ofs = [], []
+        for site, w in zip(sites, widths):
+            r = rr[site]["output"]
+            scs.append(torch.from_numpy(r["scale"]).to(dev)[:, None, None].expand(L, 1, w))
+            ofs.append(torch.from_numpy(r["offset"]).to(dev)[:, None, None].expand(L, 1, w))
+        return torch.cat(scs, -1).contiguous(), torch.cat(ofs, -1).contiguous()
+
+    layers = {k: pack_proj(k, s) for k, s in _PROJ_SITES.items()}
+    widths = [layers[k]["wq"].shape[-1] for k in ("q_proj", "k_proj", "v_proj")]
+    layers["qkv_proj"] = fuse([layers.pop("q_proj"), layers.pop("k_proj"),
+                               layers.pop("v_proj")])
+    layers["qkv_proj"]["out_scale"], layers["qkv_proj"]["out_offset"] = fq_vec(
+        ["self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"], widths)
+    widths = [layers["w1"]["wq"].shape[-1], layers["w3"]["wq"].shape[-1]]
+    layers["w13_proj"] = fuse([layers.pop("w1"), layers.pop("w3")])
+    layers["w13_proj"]["out_scale"], layers["w13_proj"]["out_offset"] = fq_vec(
+        ["mlp.w1", "mlp.w3"], widths)
+
+    def bake_norm(nkey, site):
+        entry = params["layers"][nkey]
+        ncfg = policy[site].weight
+        w = _t(entry["w"], dev)
+        if ncfg is not None and ncfg.enabled:
+            w = torch.stack([fake_quant_weight(w[i][None, :], ncfg)[0] for i in range(L)])
+        return {"w": w.to(torch.float32), "b": _t(entry["b"], dev).to(torch.float32)}
+
+    layers["attn_norm"] = bake_norm("attn_norm", "input_layernorm")
+    layers["mlp_norm"] = bake_norm("mlp_norm", "post_attention_layernorm")
+
+    packed = {
+        "embed": _t(params["embed"]["w"], dev).to(torch.float32),
+        "layers": layers,
+        "ranges": rr,
+        "norm": {"w": _t(params["norm"]["w"], dev).to(torch.float32),
+                 "b": _t(params["norm"]["b"], dev).to(torch.float32)},
+    }
+    if ecfg.head_bits in (4, 8):
+        head_w = (_t(params["embed"]["w"], dev).T if c.tie_word_embeddings
+                  else _t(params["lm_head"]["w"], dev))
+        packed["head_q"] = pack_head(head_w, QuantConfig(
+            bitwidth=ecfg.head_bits, is_symmetric=True, is_per_channel=True))
+    elif not c.tie_word_embeddings:
+        packed["lm_head"] = {"w": _t(params["lm_head"]["w"], dev).to(torch.float32)}
+    return packed
+
+
+def pack_head(head_w: torch.Tensor, hcfg: QuantConfig) -> dict:
+    """Per-channel symmetric W8/W4 (D, vocab) head, vocab padded to a multiple
+    of 4096 (padded columns have scale 0, so their logits are 0 and sliced
+    away)."""
+    hq = qops.pack_weight(head_w, hcfg)
+    V = head_w.shape[1]
+    pad = (-V) % 4096
+    if pad:
+        F_ = torch.nn.functional
+        hq = {"wq": F_.pad(hq["wq"], (0, pad)),
+              "scale": F_.pad(hq["scale"].reshape(1, -1), (0, pad)),
+              "offset": F_.pad(hq["offset"].reshape(1, -1), (0, pad)),
+              "colsum": F_.pad(hq["colsum"], (0, pad))}
+    return hq
+
+
+def init_kv_cache(ecfg: EngineConfig, batch_size: int, device="cuda") -> EngineKVCache:
+    if ecfg.kv_bits != 8:
+        raise NotImplementedError("the port serves the int8 KV cache only")
+    c = ecfg.model
+    shape = (c.num_layers, batch_size, c.num_kv_heads, ecfg.max_seq_len, c.head_dim_)
+    return EngineKVCache(k=torch.full(shape, -128, dtype=torch.int8, device=device),
+                         v=torch.full(shape, -128, dtype=torch.int8, device=device))
+
+
+def packed_to(packed: dict, device) -> dict:
+    """The packed model with every tensor on `device` (host ranges unchanged)."""
+    def mv(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device)
+        if isinstance(v, dict):
+            return {k: mv(x) for k, x in v.items()}
+        return v
+    return {k: (v if k == "ranges" else mv(v)) for k, v in packed.items()}
+
+
+# ---------------------------------------------------------------------------
+# Per-layer ranges and kernel metas
+# ---------------------------------------------------------------------------
+
+def layer_ranges(rr: dict, l: int) -> dict:
+    """Layer l's ranges as Python floats: site -> role -> {scale, offset}."""
+    return {site: {role: {"scale": float(so["scale"][l]), "offset": float(so["offset"][l])}
+                   for role, so in roles.items()}
+            for site, roles in rr.items()}
+
+
+def _qmax(cfg) -> float:
+    """Kernel-meta encoding of a fake-quant site: its clip bound when enabled,
+    0 when disabled."""
+    return float(cfg.qmax) if (cfg is not None and cfg.enabled) else 0.0
+
+
+def _on(cfg) -> bool:
+    return bool(cfg is not None and cfg.enabled)
+
+
+def _site_cfg(policy, site, role):
+    sq = policy.get(site)
+    return getattr(sq, role, None) if sq is not None else None
+
+
+def _attn_meta(lr, policy, c) -> list:
+    """The 13-float attention meta of the JAX engine."""
+    qk, pv = lr["self_attn.qk_bmm"], lr["self_attn.pv_bmm"]
+    qk_q = _qmax(policy["self_attn.qk_bmm"].output)
+    pv_q = _qmax(policy["self_attn.pv_bmm"].input)
+    return [qk["input"]["scale"], qk["input"]["offset"],
+            qk["input2"]["scale"], qk["input2"]["offset"],
+            pv["input2"]["scale"], pv["input2"]["offset"],
+            qk["output"]["scale"] if qk_q > 0 else 1.0,
+            qk["output"]["offset"] if qk_q > 0 else 0.0, qk_q,
+            pv["input"]["scale"] if pv_q > 0 else 1.0,
+            pv["input"]["offset"] if pv_q > 0 else 0.0, pv_q,
+            float(np.float32(c.neg_inf))]
+
+
+def _mlp_block_meta(lr, policy, c) -> list:
+    """The 32-float MLP-block meta of the JAX engine (w13_gate reads 0..15)."""
+    def qm(site, role):
+        return _qmax(_site_cfg(policy, site, role))
+
+    def rng(site, role):
+        e = lr.get(site, {})
+        return (e[role]["scale"], e[role]["offset"]) if role in e else (1.0, 0.0)
+
+    ns = "post_attention_layernorm"
+    return [lr[ns]["output"]["scale"], lr[ns]["output"]["offset"],
+            *rng("mlp.w1", "output"), qm("mlp.w1", "output"),
+            *rng("mlp.act_fn", "input2"), qm("mlp.act_fn", "input2"),
+            *rng("mlp.act_fn", "output"), qm("mlp.act_fn", "output"),
+            *rng("mlp.w3", "output"), qm("mlp.w3", "output"),
+            lr["mlp.w2"]["input"]["scale"], lr["mlp.w2"]["input"]["offset"],
+            *rng(ns, "input"), qm(ns, "input"),
+            float(np.float32(c.norm_eps)),
+            *rng("mlp.w2", "output"), qm("mlp.w2", "output"),
+            *rng("resid_add_2", "input"), qm("resid_add_2", "input"),
+            *rng("resid_add_2", "input2"), qm("resid_add_2", "input2"),
+            *rng("resid_add_2", "output"), qm("resid_add_2", "output")]
+
+
+def _mlp_block_site_on(policy) -> tuple:
+    """Static enables of the MLP block's optional fake-quant sites (JAX order)."""
+    def on(site, role):
+        return _on(_site_cfg(policy, site, role))
+    return (on("post_attention_layernorm", "input"), on("mlp.w1", "output"),
+            on("mlp.act_fn", "input2"), on("mlp.act_fn", "output"),
+            on("mlp.w3", "output"), on("mlp.w2", "output"),
+            on("resid_add_2", "input"), on("resid_add_2", "input2"),
+            on("resid_add_2", "output"))
+
+
+def _qkv_ofq_rows(packed, policy) -> torch.Tensor:
+    """(L, 4, Nq) [scale, offset, clip max, enabled] of the qkv output
+    fake-quant per column (the pack's fused per-channel vectors)."""
+    qkv = packed["layers"]["qkv_proj"]
+    L, _, Nq = qkv["wq"].shape
+    cm = torch.full((L, 1, Nq), float(policy["self_attn.q_proj"].output.qmax),
+                    device=qkv["wq"].device)
+    return torch.cat([qkv["out_scale"].reshape(L, 1, Nq),
+                      qkv["out_offset"].reshape(L, 1, Nq), cm, torch.ones_like(cm)],
+                     1).contiguous()
+
+
+def _qkv_outq_rows(rr, c, L, dev) -> torch.Tensor:
+    """(L, 3, Nq) [segment quant scale, offset, rope mask]: q columns take the
+    qk_bmm input encoding, k the qk_bmm input2 (K cache), v the pv_bmm input2
+    (V cache); v columns do not rope."""
+    qd, kvd = c.q_dim, c.kv_dim
+    qk, pv = rr["self_attn.qk_bmm"], rr["self_attn.pv_bmm"]
+    rows = np.zeros((L, 3, qd + 2 * kvd), np.float32)
+    for i, key in enumerate(("scale", "offset")):
+        rows[:, i, :qd] = qk["input"][key][:, None]
+        rows[:, i, qd:qd + kvd] = qk["input2"][key][:, None]
+        rows[:, i, qd + kvd:] = pv["input2"][key][:, None]
+    rows[:, 2, :qd + kvd] = 1.0
+    return torch.from_numpy(rows).to(dev)
+
+
+def _rope_cs_rows(cos, sin, hd: int, rot: int) -> torch.Tensor:
+    """(M, 2·hd) per-row [cos | sign-baked sin] for the qkv epilogue kernel
+    (cos = 1 / sin = 0 past the rotary dims)."""
+    rd = cos.shape[-1]
+    c1 = cos.reshape(-1, rd)[:, :rot].to(torch.float32)
+    s1 = sin.reshape(-1, rd)[:, :rot].to(torch.float32)
+    Mr = c1.shape[0]
+    sgn = torch.cat([torch.full((rot // 2,), -1.0), torch.ones(rot // 2)]).to(cos.device)
+    s1 = s1 * sgn[None, :]
+    if rot < hd:
+        c1 = torch.cat([c1, torch.ones((Mr, hd - rot), device=cos.device)], 1)
+        s1 = torch.cat([s1, torch.zeros((Mr, hd - rot), device=cos.device)], 1)
+    return torch.cat([c1, s1], 1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _fq16(x, r, cfg):
+    if cfg is None or not cfg.enabled:
+        return x
+    return fake_quant(x, r["scale"], r["offset"], cfg)
+
+
+def _fq_site(x, lr, policy, site, role):
+    cfg = _site_cfg(policy, site, role)
+    if cfg is None or not cfg.enabled:
+        return x
+    return fake_quant(x, lr[site][role]["scale"], lr[site][role]["offset"], cfg)
+
+
+def _resid_add(a, b, lr, policy, site):
+    a = _fq_site(a, lr, policy, site, "input")
+    b = _fq_site(b, lr, policy, site, "input2")
+    return _fq_site(a + b, lr, policy, site, "output")
+
+
+def _is_w4(pack: dict, K: int) -> bool:
+    return pack["wq"].shape[-2] * 2 == K
+
+
+def _int_linear(x_q, r, pack, l, kc: KernelConfig):
+    """Integer matmul of layer l of a stacked pack: the W4A8 kernel under
+    kc.w4_matmul, else the plain qops.int_linear."""
+    K = x_q.shape[-1]
+    if kc.w4_matmul:
+        if not _is_w4(pack, K):
+            raise NotImplementedError("the port has W4 kernels only; run W8 packs "
+                                      "with KernelConfig.none()")
+        lead = x_q.shape[:-1]
+        out = w4a8_matmul(x_q.reshape(-1, K), pack, r["scale"], r["offset"], layer=l)
+        return out.reshape(*lead, out.shape[-1])
+    p = layer_pack(pack, l)
+    return qops.int_linear(x_q, r["scale"], r["offset"], p, p.get("bias"))
+
+
+def _rms(x, eps):
+    xf = x.to(torch.float32)
+    return xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+
+
+def _norm(x, nw, l, site, lr, policy, c):
+    x = _fq16(x, lr[site].get("input"), policy[site].input)
+    return _rms(x, c.norm_eps) * nw["w"][l] + nw["b"][l]
+
+
+def _decode_light_attention(q8, k8_new, v8_new, k_cache, v_cache, lr, policy,
+                            cache_position, c, B, Hkv, G, hd):
+    """Scores over the stale cache (masked to positions < cache_position) plus
+    the self term of the step's own K/V rows; the cache is not rewritten
+    here. q8 (B,1,Hq,hd); k8_new/v8_new (B,Hkv,1,hd); caches (B,Hkv,S,hd)."""
+    qk, pv = lr["self_attn.qk_bmm"], lr["self_attn.pv_bmm"]
+    S = k_cache.shape[2]
+    qg = q8.reshape(B, 1, Hkv, G, hd).permute(0, 2, 3, 1, 4).reshape(B, Hkv, G, hd)
+    scores_c = qops.int_matmul_qk(qg, k_cache, qk["input"]["scale"], qk["input"]["offset"],
+                                  qk["input2"]["scale"], qk["input2"]["offset"])
+    oqv = qops.f32(np.float32(qk["input"]["offset"]) - np.float32(128.0))
+    okv = qops.f32(np.float32(qk["input2"]["offset"]) - np.float32(128.0))
+    s_self = ((qg.to(torch.float32) - oqv) * (k8_new.to(torch.float32) - okv)).sum(
+        -1, keepdim=True) * qops.f32(np.float32(qk["input"]["scale"])
+                                     * np.float32(qk["input2"]["scale"]))
+    qk_out = policy["self_attn.qk_bmm"].output
+    scores_c = _fq16(scores_c, qk.get("output"), qk_out)
+    s_self = _fq16(s_self, qk.get("output"), qk_out)
+    inv = 1.0 / math.sqrt(hd)
+    col = torch.arange(S, device=q8.device)[None, None, None, :]
+    zero = torch.zeros((), device=q8.device)
+    maskc = torch.where(col < cache_position[:, None, None, None], zero, c.neg_inf)
+    lg_c = scores_c * inv + maskc
+    lg_self = s_self * inv
+    m = torch.maximum(lg_c.amax(-1), lg_self[..., 0])[..., None]
+    e_c = torch.exp(lg_c - m)
+    e_self = torch.exp(lg_self - m)
+    denom = e_c.sum(-1, keepdim=True) + e_self
+    pv_in = policy["self_attn.pv_bmm"].input
+    p_c = _fq16(e_c / denom, pv.get("input"), pv_in)
+    p_self = _fq16(e_self / denom, pv.get("input"), pv_in)
+    attn = qops.int_matmul_pv(p_c, v_cache, pv["input2"]["scale"], pv["input2"]["offset"])
+    v_new_f = (v8_new.to(torch.float32) + 128.0 - pv["input2"]["offset"]) * pv["input2"]["scale"]
+    attn = attn + p_self * v_new_f
+    attn = attn.reshape(B, Hkv, G, 1, hd).permute(0, 3, 1, 2, 4)
+    return attn.reshape(B, 1, Hkv * G * hd)
+
+
+def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
+                   c: ModelConfig, policy: QPolicy, kc: KernelConfig,
+                   kv_valid_len, positions, prep, decode_light):
+    """One decoder layer on packed ints -> (hidden, new K/V rows or None)."""
+    ly = packed["layers"]
+    B, T, D = x.shape
+    hd, Hq, Hkv = c.head_dim_, c.num_heads, c.num_kv_heads
+    G = Hq // Hkv
+    qd, kvd = Hq * hd, Hkv * hd
+    qk, pv = lr["self_attn.qk_bmm"], lr["self_attn.pv_bmm"]
+
+    def out_q8(y, site):
+        r = lr[site]["output"]
+        return qops.quantize_act(y, r["scale"], r["offset"]), r
+
+    # --- attention ---
+    h = _norm(x, ly["attn_norm"], l, "input_layernorm", lr, policy, c)
+    h8, hr = out_q8(h, "input_layernorm")
+    qkvp = ly["qkv_proj"]
+    if kc.gate_kernel and T > 1:
+        if not _is_w4(qkvp, D):
+            raise NotImplementedError("the qkv epilogue kernel takes W4 packs")
+        # stacked qkv matmul + output fq + RoPE + segment quantization
+        q8kv = qkv_rope(h8.reshape(B * T, D), qkvp, prep["ofq"][l], prep["outq"][l],
+                        prep["cs"], hr["scale"], hr["offset"], l, hd, c.rotary_dim)
+        q8 = q8kv[:, :qd].reshape(B, T, Hq, hd)
+        k8_new = q8kv[:, qd:qd + kvd].reshape(B, T, Hkv, hd).transpose(1, 2)
+        v8_new = q8kv[:, qd + kvd:].reshape(B, T, Hkv, hd).transpose(1, 2)
+    else:
+        qkv = _int_linear(h8, hr, qkvp, l, kc)
+        # one per-channel fq (segment-constant scales) == three per-tensor fqs
+        qkv = fake_quant(qkv, qkvp["out_scale"][l][0], qkvp["out_offset"][l][0],
+                         policy["self_attn.q_proj"].output)
+        q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
+        qk_cat = torch.cat([q.reshape(B, T, Hq, hd), k.reshape(B, T, Hkv, hd)], 2)
+        qk_cat = M.apply_rope(qk_cat, cos, sin, c.rotary_dim)
+        # the JAX engine's joint per-segment quantization, segment by segment
+        q8 = qops.quantize_act(qk_cat[:, :, :Hq], qk["input"]["scale"], qk["input"]["offset"])
+        k8_new = qops.quantize_act(qk_cat[:, :, Hq:], qk["input2"]["scale"],
+                                   qk["input2"]["offset"]).transpose(1, 2)
+        v8_new = qops.quantize_act(v.reshape(B, T, Hkv, hd), pv["input2"]["scale"],
+                                   pv["input2"]["offset"]).transpose(1, 2)
+
+    rows = None
+    if decode_light:
+        attn = _decode_light_attention(q8, k8_new, v8_new, cache.k[l], cache.v[l], lr,
+                                       policy, cache_position, c, B, Hkv, G, hd)
+        rows = (k8_new, v8_new)
+    else:
+        # prefill: write the segment's rows into this layer's cache slice
+        k_all, v_all = cache.k[l], cache.v[l]
+        bi = torch.arange(B, device=x.device)[:, None]
+        si = cache_position[:, None].to(torch.long) + torch.arange(T, device=x.device)[None]
+        k_all[bi, :, si] = k8_new.transpose(1, 2)
+        v_all[bi, :, si] = v8_new.transpose(1, 2)
+        S = k_all.shape[2]
+        qk_on = _on(policy["self_attn.qk_bmm"].output)
+        pv_on = _on(policy["self_attn.pv_bmm"].input)
+        if kc.attn_kernel:
+            valid = kv_valid_len if kv_valid_len is not None else \
+                torch.full((B,), S, dtype=torch.int32, device=x.device)
+            qg = q8.reshape(B, T, Hkv, G, hd).permute(0, 2, 3, 1, 4)
+            attn = prefill_attention(qg, k_all, v_all, _attn_meta(lr, policy, c),
+                                     positions, valid, qk_fq=qk_on, pv_fq=pv_on)
+            attn = attn.permute(0, 3, 1, 2, 4).reshape(B, T, qd)
+        else:
+            qg = q8.reshape(B, T, Hkv, G, hd).permute(0, 2, 3, 1, 4).reshape(B, Hkv, G * T, hd)
+            scores = qops.int_matmul_qk(qg, k_all, qk["input"]["scale"], qk["input"]["offset"],
+                                        qk["input2"]["scale"], qk["input2"]["offset"])
+            scores = _fq16(scores.reshape(B, Hkv, G, T, S), qk.get("output"),
+                           policy["self_attn.qk_bmm"].output)
+            scores = scores / math.sqrt(hd) + mask[:, :, None]
+            probs = torch.softmax(scores, dim=-1)
+            probs = _fq16(probs, pv.get("input"), policy["self_attn.pv_bmm"].input)
+            attn = qops.int_matmul_pv(probs.reshape(B, Hkv, G * T, S), v_all,
+                                      pv["input2"]["scale"], pv["input2"]["offset"])
+            attn = attn.reshape(B, Hkv, G, T, hd).permute(0, 3, 1, 2, 4).reshape(B, T, qd)
+    a8, ar = out_q8(attn, "self_attn.pv_bmm")
+    o = _int_linear(a8, ar, ly["o_proj"], l, kc)
+    o = _fq16(o, lr["self_attn.o_proj"].get("output"), policy["self_attn.o_proj"].output)
+    resid = _resid_add(x, o, lr, policy, "resid_add_1")
+
+    # --- mlp ---
+    h2 = _norm(resid, ly["mlp_norm"], l, "post_attention_layernorm", lr, policy, c)
+    h28, h2r = out_q8(h2, "post_attention_layernorm")
+    w13 = ly["w13_proj"]
+    F = w13["wq"].shape[-1] // 2
+    if kc.gate_kernel and T > 1:
+        # The JAX engine takes its whole-MLP-block kernel for prefills with
+        # B·T <= stacked_bt_max (64); that kernel is not ported, and the port
+        # always takes this split path (w13+gate kernel, then the w2 matmul),
+        # which computes the same function.
+        if not (_is_w4(w13, D) and w13_gate_supported(D, F)):
+            raise NotImplementedError("the w13+gate kernel takes W4 packs, F % 64 == 0")
+        act8 = w13_gate(h28.reshape(B * T, D), w13, _mlp_block_meta(lr, policy, c), l,
+                        c.hidden_act, site_on=_mlp_block_site_on(policy)[1:5])
+        act8 = act8.reshape(B, T, F)
+    else:
+        g13 = _int_linear(h28, h2r, w13, l, kc)
+        g13 = fake_quant(g13, w13["out_scale"][l][0], w13["out_offset"][l][0],
+                         policy["mlp.w1"].output)
+        g1, g3 = g13[..., :F], g13[..., F:]
+        if c.hidden_act == "silu":
+            sig = torch.sigmoid(g1)
+            af = lr["mlp.act_fn"]
+            if "input2" in af:
+                sig = _fq16(sig, af["input2"], policy["mlp.act_fn"].input2)
+            act = g1 * sig
+        else:
+            act = torch.nn.functional.gelu(g1, approximate="tanh")
+        act = _fq16(act, lr["mlp.act_fn"].get("output"), policy["mlp.act_fn"].output)
+        act = act * g3
+        w2in = lr["mlp.w2"]["input"]
+        act8 = qops.quantize_act(act, w2in["scale"], w2in["offset"])
+    y = _int_linear(act8, lr["mlp.w2"]["input"], ly["w2"], l, kc)
+    y = _fq16(y, lr["mlp.w2"].get("output"), policy["mlp.w2"].output)
+    return _resid_add(resid, y, lr, policy, "resid_add_2"), rows
+
+
+def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
+            positions=None, kv_cache: Optional[EngineKVCache] = None,
+            cache_position=None, kv_valid_len=None,
+            kc: KernelConfig = KernelConfig(), logits_at=None):
+    """Packed-int forward -> (logits, kv_cache), on the device of the packed
+    model. T > 1 is a prefill (rows written into the cache in place), T = 1
+    with a cache the decode-light step. logits_at: optional (B,) row index,
+    to run the final norm and head on that single position ((B, 1, V))."""
+    c = config
+    _check_config(c)
+    _check_policy(policy)
+    dev = packed["embed"].device
+    tokens = torch.as_tensor(tokens, device=dev).to(torch.long)
+    B, T = tokens.shape
+    if T == 1 and kc.attn_kernel:
+        raise NotImplementedError("the decode attention kernel is not ported; "
+                                  "decode runs decode-light attention")
+    if positions is None:
+        positions = torch.arange(T, device=dev)[None].expand(B, T)
+    positions = torch.as_tensor(positions, device=dev).to(torch.int32)
+    if kv_valid_len is not None:
+        kv_valid_len = torch.as_tensor(kv_valid_len, device=dev).to(torch.int32)
+    x = packed["embed"][tokens].to(torch.float32)
+    if c.normalize_embed:
+        x = x * math.sqrt(c.hidden_size)
+    cos, sin = M.rope_cos_sin(positions, c)
+
+    if kv_cache is None:
+        # no cache object: keys/values come from the segment itself
+        shape = (c.num_layers, B, c.num_kv_heads, T, c.head_dim_)
+        kv_cache = EngineKVCache(torch.zeros(shape, dtype=torch.int8, device=dev),
+                                 torch.zeros(shape, dtype=torch.int8, device=dev))
+        cache_position = torch.zeros((B,), dtype=torch.int32, device=dev)
+    cache_position = torch.as_tensor(cache_position, device=dev).to(torch.int32)
+    S = kv_cache.k.shape[3]
+    decode_light = T == 1
+    mask = None
+    if not decode_light and not kc.attn_kernel:
+        mask = M.causal_mask(positions, S, c.neg_inf, kv_valid_len)
+
+    rr = packed["ranges"]
+    L = c.num_layers
+    prep = {}
+    if kc.gate_kernel and T > 1:
+        prep["ofq"] = _qkv_ofq_rows(packed, policy)
+        prep["outq"] = _qkv_outq_rows(rr, c, L, dev)
+        prep["cs"] = _rope_cs_rows(cos, sin, c.head_dim_, c.rotary_dim)
+
+    h = x
+    rows_k, rows_v = [], []
+    for l in range(L):
+        h, rows = _layer_forward(packed, l, layer_ranges(rr, l), h, cos, sin, mask,
+                                 kv_cache, cache_position, c, policy, kc,
+                                 kv_valid_len, positions, prep, decode_light)
+        if rows is not None:
+            rows_k.append(rows[0])
+            rows_v.append(rows[1])
+    if decode_light:
+        # one write of the step's rows per cache after the layer loop
+        bi = torch.arange(B, device=dev)
+        pi = cache_position.to(torch.long)
+        kv_cache.k[:, bi, :, pi] = torch.stack(rows_k)[:, :, :, 0].transpose(0, 1)
+        kv_cache.v[:, bi, :, pi] = torch.stack(rows_v)[:, :, :, 0].transpose(0, 1)
+
+    if logits_at is not None and T > 1:
+        idx = torch.as_tensor(logits_at, device=dev).to(torch.long)
+        h = h[torch.arange(B, device=dev), idx][:, None]
+
+    y = _rms(h, c.norm_eps) * packed["norm"]["w"] + packed["norm"]["b"]
+    if "head_q" in packed:
+        logits = quantized_head_logits(y, packed["head_q"], c.vocab_size,
+                                       use_kernel=kc.any_kernel)
+    else:
+        head = packed["embed"].T if c.tie_word_embeddings else packed["lm_head"]["w"]
+        logits = torch.matmul(y, head.to(torch.float32))
+    return logits, kv_cache
+
+
+def quantized_head_logits(y: torch.Tensor, hq: dict, vocab_size: int,
+                          use_kernel: bool) -> torch.Tensor:
+    """Dynamic per-token A8 × the per-channel symmetric head pack -> fp32
+    logits (B, T, vocab). use_kernel: decode-sized rows (B·T <= 64) of a W4
+    head go through the W4A8 kernel with x_scale 1 / x_offset 128, the per-row
+    dynamic scales multiplied after (exact: the acts are symmetric and the
+    head has no bias), as in the JAX engine; otherwise the plain head."""
+    B, T, D = y.shape
+    w4 = hq["wq"].shape[0] * 2 == D
+    if use_kernel and not w4:
+        raise NotImplementedError("the port has a W4 head kernel only")
+    if use_kernel and B * T <= 64:
+        x_q, sx = qops.dynamic_quantize_act(y.reshape(B * T, D))
+        logits = w4a8_matmul(x_q, hq, 1.0, 128.0, bias=False) * sx
+        return logits[:, :vocab_size].reshape(B, T, vocab_size)
+    return qops.int_head_linear(y, hq)[..., :vocab_size]
+
+
+def decode_loop(packed: dict, first_token: torch.Tensor, kv_cache: EngineKVCache,
+                start_pos: torch.Tensor, n_steps: int, config: ModelConfig,
+                policy: QPolicy, kc: KernelConfig = KernelConfig.decode(),
+                temperature=0.0, generator: Optional[torch.Generator] = None):
+    """n_steps of non-staged decode: one T=1 forward per step, each writing
+    its K/V rows into the cache. first_token (B, 1), start_pos (B,) ->
+    (tokens (B, n_steps), cache, last logits (B, V))."""
+    from mobilequant_tpu_torch.runtime.sampling import loop_next_token
+    token, pos, cache = first_token, start_pos, kv_cache
+    toks, last = [], None
+    for _ in range(n_steps):
+        logits, cache = forward(packed, token, config, policy, positions=pos[:, None],
+                                kv_cache=cache, cache_position=pos,
+                                kv_valid_len=pos + 1, kc=kc)
+        last = logits[:, -1]
+        token = loop_next_token(last, temperature, generator)[:, None]
+        toks.append(token)
+        pos = pos + 1
+    return torch.cat(toks, 1), cache, last

@@ -1,0 +1,135 @@
+"""Autoregressive generation on the port's integer engine.
+
+Prefill runs the prompt in one pass through the three prefill kernels and the
+W4A8 kernel (o-proj, w2, the one-row head); decode runs non-staged T=1
+forward steps with every projection and the head through the W4A8 kernel and
+decode-light attention in PyTorch. On a CPU device the kernel wrappers run
+their plain versions (tests); the default device is the GPU, and a GPU
+device without CUDA raises.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mobilequant_tpu_torch.models.config import ModelConfig
+from mobilequant_tpu_torch.quant.policy import QPolicy, policy_kv_bits
+from mobilequant_tpu_torch.runtime import engine as E
+from mobilequant_tpu_torch.runtime.kernel_config import KernelConfig
+from mobilequant_tpu_torch.runtime.sampling import loop_next_token
+
+
+class Generator:
+    """Prefill + decode over a packed W4A8 model on one device."""
+
+    def __init__(self, packed: dict, config: ModelConfig, policy: QPolicy,
+                 ecfg: Optional[E.EngineConfig] = None, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Generator(device='cuda') needs a CUDA device; "
+                               "pass device='cpu' to run the plain versions")
+        self.config = config
+        self.policy = policy
+        self.ecfg = ecfg or E.EngineConfig(model=config)
+        if policy_kv_bits(policy) != self.ecfg.kv_bits:
+            raise ValueError("policy KV bitwidth must match EngineConfig.kv_bits")
+        self.packed = E.packed_to(packed, self.device)
+        self.prefill_kc = KernelConfig.prefill()
+        self.decode_kc = KernelConfig.decode()
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def prefill(self, tokens: torch.Tensor, cache: E.EngineKVCache):
+        """Prompt (B, T) -> (last-position logits (B, V), cache)."""
+        B, T = tokens.shape
+        logits, cache = E.forward(
+            self.packed, tokens, self.config, self.policy,
+            positions=torch.arange(T, device=self.device)[None].expand(B, T),
+            kv_cache=cache,
+            cache_position=torch.zeros((B,), dtype=torch.int32, device=self.device),
+            kv_valid_len=torch.full((B,), T, dtype=torch.int32, device=self.device),
+            kc=self.prefill_kc,
+            logits_at=torch.full((B,), T - 1, dtype=torch.int32, device=self.device))
+        return logits[:, -1], cache
+
+    def generate_fast(self, prompt_tokens, max_new_tokens: int,
+                      temperature: float = 0.0, seed: int = 0,
+                      eos_token_id: Optional[int] = None, chunk: int = 32,
+                      return_stats: bool = False):
+        """Prefill, then decode in `chunk`-step loops (tokens stay on the device
+        within a chunk; EOS is checked between chunks). Greedy or temperature
+        sampling from a torch.Generator seeded with `seed`."""
+        tokens = torch.as_tensor(np.asarray(prompt_tokens), device=self.device).to(torch.long)
+        B, T0 = tokens.shape
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        cache = E.init_kv_cache(self.ecfg, B, device=self.device)
+        self._sync()
+        t0 = time.perf_counter()
+        last, cache = self.prefill(tokens, cache)
+        first = loop_next_token(last, 0.0)[:, None]
+        self._sync()
+        t_prefill = time.perf_counter() - t0
+
+        pieces = [first]
+        n_done, token = 1, first
+        t_dec = time.perf_counter()
+        while n_done < max_new_tokens:
+            n = min(chunk, max_new_tokens - n_done)
+            pos = torch.full((B,), T0 + n_done - 1, dtype=torch.int32, device=self.device)
+            toks, cache, _ = E.decode_loop(self.packed, token, cache, pos, n, self.config,
+                                           self.policy, self.decode_kc, temperature, gen)
+            pieces.append(toks)
+            n_done += n
+            token = toks[:, -1:]
+            if eos_token_id is not None and bool(
+                    (torch.cat(pieces, 1) == eos_token_id).any(1).all()):
+                break
+        self._sync()
+        t_decode = time.perf_counter() - t_dec
+        out = torch.cat(pieces, 1)[:, :max_new_tokens].cpu().numpy()
+        if return_stats:
+            n = out.shape[1]
+            return out, {"prefill_s": t_prefill, "decode_s": t_decode,
+                         "decode_tok_s": ((n - 1) * B) / t_decode if t_decode > 0 else 0.0}
+        return out
+
+    def generate(self, prompt_tokens, max_new_tokens: int,
+                 eos_token_id: Optional[int] = None, return_stats: bool = False):
+        """Greedy step-by-step generation (EOS checked after every token)."""
+        tokens = torch.as_tensor(np.asarray(prompt_tokens), device=self.device).to(torch.long)
+        B, T0 = tokens.shape
+        cache = E.init_kv_cache(self.ecfg, B, device=self.device)
+        self._sync()
+        t0 = time.perf_counter()
+        last, cache = self.prefill(tokens, cache)
+        self._sync()
+        t_prefill = time.perf_counter() - t0
+        out = []
+        t_dec = time.perf_counter()
+        for step in range(max_new_tokens):
+            token = loop_next_token(last, 0.0)
+            out.append(token)
+            if eos_token_id is not None and bool((token == eos_token_id).all()):
+                break
+            if step == max_new_tokens - 1:
+                break
+            pos = torch.full((B,), T0 + step, dtype=torch.int32, device=self.device)
+            logits, cache = E.forward(self.packed, token[:, None], self.config, self.policy,
+                                      positions=pos[:, None], kv_cache=cache,
+                                      cache_position=pos, kv_valid_len=pos + 1,
+                                      kc=self.decode_kc)
+            last = logits[:, 0]
+        self._sync()
+        t_decode = time.perf_counter() - t_dec
+        toks = torch.stack(out, 1).cpu().numpy()
+        if return_stats:
+            n = toks.shape[1]
+            return toks, {"prefill_s": t_prefill, "decode_s": t_decode,
+                          "decode_tok_s": (n * B) / t_decode if t_decode > 0 else 0.0}
+        return toks

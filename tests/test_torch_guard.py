@@ -1,0 +1,89 @@
+"""Guards of the port: it imports neither jax nor the JAX package, builds no
+kernel on import, and never runs on the CPU when asked for the card."""
+
+import ast
+import importlib
+import pkgutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "mobilequant_tpu_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "flax", "optax", "mobilequant_tpu"), \
+            f"{path.name} imports {mod}"
+
+
+def test_importing_every_module_builds_nothing():
+    import mobilequant_tpu_torch
+    from mobilequant_tpu_torch.ops import _build
+    for info in pkgutil.walk_packages(mobilequant_tpu_torch.__path__, "mobilequant_tpu_torch."):
+        importlib.import_module(info.name)
+    assert _build._lib is None
+
+
+def test_generator_on_cuda_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this guard is for CPU-only hosts")
+    from mobilequant_tpu_torch.convert import build_synthetic_packed
+    from mobilequant_tpu_torch.runtime.generate import Generator
+    packed, cfg, policy, ecfg = build_synthetic_packed("test-llama-256", max_seq_len=32,
+                                                       device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Generator(packed, cfg, policy, ecfg, device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        Generator(packed, cfg, policy, ecfg)          # the default device is the card
+
+
+def test_unported_configurations_raise():
+    from mobilequant_tpu_torch.convert import build_synthetic_packed
+    from mobilequant_tpu_torch.quant.policy import kv_bits_policy, relax_16bit
+    from mobilequant_tpu_torch.runtime import engine as E
+    from mobilequant_tpu_torch.runtime.kernel_config import KernelConfig
+    packed, cfg, policy, ecfg = build_synthetic_packed("test-llama-256", max_seq_len=32,
+                                                       device="cpu")
+    tok = torch.zeros((1, 1), dtype=torch.long)
+    with pytest.raises(NotImplementedError):
+        E.forward(packed, tok, cfg, kv_bits_policy(policy, 4))
+    with pytest.raises(NotImplementedError):     # the decode attention kernel is not ported
+        E.forward(packed, tok, cfg, relax_16bit(policy),
+                  kv_cache=E.init_kv_cache(ecfg, 1, device="cpu"),
+                  cache_position=torch.zeros(1, dtype=torch.int32),
+                  kc=KernelConfig(attn_kernel=True))
+    with pytest.raises(NotImplementedError):
+        E.init_kv_cache(E.EngineConfig(model=cfg, kv_bits=4), 1, device="cpu")
+
+
+def test_synthetic_pack_runs_the_plain_path_on_cpu():
+    from mobilequant_tpu_torch.convert import build_synthetic_packed
+    from mobilequant_tpu_torch.quant.policy import relax_16bit
+    from mobilequant_tpu_torch.runtime.generate import Generator
+    packed, cfg, policy, ecfg = build_synthetic_packed("test-llama-256", max_seq_len=48,
+                                                       device="cpu")
+    gen = Generator(packed, cfg, relax_16bit(policy), ecfg, device="cpu")
+    prompt = np.arange(20, dtype=np.int32)[None] % cfg.vocab_size
+    out = gen.generate_fast(prompt, 6)
+    assert out.shape == (1, 6) and (out >= 0).all() and (out < cfg.vocab_size).all()
+    np.testing.assert_array_equal(out, gen.generate(prompt, 6))
