@@ -8,11 +8,18 @@
 2. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (full-width TinyLlama-1.1B) and times kernel, plain
    version and, where one PyTorch call computes the same function, that call;
-3. drives the main path: Generator.generate_fast on a W4A8 TinyLlama-1.1B
-   pack (seeded synthetic weights, W4 head, int8 KV cache, relaxed policy)
-   with a 128-token prompt and 64 new tokens, counting every kernel's
-   launches, and checks the kernel path's prefill and decode logits against
-   the plain path's on the card;
+3. drives three routes on a W4A8 TinyLlama-1.1B pack (seeded synthetic
+   weights, W4 head, int8 KV cache, relaxed policy), counting every kernel's
+   launches from 0 around each run:
+   - the main path, Generator.generate_fast with a 128-token prompt and 64
+     new tokens: the prefill kernels, then one whole-model launch
+     (fused_model_w4) per decode token;
+   - a 32-token-prompt generate_fast, whose prefill takes the whole-MLP-block
+     kernel (fused_mlp_block_w4) in every layer;
+   - 8 decode steps under KernelConfig.decode_per_layer(), one whole-layer
+     launch (fused_layer_w4) per layer and step;
+   and checks the kernel path's prefill and decode logits against the plain
+   path's on the card, also for one B=4 decode step at staggered positions;
 4. prints one JSON line of per-kernel numbers, then the result line.
 
 Any failure exits non-zero before the result line. Without a CUDA device, or
@@ -35,6 +42,7 @@ INT8_OPS_S = 1979e12           # dense int8 tensor-core rate
 FP32_OPS_S = 67e12             # fp32 outside the tensor cores
 SEED = 0
 PROMPT_LEN, NEW_TOKENS, MAX_SEQ = 128, 64, 1024
+SHORT_PROMPT, PER_LAYER_STEPS, POS0 = 32, 8, 192
 
 
 def fail(msg: str) -> None:
@@ -73,9 +81,25 @@ def time_ms(fn, n: int = 20) -> float:
     return e0.elapsed_time(e1) / n
 
 
+def event_ms(fn, n: int = 3) -> float:
+    """Mean time of fn() over n back-to-back calls between two CUDA events
+    (for functions that read values back to the host, which a CUDA graph
+    cannot capture)."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
 def device_profile(fn, top: int = 8):
-    """(device ms, [(kernel, ms)...]) of one call of fn, from torch.profiler
-    (CUPTI kernel records; the ctypes-launched kernels are among them)."""
+    """(device ms, [(kernel, ms, count)...], kernel launches) of one call of
+    fn, from torch.profiler (CUPTI kernel records; the ctypes-launched kernels
+    are among them)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -90,7 +114,7 @@ def device_profile(fn, top: int = 8):
             t = e.self_cuda_time_total
         kern.append((e.key[:60], t / 1e3, e.count))
     kern.sort(key=lambda k: -k[1])
-    return sum(k[1] for k in kern), kern[:top]
+    return sum(k[1] for k in kern), kern[:top], sum(k[2] for k in kern)
 
 
 def float_err(out, ref):
@@ -109,7 +133,12 @@ def main() -> None:
     try:
         from mobilequant_tpu_torch import ops
         from mobilequant_tpu_torch.convert import build_synthetic_packed
+        from mobilequant_tpu_torch.models import model as MM
         from mobilequant_tpu_torch.ops import _build
+        from mobilequant_tpu_torch.ops.fused_layer import (
+            fused_layer_w4, fused_layer_w4_plain, fused_model_w4, fused_model_w4_plain)
+        from mobilequant_tpu_torch.ops.mlp_block import (
+            fused_mlp_block_w4, fused_mlp_block_w4_plain)
         from mobilequant_tpu_torch.ops.prefill_attention import (
             prefill_attention, prefill_attention_plain)
         from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope, qkv_rope_plain
@@ -158,11 +187,11 @@ def main() -> None:
     # ---- phase 2: each kernel against its plain version ------------------
     rows = {}
 
-    def record(name, shape, err, tol_ok, ms, plain_ms, lib_ms, bnd):
+    def record(name, shape, err, tol_ok, ms, plain_ms, lib_ms, bnd, note=None):
         rows.setdefault(name, []).append({
             "shape": shape, "max_abs_err": err[0], "rel_or_frac": err[1],
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bnd[0], "bound_by": bnd[1]})
+            "bound_ms": bnd[0], "bound_by": bnd[1], "note": note})
         print(f"  {name:18s} {shape:34s} err={err[0]:.3g} ({err[1]:.3g}) "
               f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
               f"library={'-' if lib_ms is None else f'{lib_ms:.4f} ms'} "
@@ -209,7 +238,6 @@ def main() -> None:
     # qkv_rope at M = 128 (the main path's prefill)
     Mr = PROMPT_LEN
     pos = torch.arange(Mr, device=dev)[None]
-    from mobilequant_tpu_torch.models import model as MM
     cos, sin = MM.rope_cos_sin(pos, cfg)
     cs = E._rope_cs_rows(cos, sin, hd, cfg.rotary_dim)
     ofq = E._qkv_ofq_rows(packed, policy)
@@ -288,44 +316,182 @@ def main() -> None:
                ms, plain_ms, lib_ms,
                bound(nbytes, int8_ops=2.0 * Hq * vis * hd, fp32_ops=2.0 * Hq * vis * hd))
 
+    # whole MLP block (no single PyTorch call computes it: library "-"), at
+    # the decode-sized row counts and the 32-token prompt's M = 32
+    lr1 = E.layer_ranges(packed["ranges"], 1)
+    bmeta = E._mlp_block_meta(lr1, policy, cfg)
+    bso = E._mlp_block_site_on(policy)
+    mn, w13p, w2p = ly["mlp_norm"], ly["w13_proj"], ly["w2"]
+    mlp_w = D // 2 * 2 * F + F // 2 * D                 # packed weight bytes
+    mlp_vec = (2 * F + D) * 4 * 4 + 2 * D * 4 + 32 * 4  # aux rows, norm, meta
+    for Mr in (1, 8, SHORT_PROMPT, 64):
+        x = torch.randn((Mr, D), generator=gen, device=dev)
+        out = fused_mlp_block_w4(x, mn["w"], mn["b"], w13p, w2p, bmeta, 1, cfg.hidden_act, bso)
+        plain = lambda i, x=x: fused_mlp_block_w4_plain(    # noqa: E731
+            x, mn["w"][1], mn["b"][1], layer_pack(w13p, 1), layer_pack(w2p, 1), bmeta,
+            cfg.hidden_act, bso)
+        err = float_err(out, plain(0))
+        ms = time_ms(lambda i, x=x: fused_mlp_block_w4(x, mn["w"], mn["b"], w13p, w2p, bmeta,
+                                                       i % L, cfg.hidden_act, bso))
+        plain_ms = time_ms(plain, n=5)
+        record("fused_mlp_block_w4", f"M={Mr} {D}->2x{F}->{D}", err, err[1] <= 2e-3, ms,
+               plain_ms, None, bound(2 * Mr * D * 4 + mlp_w + mlp_vec,
+                                     int8_ops=2.0 * Mr * (D * 2 * F + F * D)))
+
+    # whole-layer (B=1) and whole-model (B=1, 8) decode kernels against their
+    # plain versions, over a random full-length cache with positions near
+    # POS0; the plain versions read their metas back to the host, so they are
+    # timed with events over back-to-back calls, the kernels from CUDA graphs
+    kp = E._kernel_prep(packed, policy, cfg)
+    fkw = dict(num_q_heads=Hq, num_kv_heads=Hkv, head_dim=hd, rotary_dim=cfg.rotary_dim,
+               act_kind=cfg.hidden_act)
+    Nq, Ko, Vp = ly["qkv_proj"]["wq"].shape[2], Hq * hd, packed["head_q"]["wq"].shape[1]
+    layer_w = D // 2 * Nq + Ko // 2 * D + mlp_w
+    layer_vec = (Nq * 4 + D * 4 + 2 * F * 4 + D * 4) * 4 + 4 * D * 4 + Nq * 16 + 65 * 4
+    head_bytes = D // 2 * Vp + 2 * Vp * 4 + 2 * D * 4
+    for Bm in (1, 8):
+        kc = torch.randint(-128, 128, (L, Bm, Hkv, MAX_SEQ, hd), generator=gen, device=dev,
+                           dtype=torch.int8)
+        vc = torch.randint(-128, 128, (L, Bm, Hkv, MAX_SEQ, hd), generator=gen, device=dev,
+                           dtype=torch.int8)
+        posb = torch.tensor([POS0 - 3 * b for b in range(Bm)], dtype=torch.int32, device=dev)
+        cos, sin = MM.rope_cos_sin(posb[:, None], cfg)
+        csb = E._rope_cs_rows(cos, sin, hd, cfg.rotary_dim).reshape(Bm, 2, hd)
+        x = torch.randn((Bm, D), generator=gen, device=dev)
+        fargs = (x, posb, csb, kp["ofq"], ly["attn_norm"], ly["qkv_proj"], ly["o_proj"],
+                 ly["mlp_norm"], w13p, w2p, kc, vc, kp["meta"])
+        valid = int(posb.sum())                          # cache rows read per layer
+        att_ops = 2.0 * Hq * hd * valid                  # QK (int8) and PV (fp32) each
+        io = 2 * Bm * D * 4 + Bm * 2 * Hkv * hd + Bm * 2 * hd * 4 + Bm * 4
+        out = fused_model_w4(*fargs, packed["head_q"], packed["norm"], **fkw)
+        ref = fused_model_w4_plain(*fargs, packed["head_q"], packed["norm"], **fkw)
+        e_x, e_lg, e_kv = float_err(out[0], ref[0]), float_err(out[2], ref[2]), int8_err(out[1], ref[1])
+        ok = e_x[1] <= 2e-3 and e_lg[1] <= 2e-3 and e_kv[0] <= 1 and e_kv[1] <= 1e-3
+        ms = time_ms(lambda i: fused_model_w4(*fargs, packed["head_q"], packed["norm"], **fkw),
+                     n=10)
+        plain_ms = event_ms(lambda: fused_model_w4_plain(*fargs, packed["head_q"],
+                                                         packed["norm"], **fkw), n=2)
+        nbytes = L * (layer_w + layer_vec + valid * Hkv * hd * 2 + io) + head_bytes + Bm * Vp * 4
+        ops_i8 = L * (2.0 * Bm * (D * Nq + Ko * D + D * 2 * F + F * D) + att_ops) \
+            + 2.0 * Bm * D * Vp
+        record("fused_model_w4", f"B={Bm} L={L} S={MAX_SEQ} pos<={POS0} +head",
+               (max(e_x[0], e_lg[0]), max(e_x[1], e_lg[1])), ok, ms, plain_ms, None,
+               bound(nbytes, int8_ops=ops_i8, fp32_ops=L * att_ops),
+               note=f"kv_new max diff {e_kv[0]} on {e_kv[1]:.3g} of bytes; "
+                    f"plain timed with events")
+        if Bm == 1:
+            # inside the step: mean stage times over the layers, from the
+            # kernel's global-timer trace (every stage then ends in a barrier)
+            tr = torch.zeros(2 + 5 * L, dtype=torch.int64, device=dev)
+            for _ in range(2):
+                fused_model_w4(*fargs, packed["head_q"], packed["norm"], trace=tr, **fkw)
+            torch.cuda.synchronize()
+            dt = (tr[1:] - tr[:-1]).double().cpu() / 1e3
+            per = dt[:5 * L].reshape(L, 5).mean(0).tolist()
+            stage_us = dict(zip(("qkv", "attention", "o_proj", "w13_gate", "w2"), per))
+            stage_us["head"] = float(dt[5 * L])
+            stage_us["step_traced"] = float(dt.sum())
+            print("  fused_model_w4 B=1 stage us (mean per layer): "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in stage_us.items()), flush=True)
+            out = fused_layer_w4(*fargs, 1, **fkw)
+            ref = fused_layer_w4_plain(*fargs, 1, **fkw)
+            e_x, e_kv = float_err(out[0], ref[0]), int8_err(out[1], ref[1])
+            ok = e_x[1] <= 2e-3 and e_kv[0] <= 1 and e_kv[1] <= 1e-3
+            ms = time_ms(lambda i: fused_layer_w4(*fargs, i % L, **fkw))
+            plain_ms = event_ms(lambda: fused_layer_w4_plain(*fargs, 1, **fkw), n=3)
+            record("fused_layer_w4", f"B=1 S={MAX_SEQ} pos={POS0}", e_x, ok, ms, plain_ms, None,
+                   bound(layer_w + layer_vec + valid * Hkv * hd * 2 + io,
+                         int8_ops=2.0 * (D * Nq + Ko * D + D * 2 * F + F * D) + att_ops,
+                         fp32_ops=att_ops),
+                   note=f"kv_new max diff {e_kv[0]} on {e_kv[1]:.3g} of bytes; "
+                        f"plain timed with events")
+        del kc, vc
+
     # ---- phase 3: the main path --------------------------------------------
     print("phase 3: generate_fast, TinyLlama-1.1B W4A8/h4, int8 KV, relaxed", flush=True)
     g = Generator(packed, cfg, policy, ecfg, device=dev)
     prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN), generator=gen,
                            device=dev).cpu().numpy()
     g.generate_fast(prompt, 4)                           # warm-up (allocator, clocks)
-    ops.reset_counts()
-    toks, stats = g.generate_fast(prompt, NEW_TOKENS, return_stats=True)
-    launches = ops.counts()
+    runs = {}                                            # route -> launch counts
+
+    def counted(route, fn):
+        ops.reset_counts()
+        out = fn()
+        runs[route] = ops.counts()
+        return out
+
+    toks, stats = counted("main", lambda: g.generate_fast(prompt, NEW_TOKENS,
+                                                          return_stats=True))
+    launches = runs["main"]
     print(f"  tokens {toks.shape} prefill {stats['prefill_s'] * 1e3:.2f} ms "
           f"decode {stats['decode_tok_s']:.2f} tok/s launches {launches}", flush=True)
     if toks.shape != (1, NEW_TOKENS) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         failures.append(f"bad tokens {toks.shape}")
-    for name, n in launches.items():
-        if n <= 0:
-            failures.append(f"{name} was not launched on the main path")
+    # one whole-model launch per decode token; the W4A8 kernel only in the
+    # prefill (o and w2 per layer, the head)
+    if launches["fused_model_w4"] != NEW_TOKENS - 1:
+        failures.append(f"fused_model_w4 launched {launches['fused_model_w4']} times "
+                        f"for {NEW_TOKENS - 1} decode tokens")
+    if launches["w4a8_matmul"] != 2 * L + 1:
+        failures.append(f"w4a8_matmul launched {launches['w4a8_matmul']} times, "
+                        f"expected {2 * L + 1} (prefill only)")
+
+    # the short-prompt route: the prefill's MLP blocks run the whole-block kernel
+    short = prompt[:, :SHORT_PROMPT]
+    toks_s, stats_s = counted("short_prompt", lambda: g.generate_fast(
+        short, 8, return_stats=True))
+    print(f"  {SHORT_PROMPT}-token prompt: prefill {stats_s['prefill_s'] * 1e3:.2f} ms, "
+          f"launches {runs['short_prompt']}", flush=True)
+    if runs["short_prompt"]["fused_mlp_block_w4"] != L or runs["short_prompt"]["w13_gate"]:
+        failures.append(f"short prompt: MLP-block launches {runs['short_prompt']}")
+
+    # the per-layer route: KernelConfig.decode_per_layer(), one whole-layer
+    # launch per layer and decode step
+    gpl = Generator(packed, cfg, policy, ecfg, device=dev)
+    gpl.decode_kc = KernelConfig.decode_per_layer()
+    gpl.generate_fast(prompt, 2)
+    toks_pl, stats_pl = counted("per_layer", lambda: gpl.generate_fast(
+        prompt, PER_LAYER_STEPS + 1, return_stats=True))
+    same = bool((toks_pl == toks[:, :PER_LAYER_STEPS + 1]).all())
+    print(f"  decode_per_layer: {stats_pl['decode_tok_s']:.2f} tok/s, launches "
+          f"{runs['per_layer']}, greedy tokens equal to the main run's: {same}", flush=True)
+    if runs["per_layer"]["fused_layer_w4"] != PER_LAYER_STEPS * L:
+        failures.append(f"per-layer route: launches {runs['per_layer']}")
 
     # where the time goes: device time of one prefill and of 8 decode steps
     # (torch.profiler), against the wall times of the generate_fast run above
     tp = torch.as_tensor(prompt, device=dev)
     pcache = E.init_kv_cache(ecfg, 1, device=dev)
-    pre_dev, pre_top = device_profile(lambda: g.prefill(tp, pcache))
+    pre_dev, pre_top, pre_n = device_profile(lambda: g.prefill(tp, pcache))
     start = torch.full((1,), PROMPT_LEN, dtype=torch.int32, device=dev)
     tok0 = torch.zeros((1, 1), dtype=torch.long, device=dev)
-    dec_dev, dec_top = device_profile(lambda: E.decode_loop(
+    dec_dev, dec_top, dec_n = device_profile(lambda: E.decode_loop(
         g.packed, tok0, pcache, start, 8, cfg, policy, g.decode_kc))
+    pl_dev, pl_top, pl_n = device_profile(lambda: E.decode_loop(
+        g.packed, tok0, pcache, start, 8, cfg, policy, KernelConfig.decode_per_layer()))
     step_ms = 1e3 / stats["decode_tok_s"]
+    pl_step_ms = 1e3 / stats_pl["decode_tok_s"]
     pre_ms = stats["prefill_s"] * 1e3
     breakdown = {"prefill_wall_ms": pre_ms, "prefill_device_ms": pre_dev,
                  "prefill_idle_share": 1.0 - pre_dev / pre_ms,
-                 "prefill_top_kernels": pre_top,
+                 "prefill_top_kernels": pre_top, "prefill_kernel_launches": pre_n,
                  "decode_step_wall_ms": step_ms, "decode_step_device_ms": dec_dev / 8,
                  "decode_idle_share": 1.0 - dec_dev / 8 / step_ms,
-                 "decode_top_kernels": [(k, ms / 8, n / 8) for k, ms, n in dec_top]}
+                 "decode_top_kernels": [(k, ms / 8, n / 8) for k, ms, n in dec_top],
+                 "decode_kernel_launches_per_step": dec_n / 8,
+                 "per_layer_step_wall_ms": pl_step_ms,
+                 "per_layer_step_device_ms": pl_dev / 8,
+                 "per_layer_idle_share": 1.0 - pl_dev / 8 / pl_step_ms,
+                 "per_layer_top_kernels": [(k, ms / 8, n / 8) for k, ms, n in pl_top],
+                 "per_layer_kernel_launches_per_step": pl_n / 8}
     print(f"  prefill: wall {pre_ms:.3f} ms, device {pre_dev:.3f} ms; decode step: wall "
-          f"{step_ms:.3f} ms, device {dec_dev / 8:.3f} ms", flush=True)
-    for k, ms, n in dec_top:
-        print(f"    decode/step {ms / 8:8.4f} ms  x{n / 8:5.1f}  {k}", flush=True)
+          f"{step_ms:.3f} ms, device {dec_dev / 8:.3f} ms, {dec_n / 8:.1f} launches; "
+          f"per-layer route step: wall {pl_step_ms:.3f} ms, device {pl_dev / 8:.3f} ms, "
+          f"{pl_n / 8:.1f} launches", flush=True)
+    for tag, top in (("decode", dec_top), ("per-layer", pl_top)):
+        for k, ms, n in top:
+            print(f"    {tag}/step {ms / 8:8.4f} ms  x{n / 8:5.1f}  {k}", flush=True)
 
     # kernel path vs plain path on the card: prefill logits, then one decode step
     t = torch.as_tensor(prompt, device=dev)
@@ -364,20 +530,68 @@ def main() -> None:
     if e_cache[0] > 1 or e_cache[1] > 1e-3:
         failures.append(f"K cache kernel vs plain {e_cache}")
 
+    # B=4 decode step at staggered positions: whole-model kernel vs plain path
+    B4 = 4
+    p4 = torch.randint(0, cfg.vocab_size, (B4, SHORT_PROMPT), generator=gen, device=dev)
+    c4 = E.init_kv_cache(ecfg, B4, device=dev)
+    _, c4 = E.forward(g.packed, p4, cfg, policy, kv_cache=c4,
+                      cache_position=torch.zeros(B4, dtype=torch.int32, device=dev),
+                      kv_valid_len=torch.full((B4,), SHORT_PROMPT, dtype=torch.int32,
+                                              device=dev),
+                      kc=KernelConfig.prefill(),
+                      logits_at=torch.full((B4,), SHORT_PROMPT - 1, device=dev))
+    pos4 = torch.tensor([SHORT_PROMPT, SHORT_PROMPT - 3, SHORT_PROMPT - 1, SHORT_PROMPT - 7],
+                        dtype=torch.int32, device=dev)
+    tok4 = torch.randint(0, cfg.vocab_size, (B4, 1), generator=gen, device=dev)
+    res4 = {}
+    for tag, kc_d in (("kernel", KernelConfig.decode()), ("plain", KernelConfig.none())):
+        cc = E.EngineKVCache(c4.k.clone(), c4.v.clone())
+        res4[tag] = counted(f"b4_{tag}", lambda: E.forward(
+            g.packed, tok4, cfg, policy, positions=pos4[:, None], kv_cache=cc,
+            cache_position=pos4, kv_valid_len=pos4 + 1, kc=kc_d))
+    e4 = float_err(res4["kernel"][0], res4["plain"][0])
+    e4k = int8_err(res4["kernel"][1].k, res4["plain"][1].k)
+    e4v = int8_err(res4["kernel"][1].v, res4["plain"][1].v)
+    print(f"  B=4 staggered decode step, kernel vs plain: logits rel {e4[1]:.3g}; "
+          f"K cache {e4k}, V cache {e4v}; launches {runs['b4_kernel']}", flush=True)
+    if e4[1] > 2e-3 or not bool(torch.isfinite(res4["kernel"][0]).all()):
+        failures.append(f"B=4 decode logits kernel vs plain rel {e4[1]}")
+    if max(e4k[0], e4v[0]) > 1 or max(e4k[1], e4v[1]) > 1e-3:
+        failures.append(f"B=4 caches kernel vs plain {e4k} {e4v}")
+    if runs["b4_kernel"]["fused_model_w4"] != 1 or any(runs["b4_plain"].values()):
+        failures.append(f"B=4 step launches {runs['b4_kernel']} / {runs['b4_plain']}")
+
+    # every kernel of the slice ran on its route
+    total = {k: sum(r[k] for r in runs.values()) for k in launches}
+    for name, n in total.items():
+        if n <= 0:
+            failures.append(f"{name} was not launched on any route")
+
     # ---- phase 4: report ---------------------------------------------------
     sources = {"w4a8_matmul": ("csrc/w4a8_matmul.cu",
                                "mobilequant_tpu/ops/pallas_matmul.py:249"),
                "qkv_rope": ("csrc/qkv_rope.cu", "mobilequant_tpu/ops/pallas_qkv.py:126"),
                "prefill_attention": ("csrc/prefill_attention.cu",
                                      "mobilequant_tpu/ops/pallas_prefill_attention.py:201"),
-               "w13_gate": ("csrc/w13_gate.cu", "mobilequant_tpu/ops/pallas_mlp.py:680")}
+               "w13_gate": ("csrc/w13_gate.cu", "mobilequant_tpu/ops/pallas_mlp.py:680"),
+               "fused_mlp_block_w4": ("csrc/fused_layer.cu",
+                                      "mobilequant_tpu/ops/pallas_mlp.py:950"),
+               "fused_layer_w4": ("csrc/fused_layer.cu",
+                                  "mobilequant_tpu/ops/pallas_layer.py:607"),
+               "fused_model_w4": ("csrc/fused_layer.cu",
+                                  "mobilequant_tpu/ops/pallas_layer.py:773")}
+    # the route whose run each kernel's launch count is read from, and its
+    # main shape in the rows (w4a8: M=1 w13; MLP block: the 32-token prefill)
+    route_of = {"fused_mlp_block_w4": "short_prompt", "fused_layer_w4": "per_layer"}
+    main_row = {"w4a8_matmul": 2, "fused_mlp_block_w4": 2}
     kernels = []
     for name, shapes in rows.items():
-        head = shapes[2] if name == "w4a8_matmul" else shapes[0]   # M=1 w13; main shape
+        head = shapes[main_row.get(name, 0)]
         src, rep = sources[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": "mobilequant_tpu_torch/" + src, "replaces": rep,
-                        "launches": launches[name], "max_abs_err": head["max_abs_err"],
+                        "launches": runs[route_of.get(name, "main")][name],
+                        "max_abs_err": head["max_abs_err"],
                         "ms": head["ms"], "plain_ms": head["plain_ms"],
                         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                         "library_ms": head["library_ms"], "shape": head["shape"],
@@ -389,7 +603,12 @@ def main() -> None:
                             "launches": launches,
                             "prefill_logits_rel_kernel_vs_plain": e_pre[1],
                             "decode_logits_rel_kernel_vs_plain": e_dec[1],
-                            "breakdown": breakdown}}
+                            "breakdown": breakdown},
+              "fused_model_stage_us": stage_us,
+              "routes": {"launches": runs,
+                         "short_prompt_prefill_ms": stats_s["prefill_s"] * 1e3,
+                         "per_layer_decode_tok_s": stats_pl["decode_tok_s"],
+                         "b4_decode_logits_rel_kernel_vs_plain": e4[1]}}
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

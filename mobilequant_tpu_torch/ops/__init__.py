@@ -1,4 +1,4 @@
-"""Integer primitives and the four hand-written CUDA kernels of the port.
+"""Integer primitives and the hand-written CUDA kernels of the port.
 
 Each kernel wrapper carries two plain integer counts: `launches` (CUDA kernel
 launches) and `plain_calls` (runs of its plain PyTorch version on CPU
@@ -9,12 +9,16 @@ from __future__ import annotations
 
 def kernel_wrappers() -> dict:
     """name -> wrapper function of every kernel of the slice."""
+    from mobilequant_tpu_torch.ops.fused_layer import fused_layer_w4, fused_model_w4
+    from mobilequant_tpu_torch.ops.mlp_block import fused_mlp_block_w4
     from mobilequant_tpu_torch.ops.prefill_attention import prefill_attention
     from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope
     from mobilequant_tpu_torch.ops.w13_gate import w13_gate
     from mobilequant_tpu_torch.ops.w4a8_matmul import w4a8_matmul
     return {"w4a8_matmul": w4a8_matmul, "qkv_rope": qkv_rope,
-            "prefill_attention": prefill_attention, "w13_gate": w13_gate}
+            "prefill_attention": prefill_attention, "w13_gate": w13_gate,
+            "fused_mlp_block_w4": fused_mlp_block_w4, "fused_layer_w4": fused_layer_w4,
+            "fused_model_w4": fused_model_w4}
 
 
 def reset_counts() -> None:

@@ -1,0 +1,324 @@
+"""A whole decode step, or one whole decoder layer, in one kernel.
+
+fused_model_w4: every layer of a T=1 decode step at B <= 8 sequences, then
+(optionally) the final norm and the W4 quantized head:
+
+  per layer: [fq16] -> RMS norm -> quantize -> W4 qkv -> per-column output fq
+  -> RoPE -> joint segment quantization (the new K/V rows) -> decode-light
+  attention over the int8 cache (stale rows < pos, plus the self term) ->
+  pv-output quantize -> W4 o -> fq -> resid_add_1 -> the MLP block
+  (ops/mlp_block)
+  head: RMS norm -> dynamic per-row A8 -> W4 head -> logits (B, Vp)
+
+fused_layer_w4: one layer of the same at B = 1, no head.
+
+Kernel: csrc/fused_layer.cu (mqt_fused_decode), which replaces the JAX
+package's mobilequant_tpu/ops/pallas_layer.py fused_model_w4_stacked
+(_model_kernel, _layer_phase, _head_phase) and fused_layer_w4_stacked
+(_layer_kernel). Bound: device-memory bytes (each packed weight byte once per
+step, plus the valid K/V rows). Design: one cooperative persistent launch;
+stages split by grid barriers (five per layer); split-K matvecs meet in an
+integer workspace, so results do not depend on block arrival order; the
+attention runs one block per (sequence, q head), its scores and the cache
+rows in shared memory. The TPU column / row permutations of the JAX kernels' qkv and o packs
+(a Mosaic layout workaround) are not ported: the kernels read the canonical
+qkv_proj / o_proj packs.
+
+Operands, as the engine prepares them once per (packed model, policy):
+meta_L (L, 65) = the JAX engine's _layer_meta per layer (33 attention entries
+then the 32 MLP-block entries), ofq_L (L, 4, Nq) = [scale, offset, clip max,
+enabled] of the qkv output fake-quant per column; per step: pos (B,) cache
+positions and cs (B, 2, head_dim) = [cos; sign-baked sin] RoPE rows. The K/V
+caches are read, not written: the new rows come back as kv_new for the
+engine's post-step row write.
+
+The plain versions below repeat the kernels' function in PyTorch operators
+(the JAX phase bodies' fp32 operation order, masked full-length scores) and
+do not call the engine. The sums that feed an int8 rounding (norms, softmax
+denominator, P·V, ΣP, self score) are taken in fp64 and rounded once, as in
+the kernel, so kernel and plain version agree whatever the summation order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mobilequant_tpu_torch.ops import _build
+from mobilequant_tpu_torch.ops.mlp_block import (
+    BARRIER, WS_COUNTERS, FusedArgs, fused_mlp_block_w4_plain, mlp_block_supported,
+    ptr, rms_norm, stacked_w4, sum_f32)
+from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope_plain
+from mobilequant_tpu_torch.ops.qops import f32, int_head_linear, int_matmul_qk, quantize_act
+from mobilequant_tpu_torch.ops.w13_gate import _fq
+from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, w4a8_matmul_plain
+
+LAYER_META_LEN = 65
+MAX_BATCH = 8
+SMEM_LIMIT = 200 * 1024
+
+
+def _attn_smem(hd: int, S: int) -> int:
+    return 1280 + hd * 24 + 8 * hd * 8 + 128 + S * 4 + 256 * hd
+
+
+def layer_kernel_supported(c, max_seq_len: int) -> bool:
+    """Static shape gate of the whole-layer and whole-model kernels."""
+    hd, Hq, Hkv = c.head_dim_, c.num_heads, c.num_kv_heads
+    if Hkv < 1 or Hq % Hkv:
+        return False
+    K, Ko, Nq = c.hidden_size, Hq * hd, (Hq + 2 * Hkv) * hd
+    rot = c.rotary_dim
+    return (hd % 32 == 0 and hd <= 128 and rot % 2 == 0 and 0 < rot <= hd
+            and K % 128 == 0 and Ko % 64 == 0 and Nq % 128 == 0
+            and mlp_block_supported(K, c.intermediate_size)
+            and c.norm_class == "rmsnorm" and c.hidden_act in ("silu", "gelu_tanh")
+            and c.neg_inf <= -1e4 and max_seq_len % 4 == 0
+            and _attn_smem(hd, max_seq_len) <= SMEM_LIMIT)
+
+
+def head_kernel_supported(head_pack: dict, hidden_size: int) -> bool:
+    """Whether a quantized head folds into the whole-model kernel (W4)."""
+    K2, Vp = head_pack["wq"].shape
+    return K2 * 2 == hidden_size and Vp % 128 == 0
+
+
+def _outq(m: list, Hq: int, Hkv: int, hd: int, device) -> torch.Tensor:
+    """(3, Nq) segment quantization rows from the layer meta."""
+    qd, kvd = Hq * hd, Hkv * hd
+    rows = torch.zeros((3, qd + 2 * kvd), dtype=torch.float32, device=device)
+    for i in (0, 1):
+        rows[i, :qd] = m[6 + i]
+        rows[i, qd:qd + kvd] = m[8 + i]
+        rows[i, qd + kvd:] = m[10 + i]
+    rows[2, :qd + kvd] = 1.0
+    return rows
+
+
+def _layer_plain(x, pos, cs, ofq, anw, anb, qkv, o, mnw, mnb, w13, w2, kc, vc,
+                 m, Hq, Hkv, hd, rot, act_kind):
+    """One layer's function: x (B, K) -> (x_out (B, K), kv_new (B, 2Hkv, hd))
+    over one layer's packs / vectors and cache slices kc / vc (B, Hkv, S, hd)."""
+    B, K = x.shape
+    G = Hq // Hkv
+    S = kc.shape[2]
+    xf = x.to(torch.float32)
+    xx = _fq(xf, m[0], m[1], m[2])
+    h8 = quantize_act(rms_norm(xx, m[3]) * anw + anb, m[4], m[5])
+    q8 = qkv_rope_plain(h8, qkv, ofq, _outq(m, Hq, Hkv, hd, x.device),
+                        cs.reshape(B, 2 * hd), m[4], m[5], hd, rot)
+    qg = q8[:, :Hq * hd].reshape(B, Hkv, G, hd)
+    kn = q8[:, Hq * hd:(Hq + Hkv) * hd].reshape(B, Hkv, 1, hd).to(torch.float32)
+    vn = q8[:, (Hq + Hkv) * hd:].reshape(B, Hkv, 1, hd).to(torch.float32)
+    oq, ok = f32(np.float32(m[7]) - np.float32(128.0)), f32(np.float32(m[9]) - np.float32(128.0))
+    ov = f32(np.float32(m[11]) - np.float32(128.0))
+    sqk = f32(np.float32(m[6]) * np.float32(m[8]))
+    scores = _fq(int_matmul_qk(qg, kc, m[6], m[7], m[8], m[9]), m[12], m[13], m[14])
+    s_self = sum_f32((qg.to(torch.float32) - oq) * (kn - ok)) * sqk
+    s_self = _fq(s_self, m[12], m[13], m[14])
+    inv = 1.0 / math.sqrt(hd)
+    col = torch.arange(S, device=x.device)[None, None, None, :]
+    zero = torch.zeros((), device=x.device)
+    lg = scores * inv + torch.where(col < pos.reshape(B, 1, 1, 1), zero, m[18])
+    lg_self = s_self * inv
+    mx = torch.maximum(lg.amax(-1, keepdim=True), lg_self)
+    e = torch.exp(lg - mx)
+    es = torch.exp(lg_self - mx)
+    den = sum_f32(e) + es
+    p = _fq(e / den, m[15], m[16], m[17])
+    ps = _fq(es / den, m[15], m[16], m[17])
+    pv = torch.matmul(p.to(torch.float64), vc.to(torch.float64)).to(torch.float32)
+    vnf = (vn + 128.0 - m[11]) * m[10]
+    attn = (pv - ov * sum_f32(p)) * m[10] + ps * vnf
+    a8 = quantize_act(attn.reshape(B, Hq * hd), m[19], m[20])
+    y = w4a8_matmul_plain(a8, o["wq"], o["scale"], o["offset"], o["colsum"],
+                          o.get("bias"), m[19], m[20])
+    y = _fq(y, m[21], m[22], m[23])
+    xr = _fq(xf, m[24], m[25], m[26])
+    y = _fq(y, m[27], m[28], m[29])
+    resid = _fq(xr + y, m[30], m[31], m[32])
+    out = fused_mlp_block_w4_plain(resid, mnw, mnb, w13, w2, m[33:], act_kind)
+    return out, q8[:, Hq * hd:].reshape(B, 2 * Hkv, hd)
+
+
+def _layers_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2, kcache,
+                  vcache, meta_L, layers, Hq, Hkv, hd, rot, act_kind):
+    metas = meta_L.to(torch.float32).tolist()
+    kv = []
+    for l in layers:
+        x, rows = _layer_plain(
+            x, pos, cs, ofq_L[l], attn_norm["w"][l], attn_norm["b"][l],
+            layer_pack(qkv, l), layer_pack(o, l), mlp_norm["w"][l], mlp_norm["b"][l],
+            layer_pack(w13, l), layer_pack(w2, l), kcache[l], vcache[l], metas[l],
+            Hq, Hkv, hd, rot, act_kind)
+        kv.append(rows)
+    return x, torch.stack(kv)
+
+
+def fused_model_w4_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2,
+                         kcache, vcache, meta_L, head=None, final_norm=None, *,
+                         num_q_heads, num_kv_heads, head_dim, rotary_dim,
+                         act_kind="silu"):
+    """The whole-model kernel's function in PyTorch operators."""
+    L = meta_L.shape[0]
+    xo, kv = _layers_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2,
+                           kcache, vcache, meta_L, range(L), num_q_heads,
+                           num_kv_heads, head_dim, rotary_dim, act_kind)
+    if head is None:
+        return xo, kv
+    eps = float(meta_L[L - 1, 3])
+    y = rms_norm(xo, eps) * final_norm["w"] + final_norm["b"]
+    return xo, kv, int_head_linear(y, head)
+
+
+def fused_layer_w4_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2,
+                         kcache, vcache, meta_L, layer, *, num_q_heads,
+                         num_kv_heads, head_dim, rotary_dim, act_kind="silu"):
+    """The whole-layer kernel's function in PyTorch operators."""
+    xo, kv = _layers_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2,
+                           kcache, vcache, meta_L, [layer], num_q_heads,
+                           num_kv_heads, head_dim, rotary_dim, act_kind)
+    return xo, kv[0, 0]
+
+
+def _launch(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2, kcache, vcache,
+            meta_L, layers, head, final_norm, Hq, Hkv, hd, rot, act_kind, trace=None):
+    B, K = x.shape
+    L, _, Nq = qkv["wq"].shape
+    F = w13["wq"].shape[2] // 2
+    S = kcache.shape[3]
+    dev = _build.require_cuda(x, pos, cs, ofq_L, meta_L, kcache, vcache, qkv["wq"])
+    if kcache.shape != (L, B, Hkv, S, hd) or vcache.shape != kcache.shape:
+        raise ValueError(f"caches {tuple(kcache.shape)} do not match (L, B, Hkv, S, hd)")
+    if Nq != (Hq + 2 * Hkv) * hd or tuple(meta_L.shape) != (L, LAYER_META_LEN) \
+            or tuple(ofq_L.shape) != (L, 4, Nq) or tuple(cs.shape) != (B, 2, hd):
+        raise ValueError("fused decode kernel: operand shapes")
+    if _attn_smem(hd, S) > SMEM_LIMIT:
+        raise NotImplementedError(f"fused decode kernel: S={S} needs too much shared memory")
+    lib = _build.lib()
+    keep = []
+
+    def f32c(t):
+        t = t.to(torch.float32).contiguous()
+        keep.append(t)
+        return t
+
+    a = FusedArgs()
+    xin = f32c(x)
+    out = torch.empty((B, K), dtype=torch.float32, device=dev)
+    kv_new = torch.empty((len(layers), B, 2 * Hkv, hd), dtype=torch.int8, device=dev)
+    pos_ = pos.to(torch.int32).contiguous()
+    kc, vc = kcache.contiguous(), vcache.contiguous()
+    yq = torch.empty((B, Nq), dtype=torch.float32, device=dev)
+    resid = torch.empty((B, K), dtype=torch.float32, device=dev)
+    a8 = torch.empty((B, Hq * hd), dtype=torch.int8, device=dev)
+    act8 = torch.empty((B, F), dtype=torch.int8, device=dev)
+    logits, Vp = None, 0
+    if head is not None:
+        Vp = head["wq"].shape[1]
+        logits = torch.empty((B, Vp), dtype=torch.float32, device=dev)
+        hwq = _build.aligned(head["wq"], 16)
+        keep.append(hwq)
+        a.hwq = ptr(hwq)
+        a.hscale = ptr(f32c(head["scale"].reshape(-1)))
+        a.hoffset = ptr(f32c(head["offset"].reshape(-1)))
+        a.fnw = ptr(f32c(final_norm["w"]))
+        a.fnb = ptr(f32c(final_norm["b"]))
+    ws = _build.WORKSPACE.get(dev, WS_COUNTERS + B * max(Nq, K, 2 * F, Vp))
+    a.x_in, a.x_out, a.kv_new, a.logits = ptr(xin), ptr(out), ptr(kv_new), ptr(logits)
+    a.pos, a.cs, a.meta, a.ofq = ptr(pos_), ptr(f32c(cs)), ptr(f32c(meta_L)), ptr(f32c(ofq_L))
+    a.anw, a.anb = ptr(f32c(attn_norm["w"])), ptr(f32c(attn_norm["b"]))
+    a.mnw, a.mnb = ptr(f32c(mlp_norm["w"])), ptr(f32c(mlp_norm["b"]))
+    a.kcache, a.vcache = ptr(kc), ptr(vc)
+    a.yq, a.resid, a.a8, a.act8 = ptr(yq), ptr(resid), ptr(a8), ptr(act8)
+    a.ws, a.bar = ptr(ws), ptr(BARRIER.get(dev, 2))
+    if trace is not None:
+        if trace.dtype != torch.int64 or trace.device != dev or trace.numel() < 2 + 5 * len(layers):
+            raise ValueError("trace: an int64 tensor of 2 + 5·layers entries on the device")
+        a.trace = ptr(trace)
+    a.qkv, a.o = stacked_w4(qkv, keep), stacked_w4(o, keep)
+    a.w13, a.w2 = stacked_w4(w13, keep), stacked_w4(w2, keep)
+    a.M, a.K, a.Hq, a.Hkv, a.hd, a.rot, a.S, a.F = B, K, Hq, Hkv, hd, rot, S, F
+    a.Vp, a.L, a.l0, a.l1 = Vp, L, layers[0], layers[-1] + 1
+    a.gelu = int(act_kind == "gelu_tanh")
+    a.inv_sqrt_hd = 1.0 / math.sqrt(hd)
+    code = lib.mqt_fused_decode(ctypes.addressof(a), _build.stream_ptr(dev))
+    return code, out, kv_new, logits
+
+
+def _check(x, qkv, w13, w2, o, Hq, hd, act_kind, B_max):
+    B, K = x.shape
+    if B > B_max:
+        raise NotImplementedError(f"fused decode kernel: B={B} > {B_max}")
+    if qkv["wq"].shape[1] * 2 != K or w13["wq"].shape[1] * 2 != K \
+            or o["wq"].shape[1] * 2 != Hq * hd or w2["wq"].shape[1] * 2 != w13["wq"].shape[2] // 2:
+        raise NotImplementedError("the fused decode kernels take W4 packs")
+    if act_kind not in ("silu", "gelu_tanh"):
+        raise NotImplementedError(f"fused decode kernel: act {act_kind!r}")
+
+
+def fused_model_w4(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
+                   ofq_L: torch.Tensor, attn_norm: dict, qkv: dict, o: dict,
+                   mlp_norm: dict, w13: dict, w2: dict, kcache: torch.Tensor,
+                   vcache: torch.Tensor, meta_L: torch.Tensor,
+                   head: Optional[dict] = None, final_norm: Optional[dict] = None, *,
+                   num_q_heads: int, num_kv_heads: int, head_dim: int,
+                   rotary_dim: int, act_kind: str = "silu",
+                   trace: Optional[torch.Tensor] = None):
+    """x (B<=8, K) fp32, pos (B,), cs (B, 2, hd), caches (L, B, Hkv, S, hd) int8
+    -> (x_out (B, K), kv_new (L, B, 2 Hkv, hd) int8 [k rows; v rows]) and,
+    with a W4 head pack (pack_head) and final_norm {w, b}, logits (B, Vp).
+    trace: optional int64 (2 + 5 L,) device tensor that receives the global
+    timer (ns) at the start and at the end of each stage (qkv, attention, o,
+    w13, w2 per layer, then the head); every stage then ends in a barrier."""
+    _check(x, qkv, w13, w2, o, num_q_heads, head_dim, act_kind, MAX_BATCH)
+    if head is not None and not head_kernel_supported(head, x.shape[1]):
+        raise NotImplementedError("the whole-model kernel folds a W4 head only")
+    kw = dict(num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
+              head_dim=head_dim, rotary_dim=rotary_dim, act_kind=act_kind)
+    if x.device.type == "cpu":
+        fused_model_w4.plain_calls += 1
+        return fused_model_w4_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm,
+                                    w13, w2, kcache, vcache, meta_L, head, final_norm,
+                                    **kw)
+    L = meta_L.shape[0]
+    code, out, kv_new, logits = _launch(
+        x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2, kcache, vcache, meta_L,
+        list(range(L)), head, final_norm, num_q_heads, num_kv_heads, head_dim,
+        rotary_dim, act_kind, trace)
+    _build.check(code, "fused_model_w4")
+    fused_model_w4.launches += 1
+    return (out, kv_new) if head is None else (out, kv_new, logits)
+
+
+def fused_layer_w4(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
+                   ofq_L: torch.Tensor, attn_norm: dict, qkv: dict, o: dict,
+                   mlp_norm: dict, w13: dict, w2: dict, kcache: torch.Tensor,
+                   vcache: torch.Tensor, meta_L: torch.Tensor, layer: int, *,
+                   num_q_heads: int, num_kv_heads: int, head_dim: int,
+                   rotary_dim: int, act_kind: str = "silu"):
+    """Layer `layer` at B = 1: x (1, K) -> (x_out (1, K), kv_new (2 Hkv, hd))."""
+    _check(x, qkv, w13, w2, o, num_q_heads, head_dim, act_kind, 1)
+    kw = dict(num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
+              head_dim=head_dim, rotary_dim=rotary_dim, act_kind=act_kind)
+    if x.device.type == "cpu":
+        fused_layer_w4.plain_calls += 1
+        return fused_layer_w4_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm,
+                                    w13, w2, kcache, vcache, meta_L, layer, **kw)
+    code, out, kv_new, _ = _launch(
+        x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2, kcache, vcache, meta_L,
+        [int(layer)], None, None, num_q_heads, num_kv_heads, head_dim, rotary_dim,
+        act_kind)
+    _build.check(code, "fused_layer_w4")
+    fused_layer_w4.launches += 1
+    return out, kv_new[0, 0]
+
+
+fused_model_w4.launches = 0
+fused_model_w4.plain_calls = 0
+fused_layer_w4.launches = 0
+fused_layer_w4.plain_calls = 0

@@ -14,11 +14,17 @@ activation ranges are frozen at pack time and live on the host
 length L); they reach the operators and kernels as Python floats, so no step
 reads a scalar back from the card.
 
-Kernel dispatch (runtime/kernel_config.py): gate_kernel runs the prefill qkv
-and w13+gate epilogue kernels, attn_kernel the prefill attention kernel,
-w4_matmul every W4 projection and the W4 head through the W4A8 kernel. With
-no flag set the same function runs in PyTorch operators alone (the plain
-engine, the counterpart of the JAX engine's XLA body).
+Kernel dispatch (runtime/kernel_config.py), in the JAX engine's order:
+model_kernel runs a whole T=1 step at B <= 8 (every layer and the folded W4
+head) in one launch; layer_kernel a whole layer at B=1, T=1; stacked_mlp_kernel
+the whole MLP block at B·T <= stacked_bt_max; gate_kernel the prefill qkv and
+w13+gate epilogue kernels; attn_kernel the prefill attention kernel; w4_matmul
+every other W4 projection and the W4 head through the W4A8 kernel. Routing
+reads static predicates only (shapes, config, flags). With no flag set the
+same function runs in PyTorch operators alone (the plain engine, the
+counterpart of the JAX engine's XLA body). The whole-layer and whole-model
+kernels take per-layer metas and qkv output fake-quant rows that are made on
+the device once per policy and kept on the packed model (_kernel_prep).
 
 The cache is updated in place: prefill writes its rows into the layer slice
 before attention, decode writes each step's rows once after the layer loop.
@@ -41,6 +47,10 @@ import torch
 from mobilequant_tpu_torch.models import model as M
 from mobilequant_tpu_torch.models.config import ModelConfig
 from mobilequant_tpu_torch.ops import qops
+from mobilequant_tpu_torch.ops.fused_layer import (
+    MAX_BATCH, fused_layer_w4, fused_model_w4, head_kernel_supported,
+    layer_kernel_supported)
+from mobilequant_tpu_torch.ops.mlp_block import fused_mlp_block_w4, mlp_block_supported
 from mobilequant_tpu_torch.ops.prefill_attention import prefill_attention
 from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope, qkv_rope_supported
 from mobilequant_tpu_torch.ops.w13_gate import w13_gate, w13_gate_supported
@@ -306,6 +316,48 @@ def _mlp_block_site_on(policy) -> tuple:
             on("resid_add_2", "output"))
 
 
+def _layer_meta(lr, policy, c) -> list:
+    """The 65-float whole-layer meta of the JAX engine: the 33-entry attention
+    section (ops/fused_layer.py), then _mlp_block_meta."""
+    def qm(site, role):
+        return _qmax(_site_cfg(policy, site, role))
+
+    def rng(site, role):
+        e = lr.get(site, {})
+        return (e[role]["scale"], e[role]["offset"]) if role in e else (1.0, 0.0)
+
+    qk, pv = lr["self_attn.qk_bmm"], lr["self_attn.pv_bmm"]
+    ln = "input_layernorm"
+    head = [*rng(ln, "input"), qm(ln, "input"), float(np.float32(c.norm_eps)),
+            lr[ln]["output"]["scale"], lr[ln]["output"]["offset"],
+            qk["input"]["scale"], qk["input"]["offset"],
+            qk["input2"]["scale"], qk["input2"]["offset"],
+            pv["input2"]["scale"], pv["input2"]["offset"],
+            *rng("self_attn.qk_bmm", "output"), qm("self_attn.qk_bmm", "output"),
+            *rng("self_attn.pv_bmm", "input"), qm("self_attn.pv_bmm", "input"),
+            float(np.float32(c.neg_inf)),
+            pv["output"]["scale"], pv["output"]["offset"],
+            *rng("self_attn.o_proj", "output"), qm("self_attn.o_proj", "output")]
+    for role in ("input", "input2", "output"):
+        head += [*rng("resid_add_1", role), qm("resid_add_1", role)]
+    return head + _mlp_block_meta(lr, policy, c)
+
+
+def _kernel_prep(packed, policy, c) -> dict:
+    """Device operands of the whole-layer / whole-model kernels, made once per
+    policy and kept on the packed model (packed["kernel_prep"]): meta (L, 65)
+    and ofq (L, 4, Nq)."""
+    key = tuple(sorted(policy.items()))
+    preps = packed.setdefault("kernel_prep", {})
+    if key not in preps:
+        rr, L = packed["ranges"], c.num_layers
+        metas = [_layer_meta(layer_ranges(rr, l), policy, c) for l in range(L)]
+        preps[key] = {"meta": torch.tensor(metas, dtype=torch.float32,
+                                           device=packed["embed"].device),
+                      "ofq": _qkv_ofq_rows(packed, policy)}
+    return preps[key]
+
+
 def _qkv_ofq_rows(packed, policy) -> torch.Tensor:
     """(L, 4, Nq) [scale, offset, clip max, enabled] of the qkv output
     fake-quant per column (the pack's fused per-channel vectors)."""
@@ -340,7 +392,7 @@ def _rope_cs_rows(cos, sin, hd: int, rot: int) -> torch.Tensor:
     c1 = cos.reshape(-1, rd)[:, :rot].to(torch.float32)
     s1 = sin.reshape(-1, rd)[:, :rot].to(torch.float32)
     Mr = c1.shape[0]
-    sgn = torch.cat([torch.full((rot // 2,), -1.0), torch.ones(rot // 2)]).to(cos.device)
+    sgn = torch.where(torch.arange(rot, device=cos.device) < rot // 2, -1.0, 1.0)
     s1 = s1 * sgn[None, :]
     if rot < hd:
         c1 = torch.cat([c1, torch.ones((Mr, hd - rot), device=cos.device)], 1)
@@ -453,6 +505,17 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
         r = lr[site]["output"]
         return qops.quantize_act(y, r["scale"], r["offset"]), r
 
+    if decode_light and kc.layer_kernel and "layer" in prep:
+        # the whole layer in one launch (B = 1, T = 1)
+        out, kvn = fused_layer_w4(
+            x.reshape(1, D), cache_position, prep["cs"], prep["layer"]["ofq"],
+            ly["attn_norm"], ly["qkv_proj"], ly["o_proj"], ly["mlp_norm"],
+            ly["w13_proj"], ly["w2"], cache.k, cache.v, prep["layer"]["meta"], l,
+            num_q_heads=Hq, num_kv_heads=Hkv, head_dim=hd, rotary_dim=c.rotary_dim,
+            act_kind=c.hidden_act)
+        return out.reshape(B, T, D), (kvn[:Hkv].reshape(1, Hkv, 1, hd),
+                                      kvn[Hkv:].reshape(1, Hkv, 1, hd))
+
     # --- attention ---
     h = _norm(x, ly["attn_norm"], l, "input_layernorm", lr, policy, c)
     h8, hr = out_q8(h, "input_layernorm")
@@ -525,11 +588,15 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
     h28, h2r = out_q8(h2, "post_attention_layernorm")
     w13 = ly["w13_proj"]
     F = w13["wq"].shape[-1] // 2
+    if kc.stacked_mlp_kernel and B * T <= kc.stacked_bt_max and mlp_block_supported(D, F):
+        # the whole MLP block (norm -> w13 -> gate -> w2 -> resid_add_2) in one
+        # launch, checked before the split path as in the JAX engine
+        out = fused_mlp_block_w4(resid.reshape(B * T, D), ly["mlp_norm"]["w"],
+                                 ly["mlp_norm"]["b"], w13, ly["w2"],
+                                 _mlp_block_meta(lr, policy, c), l, c.hidden_act,
+                                 _mlp_block_site_on(policy))
+        return out.reshape(B, T, D), rows
     if kc.gate_kernel and T > 1:
-        # The JAX engine takes its whole-MLP-block kernel for prefills with
-        # B·T <= stacked_bt_max (64); that kernel is not ported, and the port
-        # always takes this split path (w13+gate kernel, then the w2 matmul),
-        # which computes the same function.
         if not (_is_w4(w13, D) and w13_gate_supported(D, F)):
             raise NotImplementedError("the w13+gate kernel takes W4 packs, F % 64 == 0")
         act8 = w13_gate(h28.reshape(B * T, D), w13, _mlp_block_meta(lr, policy, c), l,
@@ -584,6 +651,7 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
         x = x * math.sqrt(c.hidden_size)
     cos, sin = M.rope_cos_sin(positions, c)
 
+    has_cache = kv_cache is not None
     if kv_cache is None:
         # no cache object: keys/values come from the segment itself
         shape = (c.num_layers, B, c.num_kv_heads, T, c.head_dim_)
@@ -605,21 +673,50 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
         prep["outq"] = _qkv_outq_rows(rr, c, L, dev)
         prep["cs"] = _rope_cs_rows(cos, sin, c.head_dim_, c.rotary_dim)
 
-    h = x
-    rows_k, rows_v = [], []
-    for l in range(L):
-        h, rows = _layer_forward(packed, l, layer_ranges(rr, l), h, cos, sin, mask,
-                                 kv_cache, cache_position, c, policy, kc,
-                                 kv_valid_len, positions, prep, decode_light)
-        if rows is not None:
-            rows_k.append(rows[0])
-            rows_v.append(rows[1])
+    fused = (decode_light and has_cache and (kc.model_kernel or kc.layer_kernel)
+             and layer_kernel_supported(c, S))
+    ly = packed["layers"]
+    Hkv, hd = c.num_kv_heads, c.head_dim_
+    logits = None
+    if fused and kc.model_kernel and B <= MAX_BATCH:
+        # the whole step in one launch, with the W4 head folded when it fits
+        kp = _kernel_prep(packed, policy, c)
+        fold = "head_q" in packed and head_kernel_supported(packed["head_q"], c.hidden_size)
+        res = fused_model_w4(
+            x.reshape(B, -1), cache_position,
+            _rope_cs_rows(cos, sin, hd, c.rotary_dim).reshape(B, 2, hd), kp["ofq"],
+            ly["attn_norm"], ly["qkv_proj"], ly["o_proj"], ly["mlp_norm"],
+            ly["w13_proj"], ly["w2"], kv_cache.k, kv_cache.v, kp["meta"],
+            packed["head_q"] if fold else None, packed["norm"] if fold else None,
+            num_q_heads=c.num_heads, num_kv_heads=Hkv, head_dim=hd,
+            rotary_dim=c.rotary_dim, act_kind=c.hidden_act)
+        h = res[0].reshape(B, T, -1)
+        k_rows, v_rows = res[1][:, :, :Hkv], res[1][:, :, Hkv:]
+        if fold:
+            logits = res[2][:, :c.vocab_size].reshape(B, T, c.vocab_size)
+    else:
+        if fused and kc.layer_kernel and B == 1:
+            prep["layer"] = _kernel_prep(packed, policy, c)
+            prep["cs"] = _rope_cs_rows(cos, sin, hd, c.rotary_dim).reshape(B, 2, hd)
+        h = x
+        rows_k, rows_v = [], []
+        for l in range(L):
+            h, rows = _layer_forward(packed, l, layer_ranges(rr, l), h, cos, sin, mask,
+                                     kv_cache, cache_position, c, policy, kc,
+                                     kv_valid_len, positions, prep, decode_light)
+            if rows is not None:
+                rows_k.append(rows[0][:, :, 0])
+                rows_v.append(rows[1][:, :, 0])
+        if decode_light:
+            k_rows, v_rows = torch.stack(rows_k), torch.stack(rows_v)
     if decode_light:
-        # one write of the step's rows per cache after the layer loop
+        # one write of the step's rows (L, B, Hkv, hd) per cache after the layers
         bi = torch.arange(B, device=dev)
         pi = cache_position.to(torch.long)
-        kv_cache.k[:, bi, :, pi] = torch.stack(rows_k)[:, :, :, 0].transpose(0, 1)
-        kv_cache.v[:, bi, :, pi] = torch.stack(rows_v)[:, :, :, 0].transpose(0, 1)
+        kv_cache.k[:, bi, :, pi] = k_rows.transpose(0, 1)
+        kv_cache.v[:, bi, :, pi] = v_rows.transpose(0, 1)
+    if logits is not None:
+        return logits, kv_cache
 
     if logits_at is not None and T > 1:
         idx = torch.as_tensor(logits_at, device=dev).to(torch.long)
@@ -657,8 +754,9 @@ def decode_loop(packed: dict, first_token: torch.Tensor, kv_cache: EngineKVCache
                 start_pos: torch.Tensor, n_steps: int, config: ModelConfig,
                 policy: QPolicy, kc: KernelConfig = KernelConfig.decode(),
                 temperature=0.0, generator: Optional[torch.Generator] = None):
-    """n_steps of non-staged decode: one T=1 forward per step, each writing
-    its K/V rows into the cache. first_token (B, 1), start_pos (B,) ->
+    """n_steps of non-staged decode: one T=1 forward per step (one whole-model
+    launch at B <= 8 under KernelConfig.decode()), each writing its K/V rows
+    into the cache. first_token (B, 1), start_pos (B,) ->
     (tokens (B, n_steps), cache, last logits (B, V))."""
     from mobilequant_tpu_torch.runtime.sampling import loop_next_token
     token, pos, cache = first_token, start_pos, kv_cache

@@ -1,11 +1,12 @@
 """Autoregressive generation on the port's integer engine.
 
-Prefill runs the prompt in one pass through the three prefill kernels and the
-W4A8 kernel (o-proj, w2, the one-row head); decode runs non-staged T=1
-forward steps with every projection and the head through the W4A8 kernel and
-decode-light attention in PyTorch. On a CPU device the kernel wrappers run
-their plain versions (tests); the default device is the GPU, and a GPU
-device without CUDA raises.
+Prefill runs the prompt in one pass (KernelConfig.prefill()): the qkv, attention
+and w13+gate kernels with the W4A8 kernel for o-proj, w2 and the one-row
+head, or the whole-MLP-block kernel in every layer when B·T <= 64; decode
+runs non-staged T=1 steps (KernelConfig.decode()), each one launch of the
+whole-model kernel at B <= 8. On a CPU device the kernel wrappers run their
+plain versions (tests); the default device is the GPU, and a GPU device
+without CUDA raises.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Typed kernel-dispatch flags of the port's engine.
 
-Only the flags this port dispatches on. All off = the plain engine: the same
-function computed by PyTorch operators alone (the counterpart of the JAX
+Only the flags this port dispatches on, with the JAX package's meanings
+(mobilequant_tpu/runtime/kernel_config.py). All off = the plain engine: the
+same function computed by PyTorch operators alone (the counterpart of the JAX
 package's XLA engine body). A flag set routes a site through its kernel
 wrapper, which launches the CUDA kernel on a CUDA tensor and runs the kernel's
 plain version on a CPU tensor.
@@ -20,10 +21,22 @@ class KernelConfig:
                                 # w13+gate epilogue kernel (ops/w13_gate)
     attn_kernel: bool = False   # prefill attention kernel
                                 # (ops/prefill_attention); T>1 only
+    stacked_mlp_kernel: bool = False  # whole MLP block in one kernel
+                                      # (ops/mlp_block) at B·T <= stacked_bt_max
+    stacked_bt_max: int = 64    # the MLP-block kernel's row limit
+    layer_kernel: bool = False  # whole decoder layer at B=1, T=1
+                                # (ops/fused_layer.fused_layer_w4)
+    model_kernel: bool = False  # whole decode step, B <= 8, T=1: every layer
+                                # and the folded W4 head
+                                # (ops/fused_layer.fused_model_w4)
 
     @property
     def any_kernel(self) -> bool:
-        return self.w4_matmul or self.gate_kernel or self.attn_kernel
+        return (self.w4_matmul or self.gate_kernel or self.attn_kernel
+                or self.stacked_mlp_kernel or self.layer_kernel or self.model_kernel)
+
+    def replace(self, **kw) -> "KernelConfig":
+        return dataclasses.replace(self, **kw)
 
     @classmethod
     def none(cls) -> "KernelConfig":
@@ -32,10 +45,18 @@ class KernelConfig:
     @classmethod
     def prefill(cls) -> "KernelConfig":
         """The main path's prefill set (the JAX package's "w4_attn_gatek")."""
-        return cls(w4_matmul=True, gate_kernel=True, attn_kernel=True)
+        return cls(w4_matmul=True, gate_kernel=True, attn_kernel=True,
+                   stacked_mlp_kernel=True)
 
     @classmethod
     def decode(cls) -> "KernelConfig":
-        """The main path's decode set: every W4 projection and the head through
-        the W4A8 matmul kernel; decode-light attention in PyTorch."""
-        return cls(w4_matmul=True)
+        """The main path's decode set (the JAX package's default() without
+        the int4-cache kernel): one whole-model launch per step at B <= 8."""
+        return cls(w4_matmul=True, stacked_mlp_kernel=True, layer_kernel=True,
+                   model_kernel=True)
+
+    @classmethod
+    def decode_per_layer(cls) -> "KernelConfig":
+        """decode() without the whole-model kernel (the JAX package's
+        "w4nomodelk"): one whole-layer launch per layer at B=1."""
+        return cls.decode().replace(model_kernel=False)

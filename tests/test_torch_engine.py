@@ -178,18 +178,34 @@ def test_generate_fast_matches_jax_generator(built):
 
 
 def test_slice_reaches_every_kernel_plain_version(built):
+    """Each route reaches its kernels: a <= 64-row prefill takes the MLP-block
+    kernel in every layer, a longer one the split w13+gate path; a decode step
+    at B <= 8 is one whole-model call (with the W4 head folded), and
+    KernelConfig.decode_per_layer() one whole-layer call per layer."""
     b = built
     gen = Generator(b["packed"], b["cfg"], relax_16bit(b["pol"]), b["ecfg"], device="cpu")
+    L = b["cfg"].num_layers
+    head = 1 if "head_q" in b["packed"] else 0
     T_ops.reset_counts()
     gen.generate_fast(_prompt(T=10, B=1), 3)
     plain = T_ops.counts("plain_calls")
-    L = b["cfg"].num_layers
-    assert plain["qkv_rope"] == L and plain["w13_gate"] == L
-    assert plain["prefill_attention"] == L
-    # prefill: o + w2 per layer (+ the W4 head); decode: qkv, o, w13, w2 per
-    # layer (+ the head) for each of the 2 decode steps
-    head = 1 if "head_q" in b["packed"] else 0
-    assert plain["w4a8_matmul"] == (2 * L + head) + 2 * (4 * L + head)
+    assert plain["qkv_rope"] == L and plain["prefill_attention"] == L
+    assert plain["fused_mlp_block_w4"] == L and plain["w13_gate"] == 0
+    # prefill: o per layer (+ the W4 head); the 2 decode steps: one whole-model
+    # call each, nothing else
+    assert plain["w4a8_matmul"] == L + head
+    assert plain["fused_model_w4"] == 2 and plain["fused_layer_w4"] == 0
+    T_ops.reset_counts()
+    gen.prefill(torch.from_numpy(_prompt(T=40, B=2)), E.init_kv_cache(b["ecfg"], 2, device="cpu"))
+    plain = T_ops.counts("plain_calls")
+    assert plain["w13_gate"] == L and plain["fused_mlp_block_w4"] == 0
+    assert plain["w4a8_matmul"] == 2 * L + head            # o and w2, the head
+    T_ops.reset_counts()
+    gen.decode_kc = KernelConfig.decode_per_layer()
+    gen.generate_fast(_prompt(T=10, B=1), 3)
+    plain = T_ops.counts("plain_calls")
+    assert plain["fused_layer_w4"] == 2 * L and plain["fused_model_w4"] == 0
+    assert plain["w4a8_matmul"] == L + head + 2 * head      # + the unfolded head
     assert all(v == 0 for v in T_ops.counts().values())
 
 

@@ -188,7 +188,8 @@ def test_w13_gate_plain_matches_pallas(act, site_on):
 def test_kernel_registry_counts_reset():
     T_ops.reset_counts()
     assert set(T_ops.counts()) == {"w4a8_matmul", "qkv_rope", "prefill_attention",
-                                   "w13_gate"}
+                                   "w13_gate", "fused_mlp_block_w4", "fused_layer_w4",
+                                   "fused_model_w4"}
     assert all(v == 0 for v in T_ops.counts().values())
     assert all(v == 0 for v in T_ops.counts("plain_calls").values())
 
