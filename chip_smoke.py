@@ -6,20 +6,37 @@
    from mobilequant_tpu_torch/csrc into build/mqt_kernels and prints the build
    time;
 2. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (full-width TinyLlama-1.1B) and times kernel, plain
-   version and, where one PyTorch call computes the same function, that call;
-3. drives three routes on a W4A8 TinyLlama-1.1B pack (seeded synthetic
+   main paths' shapes (full-width TinyLlama-1.1B) and times kernel, plain
+   version and, where one PyTorch call computes the same function, that call:
+   among them staged_append (B=32, 32 staged columns), the o-tail (M=32, 128)
+   and the chunk kernel (B=16 staggered, 32, 128; m 0 and 16; both policies),
+   with the chunk step's per-stage times from its %globaltimer trace, and
+   both MLP-block kernels (dp4a, row) at M = 1, 2, 4, 8 for the wrapper's
+   fork;
+3. drives the routes on a W4A8 TinyLlama-1.1B pack (seeded synthetic
    weights, W4 head, int8 KV cache, relaxed policy), counting every kernel's
    launches from 0 around each run:
-   - the main path, Generator.generate_fast with a 128-token prompt and 64
-     new tokens: the prefill kernels, then one whole-model launch
-     (fused_model_w4) per decode token;
+   - B=1 Generator.generate_fast with a 128-token prompt and 64 new tokens:
+     the prefill kernels, then one whole-model launch (fused_model_w4) per
+     decode token;
    - a 32-token-prompt generate_fast, whose prefill takes the whole-MLP-block
      kernel (fused_mlp_block_w4) in every layer;
    - 8 decode steps under KernelConfig.decode_per_layer(), one whole-layer
      launch (fused_layer_w4) per layer and step;
+   - the serving batch: B=32 generate_fast (128-token prompt, 64 new tokens)
+     on the default staged route (W4A8 qkv / o, the MLP-block kernel and
+     staged_append each step) and on the chunk route (one fused_model_w4_chunk
+     launch and staged_append each step); B=128 decode of 8 steps after a
+     32-token prompt on both; 8 B=32 steps on the o-tail route; for each,
+     decode tok/s, and per step of a decode_loop the wall and device time,
+     the device's idle share and the kernel launches (torch.profiler);
    and checks the kernel path's prefill and decode logits against the plain
-   path's on the card, also for one B=4 decode step at staggered positions;
+   path's on the card, also for one B=4 decode step at staggered positions
+   and for one 32-step staged chunk at B=32 on the default and chunk routes
+   (the same tokens fed to each; logits of every step and flushed caches),
+   with the chunk kernel's plain version moved onto the plain engine's
+   numerics (engine_numerics) as the witness that the chunk route's wiring
+   is the engine's;
 4. prints one JSON line of per-kernel numbers, then the result line.
 
 Any failure exits non-zero before the result line. Without a CUDA device, or
@@ -29,7 +46,11 @@ Numbers go to chiprun_out/chip_smoke.json as well.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -43,6 +64,7 @@ FP32_OPS_S = 67e12             # fp32 outside the tensor cores
 SEED = 0
 PROMPT_LEN, NEW_TOKENS, MAX_SEQ = 128, 64, 1024
 SHORT_PROMPT, PER_LAYER_STEPS, POS0 = 32, 8, 192
+SERVE_B, BIG_B, BIG_STEPS, STAGED_M, CHUNK_COLS = 32, 128, 8, 16, 32
 
 
 def fail(msg: str) -> None:
@@ -102,7 +124,12 @@ def device_profile(fn, top: int = 8):
     are among them)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    try:
+        prof_ctx = profile(activities=acts, acc_events=True)
+    except TypeError:                                # a torch without acc_events
+        prof_ctx = profile(activities=acts)
+    with prof_ctx as prof:
         fn()
         torch.cuda.synchronize()
     kern = []
@@ -127,6 +154,56 @@ def int8_err(out, ref):
     return d.max().item(), d.gt(0).sum().item() / d.numel()
 
 
+def engine_numerics(E, cfg, policy, attention=True, norms=True):
+    """{(module, name): stand-in} that moves the chunk kernel's plain version
+    (ops/chunk_model) onto the plain engine path's numerics: its attention
+    (engine._decode_light_attention: scores scaled by s_q·s_k, then
+    1/sqrt(hd); P normalised before P·V) and its fp32 RMS norms
+    (engine._rms) in place of the kernels' fp64-summed rms_norm. With both,
+    the chunk route computes what the plain engine path computes, so what
+    remains between the two is the route's wiring (K column sums, RoPE rows,
+    chunk-start positions, staged columns, the flush)."""
+    from mobilequant_tpu_torch.ops import chunk_model, fused_layer, mlp_block
+    out = {}
+    if attention:
+        out[(chunk_model, "chunk_attention_plain")] = engine_attention(E, cfg, policy)
+    if norms:
+        out.update({(mod, "rms_norm"): E._rms for mod in (chunk_model, fused_layer, mlp_block)})
+    return out
+
+
+@contextlib.contextmanager
+def patched(stand_ins):
+    """Set {(module, name): value} for the body of the with, then restore."""
+    orig = {key: getattr(*key) for key in stand_ins}
+    try:
+        for (mod, name), val in stand_ins.items():
+            setattr(mod, name, val)
+        yield
+    finally:
+        for (mod, name), val in orig.items():
+            setattr(mod, name, val)
+
+
+def engine_attention(E, cfg, policy):
+    """A stand-in for ops/chunk_model.chunk_attention_plain that runs the plain
+    engine's staged attention on the same operands."""
+    def att(q8, kc, vc, kcs, skl, svl, pos, mst, m, Hq, Hkv, hd, qk_fq_on, pv_fq_on):
+        B = q8.shape[0]
+        def enc(i):
+            return {"scale": m[i], "offset": m[i + 1]}
+        lr = {"self_attn.qk_bmm": {"input": enc(6), "input2": enc(8), "output": enc(12)},
+              "self_attn.pv_bmm": {"input": enc(15), "input2": enc(10)}}
+        q = q8[:, :Hq * hd].reshape(B, 1, Hq, hd)
+        k = q8[:, Hq * hd:(Hq + Hkv) * hd].reshape(B, Hkv, 1, hd)
+        v = q8[:, (Hq + Hkv) * hd:].reshape(B, Hkv, 1, hd)
+        out = E._decode_light_attention(q, k, v, kc, vc, lr, policy, pos, cfg, B, Hkv,
+                                        Hq // Hkv, hd, ks=skl, vs=svl, staged_len=mst,
+                                        k_colsum=kcs)
+        return out.reshape(B, Hq * hd)
+    return att
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -135,16 +212,22 @@ def main() -> None:
         from mobilequant_tpu_torch.convert import build_synthetic_packed
         from mobilequant_tpu_torch.models import model as MM
         from mobilequant_tpu_torch.ops import _build
+        from mobilequant_tpu_torch.ops.chunk_model import (
+            fused_model_w4_chunk, fused_model_w4_chunk_plain)
+        from mobilequant_tpu_torch.ops.otail import (
+            fused_otail_block_w4, fused_otail_block_w4_plain)
+        from mobilequant_tpu_torch.ops.staged_append import staged_append, staged_append_plain
         from mobilequant_tpu_torch.ops.fused_layer import (
             fused_layer_w4, fused_layer_w4_plain, fused_model_w4, fused_model_w4_plain)
         from mobilequant_tpu_torch.ops.mlp_block import (
-            fused_mlp_block_w4, fused_mlp_block_w4_plain)
+            DP4A_ROWS, fused_mlp_block_w4, fused_mlp_block_w4_plain, mlp_args, ptr,
+            rows_workspace)
         from mobilequant_tpu_torch.ops.prefill_attention import (
             prefill_attention, prefill_attention_plain)
         from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope, qkv_rope_plain
         from mobilequant_tpu_torch.ops.w13_gate import w13_gate, w13_gate_plain
         from mobilequant_tpu_torch.ops.w4a8_matmul import (
-            layer_pack, w4a8_matmul, w4a8_matmul_plain)
+            layer_pack, w4a8_matmul, w4a8_matmul_plain, w4a8_matmul_stacked)
         from mobilequant_tpu_torch.quant.policy import relax_16bit
         from mobilequant_tpu_torch.runtime import engine as E
         from mobilequant_tpu_torch.runtime.generate import Generator
@@ -164,17 +247,25 @@ def main() -> None:
     print(f"card: {card}", flush=True)
 
     # ---- phase 1: build --------------------------------------------------
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
     t0 = time.perf_counter()
-    _build.build(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):               # ptxas resource lines
+        _build.build(verbose=True)
     _build.lib()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+    build_s = time.perf_counter() - t0
+    (out_dir / "build_log.txt").write_text(log.getvalue())
+    spills = [n for n in re.findall(r"(\d+) bytes spill stores", log.getvalue()) if int(n)]
+    print(f"kernel build: {build_s:.1f} s ({len(spills)} functions spill registers; "
+          f"ptxas lines in chiprun_out/build_log.txt)", flush=True)
 
     # ---- the full-width model --------------------------------------------
     t0 = time.perf_counter()
     packed, cfg, policy, ecfg = build_synthetic_packed(
         "tinyllama-1.1b", w_bits=4, head_bits=4, max_seq_len=MAX_SEQ, seed=SEED,
         device=dev)
-    policy = relax_16bit(policy)
+    strict_policy, policy = policy, relax_16bit(policy)
     torch.cuda.synchronize()
     print(f"synthetic TinyLlama-1.1B W4A8/h4 pack: {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -187,11 +278,12 @@ def main() -> None:
     # ---- phase 2: each kernel against its plain version ------------------
     rows = {}
 
-    def record(name, shape, err, tol_ok, ms, plain_ms, lib_ms, bnd, note=None):
+    def record(name, shape, err, tol_ok, ms, plain_ms, lib_ms, bnd, note=None, main=False):
+        """main: the row whose numbers stand in the kernels line (else the first)."""
         rows.setdefault(name, []).append({
             "shape": shape, "max_abs_err": err[0], "rel_or_frac": err[1],
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bnd[0], "bound_by": bnd[1], "note": note})
+            "bound_ms": bnd[0], "bound_by": bnd[1], "note": note, "main": main})
         print(f"  {name:18s} {shape:34s} err={err[0]:.3g} ({err[1]:.3g}) "
               f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
               f"library={'-' if lib_ms is None else f'{lib_ms:.4f} ms'} "
@@ -204,25 +296,27 @@ def main() -> None:
                                   for _ in range(2)]       # 3 copies > L2
     mm_cases = [("qkv", 1, ly["qkv_proj"]), ("o", 1, ly["o_proj"]),
                 ("w13", 1, ly["w13_proj"]), ("w2", 1, ly["w2"]), ("head", 1, None),
-                ("o", 128, ly["o_proj"]), ("w2", 128, ly["w2"])]
+                ("o", 128, ly["o_proj"]), ("w2", 128, ly["w2"]),
+                # the staged serving route's qkv / o at B = 32 and 128, the head at 32
+                ("qkv", SERVE_B, ly["qkv_proj"]), ("o", SERVE_B, ly["o_proj"]),
+                ("head", SERVE_B, None), ("qkv", BIG_B, ly["qkv_proj"])]
     for tag, Mr, pk in mm_cases:
-        if pk is None:
+        if pk is None:              # the head: w4a8_matmul over 3 head copies
             K, N = D, heads[0]["wq"].shape[1]
-            get = lambda i: (heads[i % 3], None)            # noqa: E731
-            xs, xo, use_bias = 1.0, 128.0, False
-        else:
+            name, xs, xo = "w4a8_matmul", 1.0, 128.0
+            call = lambda x, i: w4a8_matmul(x, heads[i % 3], xs, xo)       # noqa: E731
+            lp = heads[0]
+        else:                       # a projection: w4a8_matmul_stacked over the layers
             K, N = pk["wq"].shape[1] * 2, pk["wq"].shape[2]
-            get = lambda i, pk=pk: (pk, i % L)               # noqa: E731
-            xs, xo, use_bias = 0.02, 121.0, True
+            name, xs, xo = "w4a8_matmul_stacked", 0.02, 121.0
+            call = lambda x, i, pk=pk: w4a8_matmul_stacked(x, pk, xs, xo, i % L)  # noqa: E731
+            lp = layer_pack(pk, 0)
         x = torch.randint(-128, 128, (Mr, K), generator=gen, device=dev, dtype=torch.int8)
-        p0, l0 = get(0)
-        out = w4a8_matmul(x, p0, xs, xo, layer=l0, bias=use_bias)
-        lp = layer_pack(p0, l0)
+        out = call(x, 0)
         ref = w4a8_matmul_plain(x, lp["wq"], lp["scale"], lp["offset"], lp["colsum"],
-                                lp.get("bias") if use_bias else None, xs, xo)
+                                lp.get("bias"), xs, xo)
         err = float_err(out, ref)
-        ms = time_ms(lambda i: w4a8_matmul(x, get(i)[0], xs, xo, layer=get(i)[1],
-                                           bias=use_bias))
+        ms = time_ms(lambda i: call(x, i))
         plain_ms = time_ms(lambda i: w4a8_matmul_plain(
             x, lp["wq"], lp["scale"], lp["offset"], lp["colsum"], None, xs, xo), n=5)
         lib_ms = None
@@ -232,8 +326,9 @@ def main() -> None:
             lib_ms = time_ms(lambda i: torch._int_mm(x, wu))
             del wu
         nbytes = Mr * K + K // 2 * N + 4 * N * 4 + Mr * N * 4
-        record("w4a8_matmul", f"M={Mr} {tag} {K}->{N}", err, err[1] <= 1e-5, ms,
-               plain_ms, lib_ms, bound(nbytes, int8_ops=2.0 * Mr * K * N))
+        record(name, f"M={Mr} {tag} {K}->{N}", err, err[1] <= 1e-5, ms,
+               plain_ms, lib_ms, bound(nbytes, int8_ops=2.0 * Mr * K * N),
+               main=(Mr, tag) in ((1, "w13"), (1, "head")))
 
     # qkv_rope at M = 128 (the main path's prefill)
     Mr = PROMPT_LEN
@@ -324,19 +419,46 @@ def main() -> None:
     mn, w13p, w2p = ly["mlp_norm"], ly["w13_proj"], ly["w2"]
     mlp_w = D // 2 * 2 * F + F // 2 * D                 # packed weight bytes
     mlp_vec = (2 * F + D) * 4 * 4 + 2 * D * 4 + 32 * 4  # aux rows, norm, meta
-    for Mr in (1, 8, SHORT_PROMPT, 64):
+
+    def mlp_plain(x):
+        return fused_mlp_block_w4_plain(x, mn["w"][1], mn["b"][1], layer_pack(w13p, 1),
+                                        layer_pack(w2p, 1), bmeta, cfg.hidden_act, bso)
+
+    def mlp_bound(Mr):
+        return bound(2 * Mr * D * 4 + mlp_w + mlp_vec, int8_ops=2.0 * Mr * (D * 2 * F + F * D))
+
+    for Mr in (1, 8, SHORT_PROMPT, 64, BIG_B):
         x = torch.randn((Mr, D), generator=gen, device=dev)
         out = fused_mlp_block_w4(x, mn["w"], mn["b"], w13p, w2p, bmeta, 1, cfg.hidden_act, bso)
-        plain = lambda i, x=x: fused_mlp_block_w4_plain(    # noqa: E731
-            x, mn["w"][1], mn["b"][1], layer_pack(w13p, 1), layer_pack(w2p, 1), bmeta,
-            cfg.hidden_act, bso)
-        err = float_err(out, plain(0))
+        err = float_err(out, mlp_plain(x))
         ms = time_ms(lambda i, x=x: fused_mlp_block_w4(x, mn["w"], mn["b"], w13p, w2p, bmeta,
                                                        i % L, cfg.hidden_act, bso))
-        plain_ms = time_ms(plain, n=5)
+        plain_ms = time_ms(lambda i, x=x: mlp_plain(x), n=5)
         record("fused_mlp_block_w4", f"M={Mr} {D}->2x{F}->{D}", err, err[1] <= 2e-3, ms,
-               plain_ms, None, bound(2 * Mr * D * 4 + mlp_w + mlp_vec,
-                                     int8_ops=2.0 * Mr * (D * 2 * F + F * D)))
+               plain_ms, None, mlp_bound(Mr), main=Mr == SHORT_PROMPT)
+
+    # the wrapper's fork at mlp_block.DP4A_ROWS: both MLP-block kernels at
+    # M = 1..8 (on inputs of their own, so that the later phases' inputs do
+    # not depend on this comparison)
+    def mlp_entry(entry, x, layer):
+        keep = []
+        a, out = mlp_args(x, mn["w"], mn["b"], w13p, w2p, bmeta, layer, cfg.hidden_act, keep)
+        a.ws = ptr(rows_workspace(dev, x.shape[0], max(2 * F, D)))   # holds either layout
+        _build.check(getattr(_build.lib(), entry)(ctypes.addressof(a), _build.stream_ptr(dev)),
+                     entry)
+        return out
+
+    fgen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for Mr in (1, 2, 4, 8):
+        x = torch.randn((Mr, D), generator=fgen, device=dev)
+        ref = mlp_plain(x)
+        plain_ms = time_ms(lambda i, x=x: mlp_plain(x), n=5)
+        for entry, kname in (("mqt_fused_mlp_block", "dp4a"), ("mqt_fused_mlp_rows", "row")):
+            err = float_err(mlp_entry(entry, x, 1), ref)
+            ms = time_ms(lambda i, x=x, entry=entry: mlp_entry(entry, x, i % L))
+            took = (Mr <= DP4A_ROWS) == (kname == "dp4a")
+            record("fused_mlp_block_w4", f"M={Mr} {kname} kernel{' (wrapper)' if took else ''}",
+                   err, err[1] <= 2e-3, ms, plain_ms, None, mlp_bound(Mr))
 
     # whole-layer (B=1) and whole-model (B=1, 8) decode kernels against their
     # plain versions, over a random full-length cache with positions near
@@ -362,7 +484,8 @@ def main() -> None:
                  ly["mlp_norm"], w13p, w2p, kc, vc, kp["meta"])
         valid = int(posb.sum())                          # cache rows read per layer
         att_ops = 2.0 * Hq * hd * valid                  # QK (int8) and PV (fp32) each
-        io = 2 * Bm * D * 4 + Bm * 2 * Hkv * hd + Bm * 2 * hd * 4 + Bm * 4
+        # read or written once a step: x in and out, the RoPE rows, pos
+        step_io = 2 * Bm * D * 4 + Bm * 2 * hd * 4 + Bm * 4
         out = fused_model_w4(*fargs, packed["head_q"], packed["norm"], **fkw)
         ref = fused_model_w4_plain(*fargs, packed["head_q"], packed["norm"], **fkw)
         e_x, e_lg, e_kv = float_err(out[0], ref[0]), float_err(out[2], ref[2]), int8_err(out[1], ref[1])
@@ -371,7 +494,8 @@ def main() -> None:
                      n=10)
         plain_ms = event_ms(lambda: fused_model_w4_plain(*fargs, packed["head_q"],
                                                          packed["norm"], **fkw), n=2)
-        nbytes = L * (layer_w + layer_vec + valid * Hkv * hd * 2 + io) + head_bytes + Bm * Vp * 4
+        nbytes = (L * (layer_w + layer_vec + valid * Hkv * hd * 2 + Bm * 2 * Hkv * hd)
+                  + step_io + head_bytes + Bm * Vp * 4)
         ops_i8 = L * (2.0 * Bm * (D * Nq + Ko * D + D * 2 * F + F * D) + att_ops) \
             + 2.0 * Bm * D * Vp
         record("fused_model_w4", f"B={Bm} L={L} S={MAX_SEQ} pos<={POS0} +head",
@@ -400,12 +524,124 @@ def main() -> None:
             ms = time_ms(lambda i: fused_layer_w4(*fargs, i % L, **fkw))
             plain_ms = event_ms(lambda: fused_layer_w4_plain(*fargs, 1, **fkw), n=3)
             record("fused_layer_w4", f"B=1 S={MAX_SEQ} pos={POS0}", e_x, ok, ms, plain_ms, None,
-                   bound(layer_w + layer_vec + valid * Hkv * hd * 2 + io,
+                   bound(layer_w + layer_vec + valid * Hkv * hd * 2 + Bm * 2 * Hkv * hd + step_io,
                          int8_ops=2.0 * (D * Nq + Ko * D + D * 2 * F + F * D) + att_ops,
                          fp32_ops=att_ops),
                    note=f"kv_new max diff {e_kv[0]} on {e_kv[1]:.3g} of bytes; "
                         f"plain timed with events")
         del kc, vc
+
+    # staged_append at B=32 with 32 staged columns: the chunk kernel's kv_new
+    # halves as pending rows (views); yardstick: the two PyTorch column copies
+    sk = torch.randint(-128, 128, (L, SERVE_B, Hkv, CHUNK_COLS, hd), generator=gen,
+                       device=dev, dtype=torch.int8)
+    sv = torch.randint(-128, 128, sk.shape, generator=gen, device=dev, dtype=torch.int8)
+    kvp = torch.randint(-128, 128, (L, SERVE_B, 2 * Hkv, hd), generator=gen, device=dev,
+                        dtype=torch.int8)
+    pk, pv = kvp[:, :, :Hkv, None], kvp[:, :, Hkv:, None]
+    for m in (0, 7, CHUNK_COLS - 1):
+        ak, av = staged_append(sk.clone(), sv.clone(), pk, pv, m)
+        rk, rv = staged_append_plain(sk.clone(), sv.clone(), pk, pv, m)
+        ek, ev = int8_err(ak, rk), int8_err(av, rv)
+        err = (max(ek[0], ev[0]), max(ek[1], ev[1]))
+        ms = time_ms(lambda i, m=m: staged_append(ak, av, pk, pv, m), n=50)
+        plain_ms = time_ms(lambda i, m=m: staged_append_plain(ak, av, pk, pv, m), n=50)
+        lib_ms = time_ms(lambda i, m=m: (ak[:, :, :, m].copy_(pk[:, :, :, 0]),
+                                         av[:, :, :, m].copy_(pv[:, :, :, 0])), n=50)
+        record("staged_append", f"B={SERVE_B} cs={CHUNK_COLS} m={m}", err, err[0] == 0, ms,
+               plain_ms, lib_ms, bound(4 * L * SERVE_B * Hkv * hd), main=m == 7,
+               note="library: two Tensor.copy_ calls (K, V)")
+    del sk, sv, kvp
+
+    # o-tail (o-proj + resid_add_1 + the MLP block) at M = 32 and 128
+    omet = bmeta + E._otail_meta_ext(lr1, policy)
+    oso = E._otail_site_on(policy)
+    op = ly["o_proj"]
+    o_w = Ko // 2 * D + D * 4 * 4
+    for Mr in (SERVE_B, BIG_B):
+        x = torch.randn((Mr, D), generator=gen, device=dev)
+        a8 = torch.randint(-128, 128, (Mr, Ko), generator=gen, device=dev, dtype=torch.int8)
+        out = fused_otail_block_w4(a8, x, op, mn["w"], mn["b"], w13p, w2p, omet, 1,
+                                   cfg.hidden_act, bso, oso)
+        plain = lambda i, x=x, a8=a8: fused_otail_block_w4_plain(    # noqa: E731
+            a8, x, layer_pack(op, 1), mn["w"][1], mn["b"][1], layer_pack(w13p, 1),
+            layer_pack(w2p, 1), omet, cfg.hidden_act, bso, oso)
+        err = float_err(out, plain(0))
+        ms = time_ms(lambda i, x=x, a8=a8: fused_otail_block_w4(
+            a8, x, op, mn["w"], mn["b"], w13p, w2p, omet, i % L, cfg.hidden_act, bso, oso))
+        plain_ms = time_ms(plain, n=5)
+        record("fused_otail_block_w4", f"M={Mr} {Ko}->{D} + MLP block", err, err[1] <= 2e-3,
+               ms, plain_ms, None,
+               bound(Mr * Ko + 2 * Mr * D * 4 + o_w + mlp_w + mlp_vec,
+                     int8_ops=2.0 * Mr * (Ko * D + D * 2 * F + F * D)),
+               main=Mr == SERVE_B)
+
+    # the chunk kernel (a whole staged step, 22 layers + the W4 head) against
+    # its plain version: B=16 at staggered chunk starts, B=32 and B=128 at
+    # POS0; m staged columns valid of CHUNK_COLS; relaxed and strict policies
+    chunk_stage_us = {}
+    for Bc, stag in ((16, True), (SERVE_B, False), (BIG_B, False)):
+        kc = torch.randint(-128, 128, (L, Bc, Hkv, MAX_SEQ, hd), generator=gen, device=dev,
+                           dtype=torch.int8)
+        vc = torch.randint(-128, 128, kc.shape, generator=gen, device=dev, dtype=torch.int8)
+        skc = torch.randint(-128, 128, (L, Bc, Hkv, CHUNK_COLS, hd), generator=gen,
+                            device=dev, dtype=torch.int8)
+        svc = torch.randint(-128, 128, skc.shape, generator=gen, device=dev, dtype=torch.int8)
+        kcs = E.kv_colsums(kc)
+        pos0 = torch.tensor([POS0 - (3 * b if stag else 0) for b in range(Bc)],
+                            dtype=torch.int32, device=dev)
+        x = torch.randn((Bc, D), generator=gen, device=dev)
+        valid = int(pos0.sum())                          # cache rows read per layer
+        for mst in (0, STAGED_M):
+            cos, sin = MM.rope_cos_sin((pos0 + mst)[:, None], cfg)
+            csb = E._rope_cs_rows(cos, sin, hd, cfg.rotary_dim).reshape(Bc, 2, hd)
+            rows_kv = valid + Bc * mst                   # cache rows + staged columns
+            att_ops = 2.0 * Hq * hd * (rows_kv + Bc)     # QK (int8) and PV (fp32) each
+            # per layer: weights and vectors, the valid K/V rows, their K
+            # column sums, kv_new; once a step: x in and out, the RoPE rows,
+            # pos, the head and the logits
+            nbytes = (L * (layer_w + layer_vec + rows_kv * Hkv * hd * 2 + valid * Hkv * 4
+                           + Bc * 2 * Hkv * hd)
+                      + 2 * Bc * D * 4 + Bc * 2 * hd * 4 + Bc * 4 + head_bytes + Bc * Vp * 4)
+            ops_i8 = L * (2.0 * Bc * (D * Nq + Ko * D + D * 2 * F + F * D) + att_ops) \
+                + 2.0 * Bc * D * Vp
+            for strict in (False, True):
+                pol_c = strict_policy if strict else policy
+                kpc = E._kernel_prep(packed, pol_c, cfg)
+                cargs = (x, pos0, csb, kpc["ofq"], ly["attn_norm"], ly["qkv_proj"], op,
+                         ly["mlp_norm"], w13p, w2p, kc, vc, kcs, skc, svc, mst, kpc["meta"],
+                         packed["head_q"], packed["norm"])
+                ckw = dict(fkw, qk_fq_on=strict, pv_fq_on=strict)
+                out = fused_model_w4_chunk(*cargs, **ckw)
+                ref = fused_model_w4_chunk_plain(*cargs, **ckw)
+                e_x, e_lg = float_err(out[0], ref[0]), float_err(out[2], ref[2])
+                e_kv = int8_err(out[1], ref[1])
+                ok = e_x[1] <= 2e-3 and e_lg[1] <= 2e-3 and e_kv[0] == 0
+                ms = time_ms(lambda i: fused_model_w4_chunk(*cargs, **ckw), n=5)
+                plain_ms = event_ms(lambda: fused_model_w4_chunk_plain(*cargs, **ckw), n=2)
+                record("fused_model_w4_chunk",
+                       f"B={Bc} pos0{'<=' if stag else '='}{POS0} m={mst} "
+                       f"{'strict' if strict else 'relaxed'} +head",
+                       (max(e_x[0], e_lg[0]), max(e_x[1], e_lg[1])), ok, ms, plain_ms, None,
+                       bound(nbytes, int8_ops=ops_i8, fp32_ops=L * att_ops),
+                       note=f"kv_new max diff {e_kv[0]} on {e_kv[1]:.3g} of bytes; "
+                            f"plain timed with events",
+                       main=(Bc, mst, strict) == (SERVE_B, STAGED_M, False))
+                if mst == STAGED_M and not strict and Bc in (SERVE_B, BIG_B):
+                    # per-stage times from the kernel's global-timer trace
+                    tr = torch.zeros(3 + 5 * L, dtype=torch.int64, device=dev)
+                    for _ in range(2):
+                        fused_model_w4_chunk(*cargs, trace=tr, **ckw)
+                    torch.cuda.synchronize()
+                    dt = (tr[1:] - tr[:-1]).double().cpu() / 1e3
+                    per = dt[:5 * L].reshape(L, 5).mean(0).tolist()
+                    st_us = dict(zip(("norm1", "qkv", "attention", "o_proj", "mlp_block"), per))
+                    st_us["head_norm"], st_us["head"] = float(dt[5 * L]), float(dt[5 * L + 1])
+                    st_us["step_traced"] = float(dt.sum())
+                    chunk_stage_us[f"B={Bc}"] = st_us
+                    print(f"  fused_model_w4_chunk B={Bc} m={mst} stage us (mean per layer): "
+                          + ", ".join(f"{k} {v:.2f}" for k, v in st_us.items()), flush=True)
+        del kc, vc, skc, svc, kcs
 
     # ---- phase 3: the main path --------------------------------------------
     print("phase 3: generate_fast, TinyLlama-1.1B W4A8/h4, int8 KV, relaxed", flush=True)
@@ -433,9 +669,10 @@ def main() -> None:
     if launches["fused_model_w4"] != NEW_TOKENS - 1:
         failures.append(f"fused_model_w4 launched {launches['fused_model_w4']} times "
                         f"for {NEW_TOKENS - 1} decode tokens")
-    if launches["w4a8_matmul"] != 2 * L + 1:
-        failures.append(f"w4a8_matmul launched {launches['w4a8_matmul']} times, "
-                        f"expected {2 * L + 1} (prefill only)")
+    if launches["w4a8_matmul_stacked"] != 2 * L or launches["w4a8_matmul"] != 1:
+        failures.append(f"W4A8 launches {launches['w4a8_matmul_stacked']} (o, w2) and "
+                        f"{launches['w4a8_matmul']} (head), expected {2 * L} and 1 "
+                        f"(prefill only)")
 
     # the short-prompt route: the prefill's MLP blocks run the whole-block kernel
     short = prompt[:, :SHORT_PROMPT]
@@ -561,42 +798,216 @@ def main() -> None:
     if runs["b4_kernel"]["fused_model_w4"] != 1 or any(runs["b4_plain"].values()):
         failures.append(f"B=4 step launches {runs['b4_kernel']} / {runs['b4_plain']}")
 
-    # every kernel of the slice ran on its route
-    total = {k: sum(r[k] for r in runs.values()) for k in launches}
-    for name, n in total.items():
-        if n <= 0:
-            failures.append(f"{name} was not launched on any route")
+    # the serving batch: chunked-staging decode at B = 32 (128-token prompt,
+    # NEW_TOKENS new tokens) and B = 128 (32-token prompt, BIG_STEPS steps) on
+    # the default route (decode_loop's entry config: W4A8 qkv / o, the
+    # MLP-block kernel, staged_append) and on the chunk route (one
+    # fused_model_w4_chunk launch and one staged_append per step); then
+    # BIG_STEPS B = 32 steps on the o-tail route
+    print("phase 3b: serving batch, chunked-staging decode", flush=True)
+    p32 = torch.randint(0, cfg.vocab_size, (SERVE_B, PROMPT_LEN), generator=gen,
+                        device=dev).cpu().numpy()
+    p128 = torch.randint(0, cfg.vocab_size, (BIG_B, SHORT_PROMPT), generator=gen,
+                         device=dev).cpu().numpy()
+    serve = {}
+
+    def loop_numbers(gs, prompt_np, n):
+        """wall time per step of an n-step decode_loop after a prefill of
+        prompt_np; device time, launches per step and the idle share (against
+        that loop's own wall time) from torch.profiler over a loop of at most 4
+        steps from the same state."""
+        Bq = prompt_np.shape[0]
+        tp = torch.as_tensor(prompt_np, device=dev)
+        cache = E.init_kv_cache(ecfg, Bq, device=dev)
+        last, cache = gs.prefill(tp, cache)
+        tok = torch.argmax(last, -1)[:, None]
+        start = torch.full((Bq,), prompt_np.shape[1], dtype=torch.int32, device=dev)
+        def fn(k):
+            return E.decode_loop(gs.packed, tok, cache, start, k, cfg, policy, gs.decode_kc)
+        def wall_ms(k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(k)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        fn(n)
+        wall = wall_ms(n) / n
+        # a short loop keeps the profiler's event buffers whole; its idle share
+        # is taken against its own wall time (its chunk set-up and flush are
+        # spread over n_p steps there)
+        n_p = min(n, 4)
+        wall_p = wall_ms(n_p)
+        d_ms, top, n_l = device_profile(lambda: fn(n_p))
+        return {"wall_ms_per_step": wall, "device_ms_per_step": d_ms / n_p,
+                "idle_share": 1.0 - d_ms / wall_p, "launches_per_step": n_l / n_p,
+                "loop_tok_s": Bq * 1e3 / wall, "profiled_steps": n_p,
+                "top_kernels": [(k, ms / n_p, c / n_p) for k, ms, c in top]}
+
+    for rname, kc_r in (("staged", None), ("chunk", KernelConfig.chunk())):
+        gs = Generator(packed, cfg, policy, ecfg, device=dev)
+        gs.decode_kc = kc_r
+        for tag, pr, n_new in (("b32", p32, NEW_TOKENS), ("b128", p128, BIG_STEPS + 1)):
+            gs.generate_fast(pr, 3)                      # warm-up
+            route = f"{tag}_{rname}"
+            tk, stt = counted(route, lambda: gs.generate_fast(pr, n_new, return_stats=True))
+            nums = loop_numbers(gs, pr, CHUNK_COLS if tag == "b32" else BIG_STEPS)
+            nums.update(decode_tok_s=stt["decode_tok_s"], prefill_ms=stt["prefill_s"] * 1e3,
+                        launches=runs[route])
+            serve[route] = nums
+            print(f"  {route}: decode {stt['decode_tok_s']:.2f} tok/s (generate_fast), "
+                  f"loop step wall {nums['wall_ms_per_step']:.3f} ms, device "
+                  f"{nums['device_ms_per_step']:.3f} ms, idle {nums['idle_share']:.3f}, "
+                  f"{nums['launches_per_step']:.1f} launches/step; counts {runs[route]}",
+                  flush=True)
+            for k, ms, c in nums["top_kernels"]:
+                print(f"    {route}/step {ms:8.4f} ms  x{c:6.1f}  {k}", flush=True)
+            steps = n_new - 1
+            if tk.shape != (pr.shape[0], n_new) or tk.min() < 0 or tk.max() >= cfg.vocab_size:
+                failures.append(f"{route}: bad tokens {tk.shape}")
+            want = {"staged_append": steps, "fused_model_w4": 0,
+                    "fused_model_w4_chunk": steps if rname == "chunk" else 0,
+                    "fused_mlp_block_w4": 0 if rname == "chunk" else L * steps}
+            got = {k: runs[route][k] for k in want}
+            if got != want:
+                failures.append(f"{route}: launches {got}, expected {want}")
+
+    gs = Generator(packed, cfg, policy, ecfg, device=dev)
+    gs.decode_kc = KernelConfig.otail()
+    gs.generate_fast(p32, 3)
+    _, stt = counted("b32_otail", lambda: gs.generate_fast(p32, BIG_STEPS + 1,
+                                                           return_stats=True))
+    serve["b32_otail"] = {"decode_tok_s": stt["decode_tok_s"], "launches": runs["b32_otail"]}
+    print(f"  b32_otail: decode {stt['decode_tok_s']:.2f} tok/s, counts {runs['b32_otail']}",
+          flush=True)
+    if runs["b32_otail"]["fused_otail_block_w4"] != L * BIG_STEPS:
+        failures.append(f"o-tail route: launches {runs['b32_otail']}")
+
+    # kernel path vs plain path over one CHUNK_COLS-step chunk at B = 32, the
+    # same tokens fed to every route: logits of every step and the flushed caches
+    def staged_chunk(kc_c, cache, toks, pos0):
+        n = toks.shape[1]
+        st = E.StagedKVCache(cache.k, cache.v,
+                             torch.zeros((L, SERVE_B, Hkv, n, hd), dtype=torch.int8, device=dev),
+                             torch.zeros((L, SERVE_B, Hkv, n, hd), dtype=torch.int8, device=dev),
+                             0, E.kv_colsums(cache.k))
+        lgs = []
+        for i in range(n):
+            st = E._stage_pending(st, kc_c)
+            p = pos0 + i
+            lg, st = E.forward(gs.packed, toks[:, i:i + 1], cfg, policy, positions=p[:, None],
+                               kv_cache=st, cache_position=pos0, kv_valid_len=p + 1, kc=kc_c)
+            lgs.append(lg[:, -1])
+        st = E._stage_pending(st, kc_c)
+        E._flush(cache.k, st.sk, pos0)
+        E._flush(cache.v, st.sv, pos0)
+        return torch.stack(lgs, 1), cache
+
+    c32 = E.init_kv_cache(ecfg, SERVE_B, device=dev)
+    _, c32 = gs.prefill(torch.as_tensor(p32, device=dev), c32)
+    ftoks = torch.randint(0, cfg.vocab_size, (SERVE_B, CHUNK_COLS), generator=gen, device=dev)
+    fpos = torch.full((SERVE_B,), PROMPT_LEN, dtype=torch.int32, device=dev)
+    window = slice(PROMPT_LEN, PROMPT_LEN + CHUNK_COLS)       # the flushed rows
+    # the chunk route with the chunk kernel's plain version in its place (the
+    # same function on the card: the wiring without the kernel), then with
+    # the plain engine's attention, its fp32 norms, or both inside that plain
+    # version (engine_numerics)
+    witness = {"chunk_plain_fn": {},
+               "chunk_engine_attention": engine_numerics(E, cfg, policy, norms=False),
+               "chunk_engine_norms": engine_numerics(E, cfg, policy, attention=False),
+               "chunk_engine_numerics": engine_numerics(E, cfg, policy)}
+    chain = {}
+    for tag, kc_c in (("staged", KernelConfig.serving(cfg, gs.packed, SERVE_B)),
+                      ("chunk", KernelConfig.chunk()),
+                      *((w, KernelConfig.chunk()) for w in witness),
+                      ("plain", KernelConfig.none())):
+        cc = E.EngineKVCache(c32.k.clone(), c32.v.clone())
+        stand_ins = dict(witness.get(tag, {}))
+        if tag in witness:
+            stand_ins[(E, "fused_model_w4_chunk")] = fused_model_w4_chunk_plain
+        with patched(stand_ins):
+            chain[tag] = counted(f"chain_{tag}", lambda: staged_chunk(kc_c, cc, ftoks, fpos))
+    if any(runs["chain_plain"].values()):
+        failures.append(f"plain chain launched kernels {runs['chain_plain']}")
+    # limits: (logits rel, max int8 diff, share of differing flushed bytes).
+    # The chunk route with its kernel equals the route with the kernel's plain
+    # version, and that plain version on the plain engine's numerics equals
+    # the plain engine path: the wiring is the engine's. The kernels sum norms
+    # in fp64 where the plain engine path sums in fp32 (as the JAX engine's
+    # XLA body does), and the chunk kernel's attention scales scores and
+    # rounds P·V as the JAX chunk kernel does, so a byte near a rounding
+    # boundary can move by one step; with random weights such a byte grows
+    # through the later layers and steps of its sequence (measured on the
+    # card: step 0 at logits rel 3.7e-4, the chunk at 2.07e-3, 0.12% of the
+    # flushed bytes off, by up to 31 steps). The default staged route (fp64
+    # only in its MLP-block norms) is held to one step on 0.1% of the bytes,
+    # the chunk route and its part-way witnesses to about twice the readings.
+    chain_err = {}
+    for tag, ref, lim in (("staged", "plain", (2e-3, 1, 1e-3)),
+                          ("chunk", "chunk_plain_fn", (2e-3, 0, 0.0)),
+                          ("chunk_engine_numerics", "plain", (2e-3, 0, 0.0)),
+                          ("chunk_engine_attention", "plain", (4e-3, 63, 2.5e-3)),
+                          ("chunk_engine_norms", "plain", (4e-3, 63, 2.5e-3)),
+                          ("chunk", "plain", (4e-3, 63, 2.5e-3))):
+        e_l = float_err(chain[tag][0], chain[ref][0])
+        steps = [float_err(chain[tag][0][:, i], chain[ref][0][:, i])[1]
+                 for i in range(CHUNK_COLS)]
+        e_k = int8_err(chain[tag][1].k[:, :, :, window], chain[ref][1].k[:, :, :, window])
+        e_v = int8_err(chain[tag][1].v[:, :, :, window], chain[ref][1].v[:, :, :, window])
+        fin = bool(torch.isfinite(chain[tag][0]).all())
+        chain_err[f"{tag}_vs_{ref}"] = {"logits_rel": e_l[1], "logits_rel_first_step": steps[0],
+                                        "logits_rel_per_step": steps,
+                                        "k_rows": e_k, "v_rows": e_v, "finite": fin}
+        print(f"  B={SERVE_B} {CHUNK_COLS}-step chunk, {tag} vs {ref}: logits rel {e_l[1]:.3g} "
+              f"(step 0: {steps[0]:.3g}); flushed K rows {e_k}, V rows {e_v} (max diff, "
+              f"share of bytes)", flush=True)
+        if not fin or e_l[1] > lim[0]:
+            failures.append(f"{tag} chunk vs {ref}: logits rel {e_l[1]}, finite {fin}")
+        if max(e_k[0], e_v[0]) > lim[1] or max(e_k[1], e_v[1]) > lim[2]:
+            failures.append(f"{tag} chunk vs {ref}: flushed rows {e_k} {e_v}")
 
     # ---- phase 4: report ---------------------------------------------------
     sources = {"w4a8_matmul": ("csrc/w4a8_matmul.cu",
-                               "mobilequant_tpu/ops/pallas_matmul.py:249"),
+                               "mobilequant_tpu/ops/pallas_matmul.py:59"),
+               "w4a8_matmul_stacked": ("csrc/w4a8_matmul.cu",
+                                       "mobilequant_tpu/ops/pallas_matmul.py:249"),
                "qkv_rope": ("csrc/qkv_rope.cu", "mobilequant_tpu/ops/pallas_qkv.py:126"),
                "prefill_attention": ("csrc/prefill_attention.cu",
                                      "mobilequant_tpu/ops/pallas_prefill_attention.py:201"),
                "w13_gate": ("csrc/w13_gate.cu", "mobilequant_tpu/ops/pallas_mlp.py:680"),
-               "fused_mlp_block_w4": ("csrc/fused_layer.cu",
+               "fused_mlp_block_w4": ("csrc/fused_rows.cu",
                                       "mobilequant_tpu/ops/pallas_mlp.py:950"),
                "fused_layer_w4": ("csrc/fused_layer.cu",
                                   "mobilequant_tpu/ops/pallas_layer.py:607"),
                "fused_model_w4": ("csrc/fused_layer.cu",
-                                  "mobilequant_tpu/ops/pallas_layer.py:773")}
-    # the route whose run each kernel's launch count is read from, and its
-    # main shape in the rows (w4a8: M=1 w13; MLP block: the 32-token prefill)
-    route_of = {"fused_mlp_block_w4": "short_prompt", "fused_layer_w4": "per_layer"}
-    main_row = {"w4a8_matmul": 2, "fused_mlp_block_w4": 2}
+                                  "mobilequant_tpu/ops/pallas_layer.py:773"),
+               "staged_append": ("csrc/staged_append.cu",
+                                 "mobilequant_tpu/ops/pallas_scatter.py:38"),
+               "fused_otail_block_w4": ("csrc/fused_rows.cu",
+                                        "mobilequant_tpu/ops/pallas_mlp.py:828"),
+               "fused_model_w4_chunk": ("csrc/fused_rows.cu",
+                                        "mobilequant_tpu/ops/pallas_chunk.py:575")}
+    # the route whose run each kernel's launch count is read from: the main
+    # path (B=1 generate_fast) unless named here; each was counted from 0
+    route_of = {"fused_mlp_block_w4": "b32_staged", "fused_layer_w4": "per_layer",
+                "staged_append": "b32_staged", "fused_otail_block_w4": "b32_otail",
+                "fused_model_w4_chunk": "b32_chunk"}
     kernels = []
     for name, shapes in rows.items():
-        head = shapes[main_row.get(name, 0)]
+        head = next((r for r in shapes if r["main"]), shapes[0])
         src, rep = sources[name]
+        n_launch = runs[route_of.get(name, "main")][name]
+        if n_launch <= 0:
+            failures.append(f"{name} was not launched on its route "
+                            f"{route_of.get(name, 'main')}")
         kernels.append({"name": name, "route": "cuda",
                         "source": "mobilequant_tpu_torch/" + src, "replaces": rep,
-                        "launches": runs[route_of.get(name, "main")][name],
+                        "launches": n_launch, "launch_route": route_of.get(name, "main"),
                         "max_abs_err": head["max_abs_err"],
                         "ms": head["ms"], "plain_ms": head["plain_ms"],
                         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-                        "library_ms": head["library_ms"], "shape": head["shape"],
-                        "shapes": shapes})
-    report = {"card": card, "kernels": kernels,
+                        "library_ms": head["library_ms"], "shape": head["shape"]})
+    report = {"card": card, "build_s": build_s, "kernels": kernels, "kernel_rows": rows,
               "main_path": {"prefill_ms": stats["prefill_s"] * 1e3,
                             "decode_tok_s": stats["decode_tok_s"],
                             "prompt": PROMPT_LEN, "new_tokens": NEW_TOKENS,
@@ -605,12 +1016,13 @@ def main() -> None:
                             "decode_logits_rel_kernel_vs_plain": e_dec[1],
                             "breakdown": breakdown},
               "fused_model_stage_us": stage_us,
+              "chunk_stage_us": chunk_stage_us,
+              "serving": serve,
+              "serving_chunk_vs_plain": chain_err,
               "routes": {"launches": runs,
                          "short_prompt_prefill_ms": stats_s["prefill_s"] * 1e3,
                          "per_layer_decode_tok_s": stats_pl["decode_tok_s"],
                          "b4_decode_logits_rel_kernel_vs_plain": e4[1]}}
-    out_dir = Path(__file__).resolve().parent / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     if failures:
         fail("; ".join(failures))

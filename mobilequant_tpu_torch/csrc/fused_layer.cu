@@ -24,7 +24,8 @@
 //   5. w2 matvec -> output fq -> resid_add_2 -> x (B, K)             | barrier
 // then, with a head, the final norm, dynamic per-row A8 and the W4 head over
 // 128-column vocab tiles -> logits (B, Vp). mqt_fused_mlp_block runs stages
-// 4-5 for M <= 64 rows (row chunks of up to 8), with one barrier.
+// 4-5 for M <= 8 rows, with one barrier (the MLP-block wrapper takes it up to
+// ops/mlp_block.DP4A_ROWS rows, fused_rows.cu above).
 //
 // Split-K: a matvec tile's K range is split over blocks so that every stage
 // fills the card; each block adds its int32 partials into a workspace with
@@ -48,16 +49,10 @@
 // denominator, P·V and ΣP, the self score) accumulate in fp64 and round once
 // to fp32, so they do not depend on the summation order: the kernel, its
 // plain version on the CPU and on the card give the same bytes.
-#include <cstddef>
-
-#include "mqt_common.cuh"
+#include "fused_common.cuh"
 
 namespace {
 
-using namespace mqt;
-
-constexpr int FT = 256;          // threads per block
-constexpr int NW = FT / 32;      // warps per block
 // Matvec tiles: each lane owns CPL adjacent columns (CPL bytes of a packed
 // row in one load), so a warp reads 32·CPL contiguous bytes of each row; wider
 // lanes for fewer rows keep the accumulators at MR·CPL = 16..32 per thread.
@@ -66,122 +61,6 @@ struct Cfg {
   static constexpr int CPL = MR <= 2 ? 16 : (MR <= 4 ? 8 : 4);
   static constexpr int TC = 32 * CPL;          // columns per tile
 };
-constexpr int META = 65;         // layer meta: 33 attention + 32 MLP entries
-constexpr int AM = 33;           // offset of the MLP section
-constexpr int CNT = 8192;        // tile arrival counters at the workspace head
-constexpr int KV_CHUNK = 256;    // cache rows staged in shared memory at a time
-
-}  // namespace
-
-// One layer-stacked W4 projection pack: wq (L, kin/2, n) unsigned block
-// nibbles; scale/offset element l·s_l + col·s_c; colsum/bias (L, n).
-struct MqtStackedW4 {
-  const int8_t* wq;
-  const float* scale;
-  const float* offset;
-  const float* colsum;
-  const float* bias;       // or null
-  long long s_l;
-  int s_c;
-  int kin;
-  int n;
-  int pad_;
-};
-
-struct MqtFusedArgs {
-  const float* x_in;       // (M, K) layer input (decode) / residual (MLP block)
-  float* x_out;            // (M, K)
-  int8_t* kv_new;          // (l1 - l0, B, 2 Hkv, hd)
-  float* logits;           // (B, Vp) or null (no head stage)
-  const int* pos;          // (B,) cache position of each sequence
-  const float* cs;         // (B, 2, hd) cos | sign-baked sin
-  const float* meta;       // (L, 65) layer metas (decode)
-  const float* ofq;        // (L, 4, Nq) qkv output fake-quant rows
-  const float* anw;        // (L, K) attention norm
-  const float* anb;
-  const float* mnw;        // (L, K) MLP norm
-  const float* mnb;
-  const int8_t* kcache;    // (L, B, Hkv, S, hd)
-  const int8_t* vcache;
-  const int8_t* hwq;       // (K/2, Vp) W4 head
-  const float* hscale;     // (Vp,)
-  const float* hoffset;    // (Vp,)
-  const float* fnw;        // (K,) final norm
-  const float* fnb;
-  float* yq;               // scratch (B, Nq)
-  float* resid;            // scratch (M, K)
-  int8_t* a8;              // scratch (B, Ko)
-  int8_t* act8;            // scratch (M, F)
-  int* ws;                 // int32 workspace, all zero between launches
-  unsigned* bar;           // grid barrier words (count, generation)
-  unsigned long long* trace;  // null, or 2 + 5 (l1 - l0) stage-end timestamps (ns)
-  MqtStackedW4 qkv, o, w13, w2;
-  int M, K, Hq, Hkv, hd, rot, S, F, Vp, L, l0, l1, gelu, pad_;
-  float inv_sqrt_hd;
-  float mlp_meta[32];      // MLP-block meta (mqt_fused_mlp_block)
-};
-
-// the ctypes mirror in ops/mlp_block.py (FusedArgs) must lay out the same
-static_assert(sizeof(MqtStackedW4) == 64, "MqtStackedW4 layout");
-static_assert(offsetof(MqtFusedArgs, qkv) == 208, "MqtFusedArgs layout");
-static_assert(offsetof(MqtFusedArgs, M) == 464, "MqtFusedArgs layout");
-static_assert(offsetof(MqtFusedArgs, mlp_meta) == 524, "MqtFusedArgs layout");
-static_assert(sizeof(MqtFusedArgs) == 656, "MqtFusedArgs layout");
-
-namespace {
-
-using Args = MqtFusedArgs;
-using W4 = MqtStackedW4;
-
-__device__ __forceinline__ float fqm(float x, float s, float o, float qmax) {
-  float q = rintf(x / s) + o;
-  q = fminf(fmaxf(q, 0.0f), qmax);
-  return qmax > 0.5f ? (q - o) * s : x;
-}
-
-__device__ __forceinline__ float quant_u8s(float x, float s, float o) {
-  float q = rintf(x / s) + o;
-  return fminf(fmaxf(q, 0.0f), 255.0f) - 128.0f;
-}
-
-// the fp32 affine bracket of layer l, column col
-__device__ __forceinline__ float affine(const W4& p, int l, int acc, int col,
-                                        float rowsum, float xs, float ox, float kox) {
-  const size_t si = (size_t)l * p.s_l + (size_t)col * p.s_c;
-  const size_t ci = (size_t)l * p.n + col;
-  const float ow = __ldg(p.offset + si), sw = __ldg(p.scale + si);
-  float y = (float)acc - ox * __ldg(p.colsum + ci) - ow * rowsum + kox * ow;
-  y = y * (xs * sw);
-  if (p.bias) y = y + __ldg(p.bias + ci);
-  return y;
-}
-
-// fp64 lane sums of a warp, rounded once to fp32 (every lane gets the same)
-__device__ __forceinline__ float warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return (float)v;
-}
-
-// Grid-wide barrier: arrival count bar[0] (back at zero after every use) and
-// a generation word bar[1]. Needs every block resident (cooperative launch).
-__device__ void grid_barrier(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = bar + 1;
-    const unsigned g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(64);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
 
 // Shared memory: small arrays first, then one big region that a matvec stage
 // uses for its activation rows and tile sums and the attention stage for its
@@ -219,18 +98,6 @@ __device__ __forceinline__ Smem carve(int MR, int kmax) {
 }
 
 // ---- matvec pieces -------------------------------------------------------
-
-// Column map of a tile: local column n < split is colA + n, else
-// colB + (n - split); na / nb are the valid counts of the two parts.
-struct Tile {
-  int colA, colB, split, na, nb;
-  __device__ __forceinline__ int gcol(int n) const {
-    return n < split ? colA + n : colB + (n - split);
-  }
-  __device__ __forceinline__ bool valid(int n) const {
-    return n < split ? n < na : (n - split) < nb;
-  }
-};
 
 // tile t of an N-column matrix, and gate tile t (the w1 and w3 columns of
 // TC/2 gate outputs, F apart)
@@ -477,39 +344,6 @@ __device__ void stage_qkv(const Args& a, const Smem& sm, int l) {
   }
 }
 
-// Copy nbytes (a multiple of 16) of read-only rows into shared memory.
-__device__ __forceinline__ void stage_rows(int8_t* dst, const int8_t* src, int nbytes) {
-  __syncthreads();
-  const int4* s4 = reinterpret_cast<const int4*>(src);
-  int4* d4 = reinterpret_cast<int4*>(dst);
-  for (int i = threadIdx.x; i < (nbytes >> 4); i += FT) d4[i] = __ldg(s4 + i);
-  __syncthreads();
-}
-
-// Block-wide fp64 sum and fp32 max (every thread gets the result).
-__device__ __forceinline__ float block_sum(double v, double* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  double t = 0.0;
-  for (int w = 0; w < NW; ++w) t += scratch[w];
-  return (float)t;
-}
-
-__device__ __forceinline__ float block_max(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float t = scratch[0];
-  for (int w = 1; w < NW; ++w) t = fmaxf(t, scratch[w]);
-  return t;
-}
 
 // 2. attention, one work item per (sequence, q head): RoPE + quantization of
 // the q head's row and its kv head's new k / v rows (the group's first q head
@@ -851,15 +685,6 @@ __device__ void stage_head(const Args& a, const Smem& sm) {
   }
 }
 
-// With a.trace set, block 0 stamps the global timer at the start and after
-// every stage's barrier (every stage then ends in a barrier).
-__device__ __forceinline__ void stamp(const Args& a, int i) {
-  if (a.trace && blockIdx.x == 0 && threadIdx.x == 0) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    a.trace[i] = t;
-  }
-}
 
 template <int MR>
 __global__ void __launch_bounds__(FT)
@@ -912,30 +737,6 @@ size_t smem_bytes(const Args& a, int MR, int kmax, bool attention) {
   return mv > at ? mv : at;
 }
 
-template <typename KernelT>
-int launch_coop(KernelT kern, const Args& a, int kmax, size_t smem, cudaStream_t st) {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  int coop = 0, sms = 0;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int occ = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, FT, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int grid = sms * (occ < 2 ? occ : 2);
-  Args acopy = a;
-  void* params[] = {(void*)&acopy, (void*)&kmax};
-  e = cudaLaunchCooperativeKernel((void*)kern, dim3(grid), dim3(FT), params, smem, st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
 
 int kmax_of(const Args& a) {
   int k = a.K;
@@ -963,7 +764,7 @@ MQT_EXPORT int mqt_fused_decode(const void* args, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The whole MLP block over a.M <= 64 rows of layer a.l0.
+// The whole MLP block over a.M <= 8 rows of layer a.l0.
 MQT_EXPORT int mqt_fused_mlp_block(const void* args, void* stream) {
   const Args& a = *(const Args*)args;
   cudaStream_t st = (cudaStream_t)stream;
@@ -975,5 +776,7 @@ MQT_EXPORT int mqt_fused_mlp_block(const void* args, void* stream) {
     return launch_coop(fused_mlp_block_kernel<2>, a, kmax, smem_bytes(a, 2, kmax, false), st);
   if (a.M <= 4)
     return launch_coop(fused_mlp_block_kernel<4>, a, kmax, smem_bytes(a, 4, kmax, false), st);
-  return launch_coop(fused_mlp_block_kernel<8>, a, kmax, smem_bytes(a, 8, kmax, false), st);
+  if (a.M <= 8)
+    return launch_coop(fused_mlp_block_kernel<8>, a, kmax, smem_bytes(a, 8, kmax, false), st);
+  return (int)cudaErrorInvalidValue;
 }

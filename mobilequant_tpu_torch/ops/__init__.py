@@ -9,16 +9,22 @@ from __future__ import annotations
 
 def kernel_wrappers() -> dict:
     """name -> wrapper function of every kernel of the slice."""
+    from mobilequant_tpu_torch.ops.chunk_model import fused_model_w4_chunk
     from mobilequant_tpu_torch.ops.fused_layer import fused_layer_w4, fused_model_w4
     from mobilequant_tpu_torch.ops.mlp_block import fused_mlp_block_w4
+    from mobilequant_tpu_torch.ops.otail import fused_otail_block_w4
     from mobilequant_tpu_torch.ops.prefill_attention import prefill_attention
     from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope
+    from mobilequant_tpu_torch.ops.staged_append import staged_append
     from mobilequant_tpu_torch.ops.w13_gate import w13_gate
-    from mobilequant_tpu_torch.ops.w4a8_matmul import w4a8_matmul
-    return {"w4a8_matmul": w4a8_matmul, "qkv_rope": qkv_rope,
+    from mobilequant_tpu_torch.ops.w4a8_matmul import w4a8_matmul, w4a8_matmul_stacked
+    return {"w4a8_matmul": w4a8_matmul, "w4a8_matmul_stacked": w4a8_matmul_stacked,
+            "qkv_rope": qkv_rope,
             "prefill_attention": prefill_attention, "w13_gate": w13_gate,
             "fused_mlp_block_w4": fused_mlp_block_w4, "fused_layer_w4": fused_layer_w4,
-            "fused_model_w4": fused_model_w4}
+            "fused_model_w4": fused_model_w4, "staged_append": staged_append,
+            "fused_otail_block_w4": fused_otail_block_w4,
+            "fused_model_w4_chunk": fused_model_w4_chunk}
 
 
 def reset_counts() -> None:

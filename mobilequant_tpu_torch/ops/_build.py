@@ -27,13 +27,14 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "mqt_kernels"
 LIB_PATH = BUILD_DIR / "libmqt_kernels.so"
 SOURCES = ("w4a8_matmul.cu", "qkv_rope.cu", "prefill_attention.cu", "w13_gate.cu",
-           "fused_layer.cu")
+           "fused_layer.cu", "fused_rows.cu", "staged_append.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+LL = ctypes.c_longlong
 
 # entry name -> argtypes (restype int for all, the cudaError_t of the launch)
 SIGNATURES = {
@@ -43,6 +44,10 @@ SIGNATURES = {
     "mqt_prefill_attention": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "mqt_fused_decode": [P, P],       # (const MqtFusedArgs*, stream)
     "mqt_fused_mlp_block": [P, P],
+    "mqt_fused_mlp_rows": [P, P],
+    "mqt_fused_otail": [P, P],
+    "mqt_fused_chunk": [P, P],
+    "mqt_staged_append": [P, P, P, P, I, I, I, I, LL, I, P],
 }
 
 _lock = threading.Lock()

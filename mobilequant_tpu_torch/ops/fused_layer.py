@@ -99,6 +99,29 @@ def _outq(m: list, Hq: int, Hkv: int, hd: int, device) -> torch.Tensor:
     return rows
 
 
+def qkv_rows_plain(x, cs, ofq, anw, anb, qkv, m, Hq, Hkv, hd, rot):
+    """norm1 -> quantize -> qkv -> output fq -> RoPE -> segment quantization:
+    x (B, K) -> q8 (B, Nq) int8 rows [q | k | v] of one layer."""
+    B = x.shape[0]
+    xx = _fq(x.to(torch.float32), m[0], m[1], m[2])
+    h8 = quantize_act(rms_norm(xx, m[3]) * anw + anb, m[4], m[5])
+    return qkv_rope_plain(h8, qkv, ofq, _outq(m, Hq, Hkv, hd, x.device),
+                          cs.reshape(B, 2 * hd), m[4], m[5], hd, rot)
+
+
+def layer_tail_plain(x, attn, o, mnw, mnb, w13, w2, m, act_kind):
+    """pv-output quantize -> o -> fq -> resid_add_1 -> the MLP block:
+    attn (B, Ko) fp32 and the layer input x (B, K) -> the layer output."""
+    a8 = quantize_act(attn, m[19], m[20])
+    y = w4a8_matmul_plain(a8, o["wq"], o["scale"], o["offset"], o["colsum"],
+                          o.get("bias"), m[19], m[20])
+    y = _fq(y, m[21], m[22], m[23])
+    xr = _fq(x.to(torch.float32), m[24], m[25], m[26])
+    y = _fq(y, m[27], m[28], m[29])
+    resid = _fq(xr + y, m[30], m[31], m[32])
+    return fused_mlp_block_w4_plain(resid, mnw, mnb, w13, w2, m[33:], act_kind)
+
+
 def _layer_plain(x, pos, cs, ofq, anw, anb, qkv, o, mnw, mnb, w13, w2, kc, vc,
                  m, Hq, Hkv, hd, rot, act_kind):
     """One layer's function: x (B, K) -> (x_out (B, K), kv_new (B, 2Hkv, hd))
@@ -106,11 +129,7 @@ def _layer_plain(x, pos, cs, ofq, anw, anb, qkv, o, mnw, mnb, w13, w2, kc, vc,
     B, K = x.shape
     G = Hq // Hkv
     S = kc.shape[2]
-    xf = x.to(torch.float32)
-    xx = _fq(xf, m[0], m[1], m[2])
-    h8 = quantize_act(rms_norm(xx, m[3]) * anw + anb, m[4], m[5])
-    q8 = qkv_rope_plain(h8, qkv, ofq, _outq(m, Hq, Hkv, hd, x.device),
-                        cs.reshape(B, 2 * hd), m[4], m[5], hd, rot)
+    q8 = qkv_rows_plain(x, cs, ofq, anw, anb, qkv, m, Hq, Hkv, hd, rot)
     qg = q8[:, :Hq * hd].reshape(B, Hkv, G, hd)
     kn = q8[:, Hq * hd:(Hq + Hkv) * hd].reshape(B, Hkv, 1, hd).to(torch.float32)
     vn = q8[:, (Hq + Hkv) * hd:].reshape(B, Hkv, 1, hd).to(torch.float32)
@@ -134,14 +153,7 @@ def _layer_plain(x, pos, cs, ofq, anw, anb, qkv, o, mnw, mnb, w13, w2, kc, vc,
     pv = torch.matmul(p.to(torch.float64), vc.to(torch.float64)).to(torch.float32)
     vnf = (vn + 128.0 - m[11]) * m[10]
     attn = (pv - ov * sum_f32(p)) * m[10] + ps * vnf
-    a8 = quantize_act(attn.reshape(B, Hq * hd), m[19], m[20])
-    y = w4a8_matmul_plain(a8, o["wq"], o["scale"], o["offset"], o["colsum"],
-                          o.get("bias"), m[19], m[20])
-    y = _fq(y, m[21], m[22], m[23])
-    xr = _fq(xf, m[24], m[25], m[26])
-    y = _fq(y, m[27], m[28], m[29])
-    resid = _fq(xr + y, m[30], m[31], m[32])
-    out = fused_mlp_block_w4_plain(resid, mnw, mnb, w13, w2, m[33:], act_kind)
+    out = layer_tail_plain(x, attn.reshape(B, Hq * hd), o, mnw, mnb, w13, w2, m, act_kind)
     return out, q8[:, Hq * hd:].reshape(B, 2 * Hkv, hd)
 
 

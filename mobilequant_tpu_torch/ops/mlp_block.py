@@ -4,16 +4,20 @@
   -> gate chain (SiLU with its sigmoid fq, or gelu_tanh) -> fq -> ·g3
   -> w2-input int8 -> W4 w2 -> output fq -> resid_add_2 -> (M, K) fp32
 
-Kernel: csrc/fused_layer.cu (mqt_fused_mlp_block), which replaces the JAX
-package's mobilequant_tpu/ops/pallas_mlp.py fused_mlp_block_w4_stacked
-(_w4_mlp_block_kernel, phase body _w4_mlp_phase). Bound: the bytes of the two
-W4 weight matrices at decode-sized M (<= stacked_bt_max = 64 rows). Design:
-one cooperative launch, two stages split by a grid barrier: every block
-normalises and quantizes its chunk of up to 8 rows itself, the w13 matvec runs
-over tiles that hold the w1 and w3 columns of 64 gate outputs and finishes the
-gate chain in the block that completes a tile; after the barrier the w2
-matvec and its epilogue write the output. The (M, F) int8 gate output is the
-only intermediate that leaves the chip's caches.
+Kernel: csrc/fused_layer.cu (mqt_fused_mlp_block, dp4a, M <= DP4A_ROWS) and
+csrc/fused_rows.cu (mqt_fused_mlp_rows, int8 mma.sync, DP4A_ROWS < M <= 128),
+which replace the JAX package's mobilequant_tpu/ops/pallas_mlp.py
+fused_mlp_block_w4_stacked (_w4_mlp_block_kernel, phase body _w4_mlp_phase).
+Bound: the bytes of the two W4 weight matrices at decode-sized M (<=
+stacked_bt_max: 64 rows, 128 in the decode loop). Design: one cooperative
+launch. The dp4a kernel runs two stages split by a grid barrier: every block
+normalises and quantizes the rows itself, the w13 matvec runs over tiles that
+hold the w1 and w3 columns of 64 gate outputs and finishes the gate chain in
+the block that completes a tile; after the barrier the w2 matvec and its
+epilogue write the output. In the row kernel the norm is a stage of its own
+(one block per row) and the matvec tiles hold every row, so each weight byte
+is read once per launch whatever M. The (M, F) int8 gate output is the only
+intermediate that leaves the chip's caches.
 
 meta is the JAX engine's 32-float _mlp_block_meta (engine._mlp_block_meta):
 [0..1] MLP-input encoding, [2..13] the w1 / sigmoid / act / w3 fake-quant
@@ -49,21 +53,40 @@ class StackedW4(ctypes.Structure):
                 ("kin", _I), ("n", _I), ("pad_", _I)]
 
 
+MLP_META_LEN = 46       # 32 MLP-block entries + the o-tail's 14 (ops/otail)
+
+
 class FusedArgs(ctypes.Structure):
-    """MqtFusedArgs of csrc/fused_layer.cu (field for field)."""
+    """MqtFusedArgs of csrc/fused_common.cuh (field for field)."""
     _fields_ = ([(n, _P) for n in (
         "x_in", "x_out", "kv_new", "logits", "pos", "cs", "meta", "ofq", "anw",
         "anb", "mnw", "mnb", "kcache", "vcache", "hwq", "hscale", "hoffset",
-        "fnw", "fnb", "yq", "resid", "a8", "act8", "ws", "bar", "trace")]
+        "fnw", "fnb", "yq", "resid", "a8", "act8", "ws", "bar", "trace",
+        "kcs", "sk", "sv", "h8", "sx")]
                 + [(n, StackedW4) for n in ("qkv", "o", "w13", "w2")]
                 + [(n, _I) for n in ("M", "K", "Hq", "Hkv", "hd", "rot", "S", "F",
-                                     "Vp", "L", "l0", "l1", "gelu", "pad_")]
+                                     "Vp", "L", "l0", "l1", "gelu", "ncs", "mst",
+                                     "qk_fq", "pv_fq", "pad_")]
                 + [("inv_sqrt_hd", ctypes.c_float),
-                   ("mlp_meta", ctypes.c_float * 32)])
+                   ("mlp_meta", ctypes.c_float * MLP_META_LEN)])
 
 
 WS_COUNTERS = 8192       # tile counters at the head of the split-K workspace
+WS_ROWSUMS = WS_COUNTERS * 128   # per-tile row-sum partials of the row kernels
 BARRIER = _build.Workspace()   # per-device grid-barrier words
+MAX_ROWS = 128           # rows of the MLP-block, o-tail and chunk kernels
+# The MLP block takes the dp4a kernel of csrc/fused_layer.cu up to DP4A_ROWS
+# rows and the row kernel of csrc/fused_rows.cu above: on an H100 (80GB HBM3,
+# 700 W; chip_smoke.py phase 2) the row kernel's time is flat near 0.045 ms
+# for M = 1..8 while the dp4a kernel's grows from 0.032 ms at M=1 through
+# 0.044 at M=2 to 0.076 at M=8.
+DP4A_ROWS = 2
+
+
+def rows_workspace(dev, M: int, N: int) -> torch.Tensor:
+    """The split-K workspace of csrc/fused_rows.cu for M rows and outputs at
+    most N wide: counters, per-tile row sums, then (M, N) accumulators."""
+    return _build.WORKSPACE.get(dev, WS_COUNTERS + WS_ROWSUMS + M * N)
 
 
 def ptr(t) -> int:
@@ -134,22 +157,62 @@ def fused_mlp_block_w4_plain(x: torch.Tensor, norm_w: torch.Tensor,
     return fq(xr + y2, 29, s_ro)
 
 
+def check_mlp_packs(M: int, K: int, w13: dict, w2: dict, act_kind: str, name: str):
+    """(L, F) of the stacked W4 MLP packs; raises on what the kernels do not
+    take."""
+    L, K2, F2 = w13["wq"].shape
+    F = F2 // 2
+    if K2 * 2 != K or tuple(w2["wq"].shape[1:]) != (F // 2, K):
+        raise NotImplementedError(f"the {name} kernel takes W4 packs")
+    if not mlp_block_supported(K, F) or M > MAX_ROWS:
+        raise NotImplementedError(f"{name} kernel: M={M}, K={K}, F={F}")
+    if act_kind not in ("silu", "gelu_tanh"):
+        raise NotImplementedError(f"{name} kernel: act {act_kind!r}")
+    return L, F
+
+
+def mlp_args(x: torch.Tensor, norm_w, norm_b, w13: dict, w2: dict, meta, layer: int,
+             act_kind: str, keep: list):
+    """(FusedArgs, out) of an MLP-block-shaped launch over x (M, K) with the
+    MLP section of its meta; the o-tail fills in its o-proj fields after."""
+    M, K = x.shape
+    L, F = w13["wq"].shape[0], w13["wq"].shape[2] // 2
+    dev = x.device
+    xin = _build.aligned(x.to(torch.float32))
+    nw = norm_w.to(torch.float32).contiguous()
+    nb = norm_b.to(torch.float32).contiguous()
+    out = torch.empty((M, K), dtype=torch.float32, device=dev)
+    act8 = torch.empty((M, F), dtype=torch.int8, device=dev)
+    h8 = torch.empty((M, K), dtype=torch.int8, device=dev)
+    resid = torch.empty((M, K), dtype=torch.float32, device=dev)
+    keep += [xin, nw, nb, act8, h8, resid]
+    a = FusedArgs()
+    a.x_in, a.x_out, a.mnw, a.mnb = ptr(xin), ptr(out), ptr(nw), ptr(nb)
+    a.act8, a.h8, a.resid = ptr(act8), ptr(h8), ptr(resid)
+    a.ws = ptr(rows_workspace(dev, M, max(2 * F, K)) if M > DP4A_ROWS
+               else _build.WORKSPACE.get(dev, WS_COUNTERS + M * 2 * F))
+    a.bar = ptr(BARRIER.get(dev, 2))
+    a.w13 = stacked_w4(w13, keep)
+    a.w2 = stacked_w4(w2, keep)
+    a.M, a.K, a.F, a.L, a.l0, a.l1 = M, K, F, L, int(layer), int(layer) + 1
+    a.gelu = int(act_kind == "gelu_tanh")
+    vals = [float(v) for v in meta]
+    if len(vals) > MLP_META_LEN:
+        raise ValueError(f"a meta of {len(vals)} entries")
+    for i, v in enumerate(vals):
+        a.mlp_meta[i] = v
+    return a, out
+
+
 def fused_mlp_block_w4(x: torch.Tensor, norm_w: torch.Tensor, norm_b: torch.Tensor,
                        w13: dict, w2: dict, meta: Sequence[float], layer: int,
                        act_kind: str = "silu",
                        site_on: tuple = (True,) * 9) -> torch.Tensor:
     """x (M, K) fp32 residual -> x + MLP(norm(x)) for layer `layer` of the
     stacked W4 packs (w13 wq (L, K/2, 2F), w2 wq (L, F/2, K)) and the stacked
-    norm vectors (L, K). M <= 64."""
+    norm vectors (L, K). M <= 128."""
     M, K = x.shape
-    L, K2, F2 = w13["wq"].shape
-    F = F2 // 2
-    if K2 * 2 != K or tuple(w2["wq"].shape[1:]) != (F // 2, K):
-        raise NotImplementedError("the MLP-block kernel takes W4 packs")
-    if not mlp_block_supported(K, F) or M > 64:
-        raise NotImplementedError(f"MLP-block kernel: M={M}, K={K}, F={F}")
-    if act_kind not in ("silu", "gelu_tanh"):
-        raise NotImplementedError(f"MLP-block kernel: act {act_kind!r}")
+    check_mlp_packs(M, K, w13, w2, act_kind, "MLP-block")
     if x.device.type == "cpu":
         fused_mlp_block_w4.plain_calls += 1
         return fused_mlp_block_w4_plain(x, norm_w[layer], norm_b[layer],
@@ -158,23 +221,9 @@ def fused_mlp_block_w4(x: torch.Tensor, norm_w: torch.Tensor, norm_b: torch.Tens
     dev = _build.require_cuda(x, norm_w, norm_b, w13["wq"], w2["wq"])
     lib = _build.lib()
     keep = []
-    xin = _build.aligned(x.to(torch.float32))
-    nw = norm_w.to(torch.float32).contiguous()
-    nb = norm_b.to(torch.float32).contiguous()
-    out = torch.empty((M, K), dtype=torch.float32, device=dev)
-    act8 = torch.empty((M, F), dtype=torch.int8, device=dev)
-    ws = _build.WORKSPACE.get(dev, WS_COUNTERS + M * F2)
-    bar = BARRIER.get(dev, 2)
-    a = FusedArgs()
-    a.x_in, a.x_out, a.mnw, a.mnb = ptr(xin), ptr(out), ptr(nw), ptr(nb)
-    a.act8, a.ws, a.bar = ptr(act8), ptr(ws), ptr(bar)
-    a.w13 = stacked_w4(w13, keep)
-    a.w2 = stacked_w4(w2, keep)
-    a.M, a.K, a.F, a.L, a.l0, a.l1 = M, K, F, L, int(layer), int(layer) + 1
-    a.gelu = int(act_kind == "gelu_tanh")
-    for i, v in enumerate(list(meta)[:32]):
-        a.mlp_meta[i] = float(v)
-    code = lib.mqt_fused_mlp_block(ctypes.addressof(a), _build.stream_ptr(dev))
+    a, out = mlp_args(x, norm_w, norm_b, w13, w2, list(meta)[:32], layer, act_kind, keep)
+    entry = lib.mqt_fused_mlp_block if M <= DP4A_ROWS else lib.mqt_fused_mlp_rows
+    code = entry(ctypes.addressof(a), _build.stream_ptr(dev))
     _build.check(code, "fused_mlp_block_w4")
     fused_mlp_block_w4.launches += 1
     return out

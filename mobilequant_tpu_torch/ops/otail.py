@@ -1,0 +1,99 @@
+"""The attention tail of one layer in one kernel:
+
+  a8 (M, Ko) int8 -> W4 o-proj -> output fq -> resid_add_1 with x (M, K)
+  -> the whole MLP block (ops/mlp_block) -> (M, K) fp32
+
+Kernel: csrc/fused_rows.cu (mqt_fused_otail), which replaces the JAX
+package's mobilequant_tpu/ops/pallas_mlp.py fused_otail_block_stacked
+(_otail_block_kernel). Bound: the bytes of the o, w1|w3 and w2 W4 matrices
+at decode-sized M (<= 128 rows). Design: the row kernels of the MLP block with
+a prologue stage: the o-proj matvec tiles hold every row (each weight byte
+read once), the block that completes a tile runs the affine epilogue, the
+four optional fake-quant sites and the residual add into a (M, K) buffer; a
+grid barrier, then the MLP block's norm, w13 and w2 stages.
+
+meta (46 floats) = the JAX engine's _mlp_block_meta (32) then _otail_meta_ext
+(14): [32..33] the a8 encoding (pv_bmm output), [34..36] the o output fq,
+[37..45] resid_add_1 input / input2 / output fq (a site is off when its qmax
+entry is 0); site_on: the MLP block's nine static enables, osite_on the four
+of (o output, resid_add_1 input, input2, output).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from mobilequant_tpu_torch.ops import _build
+from mobilequant_tpu_torch.ops.mlp_block import (
+    MLP_META_LEN, check_mlp_packs, fused_mlp_block_w4_plain, mlp_args, rows_workspace,
+    stacked_w4)
+from mobilequant_tpu_torch.ops.w13_gate import _fq
+from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, w4a8_matmul_plain
+
+
+def fused_otail_block_w4_plain(a8: torch.Tensor, x: torch.Tensor, o: dict,
+                               norm_w: torch.Tensor, norm_b: torch.Tensor, w13: dict,
+                               w2: dict, meta: Sequence[float], act_kind: str = "silu",
+                               site_on: tuple = (True,) * 9,
+                               osite_on: tuple = (True,) * 4) -> torch.Tensor:
+    """The kernel's function in PyTorch operators, over one layer's packs and
+    norm vectors (the JAX kernel's fp32 operation order)."""
+    m = [float(v) for v in meta]
+    s_oo, s_r1, s_r2, s_ro = osite_on
+
+    def fq(v, i, on):
+        return _fq(v, m[i], m[i + 1], m[i + 2]) if on else v
+
+    y = w4a8_matmul_plain(a8, o["wq"], o["scale"], o["offset"], o["colsum"],
+                          o.get("bias"), m[32], m[33])
+    y = fq(y, 34, s_oo)
+    xr = fq(x.to(torch.float32), 37, s_r1)
+    y = fq(y, 40, s_r2)
+    resid = fq(xr + y, 43, s_ro)
+    return fused_mlp_block_w4_plain(resid, norm_w, norm_b, w13, w2, m[:32], act_kind,
+                                    site_on)
+
+
+def fused_otail_block_w4(a8: torch.Tensor, x: torch.Tensor, o: dict,
+                         norm_w: torch.Tensor, norm_b: torch.Tensor, w13: dict,
+                         w2: dict, meta: Sequence[float], layer: int,
+                         act_kind: str = "silu", site_on: tuple = (True,) * 9,
+                         osite_on: tuple = (True,) * 4) -> torch.Tensor:
+    """a8 (M, Ko) int8 attention output + x (M, K) fp32 layer input ->
+    the layer's output (M, K), for layer `layer` of the stacked W4 packs
+    (o wq (L, Ko/2, K), w13, w2) and norm vectors (L, K). M <= 128."""
+    M, K = x.shape
+    Ko = a8.shape[1]
+    check_mlp_packs(M, K, w13, w2, act_kind, "o-tail")
+    if a8.shape[0] != M or a8.dtype != torch.int8 or o["wq"].shape[1] * 2 != Ko \
+            or o["wq"].shape[2] != K or Ko % 64:
+        raise NotImplementedError(f"o-tail kernel: a8 {tuple(a8.shape)}, o "
+                                  f"{tuple(o['wq'].shape)} (W4, Ko % 64 == 0)")
+    if len(meta) != MLP_META_LEN:
+        raise ValueError(f"o-tail meta of {len(meta)} entries, expected {MLP_META_LEN}")
+    if x.device.type == "cpu":
+        fused_otail_block_w4.plain_calls += 1
+        return fused_otail_block_w4_plain(a8, x, layer_pack(o, layer), norm_w[layer],
+                                          norm_b[layer], layer_pack(w13, layer),
+                                          layer_pack(w2, layer), meta, act_kind, site_on,
+                                          osite_on)
+    dev = _build.require_cuda(a8, x, o["wq"], norm_w, w13["wq"], w2["wq"])
+    lib = _build.lib()
+    keep = []
+    a, out = mlp_args(x, norm_w, norm_b, w13, w2, meta, layer, act_kind, keep)
+    a8c = _build.aligned(a8)
+    keep.append(a8c)
+    a.a8 = a8c.data_ptr()
+    a.o = stacked_w4(o, keep)
+    a.ws = rows_workspace(dev, M, max(w13["wq"].shape[2], K)).data_ptr()
+    code = lib.mqt_fused_otail(ctypes.addressof(a), _build.stream_ptr(dev))
+    _build.check(code, "fused_otail_block_w4")
+    fused_otail_block_w4.launches += 1
+    return out
+
+
+fused_otail_block_w4.launches = 0
+fused_otail_block_w4.plain_calls = 0

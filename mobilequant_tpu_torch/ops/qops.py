@@ -149,14 +149,17 @@ def int_head_linear(x: torch.Tensor, pack: dict,
 
 
 def int_matmul_qk(q_i8: torch.Tensor, k_i8: torch.Tensor, q_scale: float,
-                  q_offset: float, k_scale: float, k_offset: float) -> torch.Tensor:
-    """Quantized Q·Kᵀ: q (B,Hkv,GT,hd) × k (B,Hkv,S,hd) -> fp32 (B,Hkv,GT,S)."""
+                  q_offset: float, k_scale: float, k_offset: float,
+                  k_colsum: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Quantized Q·Kᵀ: q (B,Hkv,GT,hd) × k (B,Hkv,S,hd) -> fp32 (B,Hkv,GT,S).
+    k_colsum: optional precomputed Σ_hd k (B,Hkv,S) fp32 (the staged decode
+    path computes it once per chunk, while the cache is read-only)."""
     hd = q_i8.shape[-1]
     acc = int_dot(q_i8, k_i8.transpose(-1, -2))
     oq = f32(np.float32(q_offset) - np.float32(128.0))
     ok = f32(np.float32(k_offset) - np.float32(128.0))
     qsum = rowsum_i8(q_i8)                                   # (B,Hkv,GT,1)
-    ksum = rowsum_i8(k_i8)[..., 0]
+    ksum = rowsum_i8(k_i8)[..., 0] if k_colsum is None else k_colsum
     acc = (acc - ok * qsum - oq * ksum[:, :, None, :]
            + f32(np.float32(hd) * np.float32(oq) * np.float32(ok)))
     return acc * f32(np.float32(q_scale) * np.float32(k_scale))

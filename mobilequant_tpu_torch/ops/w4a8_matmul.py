@@ -3,8 +3,9 @@
   out = s_x·s_w·[acc − o'_x·colsum − o_w·rowsum_x + K·o'_x·o_w] + bias
 
 Kernel: csrc/w4a8_matmul.cu, which replaces the JAX package's
-mobilequant_tpu/ops/pallas_matmul.py w4a8_matmul (_w4a8_kernel) and
-w4a8_matmul_stacked (_w4a8_kernel_stacked). Bound: device-memory bandwidth at
+mobilequant_tpu/ops/pallas_matmul.py w4a8_matmul (_w4a8_kernel; wrapper
+`w4a8_matmul`) and w4a8_matmul_stacked (_w4a8_kernel_stacked; wrapper
+`w4a8_matmul_stacked`), each wrapper with its own counts. Bound: device-memory bandwidth at
 decode (M <= 8: the K/2·N packed weight bytes dominate), integer operations at
 prefill M. Design: the decode path streams each weight byte once, coalesced
 along N, unpacks nibbles in registers and splits K across blocks so that even
@@ -12,8 +13,8 @@ a 2048-wide projection fills the card; prefill runs 64 x 128 dp4a tiles. The
 stacked form of the JAX package becomes a layer offset on the weight pointer,
 so no per-layer weight copy exists to avoid.
 
-`w4a8_matmul` launches the kernel for CUDA tensors and runs `w4a8_matmul_plain`
-for CPU tensors; it never falls back from one to the other.
+Both wrappers launch the kernel for CUDA tensors and run `w4a8_matmul_plain`
+for CPU tensors; they never fall back from one to the other.
 """
 
 from __future__ import annotations
@@ -90,17 +91,30 @@ def check_w4(x_q: torch.Tensor, wq: torch.Tensor) -> tuple:
     return M, K, N
 
 
-def w4a8_matmul(x_q: torch.Tensor, pack: dict, x_scale: float, x_offset: float,
-                layer: Optional[int] = None, bias: bool = True) -> torch.Tensor:
-    """x_q (M, K) int8 × layer `layer` of a (stacked) W4 pack
-    {wq (L, K/2, N), scale, offset, colsum, bias} -> fp32 (M, N).
-    bias=False ignores the pack's bias (the quantized head has none)."""
-    p = layer_pack(pack, layer)
-    if not bias:
-        p = {k: v for k, v in p.items() if k != "bias"}
+def w4a8_matmul(x_q: torch.Tensor, pack: dict, x_scale: float,
+                x_offset: float) -> torch.Tensor:
+    """x_q (M, K) int8 × a W4 pack {wq (K/2, N), scale, offset, colsum[, bias]}
+    -> fp32 (M, N): the JAX package's w4a8_matmul (the quantized head's form;
+    its pack has no bias)."""
+    return _run(w4a8_matmul, x_q, pack, x_scale, x_offset)
+
+
+def w4a8_matmul_stacked(x_q: torch.Tensor, pack: dict, x_scale: float, x_offset: float,
+                        layer: int) -> torch.Tensor:
+    """x_q (M, K) int8 × layer `layer` of a stacked W4 pack {wq (L, K/2, N),
+    scale, offset, colsum, bias} -> fp32 (M, N): the JAX package's
+    w4a8_matmul_stacked (the decoder's projections). The same kernel as
+    w4a8_matmul, at the layer's offset."""
+    return _run(w4a8_matmul_stacked, x_q, layer_pack(pack, layer), x_scale, x_offset)
+
+
+def _run(counted, x_q: torch.Tensor, p: dict, x_scale: float,
+         x_offset: float) -> torch.Tensor:
+    """The kernel (CUDA tensors) or its plain version (CPU tensors), counted
+    on the wrapper `counted`."""
     M, K, N = check_w4(x_q, p["wq"])
     if x_q.device.type == "cpu":
-        w4a8_matmul.plain_calls += 1
+        counted.plain_calls += 1
         return w4a8_matmul_plain(x_q, p["wq"], p["scale"], p["offset"],
                                  p["colsum"], p.get("bias"), x_scale, x_offset)
     dev = _build.require_cuda(x_q, p["wq"])
@@ -115,10 +129,10 @@ def w4a8_matmul(x_q: torch.Tensor, pack: dict, x_scale: float, x_offset: float,
         x.data_ptr(), w.data_ptr(), sc.data_ptr(), of.data_ptr(), cs.data_ptr(),
         None if b is None else b.data_ptr(), out.data_ptr(), ws.data_ptr(),
         M, K, N, ss, float(x_scale), float(x_offset), _build.stream_ptr(dev))
-    _build.check(code, "w4a8_matmul")
-    w4a8_matmul.launches += 1
+    _build.check(code, counted.__name__)
+    counted.launches += 1
     return out
 
 
-w4a8_matmul.launches = 0
-w4a8_matmul.plain_calls = 0
+w4a8_matmul.launches = w4a8_matmul_stacked.launches = 0
+w4a8_matmul.plain_calls = w4a8_matmul_stacked.plain_calls = 0

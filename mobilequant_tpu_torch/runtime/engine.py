@@ -4,8 +4,10 @@ main-path slice).
   pack()            finalized weights + learned ranges -> packed model (W4/W8
                     ints, scales, zero-point corrections, frozen ranges)
   init_kv_cache()   the int8 KV cache, (L, B, Hkv, S, hd), head-major
-  forward()         prefill (T > 1) and decode-light (T = 1) passes
-  decode_loop()     non-staged greedy / temperature decode, one forward a step
+  forward()         prefill (T > 1) and decode-light (T = 1) passes; T = 1 on
+                    a StagedKVCache is a chunked-staging step
+  decode_loop()     greedy / temperature decode: one forward a step, staged in
+                    chunks at B > 8 (and wherever no whole-step kernel runs)
 
 Numerics follow the JAX engine op for op: every matmul is an exact integer
 dot with affine corrections; enabled fake-quant sites run in fp32. Static
@@ -16,23 +18,28 @@ reads a scalar back from the card.
 
 Kernel dispatch (runtime/kernel_config.py), in the JAX engine's order:
 model_kernel runs a whole T=1 step at B <= 8 (every layer and the folded W4
-head) in one launch; layer_kernel a whole layer at B=1, T=1; stacked_mlp_kernel
-the whole MLP block at B·T <= stacked_bt_max; gate_kernel the prefill qkv and
-w13+gate epilogue kernels; attn_kernel the prefill attention kernel; w4_matmul
-every other W4 projection and the W4 head through the W4A8 kernel. Routing
-reads static predicates only (shapes, config, flags). With no flag set the
-same function runs in PyTorch operators alone (the plain engine, the
-counterpart of the JAX engine's XLA body). The whole-layer and whole-model
-kernels take per-layer metas and qkv output fake-quant rows that are made on
-the device once per policy and kept on the packed model (_kernel_prep).
+head) in one launch; chunk_kernel a whole staged step at B = 16..128;
+layer_kernel a whole layer at B=1, T=1; otail_kernel the o-proj, resid_add_1
+and the MLP block at B·T <= stacked_bt_max; stacked_mlp_kernel the whole MLP
+block at B·T <= stacked_bt_max; gate_kernel the prefill qkv and w13+gate
+epilogue kernels; attn_kernel the prefill attention kernel; w4_matmul every
+other W4 projection and the W4 head through the W4A8 kernel. Routing reads
+static predicates only (shapes, config, flags). With no flag set the same
+function runs in PyTorch operators alone (the plain engine, the counterpart
+of the JAX engine's XLA body). The whole-layer, whole-model and chunk kernels
+take per-layer metas and qkv output fake-quant rows that are made on the
+device once per policy and kept on the packed model (_kernel_prep).
 
 The cache is updated in place: prefill writes its rows into the layer slice
-before attention, decode writes each step's rows once after the layer loop.
+before attention, a non-staged decode step writes its rows once after the
+layer loop. Chunked staging (decode_loop): the cache stays read-only for a
+chunk of steps, each step's rows are appended to the staging buffers and the
+chunk's rows are written into the cache once at its end.
 
 Out of this slice (NotImplementedError): MoE, parallel residual, 2-linear
 MLPs, layernorm models, policies with the q/k/v or w1/w3 output sites off,
-the int4 KV cache, staged/chunked decode, context/tensor parallelism,
-weight-only mode, and any kernel flag on W8 packs.
+the int4 KV cache, context/tensor parallelism, weight-only mode, and any
+kernel flag on W8 packs.
 """
 
 from __future__ import annotations
@@ -47,14 +54,17 @@ import torch
 from mobilequant_tpu_torch.models import model as M
 from mobilequant_tpu_torch.models.config import ModelConfig
 from mobilequant_tpu_torch.ops import qops
+from mobilequant_tpu_torch.ops.chunk_model import chunk_kernel_supported, fused_model_w4_chunk
 from mobilequant_tpu_torch.ops.fused_layer import (
     MAX_BATCH, fused_layer_w4, fused_model_w4, head_kernel_supported,
     layer_kernel_supported)
 from mobilequant_tpu_torch.ops.mlp_block import fused_mlp_block_w4, mlp_block_supported
+from mobilequant_tpu_torch.ops.otail import fused_otail_block_w4
 from mobilequant_tpu_torch.ops.prefill_attention import prefill_attention
 from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope, qkv_rope_supported
+from mobilequant_tpu_torch.ops.staged_append import staged_append, staged_append_plain
 from mobilequant_tpu_torch.ops.w13_gate import w13_gate, w13_gate_supported
-from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, w4a8_matmul
+from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, w4a8_matmul, w4a8_matmul_stacked
 from mobilequant_tpu_torch.quant.policy import QPolicy, policy_kv_bits
 from mobilequant_tpu_torch.quant.quantizer import (
     QuantConfig, fake_quant, fake_quant_weight)
@@ -65,6 +75,27 @@ class EngineKVCache(NamedTuple):
     """int8 KV cache: k/v (L, B, Hkv, S_max, hd), shifted-uint8 domain."""
     k: torch.Tensor
     v: torch.Tensor
+
+
+class StagedKVCache(NamedTuple):
+    """Chunked-staging decode cache (the JAX engine's StagedKVCache): the big
+    k/v buffers stay read-only for a chunk of decode steps (they hold rows
+    < the chunk-start position) while the chunk's rows collect in the staging
+    buffers sk/sv (L, B, Hkv, cs, hd); decode_loop writes them into k/v once
+    per chunk. m: the number of staged columns so far, a host int (the step
+    loop runs on the host, so no step reads it back from the card). kcs:
+    Σ_hd k (L, B, Hkv, S) fp32, the stale K cache's column sums, made once per
+    chunk. pk/pv: the last step's pending rows (L, B, Hkv, 1, hd), which
+    forward() returns and decode_loop appends at column m−1 at the top of the
+    next step."""
+    k: torch.Tensor
+    v: torch.Tensor
+    sk: torch.Tensor
+    sv: torch.Tensor
+    m: int
+    kcs: Optional[torch.Tensor] = None
+    pk: Optional[torch.Tensor] = None
+    pv: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,6 +336,34 @@ def _mlp_block_meta(lr, policy, c) -> list:
             *rng("resid_add_2", "output"), qm("resid_add_2", "output")]
 
 
+def _otail_meta_ext(lr, policy) -> list:
+    """The 14-float extension of _mlp_block_meta for the o-tail kernel (the
+    JAX engine's): a8 encoding (pv_bmm output), o output fq, resid_add_1
+    input / input2 / output fq."""
+    def qm(site, role):
+        return _qmax(_site_cfg(policy, site, role))
+
+    def rng(site, role):
+        e = lr.get(site, {})
+        return (e[role]["scale"], e[role]["offset"]) if role in e else (1.0, 0.0)
+
+    pv = lr["self_attn.pv_bmm"]["output"]
+    return [pv["scale"], pv["offset"],
+            *rng("self_attn.o_proj", "output"), qm("self_attn.o_proj", "output"),
+            *rng("resid_add_1", "input"), qm("resid_add_1", "input"),
+            *rng("resid_add_1", "input2"), qm("resid_add_1", "input2"),
+            *rng("resid_add_1", "output"), qm("resid_add_1", "output")]
+
+
+def _otail_site_on(policy) -> tuple:
+    """Static enables of the o-tail kernel's optional fake-quant sites: (o_proj
+    output, resid_add_1 input, input2, output)."""
+    def on(site, role):
+        return _on(_site_cfg(policy, site, role))
+    return (on("self_attn.o_proj", "output"), on("resid_add_1", "input"),
+            on("resid_add_1", "input2"), on("resid_add_1", "output"))
+
+
 def _mlp_block_site_on(policy) -> tuple:
     """Static enables of the MLP block's optional fake-quant sites (JAX order)."""
     def on(site, role):
@@ -436,7 +495,7 @@ def _int_linear(x_q, r, pack, l, kc: KernelConfig):
             raise NotImplementedError("the port has W4 kernels only; run W8 packs "
                                       "with KernelConfig.none()")
         lead = x_q.shape[:-1]
-        out = w4a8_matmul(x_q.reshape(-1, K), pack, r["scale"], r["offset"], layer=l)
+        out = w4a8_matmul_stacked(x_q.reshape(-1, K), pack, r["scale"], r["offset"], l)
         return out.reshape(*lead, out.shape[-1])
     p = layer_pack(pack, l)
     return qops.int_linear(x_q, r["scale"], r["offset"], p, p.get("bias"))
@@ -453,15 +512,24 @@ def _norm(x, nw, l, site, lr, policy, c):
 
 
 def _decode_light_attention(q8, k8_new, v8_new, k_cache, v_cache, lr, policy,
-                            cache_position, c, B, Hkv, G, hd):
+                            cache_position, c, B, Hkv, G, hd, ks=None, vs=None,
+                            staged_len=None, k_colsum=None):
     """Scores over the stale cache (masked to positions < cache_position) plus
     the self term of the step's own K/V rows; the cache is not rewritten
-    here. q8 (B,1,Hq,hd); k8_new/v8_new (B,Hkv,1,hd); caches (B,Hkv,S,hd)."""
+    here. q8 (B,1,Hq,hd); k8_new/v8_new (B,Hkv,1,hd); caches (B,Hkv,S,hd).
+
+    ks/vs/staged_len: chunked staging, this layer's (B,Hkv,cs,hd) staged
+    columns join as a third part masked to col < staged_len (cache_position
+    is then the chunk-start position); k_colsum: the chunk-constant Σ_hd of
+    k_cache (B,Hkv,S). The softmax runs partwise as the JAX engine writes
+    it: one shared max, per-part exp, the denominator summed
+    (cache + self) + staged."""
     qk, pv = lr["self_attn.qk_bmm"], lr["self_attn.pv_bmm"]
     S = k_cache.shape[2]
     qg = q8.reshape(B, 1, Hkv, G, hd).permute(0, 2, 3, 1, 4).reshape(B, Hkv, G, hd)
     scores_c = qops.int_matmul_qk(qg, k_cache, qk["input"]["scale"], qk["input"]["offset"],
-                                  qk["input2"]["scale"], qk["input2"]["offset"])
+                                  qk["input2"]["scale"], qk["input2"]["offset"],
+                                  k_colsum=k_colsum)
     oqv = qops.f32(np.float32(qk["input"]["offset"]) - np.float32(128.0))
     okv = qops.f32(np.float32(qk["input2"]["offset"]) - np.float32(128.0))
     s_self = ((qg.to(torch.float32) - oqv) * (k8_new.to(torch.float32) - okv)).sum(
@@ -476,14 +544,32 @@ def _decode_light_attention(q8, k8_new, v8_new, k_cache, v_cache, lr, policy,
     maskc = torch.where(col < cache_position[:, None, None, None], zero, c.neg_inf)
     lg_c = scores_c * inv + maskc
     lg_self = s_self * inv
-    m = torch.maximum(lg_c.amax(-1), lg_self[..., 0])[..., None]
+    m = torch.maximum(lg_c.amax(-1), lg_self[..., 0])
+    lg_st = None
+    if ks is not None:
+        n_st = ks.shape[2]
+        scores_st = qops.int_matmul_qk(qg, ks, qk["input"]["scale"], qk["input"]["offset"],
+                                       qk["input2"]["scale"], qk["input2"]["offset"])
+        scores_st = _fq16(scores_st, qk.get("output"), qk_out)
+        col_st = torch.arange(n_st, device=q8.device)[None, None, None, :]
+        mask_st = torch.where(col_st < staged_len, zero, c.neg_inf)
+        lg_st = scores_st * inv + mask_st
+        m = torch.maximum(m, lg_st.amax(-1))
+    m = m[..., None]
     e_c = torch.exp(lg_c - m)
     e_self = torch.exp(lg_self - m)
     denom = e_c.sum(-1, keepdim=True) + e_self
+    if lg_st is not None:
+        e_st = torch.exp(lg_st - m)
+        denom = denom + e_st.sum(-1, keepdim=True)
     pv_in = policy["self_attn.pv_bmm"].input
     p_c = _fq16(e_c / denom, pv.get("input"), pv_in)
     p_self = _fq16(e_self / denom, pv.get("input"), pv_in)
     attn = qops.int_matmul_pv(p_c, v_cache, pv["input2"]["scale"], pv["input2"]["offset"])
+    if lg_st is not None:
+        p_st = _fq16(e_st / denom, pv.get("input"), pv_in)
+        attn = attn + qops.int_matmul_pv(p_st, vs, pv["input2"]["scale"],
+                                         pv["input2"]["offset"])
     v_new_f = (v8_new.to(torch.float32) + 128.0 - pv["input2"]["offset"]) * pv["input2"]["scale"]
     attn = attn + p_self * v_new_f
     attn = attn.reshape(B, Hkv, G, 1, hd).permute(0, 3, 1, 2, 4)
@@ -492,8 +578,11 @@ def _decode_light_attention(q8, k8_new, v8_new, k_cache, v_cache, lr, policy,
 
 def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
                    c: ModelConfig, policy: QPolicy, kc: KernelConfig,
-                   kv_valid_len, positions, prep, decode_light):
-    """One decoder layer on packed ints -> (hidden, new K/V rows or None)."""
+                   kv_valid_len, positions, prep, decode_light, st=None,
+                   staged_len=None, k_colsum=None):
+    """One decoder layer on packed ints -> (hidden, new K/V rows or None).
+    st = (sk, sv) of this layer, staged_len and k_colsum: a chunked-staging
+    step (see _decode_light_attention)."""
     ly = packed["layers"]
     B, T, D = x.shape
     hd, Hq, Hkv = c.head_dim_, c.num_heads, c.num_kv_heads
@@ -546,8 +635,11 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
 
     rows = None
     if decode_light:
+        ks, vs = st if st is not None else (None, None)
         attn = _decode_light_attention(q8, k8_new, v8_new, cache.k[l], cache.v[l], lr,
-                                       policy, cache_position, c, B, Hkv, G, hd)
+                                       policy, cache_position, c, B, Hkv, G, hd,
+                                       ks=ks, vs=vs, staged_len=staged_len,
+                                       k_colsum=k_colsum)
         rows = (k8_new, v8_new)
     else:
         # prefill: write the segment's rows into this layer's cache slice
@@ -579,6 +671,16 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
                                       pv["input2"]["scale"], pv["input2"]["offset"])
             attn = attn.reshape(B, Hkv, G, T, hd).permute(0, 3, 1, 2, 4).reshape(B, T, qd)
     a8, ar = out_q8(attn, "self_attn.pv_bmm")
+    w13 = ly["w13_proj"]
+    F = w13["wq"].shape[-1] // 2
+    if kc.otail_kernel and B * T <= kc.stacked_bt_max and mlp_block_supported(D, F):
+        # o-proj -> o fq -> resid_add_1 -> the whole MLP block in one launch
+        out = fused_otail_block_w4(a8.reshape(B * T, qd), x.reshape(B * T, D), ly["o_proj"],
+                                   ly["mlp_norm"]["w"], ly["mlp_norm"]["b"], w13, ly["w2"],
+                                   _mlp_block_meta(lr, policy, c) + _otail_meta_ext(lr, policy),
+                                   l, c.hidden_act, _mlp_block_site_on(policy),
+                                   _otail_site_on(policy))
+        return out.reshape(B, T, D), rows
     o = _int_linear(a8, ar, ly["o_proj"], l, kc)
     o = _fq16(o, lr["self_attn.o_proj"].get("output"), policy["self_attn.o_proj"].output)
     resid = _resid_add(x, o, lr, policy, "resid_add_1")
@@ -586,8 +688,6 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
     # --- mlp ---
     h2 = _norm(resid, ly["mlp_norm"], l, "post_attention_layernorm", lr, policy, c)
     h28, h2r = out_q8(h2, "post_attention_layernorm")
-    w13 = ly["w13_proj"]
-    F = w13["wq"].shape[-1] // 2
     if kc.stacked_mlp_kernel and B * T <= kc.stacked_bt_max and mlp_block_supported(D, F):
         # the whole MLP block (norm -> w13 -> gate -> w2 -> resid_add_2) in one
         # launch, checked before the split path as in the JAX engine
@@ -630,8 +730,12 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
             kc: KernelConfig = KernelConfig(), logits_at=None):
     """Packed-int forward -> (logits, kv_cache), on the device of the packed
     model. T > 1 is a prefill (rows written into the cache in place), T = 1
-    with a cache the decode-light step. logits_at: optional (B,) row index,
-    to run the final norm and head on that single position ((B, 1, V))."""
+    with a cache the decode-light step. With a StagedKVCache (T = 1 only)
+    the step is a chunked-staging step: cache_position is the chunk-start
+    position, the caches are read, not written, and the returned
+    StagedKVCache carries the step's rows as pending (pk/pv) with m + 1.
+    logits_at: optional (B,) row index, to run the final norm and head on
+    that single position ((B, 1, V))."""
     c = config
     _check_config(c)
     _check_policy(policy)
@@ -641,6 +745,12 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
     if T == 1 and kc.attn_kernel:
         raise NotImplementedError("the decode attention kernel is not ported; "
                                   "decode runs decode-light attention")
+    staging = None
+    if isinstance(kv_cache, StagedKVCache):
+        if T != 1:
+            raise ValueError("a StagedKVCache takes T = 1 decode steps")
+        staging = kv_cache
+        kv_cache = EngineKVCache(staging.k, staging.v)
     if positions is None:
         positions = torch.arange(T, device=dev)[None].expand(B, T)
     positions = torch.as_tensor(positions, device=dev).to(torch.int32)
@@ -673,12 +783,33 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
         prep["outq"] = _qkv_outq_rows(rr, c, L, dev)
         prep["cs"] = _rope_cs_rows(cos, sin, c.head_dim_, c.rotary_dim)
 
-    fused = (decode_light and has_cache and (kc.model_kernel or kc.layer_kernel)
-             and layer_kernel_supported(c, S))
+    fused = (decode_light and has_cache and staging is None
+             and (kc.model_kernel or kc.layer_kernel) and layer_kernel_supported(c, S))
     ly = packed["layers"]
     Hkv, hd = c.num_kv_heads, c.head_dim_
     logits = None
-    if fused and kc.model_kernel and B <= MAX_BATCH:
+    if staging is not None and kc.chunk_kernel and chunk_kernel_supported(c, S, B):
+        # the whole staged step in one launch (B = 16..128), with the W4 head
+        # folded when it fits
+        kp = _kernel_prep(packed, policy, c)
+        fold = "head_q" in packed and head_kernel_supported(packed["head_q"], c.hidden_size)
+        kcs = staging.kcs if staging.kcs is not None else kv_colsums(kv_cache.k)
+        res = fused_model_w4_chunk(
+            x.reshape(B, -1), cache_position,
+            _rope_cs_rows(cos, sin, hd, c.rotary_dim).reshape(B, 2, hd), kp["ofq"],
+            ly["attn_norm"], ly["qkv_proj"], ly["o_proj"], ly["mlp_norm"],
+            ly["w13_proj"], ly["w2"], kv_cache.k, kv_cache.v, kcs, staging.sk,
+            staging.sv, staging.m, kp["meta"],
+            packed["head_q"] if fold else None, packed["norm"] if fold else None,
+            num_q_heads=c.num_heads, num_kv_heads=Hkv, head_dim=hd,
+            rotary_dim=c.rotary_dim, act_kind=c.hidden_act,
+            qk_fq_on=_on(policy["self_attn.qk_bmm"].output),
+            pv_fq_on=_on(policy["self_attn.pv_bmm"].input))
+        h = res[0].reshape(B, T, -1)
+        k_rows, v_rows = res[1][:, :, :Hkv], res[1][:, :, Hkv:]
+        if fold:
+            logits = res[2][:, :c.vocab_size].reshape(B, T, c.vocab_size)
+    elif fused and kc.model_kernel and B <= MAX_BATCH:
         # the whole step in one launch, with the W4 head folded when it fits
         kp = _kernel_prep(packed, policy, c)
         fold = "head_q" in packed and head_kernel_supported(packed["head_q"], c.hidden_size)
@@ -701,15 +832,23 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
         h = x
         rows_k, rows_v = [], []
         for l in range(L):
-            h, rows = _layer_forward(packed, l, layer_ranges(rr, l), h, cos, sin, mask,
-                                     kv_cache, cache_position, c, policy, kc,
-                                     kv_valid_len, positions, prep, decode_light)
+            st = None if staging is None else (staging.sk[l], staging.sv[l])
+            h, rows = _layer_forward(
+                packed, l, layer_ranges(rr, l), h, cos, sin, mask, kv_cache,
+                cache_position, c, policy, kc, kv_valid_len, positions, prep, decode_light,
+                st=st, staged_len=None if staging is None else staging.m,
+                k_colsum=None if staging is None or staging.kcs is None else staging.kcs[l])
             if rows is not None:
                 rows_k.append(rows[0][:, :, 0])
                 rows_v.append(rows[1][:, :, 0])
         if decode_light:
             k_rows, v_rows = torch.stack(rows_k), torch.stack(rows_v)
-    if decode_light:
+    if staging is not None:
+        # the step's rows (L, B, Hkv, 1, hd) come back pending; decode_loop
+        # appends them to the staging buffers at the top of the next step
+        kv_cache = staging._replace(m=staging.m + 1, pk=k_rows[:, :, :, None],
+                                    pv=v_rows[:, :, :, None])
+    elif decode_light:
         # one write of the step's rows (L, B, Hkv, hd) per cache after the layers
         bi = torch.arange(B, device=dev)
         pi = cache_position.to(torch.long)
@@ -745,28 +884,98 @@ def quantized_head_logits(y: torch.Tensor, hq: dict, vocab_size: int,
         raise NotImplementedError("the port has a W4 head kernel only")
     if use_kernel and B * T <= 64:
         x_q, sx = qops.dynamic_quantize_act(y.reshape(B * T, D))
-        logits = w4a8_matmul(x_q, hq, 1.0, 128.0, bias=False) * sx
+        logits = w4a8_matmul(x_q, hq, 1.0, 128.0) * sx
         return logits[:, :vocab_size].reshape(B, T, vocab_size)
     return qops.int_head_linear(y, hq)[..., :vocab_size]
 
 
+def kv_colsums(k: torch.Tensor) -> torch.Tensor:
+    """Σ_hd of an int8 K cache (L, B, Hkv, S, hd) -> (L, B, Hkv, S) fp32."""
+    return torch.sum(k, dim=-1, dtype=torch.int32).to(torch.float32)
+
+
+def _stage_pending(st: StagedKVCache, kc: KernelConfig) -> StagedKVCache:
+    """Append the last step's pending rows at column m − 1 (in place): the
+    staged_append kernel under any kernel flag, else its plain version."""
+    if st.pk is None:
+        return st
+    append = staged_append if kc.any_kernel else staged_append_plain
+    append(st.sk, st.sv, st.pk, st.pv, st.m - 1)
+    return st._replace(pk=None, pv=None)
+
+
+def _flush(cache: torch.Tensor, staged: torch.Tensor, pos0: torch.Tensor) -> None:
+    """Write the chunk's staged columns (L, B, Hkv, cs, hd) into the cache at
+    each sequence's chunk-start position (in place)."""
+    B, cs = staged.shape[1], staged.shape[3]
+    bi = torch.arange(B, device=cache.device)[:, None]
+    si = pos0.to(torch.long)[:, None] + torch.arange(cs, device=cache.device)[None]
+    cache[:, bi, :, si] = staged.permute(1, 3, 0, 2, 4)
+
+
 def decode_loop(packed: dict, first_token: torch.Tensor, kv_cache: EngineKVCache,
                 start_pos: torch.Tensor, n_steps: int, config: ModelConfig,
-                policy: QPolicy, kc: KernelConfig = KernelConfig.decode(),
-                temperature=0.0, generator: Optional[torch.Generator] = None):
-    """n_steps of non-staged decode: one T=1 forward per step (one whole-model
-    launch at B <= 8 under KernelConfig.decode()), each writing its K/V rows
-    into the cache. first_token (B, 1), start_pos (B,) ->
-    (tokens (B, n_steps), cache, last logits (B, V))."""
+                policy: QPolicy, kc: Optional[KernelConfig] = None,
+                temperature=0.0, generator: Optional[torch.Generator] = None,
+                staging_chunk: int = 32):
+    """n_steps of decode, one T=1 forward per step. first_token (B, 1),
+    start_pos (B,) -> (tokens (B, n_steps), cache, last logits (B, V)).
+
+    kc None is the entry point's config (KernelConfig.serving, as the JAX
+    decode_loop makes it for use_pallas=True); an explicit KernelConfig is
+    used as it is. At B <= 8 with a whole-step or whole-layer kernel each
+    step writes its rows into the cache (one whole-model launch a step under
+    KernelConfig.decode()). Otherwise (B > 8, or no such kernel) the loop
+    runs in chunked staging, as the JAX engine's: chunks of staging_chunk
+    steps (n_steps when it is not a larger multiple); within a chunk the cache
+    is read-only, the K column sums are made once, each step first appends
+    the previous step's rows to the staging buffers, and after the chunk
+    they are written into the cache at the chunk-start positions. The
+    chunk's rows must fit the cache: start_pos + n_steps <= max_seq_len,
+    checked once per call (start_pos.max() is read back to the host: one
+    synchronisation per call, before the first step)."""
     from mobilequant_tpu_torch.runtime.sampling import loop_next_token
+    B = first_token.shape[0]
+    if kc is None:
+        kc = KernelConfig.serving(config, packed, B)
+    use_staging = not kc.attn_kernel and (B > 8 or not (kc.layer_kernel or kc.model_kernel))
     token, pos, cache = first_token, start_pos, kv_cache
     toks, last = [], None
-    for _ in range(n_steps):
-        logits, cache = forward(packed, token, config, policy, positions=pos[:, None],
-                                kv_cache=cache, cache_position=pos,
-                                kv_valid_len=pos + 1, kc=kc)
-        last = logits[:, -1]
-        token = loop_next_token(last, temperature, generator)[:, None]
-        toks.append(token)
-        pos = pos + 1
+    if not use_staging:
+        for _ in range(n_steps):
+            logits, cache = forward(packed, token, config, policy, positions=pos[:, None],
+                                    kv_cache=cache, cache_position=pos,
+                                    kv_valid_len=pos + 1, kc=kc)
+            last = logits[:, -1]
+            token = loop_next_token(last, temperature, generator)[:, None]
+            toks.append(token)
+            pos = pos + 1
+        return torch.cat(toks, 1), cache, last
+
+    L, _, Hkv, S, hd = cache.k.shape
+    cs = staging_chunk if (n_steps > staging_chunk and n_steps % staging_chunk == 0) \
+        else n_steps
+    end = int(start_pos.max()) + n_steps
+    if end > S:
+        raise ValueError(f"decode_loop: {n_steps} steps from position "
+                         f"{end - n_steps} pass the cache's {S} rows")
+    for _ in range(n_steps // cs):
+        pos0 = pos
+        shape = (L, B, Hkv, cs, hd)
+        st = StagedKVCache(cache.k, cache.v, torch.zeros(shape, dtype=cache.k.dtype,
+                                                         device=cache.k.device),
+                           torch.zeros(shape, dtype=cache.v.dtype, device=cache.v.device),
+                           0, kv_colsums(cache.k))
+        for _ in range(cs):
+            st = _stage_pending(st, kc)
+            logits, st = forward(packed, token, config, policy, positions=pos[:, None],
+                                 kv_cache=st, cache_position=pos0, kv_valid_len=pos + 1,
+                                 kc=kc)
+            last = logits[:, -1]
+            token = loop_next_token(last, temperature, generator)[:, None]
+            toks.append(token)
+            pos = pos + 1
+        st = _stage_pending(st, kc)
+        _flush(cache.k, st.sk, pos0)
+        _flush(cache.v, st.sv, pos0)
     return torch.cat(toks, 1), cache, last

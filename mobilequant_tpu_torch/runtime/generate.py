@@ -2,11 +2,15 @@
 
 Prefill runs the prompt in one pass (KernelConfig.prefill()): the qkv, attention
 and w13+gate kernels with the W4A8 kernel for o-proj, w2 and the one-row
-head, or the whole-MLP-block kernel in every layer when B·T <= 64; decode
-runs non-staged T=1 steps (KernelConfig.decode()), each one launch of the
-whole-model kernel at B <= 8. On a CPU device the kernel wrappers run their
-plain versions (tests); the default device is the GPU, and a GPU device
-without CUDA raises.
+head, or the whole-MLP-block kernel in every layer when B·T <= 64.
+generate_fast decodes with engine.decode_loop's entry config
+(KernelConfig.serving, as the JAX Generator's decode_loop(use_pallas=True)):
+at B <= 8 non-staged T=1 steps, each one launch of the whole-model kernel; at
+B > 8 the chunked-staging loop, whose steps run the W4A8 kernel for qkv and o,
+the whole-MLP-block kernel (up to 128 rows) and staged_append. decode_kc, when
+set, replaces that config (KernelConfig.chunk(): one chunk-kernel launch per
+staged step). On a CPU device the kernel wrappers run their plain versions
+(tests); the default device is the GPU, and a GPU device without CUDA raises.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ class Generator:
             raise ValueError("policy KV bitwidth must match EngineConfig.kv_bits")
         self.packed = E.packed_to(packed, self.device)
         self.prefill_kc = KernelConfig.prefill()
-        self.decode_kc = KernelConfig.decode()
+        self.decode_kc: Optional[KernelConfig] = None   # None: decode_loop's entry config
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -124,7 +128,7 @@ class Generator:
             logits, cache = E.forward(self.packed, token[:, None], self.config, self.policy,
                                       positions=pos[:, None], kv_cache=cache,
                                       cache_position=pos, kv_valid_len=pos + 1,
-                                      kc=self.decode_kc)
+                                      kc=self.decode_kc or KernelConfig.decode())
             last = logits[:, 0]
         self._sync()
         t_decode = time.perf_counter() - t_dec

@@ -23,17 +23,25 @@ class KernelConfig:
                                 # (ops/prefill_attention); T>1 only
     stacked_mlp_kernel: bool = False  # whole MLP block in one kernel
                                       # (ops/mlp_block) at B·T <= stacked_bt_max
-    stacked_bt_max: int = 64    # the MLP-block kernel's row limit
+    otail_kernel: bool = False  # o-proj + resid_add_1 + the whole MLP block in
+                                # one kernel (ops/otail.fused_otail_block_w4) at
+                                # B·T <= stacked_bt_max
+    stacked_bt_max: int = 64    # the MLP-block and o-tail kernels' row limit
+                                # (decode_loop's entry config raises it to 128)
     layer_kernel: bool = False  # whole decoder layer at B=1, T=1
                                 # (ops/fused_layer.fused_layer_w4)
     model_kernel: bool = False  # whole decode step, B <= 8, T=1: every layer
                                 # and the folded W4 head
                                 # (ops/fused_layer.fused_model_w4)
+    chunk_kernel: bool = False  # whole staged decode step, B = 16..128, T=1:
+                                # every layer and the folded W4 head
+                                # (ops/chunk_model.fused_model_w4_chunk)
 
     @property
     def any_kernel(self) -> bool:
         return (self.w4_matmul or self.gate_kernel or self.attn_kernel
-                or self.stacked_mlp_kernel or self.layer_kernel or self.model_kernel)
+                or self.stacked_mlp_kernel or self.otail_kernel or self.layer_kernel
+                or self.model_kernel or self.chunk_kernel)
 
     def replace(self, **kw) -> "KernelConfig":
         return dataclasses.replace(self, **kw)
@@ -60,3 +68,29 @@ class KernelConfig:
         """decode() without the whole-model kernel (the JAX package's
         "w4nomodelk"): one whole-layer launch per layer at B=1."""
         return cls.decode().replace(model_kernel=False)
+
+    @classmethod
+    def serving(cls, config, packed: dict, batch: int) -> "KernelConfig":
+        """decode() as the JAX package's decode_loop makes it for its entry
+        point (use_pallas=True): stacked_bt_max raised to 128, so decode steps
+        up to B = 128 take the MLP-block kernel, and the chunk kernel switched
+        on for W8 packs at 8 < B <= 48 (never for the W4 packs of the port)."""
+        kc = cls.decode()
+        kc = kc.replace(stacked_bt_max=max(kc.stacked_bt_max, 128))
+        w13 = packed.get("layers", {}).get("w13_proj")
+        if (kc.model_kernel and w13 is not None and 8 < batch <= 48
+                and w13["wq"].shape[1] == config.hidden_size):
+            kc = kc.replace(chunk_kernel=True)
+        return kc
+
+    @classmethod
+    def chunk(cls) -> "KernelConfig":
+        """The staged serving-batch route with the whole-step chunk kernel
+        (the JAX package's "chunkk" set)."""
+        return cls.decode().replace(stacked_bt_max=128, chunk_kernel=True)
+
+    @classmethod
+    def otail(cls) -> "KernelConfig":
+        """The staged serving-batch route with the o-tail kernel in every
+        layer (the JAX package's "otail" set)."""
+        return cls.decode().replace(stacked_bt_max=128, otail_kernel=True)

@@ -193,19 +193,21 @@ def test_slice_reaches_every_kernel_plain_version(built):
     assert plain["fused_mlp_block_w4"] == L and plain["w13_gate"] == 0
     # prefill: o per layer (+ the W4 head); the 2 decode steps: one whole-model
     # call each, nothing else
-    assert plain["w4a8_matmul"] == L + head
+    assert plain["w4a8_matmul_stacked"] == L and plain["w4a8_matmul"] == head
     assert plain["fused_model_w4"] == 2 and plain["fused_layer_w4"] == 0
     T_ops.reset_counts()
     gen.prefill(torch.from_numpy(_prompt(T=40, B=2)), E.init_kv_cache(b["ecfg"], 2, device="cpu"))
     plain = T_ops.counts("plain_calls")
     assert plain["w13_gate"] == L and plain["fused_mlp_block_w4"] == 0
-    assert plain["w4a8_matmul"] == 2 * L + head            # o and w2, the head
+    assert plain["w4a8_matmul_stacked"] == 2 * L           # o and w2
+    assert plain["w4a8_matmul"] == head                    # the head
     T_ops.reset_counts()
     gen.decode_kc = KernelConfig.decode_per_layer()
     gen.generate_fast(_prompt(T=10, B=1), 3)
     plain = T_ops.counts("plain_calls")
     assert plain["fused_layer_w4"] == 2 * L and plain["fused_model_w4"] == 0
-    assert plain["w4a8_matmul"] == L + head + 2 * head      # + the unfolded head
+    assert plain["w4a8_matmul_stacked"] == L
+    assert plain["w4a8_matmul"] == 3 * head                 # + the unfolded head
     assert all(v == 0 for v in T_ops.counts().values())
 
 

@@ -30,7 +30,7 @@ from mobilequant_tpu_torch import ops as T_ops
 from mobilequant_tpu_torch.ops.prefill_attention import prefill_attention
 from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope
 from mobilequant_tpu_torch.ops.w13_gate import w13_gate
-from mobilequant_tpu_torch.ops.w4a8_matmul import w4a8_matmul
+from mobilequant_tpu_torch.ops.w4a8_matmul import w4a8_matmul, w4a8_matmul_stacked
 
 
 def _w4_stack(rng, L, K, N, w_spread=1.0):
@@ -72,9 +72,9 @@ def test_w4a8_matmul_plain_matches_pallas_stacked(M_):
     ref = PM.w4a8_matmul_stacked(jnp.asarray(x), p["wq"], p["scale"], p["offset"],
                                  p["colsum"], p["bias"], xs, xo, 1,
                                  block_n=256, interpret=True)
-    before = w4a8_matmul.plain_calls
-    out = w4a8_matmul(torch.from_numpy(x), _th(p), xs, xo, layer=1)
-    assert w4a8_matmul.plain_calls == before + 1
+    before = w4a8_matmul_stacked.plain_calls
+    out = w4a8_matmul_stacked(torch.from_numpy(x), _th(p), xs, xo, 1)
+    assert w4a8_matmul_stacked.plain_calls == before + 1
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
@@ -187,9 +187,10 @@ def test_w13_gate_plain_matches_pallas(act, site_on):
 
 def test_kernel_registry_counts_reset():
     T_ops.reset_counts()
-    assert set(T_ops.counts()) == {"w4a8_matmul", "qkv_rope", "prefill_attention",
-                                   "w13_gate", "fused_mlp_block_w4", "fused_layer_w4",
-                                   "fused_model_w4"}
+    assert set(T_ops.counts()) == {"w4a8_matmul", "w4a8_matmul_stacked", "qkv_rope",
+                                   "prefill_attention", "w13_gate", "fused_mlp_block_w4", "fused_layer_w4",
+                                   "fused_model_w4", "staged_append", "fused_otail_block_w4",
+                                   "fused_model_w4_chunk"}
     assert all(v == 0 for v in T_ops.counts().values())
     assert all(v == 0 for v in T_ops.counts("plain_calls").values())
 
