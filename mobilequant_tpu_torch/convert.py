@@ -16,7 +16,8 @@ import torch
 
 from mobilequant_tpu_torch.models import get_config
 from mobilequant_tpu_torch.ops.qops import pack_nibbles
-from mobilequant_tpu_torch.quant.policy import default_policy, static_range_sites
+from mobilequant_tpu_torch.quant.policy import (
+    default_policy, kv_bits_policy, static_range_sites)
 from mobilequant_tpu_torch.quant.quantizer import QuantConfig
 from mobilequant_tpu_torch.runtime import engine as E
 
@@ -44,20 +45,23 @@ def from_jax_packed(tree: dict, device="cuda") -> dict:
 
 def build_synthetic_packed(model_name: str = "tinyllama-1.1b", w_bits: int = 4,
                            head_bits: int = 4, max_seq_len: int = 1024,
-                           seed: int = 0, device="cuda"):
+                           seed: int = 0, device="cuda", kv_bits: int = 8):
     """-> (packed, config, policy, ecfg): a W4A8 packed model at the named
     model's full width with random weights from `seed`. Weights are unsigned
     nibbles with zero-point 8 and per-channel scales 1/(4.6·√K), so every
     projection keeps O(1) outputs; static ranges span ±4 at each site's
     bitwidth; the head is a seeded N(0, 0.02²) matrix through pack_head. The
-    policy is the strict default W4A8 policy (serve with relax_16bit)."""
+    policy is the strict default W4A8 policy (serve with relax_16bit), with
+    the 4-bit KV-cache sites for kv_bits=4 (kv_bits_policy; their ranges then
+    span the 4-bit bound, qmax 15)."""
     if w_bits != 4:
         raise NotImplementedError("the port's synthetic builder makes W4 packs")
     cfg = get_config(model_name)
     E._check_config(cfg)
-    policy = default_policy(cfg, QuantConfig(bitwidth=4, is_per_channel=True,
-                                             is_symmetric=True), QuantConfig(bitwidth=8))
-    ecfg = E.EngineConfig(model=cfg, max_seq_len=max_seq_len,
+    policy = kv_bits_policy(default_policy(
+        cfg, QuantConfig(bitwidth=4, is_per_channel=True, is_symmetric=True),
+        QuantConfig(bitwidth=8)), kv_bits)
+    ecfg = E.EngineConfig(model=cfg, max_seq_len=max_seq_len, kv_bits=kv_bits,
                           head_bits=head_bits)
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)

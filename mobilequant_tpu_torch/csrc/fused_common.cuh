@@ -114,13 +114,6 @@ __device__ __forceinline__ float affine(const W4& p, int l, int acc, int col,
   return y;
 }
 
-// fp64 lane sums of a warp, rounded once to fp32 (every lane gets the same)
-__device__ __forceinline__ float warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return (float)v;
-}
-
 // Grid-wide barrier: arrival count bar[0] (back at zero after every use) and
 // a generation word bar[1]. Needs every block resident (cooperative launch).
 __device__ void grid_barrier(unsigned* bar) {

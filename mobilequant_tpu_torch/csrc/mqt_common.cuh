@@ -59,6 +59,27 @@ __device__ __forceinline__ int ld_i32(const int8_t* p) {
   return __ldg(reinterpret_cast<const int*>(p));
 }
 
+// Asymmetric fake-quant in the JAX package's fp32 order: true division,
+// round half to even, clip to [0, qmax].
+__device__ __forceinline__ float fq16(float x, float s, float o, float qmax) {
+  float q = rintf(x / s) + o;
+  q = fminf(fmaxf(q, 0.0f), qmax);
+  return (q - o) * s;
+}
+
+// fp64 lane sums of a warp, rounded once to fp32 (every lane gets the same)
+__device__ __forceinline__ float warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return (float)v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // Column map of a tile: local columns [0, split) are global colA + n, local
 // columns [split, TBN) are global colB + (n - split); na / nb are the counts
 // of valid local columns in each part.

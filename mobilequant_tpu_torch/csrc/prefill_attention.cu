@@ -48,11 +48,7 @@ struct Strides {
   long long b, h, g, t;             // elements
 };
 
-__device__ __forceinline__ float fq16(float x, float s, float o, float qmax) {
-  float q = rintf(x / s) + o;
-  q = fminf(fmaxf(q, 0.0f), qmax);
-  return (q - o) * s;
-}
+using mqt::fq16;
 
 __global__ void __launch_bounds__(THREADS)
 prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,

@@ -10,7 +10,9 @@ from __future__ import annotations
 def kernel_wrappers() -> dict:
     """name -> wrapper function of every kernel of the slice."""
     from mobilequant_tpu_torch.ops.chunk_model import fused_model_w4_chunk
+    from mobilequant_tpu_torch.ops.decode_attention import decode_attention
     from mobilequant_tpu_torch.ops.fused_layer import fused_layer_w4, fused_model_w4
+    from mobilequant_tpu_torch.ops.kv4_attention import kv4_decode_attention
     from mobilequant_tpu_torch.ops.mlp_block import fused_mlp_block_w4
     from mobilequant_tpu_torch.ops.otail import fused_otail_block_w4
     from mobilequant_tpu_torch.ops.prefill_attention import prefill_attention
@@ -24,7 +26,8 @@ def kernel_wrappers() -> dict:
             "fused_mlp_block_w4": fused_mlp_block_w4, "fused_layer_w4": fused_layer_w4,
             "fused_model_w4": fused_model_w4, "staged_append": staged_append,
             "fused_otail_block_w4": fused_otail_block_w4,
-            "fused_model_w4_chunk": fused_model_w4_chunk}
+            "fused_model_w4_chunk": fused_model_w4_chunk,
+            "kv4_decode_attention": kv4_decode_attention, "decode_attention": decode_attention}
 
 
 def reset_counts() -> None:

@@ -27,7 +27,8 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "mqt_kernels"
 LIB_PATH = BUILD_DIR / "libmqt_kernels.so"
 SOURCES = ("w4a8_matmul.cu", "qkv_rope.cu", "prefill_attention.cu", "w13_gate.cu",
-           "fused_layer.cu", "fused_rows.cu", "staged_append.cu")
+           "fused_layer.cu", "fused_rows.cu", "staged_append.cu", "kv4_attention.cu",
+           "decode_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 
@@ -48,6 +49,9 @@ SIGNATURES = {
     "mqt_fused_otail": [P, P],
     "mqt_fused_chunk": [P, P],
     "mqt_staged_append": [P, P, P, P, I, I, I, I, LL, I, P],
+    "mqt_kv4_decode_attention": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                                 I, I, I, P],
+    "mqt_decode_attention": [P, P, P, P, P, P, I, I, I, I, I, I, P],
 }
 
 _lock = threading.Lock()

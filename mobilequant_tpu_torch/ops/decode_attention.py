@@ -1,0 +1,122 @@
+"""int8-KV decode attention (T = 1) over one layer of the cache.
+
+  scores = ((q−o'_q)·(k−o'_k))·s_q·s_k -> [fq16] -> ·1/√hd + mask (col < valid)
+  probs  = softmax(scores) -> [fq16];  out = (P·v_shifted − o'_v·ΣP)·s_v
+
+The step's own row is already in the cache (the engine writes it before the
+call), so the cache rows < valid_len are the whole attention. Used by a T = 1
+step under KernelConfig.attn_kernel (KernelConfig.attn()).
+
+Kernel: csrc/decode_attention.cu, which replaces the JAX package's
+mobilequant_tpu/ops/pallas_attention.py decode_attention
+(_decode_attn_kernel). Bound: device-memory bytes (the valid K and V rows).
+Design: one block per (sequence, kv head) with its G query heads; a thread
+per cache row computes its G integer dots (dp4a, exact) and the score
+epilogue in the JAX kernel's fp32 order; scores stay in shared memory; a warp
+per query head runs the softmax; P·V takes one output (query head, hd lane)
+per thread, rows in order. Only rows < valid_len are read (a masked row's
+exp is exactly 0; in the strict policy while fq16(0) is 0, else every row).
+
+Numerics: the denominator, ΣP and the P·V dots are summed in fp64 and rounded
+once to fp32, in the kernel and in the plain version below, so the two agree
+whatever the summation order; the rest repeats the JAX kernel's fp32
+operations. meta: the JAX engine's 13-float attention meta.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from mobilequant_tpu_torch.ops import _build
+from mobilequant_tpu_torch.ops.kv4_attention import fq_true_div
+from mobilequant_tpu_torch.ops.qops import f32, int_dot, rowsum_i8
+
+SMEM_LIMIT = 200 * 1024
+
+
+def decode_attn_smem(G: int, S: int, hd: int) -> int:
+    """Shared-memory bytes of the kernel: q rows, the scores of every cache row
+    of every query head, per-head row sums and statistics."""
+    return G * hd + 4 * G * S + 12 * G
+
+
+def _consts(meta, hd: int) -> dict:
+    m = [float(v) for v in meta]
+    oq = f32(np.float32(m[1]) - np.float32(128.0))
+    ok = f32(np.float32(m[3]) - np.float32(128.0))
+    return dict(m=m, oq=oq, ok=ok, ov=f32(np.float32(m[5]) - np.float32(128.0)),
+                sqk=f32(np.float32(m[0]) * np.float32(m[2])),
+                c_hd=f32(np.float32(np.float32(hd) * np.float32(oq)) * np.float32(ok)),
+                inv=f32(1.0 / math.sqrt(hd)))
+
+
+def decode_attention_plain(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                           meta: Sequence[float], valid_len: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in PyTorch operators, every cache row masked as
+    the JAX kernel masks it (see decode_attention for shapes)."""
+    B, Hkv, G, hd = q8.shape
+    S = k8.shape[2]
+    k = _consts(meta, hd)
+    m = k["m"]
+    acc = int_dot(q8, k8.transpose(-1, -2))                       # (B, Hkv, G, S)
+    ksum = rowsum_i8(k8).transpose(-1, -2)                        # (B, Hkv, 1, S)
+    sc = (acc - k["ok"] * rowsum_i8(q8) - k["oq"] * ksum + k["c_hd"]) * k["sqk"]
+    if m[8] > 0.5:
+        sc = fq_true_div(sc, m[6], m[7], m[8])
+    sc = sc * k["inv"]
+    col = torch.arange(S, device=q8.device)
+    valid = col[None] < valid_len.to(torch.int64)[:, None]         # (B, S)
+    sc = sc + torch.where(valid, torch.zeros((), device=q8.device), m[12])[:, None, None]
+    e = torch.exp(sc - sc.amax(-1, keepdim=True))
+    den = e.to(torch.float64).sum(-1, keepdim=True).to(torch.float32)
+    p = e / den
+    if m[11] > 0.5:
+        p = fq_true_div(p, m[9], m[10], m[11])
+    pv = torch.matmul(p.to(torch.float64), v8.to(torch.float64)).to(torch.float32)
+    psum = p.to(torch.float64).sum(-1, keepdim=True).to(torch.float32)
+    return (pv - k["ov"] * psum) * m[4]
+
+
+def decode_attention(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                     meta: Sequence[float], valid_len: torch.Tensor) -> torch.Tensor:
+    """q8 (B, Hkv, G, hd) int8 × one layer of the cache k8 / v8 (B, Hkv, S, hd)
+    int8 -> fp32 (B, Hkv, G, hd); valid_len (B,) int32 rows per sequence."""
+    B, Hkv, G, hd = q8.shape
+    S = k8.shape[2]
+    if k8.shape != (B, Hkv, S, hd) or v8.shape != k8.shape or tuple(valid_len.shape) != (B,):
+        raise ValueError(f"decode_attention: q {tuple(q8.shape)}, k/v {tuple(k8.shape)}, "
+                         f"valid {tuple(valid_len.shape)}")
+    if q8.device.type == "cpu":
+        decode_attention.plain_calls += 1
+        return decode_attention_plain(q8, k8, v8, meta, valid_len)
+    dev = _build.require_cuda(q8, k8, v8, valid_len)
+    if hd not in (64, 128) or G not in (1, 2, 4, 8, 16) or q8.dtype != torch.int8 \
+            or k8.dtype != torch.int8:
+        raise NotImplementedError(f"decode_attention kernel: hd {hd}, G {G}")
+    if decode_attn_smem(G, S, hd) > SMEM_LIMIT:
+        raise NotImplementedError(f"decode_attention kernel: S={S} needs too much shared memory")
+    k = _consts(meta, hd)
+    m = k["m"]
+    # masked rows may be skipped where their probability is exactly 0
+    skip = m[11] <= 0.5 or 0.0 <= m[10] <= m[11]
+    consts = [k["oq"], k["ok"], k["ov"], k["sqk"], k["c_hd"], k["inv"], m[6], m[7], m[8],
+              m[9], m[10], m[11], m[4], m[12]]
+    q = _build.aligned(q8)
+    kk, vv = _build.aligned(k8), _build.aligned(v8)
+    vl = valid_len.to(torch.int32).contiguous()
+    out = torch.empty((B, Hkv, G, hd), dtype=torch.float32, device=dev)
+    mh = _build.host_floats(consts)
+    code = _build.lib().mqt_decode_attention(
+        q.data_ptr(), kk.data_ptr(), vv.data_ptr(), vl.data_ptr(), out.data_ptr(),
+        _build.addr(mh), B, Hkv, G, hd, S, int(skip), _build.stream_ptr(dev))
+    _build.check(code, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+decode_attention.plain_calls = 0

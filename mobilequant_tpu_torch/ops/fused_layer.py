@@ -122,14 +122,13 @@ def layer_tail_plain(x, attn, o, mnw, mnb, w13, w2, m, act_kind):
     return fused_mlp_block_w4_plain(resid, mnw, mnb, w13, w2, m[33:], act_kind)
 
 
-def _layer_plain(x, pos, cs, ofq, anw, anb, qkv, o, mnw, mnb, w13, w2, kc, vc,
-                 m, Hq, Hkv, hd, rot, act_kind):
-    """One layer's function: x (B, K) -> (x_out (B, K), kv_new (B, 2Hkv, hd))
-    over one layer's packs / vectors and cache slices kc / vc (B, Hkv, S, hd)."""
-    B, K = x.shape
+def layer_attention_plain(q8, kc, vc, pos, m, Hq, Hkv, hd):
+    """One layer's decode-light attention of the kernels: q8 (B, Nq) int8 rows
+    [q | k | v], the cache slices kc / vc (B, Hkv, S, hd) read below pos (B,),
+    plus the self term -> (B, Hq·hd) fp32."""
+    B = q8.shape[0]
     G = Hq // Hkv
     S = kc.shape[2]
-    q8 = qkv_rows_plain(x, cs, ofq, anw, anb, qkv, m, Hq, Hkv, hd, rot)
     qg = q8[:, :Hq * hd].reshape(B, Hkv, G, hd)
     kn = q8[:, Hq * hd:(Hq + Hkv) * hd].reshape(B, Hkv, 1, hd).to(torch.float32)
     vn = q8[:, (Hq + Hkv) * hd:].reshape(B, Hkv, 1, hd).to(torch.float32)
@@ -140,8 +139,8 @@ def _layer_plain(x, pos, cs, ofq, anw, anb, qkv, o, mnw, mnb, w13, w2, kc, vc,
     s_self = sum_f32((qg.to(torch.float32) - oq) * (kn - ok)) * sqk
     s_self = _fq(s_self, m[12], m[13], m[14])
     inv = 1.0 / math.sqrt(hd)
-    col = torch.arange(S, device=x.device)[None, None, None, :]
-    zero = torch.zeros((), device=x.device)
+    col = torch.arange(S, device=q8.device)[None, None, None, :]
+    zero = torch.zeros((), device=q8.device)
     lg = scores * inv + torch.where(col < pos.reshape(B, 1, 1, 1), zero, m[18])
     lg_self = s_self * inv
     mx = torch.maximum(lg.amax(-1, keepdim=True), lg_self)
@@ -152,8 +151,17 @@ def _layer_plain(x, pos, cs, ofq, anw, anb, qkv, o, mnw, mnb, w13, w2, kc, vc,
     ps = _fq(es / den, m[15], m[16], m[17])
     pv = torch.matmul(p.to(torch.float64), vc.to(torch.float64)).to(torch.float32)
     vnf = (vn + 128.0 - m[11]) * m[10]
-    attn = (pv - ov * sum_f32(p)) * m[10] + ps * vnf
-    out = layer_tail_plain(x, attn.reshape(B, Hq * hd), o, mnw, mnb, w13, w2, m, act_kind)
+    return ((pv - ov * sum_f32(p)) * m[10] + ps * vnf).reshape(B, Hq * hd)
+
+
+def _layer_plain(x, pos, cs, ofq, anw, anb, qkv, o, mnw, mnb, w13, w2, kc, vc,
+                 m, Hq, Hkv, hd, rot, act_kind):
+    """One layer's function: x (B, K) -> (x_out (B, K), kv_new (B, 2Hkv, hd))
+    over one layer's packs / vectors and cache slices kc / vc (B, Hkv, S, hd)."""
+    B = x.shape[0]
+    q8 = qkv_rows_plain(x, cs, ofq, anw, anb, qkv, m, Hq, Hkv, hd, rot)
+    attn = layer_attention_plain(q8, kc, vc, pos, m, Hq, Hkv, hd)
+    out = layer_tail_plain(x, attn, o, mnw, mnb, w13, w2, m, act_kind)
     return out, q8[:, Hq * hd:].reshape(B, 2 * Hkv, hd)
 
 

@@ -50,9 +50,15 @@ def rowsum_i8(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32).sum(dim=-1, keepdim=True).to(torch.float32)
 
 
-def quantize_act(x: torch.Tensor, scale: float, offset: float) -> torch.Tensor:
-    """fp -> shifted int8 (stored uint8 domain − 128), 8-bit clip."""
-    q = torch.clamp(torch.round(x.to(torch.float32) / scale) + offset, 0.0, 255.0)
+def quantize_act(x: torch.Tensor, scale: float, offset: float, qmax=255.0) -> torch.Tensor:
+    """fp -> shifted int8 (stored uint8 domain − 128). qmax: the clip bound,
+    255 for 8-bit values, 15 for 4-bit KV-cache values; a tensor gives
+    per-segment bounds (broadcast against x)."""
+    q = torch.round(x.to(torch.float32) / scale) + offset
+    if isinstance(qmax, torch.Tensor):
+        q = torch.minimum(torch.clamp(q, min=0.0), qmax)
+    else:
+        q = torch.clamp(q, 0.0, qmax)
     return (q - 128.0).to(torch.int8)
 
 
@@ -72,6 +78,76 @@ def unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
     lo = packed & 0x0F
     hi = (packed >> 4) & 0x0F
     return torch.cat([lo, hi], dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# int4 KV cache (nibble-packed along the SEQUENCE axis, hd-major)
+# ---------------------------------------------------------------------------
+# The JAX package's layout, kept as it is: a 4-bit cache (L, B, Hkv, hd, S/2)
+# whose byte at column c holds position c in its low nibble and position
+# c + S/2 in its high nibble, raw values q4 in [0, 15]. Unpacked working rows
+# use the int8 cache's shifted convention (q4 − 128), so every affine
+# correction of the 8-bit path applies unchanged; (q4 − 128) & 0x0F == q4, so
+# shifted rows pack with the same bit operations as raw nibbles. On Hopper the
+# layout coalesces as it did on the TPU: K columns run along S for the QK dot,
+# V rows along S for P·V.
+
+
+def unpack_kv_s(packed: torch.Tensor) -> torch.Tensor:
+    """(..., hd, S/2) packed KV -> (..., S, hd) shifted int8 (q4 − 128)."""
+    q = unpack_nibbles(packed.transpose(-1, -2))
+    return (q.to(torch.int32) - 128).to(torch.int8)
+
+
+def pack_kv_s(k_shifted: torch.Tensor) -> torch.Tensor:
+    """(..., S, hd) shifted int8 4-bit values -> (..., hd, S/2) packed."""
+    return pack_nibbles(k_shifted).transpose(-1, -2).contiguous()
+
+
+def kv_colsums_packed(packed: torch.Tensor) -> torch.Tensor:
+    """Σ_hd of the shifted unpacked values, from the packed bytes in one pass:
+    (..., hd, S/2) -> (..., S) fp32 in sequence order ([lo | hi] planes)."""
+    hd = packed.shape[-2]
+    lo = (packed & 0x0F).sum(-2, dtype=torch.int32)
+    hi = ((packed >> 4) & 0x0F).sum(-2, dtype=torch.int32)
+    return (torch.cat([lo, hi], -1) - 128 * hd).to(torch.float32)
+
+
+def kv_flush_packed(cache_p: torch.Tensor, staged: torch.Tensor,
+                    at: torch.Tensor) -> torch.Tensor:
+    """Merge a chunk's staged rows into the packed cache, in place.
+
+    cache_p (L, B, Hkv, hd, S/2) packed; staged (L, B, Hkv, cs, hd) shifted
+    4-bit rows; at (B,) start positions (staged column j lands at position
+    at[b] + j, which maps to column p mod S/2 of nibble plane p div S/2, so a
+    chunk may straddle the planes). Per plane, one window of min(cs, S/2)
+    columns per sequence is read, merged and written back: the merge touches
+    only the chunk's columns, never the whole cache. The planes are merged one
+    after the other, so where cs > S/2 and one chunk writes both nibbles of a
+    byte, neither write loses the other."""
+    L, B, Hkv, hd, S2 = cache_p.shape
+    cs = staged.shape[3]
+    w = min(cs, S2)
+    dev = cache_p.device
+    at = torch.as_tensor(at, device=dev).to(torch.long)[:, None]          # (B, 1)
+    j = torch.arange(w, device=dev)[None]                                  # (1, w)
+    bi = torch.arange(B, device=dev)[:, None]
+    raw = (staged.to(torch.int32) & 0x0F).permute(1, 3, 0, 2, 4)          # (B, cs, L, Hkv, hd)
+    view = cache_p.permute(1, 4, 0, 2, 3)                                  # (B, S2, L, Hkv, hd)
+    for plane in (0, 1):
+        base = plane * S2
+        cols = torch.clamp(at - base, 0, S2 - w) + j                       # (B, w)
+        p = base + cols                                                    # absolute positions
+        sel = ((p >= at) & (p < at + cs))[:, :, None, None, None]
+        new = raw[bi, torch.clamp(p - at, 0, cs - 1)]
+        win = view[bi, cols].to(torch.int32)
+        lo, hi = win & 0x0F, (win >> 4) & 0x0F
+        if plane == 0:
+            lo = torch.where(sel, new, lo)
+        else:
+            hi = torch.where(sel, new, hi)
+        view[bi, cols] = (lo | (hi << 4)).to(torch.uint8).view(torch.int8)
+    return cache_p
 
 
 def pack_weight(w: torch.Tensor, qcfg: QuantConfig) -> dict:

@@ -109,8 +109,8 @@ KV_CACHE_SITES = (("self_attn.qk_bmm", "input2"),   # K cache quantizer
 
 def kv_bits_policy(policy: QPolicy, kv_bits: int) -> QPolicy:
     """Set the KV-cache quantizer bitwidth (the qk_bmm.input2 / pv_bmm.input2
-    sites). The port's engine serves kv_bits=8 only; the 4-bit policy is kept
-    so that a caller can build it and be refused by the engine."""
+    sites). kv_bits=4 makes the engine keep a nibble-packed int4 cache
+    (EngineConfig.kv_bits=4; runtime/engine.py)."""
     if kv_bits == 8:
         return policy
     if kv_bits != 4:

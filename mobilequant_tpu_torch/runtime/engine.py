@@ -3,11 +3,13 @@ main-path slice).
 
   pack()            finalized weights + learned ranges -> packed model (W4/W8
                     ints, scales, zero-point corrections, frozen ranges)
-  init_kv_cache()   the int8 KV cache, (L, B, Hkv, S, hd), head-major
-  forward()         prefill (T > 1) and decode-light (T = 1) passes; T = 1 on
-                    a StagedKVCache is a chunked-staging step
+  init_kv_cache()   the KV cache: int8 (L, B, Hkv, S, hd), head-major, or
+                    (kv_bits = 4) nibble-packed int4 (L, B, Hkv, hd, S/2)
+  forward()         prefill (T > 1) and decode (T = 1) passes; T = 1 on a
+                    StagedKVCache is a chunked-staging step
   decode_loop()     greedy / temperature decode: one forward a step, staged in
-                    chunks at B > 8 (and wherever no whole-step kernel runs)
+                    chunks at B > 8, on the int4 cache, and wherever no
+                    whole-step kernel runs
 
 Numerics follow the JAX engine op for op: every matmul is an exact integer
 dot with affine corrections; enabled fake-quant sites run in fp32. Static
@@ -22,24 +24,35 @@ head) in one launch; chunk_kernel a whole staged step at B = 16..128;
 layer_kernel a whole layer at B=1, T=1; otail_kernel the o-proj, resid_add_1
 and the MLP block at B·T <= stacked_bt_max; stacked_mlp_kernel the whole MLP
 block at B·T <= stacked_bt_max; gate_kernel the prefill qkv and w13+gate
-epilogue kernels; attn_kernel the prefill attention kernel; w4_matmul every
-other W4 projection and the W4 head through the W4A8 kernel. Routing reads
-static predicates only (shapes, config, flags). With no flag set the same
+epilogue kernels (the qkv one on the int8 cache only); attn_kernel the prefill
+attention kernel and, at T = 1, the decode attention kernel over the int8
+cache; kv4_attn_kernel the staged attention over the int4 cache; w4_matmul
+every other W4 projection and the W4 head through the W4A8 kernel. Routing
+reads static predicates only (shapes, config, flags). With no flag set the same
 function runs in PyTorch operators alone (the plain engine, the counterpart
 of the JAX engine's XLA body). The whole-layer, whole-model and chunk kernels
 take per-layer metas and qkv output fake-quant rows that are made on the
 device once per policy and kept on the packed model (_kernel_prep).
 
-The cache is updated in place: prefill writes its rows into the layer slice
-before attention, a non-staged decode step writes its rows once after the
-layer loop. Chunked staging (decode_loop): the cache stays read-only for a
-chunk of steps, each step's rows are appended to the staging buffers and the
-chunk's rows are written into the cache once at its end.
+The cache is updated in place: prefill, and a T = 1 step under attn_kernel,
+write their rows into the layer slice before attention; a decode-light step
+writes its rows once after the layer loop. Chunked staging (decode_loop): the
+cache stays read-only for a chunk of steps, each step's rows are appended to
+the staging buffers and the chunk's rows are written into the cache once at
+its end.
+
+The int4 cache (kv_bits = 4, the policy's 4-bit qk_bmm / pv_bmm input2 sites,
+quant/policy.kv_bits_policy) keeps the JAX engine's nibble-packed, hd-major
+layout (ops/qops.py). A prefill unpacks it once, runs the int8 program with
+the K / V rows clipped at 15, and repacks it; a decode step reads it packed
+(the kv4 kernel, or _kv4_decode_light_attention, its op-for-op plain twin)
+and its rows are merged into it in place (qops.kv_flush_packed), once per
+chunk when staged; decode_loop stages at every B on it.
 
 Out of this slice (NotImplementedError): MoE, parallel residual, 2-linear
 MLPs, layernorm models, policies with the q/k/v or w1/w3 output sites off,
-the int4 KV cache, context/tensor parallelism, weight-only mode, and any
-kernel flag on W8 packs.
+attn_kernel on the int4 cache (the JAX engine refuses it too), context/tensor
+parallelism, weight-only mode, and any kernel flag on W8 packs.
 """
 
 from __future__ import annotations
@@ -55,9 +68,11 @@ from mobilequant_tpu_torch.models import model as M
 from mobilequant_tpu_torch.models.config import ModelConfig
 from mobilequant_tpu_torch.ops import qops
 from mobilequant_tpu_torch.ops.chunk_model import chunk_kernel_supported, fused_model_w4_chunk
+from mobilequant_tpu_torch.ops.decode_attention import decode_attention
 from mobilequant_tpu_torch.ops.fused_layer import (
     MAX_BATCH, fused_layer_w4, fused_model_w4, head_kernel_supported,
     layer_kernel_supported)
+from mobilequant_tpu_torch.ops.kv4_attention import kv4_attn_supported, kv4_decode_attention
 from mobilequant_tpu_torch.ops.mlp_block import fused_mlp_block_w4, mlp_block_supported
 from mobilequant_tpu_torch.ops.otail import fused_otail_block_w4
 from mobilequant_tpu_torch.ops.prefill_attention import prefill_attention
@@ -72,7 +87,8 @@ from mobilequant_tpu_torch.runtime.kernel_config import KernelConfig
 
 
 class EngineKVCache(NamedTuple):
-    """int8 KV cache: k/v (L, B, Hkv, S_max, hd), shifted-uint8 domain."""
+    """The KV cache: k/v (L, B, Hkv, S_max, hd) int8, shifted-uint8 domain, or
+    on the int4 cache (L, B, Hkv, hd, S_max/2) nibble-packed (ops/qops.py)."""
     k: torch.Tensor
     v: torch.Tensor
 
@@ -81,13 +97,14 @@ class StagedKVCache(NamedTuple):
     """Chunked-staging decode cache (the JAX engine's StagedKVCache): the big
     k/v buffers stay read-only for a chunk of decode steps (they hold rows
     < the chunk-start position) while the chunk's rows collect in the staging
-    buffers sk/sv (L, B, Hkv, cs, hd); decode_loop writes them into k/v once
-    per chunk. m: the number of staged columns so far, a host int (the step
-    loop runs on the host, so no step reads it back from the card). kcs:
-    Σ_hd k (L, B, Hkv, S) fp32, the stale K cache's column sums, made once per
-    chunk. pk/pv: the last step's pending rows (L, B, Hkv, 1, hd), which
-    forward() returns and decode_loop appends at column m−1 at the top of the
-    next step."""
+    buffers sk/sv (L, B, Hkv, cs, hd) (shifted 4-bit values on the int4
+    cache); decode_loop writes them into k/v once per chunk. m: the number of
+    staged columns so far, a host int (the step loop runs on the host, so no
+    step reads it back from the card). kcs: Σ_hd k (L, B, Hkv, S) fp32, the
+    stale K cache's column sums (in the shifted domain, sequence order, on the
+    int4 cache), made once per chunk. pk/pv: the last step's pending rows
+    (L, B, Hkv, 1, hd), which forward() returns and decode_loop appends at
+    column m−1 at the top of the next step."""
     k: torch.Tensor
     v: torch.Tensor
     sk: torch.Tensor
@@ -102,7 +119,11 @@ class StagedKVCache(NamedTuple):
 class EngineConfig:
     model: ModelConfig
     max_seq_len: int = 1024
-    kv_bits: int = 8            # the port serves the int8 cache only
+    kv_bits: int = 8            # 8: the int8 cache; 4: the nibble-packed
+                                # int4 cache (two sequence positions a byte),
+                                # which halves the KV bytes a decode step
+                                # reads at serving batches; the policy carries
+                                # the matching 4-bit qk / pv input2 sites
     head_bits: int = 16         # 16 = fp head; 8/4 = quantized head (pack_head)
 
 
@@ -146,8 +167,8 @@ def _check_policy(policy: QPolicy) -> None:
     per projection; the port applies it only in that fused form."""
     sites = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
              "mlp.w1", "mlp.w3")
-    if policy_kv_bits(policy) != 8:
-        raise NotImplementedError("the port serves the int8 KV cache only")
+    if policy_kv_bits(policy) not in (4, 8):
+        raise NotImplementedError("the port serves int8 and int4 KV caches")
     if not all(_on(policy[s].output) for s in sites):
         raise NotImplementedError("the port needs the q/k/v and w1/w3 output "
                                   "fake-quant sites on")
@@ -252,9 +273,16 @@ def pack_head(head_w: torch.Tensor, hcfg: QuantConfig) -> dict:
 
 
 def init_kv_cache(ecfg: EngineConfig, batch_size: int, device="cuda") -> EngineKVCache:
-    if ecfg.kv_bits != 8:
-        raise NotImplementedError("the port serves the int8 KV cache only")
     c = ecfg.model
+    if ecfg.kv_bits == 4:
+        # nibble-packed along the sequence axis, hd-major (ops/qops.py)
+        if ecfg.max_seq_len % 2:
+            raise ValueError("the int4 cache needs an even max_seq_len")
+        shape = (c.num_layers, batch_size, c.num_kv_heads, c.head_dim_, ecfg.max_seq_len // 2)
+        return EngineKVCache(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                             v=torch.zeros(shape, dtype=torch.int8, device=device))
+    if ecfg.kv_bits != 8:
+        raise ValueError(f"kv_bits must be 4 or 8, got {ecfg.kv_bits}")
     shape = (c.num_layers, batch_size, c.num_kv_heads, ecfg.max_seq_len, c.head_dim_)
     return EngineKVCache(k=torch.full(shape, -128, dtype=torch.int8, device=device),
                          v=torch.full(shape, -128, dtype=torch.int8, device=device))
@@ -576,13 +604,110 @@ def _decode_light_attention(q8, k8_new, v8_new, k_cache, v_cache, lr, policy,
     return attn.reshape(B, 1, Hkv * G * hd)
 
 
+def _kv4_decode_light_attention(q8, k8_new, v8_new, kp, vp, lr, policy, cache_position, c,
+                                B, Hkv, G, hd, ks=None, vs=None, staged_len=None,
+                                k_colsum=None):
+    """Decode-light attention over the packed int4 cache, the JAX engine's
+    op-for-op twin of the kv4 kernel (pallas_kv4._kv4_attn_kernel): four score
+    parts {cache lo, cache hi, staged, self}, one shared max, per-part exp, the
+    denominator summed (lo + hi) + staged + self, and P·V in the raw 4-bit V
+    domain. kp / vp: one layer (B, Hkv, hd, S/2) packed; k8_new / v8_new
+    (B, Hkv, 1, hd) shifted rows; ks / vs (B, Hkv, cs, hd) shifted staged
+    rows, staged_len of them valid; k_colsum (B, Hkv, S) shifted K column
+    sums (qops.kv_colsums_packed), computed here when None. The nibbles are
+    unpacked into PyTorch tensors here (the plain path)."""
+    qk, pv = lr["self_attn.qk_bmm"], lr["self_attn.pv_bmm"]
+    S2 = kp.shape[3]
+    qi = q8.reshape(B, 1, Hkv, G, hd).permute(0, 2, 3, 1, 4).reshape(B, Hkv, G, hd)
+    qf = qi.to(torch.float32)
+    qs = qf.sum(-1, keepdim=True)                                  # (B, Hkv, G, 1)
+    sq, skk = qk["input"]["scale"], qk["input2"]["scale"]
+    oqs = qops.f32(np.float32(qk["input"]["offset"]) - np.float32(128.0))
+    ok = qops.f32(qk["input2"]["offset"])
+    oks = qops.f32(np.float32(ok) - np.float32(128.0))
+    sv_, ov = pv["input2"]["scale"], pv["input2"]["offset"]
+    inv = qops.f32(1.0 / math.sqrt(hd))
+    qk_out, pv_in = policy["self_attn.qk_bmm"].output, policy["self_attn.pv_bmm"].input
+    sqk = qops.f32(np.float32(sq) * np.float32(skk))
+    cf = sqk if _on(qk_out) else qops.f32(np.float32(sqk) * np.float32(inv))
+    hdo = np.float32(hd) * np.float32(oqs)
+    if k_colsum is None:
+        k_colsum = qops.kv_colsums_packed(kp)
+    dev = q8.device
+    zero = torch.zeros((), device=dev)
+
+    def part_raw(k4, ksum_sh):
+        acc = qops.int_dot(qi, k4)                                 # (B, Hkv, G, S2)
+        sc = (acc - ok * qs - oqs * (ksum_sh[:, :, None, :] + 128.0 * hd)
+              + qops.f32(hdo * np.float32(ok))) * cf
+        if _on(qk_out):
+            sc = _fq16(sc, qk["output"], qk_out) * inv
+        return sc
+
+    col = torch.arange(S2, device=dev)[None, None, None, :]
+    posb = cache_position.to(torch.int64)[:, None, None, None]
+    lg_lo = part_raw(kp & 0x0F, k_colsum[..., :S2]) + torch.where(col < posb, zero, c.neg_inf)
+    lg_hi = part_raw((kp >> 4) & 0x0F, k_colsum[..., S2:]) \
+        + torch.where(S2 + col < posb, zero, c.neg_inf)
+    lg_st = None
+    if ks is not None:
+        kss = qops.rowsum_i8(ks)[..., 0]                            # (B, Hkv, cs)
+        acc_st = qops.int_dot(qi, ks.transpose(-1, -2))
+        sc_st = (acc_st - oks * qs - oqs * kss[:, :, None, :]
+                 + qops.f32(hdo * np.float32(oks))) * cf
+        if _on(qk_out):
+            sc_st = _fq16(sc_st, qk["output"], qk_out) * inv
+        col2 = torch.arange(ks.shape[2], device=dev)[None, None, None, :]
+        lg_st = sc_st + torch.where(col2 < staged_len, zero, c.neg_inf)
+    kn = k8_new.to(torch.float32)                                  # (B, Hkv, 1, hd)
+    s_self = ((qf - oqs) * (kn - oks)).sum(-1, keepdim=True) * sqk
+    s_self = _fq16(s_self, qk.get("output"), qk_out)
+    lg_self = s_self * inv                                         # (B, Hkv, G, 1)
+
+    mx = torch.maximum(lg_lo.amax(-1, keepdim=True), lg_hi.amax(-1, keepdim=True))
+    if lg_st is not None:
+        mx = torch.maximum(mx, lg_st.amax(-1, keepdim=True))
+    mx = torch.maximum(mx, lg_self)
+    e_lo, e_hi, e_self = torch.exp(lg_lo - mx), torch.exp(lg_hi - mx), torch.exp(lg_self - mx)
+    e_st = torch.exp(lg_st - mx) if lg_st is not None else None
+    den = e_lo.sum(-1, keepdim=True) + e_hi.sum(-1, keepdim=True)
+    if e_st is not None:
+        den = den + e_st.sum(-1, keepdim=True)
+    den = den + e_self
+    v_lo = (vp & 0x0F).to(torch.float32).transpose(-1, -2)        # (B, Hkv, S2, hd)
+    v_hi = ((vp >> 4) & 0x0F).to(torch.float32).transpose(-1, -2)
+    vst = (vs & 0x0F).to(torch.float32) if vs is not None else None
+    vn = (v8_new & 0x0F).to(torch.float32)                         # (B, Hkv, 1, hd)
+    if _on(pv_in):
+        p_lo = _fq16(e_lo / den, pv["input"], pv_in)
+        p_hi = _fq16(e_hi / den, pv["input"], pv_in)
+        p_self = _fq16(e_self / den, pv["input"], pv_in)
+        psum = p_lo.sum(-1, keepdim=True) + p_hi.sum(-1, keepdim=True)
+        A = torch.matmul(p_lo, v_lo) + torch.matmul(p_hi, v_hi)
+        if e_st is not None:
+            p_st = _fq16(e_st / den, pv["input"], pv_in)
+            psum = psum + p_st.sum(-1, keepdim=True)
+            A = A + torch.matmul(p_st, vst)
+        psum = psum + p_self
+        attn = (A + p_self * vn - ov * psum) * sv_
+    else:
+        A = torch.matmul(e_lo, v_lo) + torch.matmul(e_hi, v_hi)
+        if e_st is not None:
+            A = A + torch.matmul(e_st, vst)
+        A = A + e_self * vn
+        attn = (A / den - ov) * sv_
+    attn = attn.reshape(B, Hkv, G, 1, hd).permute(0, 3, 1, 2, 4)
+    return attn.reshape(B, 1, Hkv * G * hd)
+
+
 def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
                    c: ModelConfig, policy: QPolicy, kc: KernelConfig,
                    kv_valid_len, positions, prep, decode_light, st=None,
-                   staged_len=None, k_colsum=None):
+                   staged_len=None, k_colsum=None, kv_bits: int = 8):
     """One decoder layer on packed ints -> (hidden, new K/V rows or None).
     st = (sk, sv) of this layer, staged_len and k_colsum: a chunked-staging
-    step (see _decode_light_attention)."""
+    step (see _decode_light_attention). kv_bits 4: the K / V rows are 4-bit
+    cache values, and a decode-light step reads the packed cache."""
     ly = packed["layers"]
     B, T, D = x.shape
     hd, Hq, Hkv = c.head_dim_, c.num_heads, c.num_kv_heads
@@ -609,7 +734,9 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
     h = _norm(x, ly["attn_norm"], l, "input_layernorm", lr, policy, c)
     h8, hr = out_q8(h, "input_layernorm")
     qkvp = ly["qkv_proj"]
-    if kc.gate_kernel and T > 1:
+    if kc.gate_kernel and T > 1 and kv_bits == 8:
+        # (the epilogue kernel clips every row at 255: on the int4 cache the
+        # K / V rows take the per-segment 15 of the plain path below)
         if not _is_w4(qkvp, D):
             raise NotImplementedError("the qkv epilogue kernel takes W4 packs")
         # stacked qkv matmul + output fq + RoPE + segment quantization
@@ -626,23 +753,37 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
         q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
         qk_cat = torch.cat([q.reshape(B, T, Hq, hd), k.reshape(B, T, Hkv, hd)], 2)
         qk_cat = M.apply_rope(qk_cat, cos, sin, c.rotary_dim)
-        # the JAX engine's joint per-segment quantization, segment by segment
+        # the JAX engine's joint per-segment quantization, segment by segment;
+        # K / V rows clip at the cache's bound (15 on the int4 cache)
+        kv_max = 15.0 if kv_bits == 4 else 255.0
         q8 = qops.quantize_act(qk_cat[:, :, :Hq], qk["input"]["scale"], qk["input"]["offset"])
         k8_new = qops.quantize_act(qk_cat[:, :, Hq:], qk["input2"]["scale"],
-                                   qk["input2"]["offset"]).transpose(1, 2)
+                                   qk["input2"]["offset"], kv_max).transpose(1, 2)
         v8_new = qops.quantize_act(v.reshape(B, T, Hkv, hd), pv["input2"]["scale"],
-                                   pv["input2"]["offset"]).transpose(1, 2)
+                                   pv["input2"]["offset"], kv_max).transpose(1, 2)
 
     rows = None
     if decode_light:
         ks, vs = st if st is not None else (None, None)
-        attn = _decode_light_attention(q8, k8_new, v8_new, cache.k[l], cache.v[l], lr,
-                                       policy, cache_position, c, B, Hkv, G, hd,
-                                       ks=ks, vs=vs, staged_len=staged_len,
-                                       k_colsum=k_colsum)
+        if kv_bits == 4 and "kv4" in prep:
+            # the kv4 kernel over the layer-stacked packed cache
+            p4 = prep["kv4"]
+            att = kv4_decode_attention(
+                q8.reshape(B * Hkv, G, hd), p4["kp"], p4["vp"], p4["kcs"], p4["sk"], p4["sv"],
+                k8_new.reshape(B * Hkv, hd), v8_new.reshape(B * Hkv, hd),
+                _attn_meta(lr, policy, c), cache_position, staged_len, l,
+                qk_fq_on=_on(policy["self_attn.qk_bmm"].output),
+                pv_fq_on=_on(policy["self_attn.pv_bmm"].input))
+            attn = att.reshape(B, 1, qd)
+        else:
+            light = _kv4_decode_light_attention if kv_bits == 4 else _decode_light_attention
+            attn = light(q8, k8_new, v8_new, cache.k[l], cache.v[l], lr, policy,
+                         cache_position, c, B, Hkv, G, hd, ks=ks, vs=vs,
+                         staged_len=staged_len, k_colsum=k_colsum)
         rows = (k8_new, v8_new)
     else:
-        # prefill: write the segment's rows into this layer's cache slice
+        # prefill, or a T = 1 step under attn_kernel: write the rows into this
+        # layer's cache slice, then attend over it
         k_all, v_all = cache.k[l], cache.v[l]
         bi = torch.arange(B, device=x.device)[:, None]
         si = cache_position[:, None].to(torch.long) + torch.arange(T, device=x.device)[None]
@@ -651,7 +792,13 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
         S = k_all.shape[2]
         qk_on = _on(policy["self_attn.qk_bmm"].output)
         pv_on = _on(policy["self_attn.pv_bmm"].input)
-        if kc.attn_kernel:
+        if kc.attn_kernel and T == 1:
+            # the decode attention kernel over the rows < kv_valid_len
+            valid = kv_valid_len if kv_valid_len is not None else positions[:, -1] + 1
+            qg = q8.reshape(B, Hkv, G, hd)
+            attn = decode_attention(qg, k_all, v_all, _attn_meta(lr, policy, c), valid)
+            attn = attn.reshape(B, 1, qd)
+        elif kc.attn_kernel:
             valid = kv_valid_len if kv_valid_len is not None else \
                 torch.full((B,), S, dtype=torch.int32, device=x.device)
             qg = q8.reshape(B, T, Hkv, G, hd).permute(0, 2, 3, 1, 4)
@@ -730,10 +877,13 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
             kc: KernelConfig = KernelConfig(), logits_at=None):
     """Packed-int forward -> (logits, kv_cache), on the device of the packed
     model. T > 1 is a prefill (rows written into the cache in place), T = 1
-    with a cache the decode-light step. With a StagedKVCache (T = 1 only)
-    the step is a chunked-staging step: cache_position is the chunk-start
-    position, the caches are read, not written, and the returned
+    with a cache the decode-light step (under attn_kernel: the row written
+    into the cache, then the decode attention kernel). With a StagedKVCache
+    (T = 1 only) the step is a chunked-staging step: cache_position is the
+    chunk-start position, the caches are read, not written, and the returned
     StagedKVCache carries the step's rows as pending (pk/pv) with m + 1.
+    On the int4 cache (the policy's KV bitwidth 4) a prefill unpacks the
+    cache once and repacks it in place; a decode step reads it packed.
     logits_at: optional (B,) row index, to run the final norm and head on
     that single position ((B, 1, V))."""
     c = config
@@ -742,15 +892,26 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
     dev = packed["embed"].device
     tokens = torch.as_tensor(tokens, device=dev).to(torch.long)
     B, T = tokens.shape
-    if T == 1 and kc.attn_kernel:
-        raise NotImplementedError("the decode attention kernel is not ported; "
-                                  "decode runs decode-light attention")
+    kv_bits = policy_kv_bits(policy)
     staging = None
     if isinstance(kv_cache, StagedKVCache):
-        if T != 1:
-            raise ValueError("a StagedKVCache takes T = 1 decode steps")
+        if T != 1 or kc.attn_kernel:
+            raise ValueError("a StagedKVCache takes T = 1 decode-light steps "
+                             "(no attn_kernel)")
         staging = kv_cache
         kv_cache = EngineKVCache(staging.k, staging.v)
+    kv_packed = False          # this pass reads the int4 cache packed
+    packed_cache = None        # a prefill's int4 cache, repacked at the end
+    if kv_bits == 4 and kv_cache is not None:
+        if T > 1:
+            # unpack once, run the int8 program as it is, repack in place
+            packed_cache = kv_cache
+            kv_cache = EngineKVCache(qops.unpack_kv_s(kv_cache.k), qops.unpack_kv_s(kv_cache.v))
+        elif kc.attn_kernel:
+            raise NotImplementedError("int4 KV decode: the attention kernels read int8 "
+                                      "caches (the JAX engine refuses this too)")
+        else:
+            kv_packed = True
     if positions is None:
         positions = torch.arange(T, device=dev)[None].expand(B, T)
     positions = torch.as_tensor(positions, device=dev).to(torch.int32)
@@ -769,8 +930,8 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
                                  torch.zeros(shape, dtype=torch.int8, device=dev))
         cache_position = torch.zeros((B,), dtype=torch.int32, device=dev)
     cache_position = torch.as_tensor(cache_position, device=dev).to(torch.int32)
-    S = kv_cache.k.shape[3]
-    decode_light = T == 1
+    S = kv_cache.k.shape[4] * 2 if kv_packed else kv_cache.k.shape[3]
+    decode_light = T == 1 and not kc.attn_kernel
     mask = None
     if not decode_light and not kc.attn_kernel:
         mask = M.causal_mask(positions, S, c.neg_inf, kv_valid_len)
@@ -783,12 +944,24 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
         prep["outq"] = _qkv_outq_rows(rr, c, L, dev)
         prep["cs"] = _rope_cs_rows(cos, sin, c.head_dim_, c.rotary_dim)
 
-    fused = (decode_light and has_cache and staging is None
+    # the whole-step and whole-layer kernels read int8 caches
+    fused = (decode_light and has_cache and staging is None and kv_bits == 8
              and (kc.model_kernel or kc.layer_kernel) and layer_kernel_supported(c, S))
     ly = packed["layers"]
     Hkv, hd = c.num_kv_heads, c.head_dim_
+    if (kv_packed and staging is not None and staging.kcs is not None and kc.kv4_attn_kernel
+            and kv4_attn_supported(Hkv, S, hd, B)):
+        # the kv4 kernel reads the layer-stacked packed cache, staging buffers
+        # and K column sums by layer index, flattened to (L, B·Hkv, ...) views
+        BH, cs = B * Hkv, staging.sk.shape[3]
+        prep["kv4"] = {"kp": kv_cache.k.reshape(L, BH, hd, S // 2),
+                       "vp": kv_cache.v.reshape(L, BH, hd, S // 2),
+                       "kcs": staging.kcs.reshape(L, BH, S),
+                       "sk": staging.sk.reshape(L, BH, cs, hd),
+                       "sv": staging.sv.reshape(L, BH, cs, hd)}
     logits = None
-    if staging is not None and kc.chunk_kernel and chunk_kernel_supported(c, S, B):
+    if (staging is not None and kc.chunk_kernel and kv_bits == 8
+            and chunk_kernel_supported(c, S, B)):
         # the whole staged step in one launch (B = 16..128), with the W4 head
         # folded when it fits
         kp = _kernel_prep(packed, policy, c)
@@ -837,7 +1010,8 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
                 packed, l, layer_ranges(rr, l), h, cos, sin, mask, kv_cache,
                 cache_position, c, policy, kc, kv_valid_len, positions, prep, decode_light,
                 st=st, staged_len=None if staging is None else staging.m,
-                k_colsum=None if staging is None or staging.kcs is None else staging.kcs[l])
+                k_colsum=None if staging is None or staging.kcs is None else staging.kcs[l],
+                kv_bits=kv_bits)
             if rows is not None:
                 rows_k.append(rows[0][:, :, 0])
                 rows_v.append(rows[1][:, :, 0])
@@ -848,12 +1022,20 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
         # appends them to the staging buffers at the top of the next step
         kv_cache = staging._replace(m=staging.m + 1, pk=k_rows[:, :, :, None],
                                     pv=v_rows[:, :, :, None])
+    elif decode_light and kv_packed:
+        # the step's rows merged into the packed cache (a one-column flush)
+        qops.kv_flush_packed(kv_cache.k, k_rows[:, :, :, None], cache_position)
+        qops.kv_flush_packed(kv_cache.v, v_rows[:, :, :, None], cache_position)
     elif decode_light:
         # one write of the step's rows (L, B, Hkv, hd) per cache after the layers
         bi = torch.arange(B, device=dev)
         pi = cache_position.to(torch.long)
         kv_cache.k[:, bi, :, pi] = k_rows.transpose(0, 1)
         kv_cache.v[:, bi, :, pi] = v_rows.transpose(0, 1)
+    if packed_cache is not None:
+        packed_cache.k.copy_(qops.pack_kv_s(kv_cache.k))
+        packed_cache.v.copy_(qops.pack_kv_s(kv_cache.v))
+        kv_cache = packed_cache
     if logits is not None:
         return logits, kv_cache
 
@@ -923,22 +1105,29 @@ def decode_loop(packed: dict, first_token: torch.Tensor, kv_cache: EngineKVCache
 
     kc None is the entry point's config (KernelConfig.serving, as the JAX
     decode_loop makes it for use_pallas=True); an explicit KernelConfig is
-    used as it is. At B <= 8 with a whole-step or whole-layer kernel each
-    step writes its rows into the cache (one whole-model launch a step under
-    KernelConfig.decode()). Otherwise (B > 8, or no such kernel) the loop
-    runs in chunked staging, as the JAX engine's: chunks of staging_chunk
-    steps (n_steps when it is not a larger multiple); within a chunk the cache
-    is read-only, the K column sums are made once, each step first appends
-    the previous step's rows to the staging buffers, and after the chunk
-    they are written into the cache at the chunk-start positions. The
-    chunk's rows must fit the cache: start_pos + n_steps <= max_seq_len,
-    checked once per call (start_pos.max() is read back to the host: one
-    synchronisation per call, before the first step)."""
+    used as it is. On the int8 cache at B <= 8 with a whole-step or
+    whole-layer kernel, or under attn_kernel, each step writes its rows into
+    the cache (one whole-model launch a step under KernelConfig.decode()).
+    Otherwise (B > 8, the int4 cache, or no such kernel) the loop runs in
+    chunked staging, as the JAX engine's: chunks of staging_chunk steps
+    (n_steps when it is not a larger multiple); within a chunk the cache is
+    read-only, the K column sums are made once, each step first appends the
+    previous step's rows to the staging buffers, and after the chunk they
+    are written into the cache at the chunk-start positions (on the int4
+    cache, merged into its nibbles by qops.kv_flush_packed). The chunk's
+    rows must fit the cache: start_pos + n_steps <= max_seq_len, checked once
+    per call (start_pos.max() is read back to the host: one synchronisation
+    per call, before the first step)."""
     from mobilequant_tpu_torch.runtime.sampling import loop_next_token
     B = first_token.shape[0]
     if kc is None:
         kc = KernelConfig.serving(config, packed, B)
-    use_staging = not kc.attn_kernel and (B > 8 or not (kc.layer_kernel or kc.model_kernel))
+    kv4 = policy_kv_bits(policy) == 4
+    if kv4 and kc.attn_kernel:
+        raise NotImplementedError("int4 KV decode: the attention kernels read int8 caches "
+                                  "(the JAX engine refuses this too)")
+    use_staging = not kc.attn_kernel and (kv4 or B > 8
+                                          or not (kc.layer_kernel or kc.model_kernel))
     token, pos, cache = first_token, start_pos, kv_cache
     toks, last = [], None
     if not use_staging:
@@ -952,7 +1141,12 @@ def decode_loop(packed: dict, first_token: torch.Tensor, kv_cache: EngineKVCache
             pos = pos + 1
         return torch.cat(toks, 1), cache, last
 
-    L, _, Hkv, S, hd = cache.k.shape
+    if kv4:
+        L, _, Hkv, hd, S2 = cache.k.shape
+        S = 2 * S2
+    else:
+        L, _, Hkv, S, hd = cache.k.shape
+    colsums = qops.kv_colsums_packed if kv4 else kv_colsums
     cs = staging_chunk if (n_steps > staging_chunk and n_steps % staging_chunk == 0) \
         else n_steps
     end = int(start_pos.max()) + n_steps
@@ -965,7 +1159,7 @@ def decode_loop(packed: dict, first_token: torch.Tensor, kv_cache: EngineKVCache
         st = StagedKVCache(cache.k, cache.v, torch.zeros(shape, dtype=cache.k.dtype,
                                                          device=cache.k.device),
                            torch.zeros(shape, dtype=cache.v.dtype, device=cache.v.device),
-                           0, kv_colsums(cache.k))
+                           0, colsums(cache.k))
         for _ in range(cs):
             st = _stage_pending(st, kc)
             logits, st = forward(packed, token, config, policy, positions=pos[:, None],
@@ -976,6 +1170,7 @@ def decode_loop(packed: dict, first_token: torch.Tensor, kv_cache: EngineKVCache
             toks.append(token)
             pos = pos + 1
         st = _stage_pending(st, kc)
-        _flush(cache.k, st.sk, pos0)
-        _flush(cache.v, st.sv, pos0)
+        flush = qops.kv_flush_packed if kv4 else _flush
+        flush(cache.k, st.sk, pos0)
+        flush(cache.v, st.sv, pos0)
     return torch.cat(toks, 1), cache, last

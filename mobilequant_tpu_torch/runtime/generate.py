@@ -9,8 +9,12 @@ at B <= 8 non-staged T=1 steps, each one launch of the whole-model kernel; at
 B > 8 the chunked-staging loop, whose steps run the W4A8 kernel for qkv and o,
 the whole-MLP-block kernel (up to 128 rows) and staged_append. decode_kc, when
 set, replaces that config (KernelConfig.chunk(): one chunk-kernel launch per
-staged step). On a CPU device the kernel wrappers run their plain versions
-(tests); the default device is the GPU, and a GPU device without CUDA raises.
+staged step). On the int4 cache (EngineConfig.kv_bits = 4 with a 4-bit KV
+policy) the prefill is the same kernel set without the qkv epilogue kernel
+(the engine gates it: it clips K / V rows at the 8-bit bound) and decode is
+staged at every B, its attention one kv4 kernel launch per layer and step.
+On a CPU device the kernel wrappers run their plain versions (tests); the
+default device is the GPU, and a GPU device without CUDA raises.
 """
 
 from __future__ import annotations

@@ -19,8 +19,10 @@ class KernelConfig:
                                 # through ops/w4a8_matmul
     gate_kernel: bool = False   # prefill qkv epilogue kernel (ops/qkv_rope) and
                                 # w13+gate epilogue kernel (ops/w13_gate)
-    attn_kernel: bool = False   # prefill attention kernel
-                                # (ops/prefill_attention); T>1 only
+    attn_kernel: bool = False   # attention kernels over the int8 cache: the
+                                # prefill kernel (ops/prefill_attention) at
+                                # T > 1, the decode kernel
+                                # (ops/decode_attention) at T = 1
     stacked_mlp_kernel: bool = False  # whole MLP block in one kernel
                                       # (ops/mlp_block) at B·T <= stacked_bt_max
     otail_kernel: bool = False  # o-proj + resid_add_1 + the whole MLP block in
@@ -36,12 +38,15 @@ class KernelConfig:
     chunk_kernel: bool = False  # whole staged decode step, B = 16..128, T=1:
                                 # every layer and the folded W4 head
                                 # (ops/chunk_model.fused_model_w4_chunk)
+    kv4_attn_kernel: bool = False  # staged decode attention over the int4
+                                   # cache, one launch per layer
+                                   # (ops/kv4_attention); int4-cache packs only
 
     @property
     def any_kernel(self) -> bool:
         return (self.w4_matmul or self.gate_kernel or self.attn_kernel
                 or self.stacked_mlp_kernel or self.otail_kernel or self.layer_kernel
-                or self.model_kernel or self.chunk_kernel)
+                or self.model_kernel or self.chunk_kernel or self.kv4_attn_kernel)
 
     def replace(self, **kw) -> "KernelConfig":
         return dataclasses.replace(self, **kw)
@@ -58,10 +63,11 @@ class KernelConfig:
 
     @classmethod
     def decode(cls) -> "KernelConfig":
-        """The main path's decode set (the JAX package's default() without
-        the int4-cache kernel): one whole-model launch per step at B <= 8."""
+        """The main path's decode set (the JAX package's default()): one
+        whole-model launch per step at B <= 8 on the int8 cache; on the int4
+        cache every step is staged and its attention runs the kv4 kernel."""
         return cls(w4_matmul=True, stacked_mlp_kernel=True, layer_kernel=True,
-                   model_kernel=True)
+                   model_kernel=True, kv4_attn_kernel=True)
 
     @classmethod
     def decode_per_layer(cls) -> "KernelConfig":
@@ -94,3 +100,12 @@ class KernelConfig:
         """The staged serving-batch route with the o-tail kernel in every
         layer (the JAX package's "otail" set)."""
         return cls.decode().replace(stacked_bt_max=128, otail_kernel=True)
+
+    @classmethod
+    def attn(cls) -> "KernelConfig":
+        """The JAX package's "attn" set: the W4A8 kernel, the attention kernels
+        (a T = 1 step writes its row into the cache and runs the decode
+        attention kernel), the MLP-block kernel and the kv4 kernel; no
+        whole-layer or whole-model kernel."""
+        return cls(w4_matmul=True, attn_kernel=True, stacked_mlp_kernel=True,
+                   kv4_attn_kernel=True)

@@ -58,22 +58,33 @@ def test_generator_on_cuda_refuses_without_a_card():
 
 
 def test_unported_configurations_raise():
+    """What stays unported raises: attn_kernel on the int4 cache (the JAX
+    engine refuses it too), kernel flags on W8 packs, MoE configurations."""
     from mobilequant_tpu_torch.convert import build_synthetic_packed
-    from mobilequant_tpu_torch.quant.policy import kv_bits_policy, relax_16bit
+    from mobilequant_tpu_torch.ops.qops import unpack_nibbles
+    from mobilequant_tpu_torch.quant.policy import relax_16bit
     from mobilequant_tpu_torch.runtime import engine as E
     from mobilequant_tpu_torch.runtime.kernel_config import KernelConfig
+    tok = torch.zeros((1, 1), dtype=torch.long)
+    pos = torch.zeros(1, dtype=torch.int32)
+    packed, cfg, policy, ecfg = build_synthetic_packed("test-llama-256", max_seq_len=32,
+                                                       device="cpu", kv_bits=4)
+    policy = relax_16bit(policy)
+    with pytest.raises(NotImplementedError):
+        E.forward(packed, tok, cfg, policy, kv_cache=E.init_kv_cache(ecfg, 1, device="cpu"),
+                  cache_position=pos, kc=KernelConfig.attn())
+    with pytest.raises(NotImplementedError):
+        E.decode_loop(packed, tok, E.init_kv_cache(ecfg, 1, device="cpu"), pos, 2, cfg,
+                      policy, kc=KernelConfig.attn())
     packed, cfg, policy, ecfg = build_synthetic_packed("test-llama-256", max_seq_len=32,
                                                        device="cpu")
-    tok = torch.zeros((1, 1), dtype=torch.long)
+    qkv = packed["layers"]["qkv_proj"]
+    qkv["wq"] = unpack_nibbles(qkv["wq"])           # a W8-shaped (L, K, N) pack
     with pytest.raises(NotImplementedError):
-        E.forward(packed, tok, cfg, kv_bits_policy(policy, 4))
-    with pytest.raises(NotImplementedError):     # the decode attention kernel is not ported
-        E.forward(packed, tok, cfg, relax_16bit(policy),
-                  kv_cache=E.init_kv_cache(ecfg, 1, device="cpu"),
-                  cache_position=torch.zeros(1, dtype=torch.int32),
-                  kc=KernelConfig(attn_kernel=True))
+        E.forward(packed, tok, cfg, relax_16bit(policy), kc=KernelConfig(w4_matmul=True))
     with pytest.raises(NotImplementedError):
-        E.init_kv_cache(E.EngineConfig(model=cfg, kv_bits=4), 1, device="cpu")
+        E.forward(packed, tok, cfg.replace(num_local_experts=4, num_experts_per_tok=2),
+                  relax_16bit(policy))
 
 
 def test_synthetic_pack_runs_the_plain_path_on_cpu():

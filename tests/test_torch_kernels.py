@@ -190,7 +190,8 @@ def test_kernel_registry_counts_reset():
     assert set(T_ops.counts()) == {"w4a8_matmul", "w4a8_matmul_stacked", "qkv_rope",
                                    "prefill_attention", "w13_gate", "fused_mlp_block_w4", "fused_layer_w4",
                                    "fused_model_w4", "staged_append", "fused_otail_block_w4",
-                                   "fused_model_w4_chunk"}
+                                   "fused_model_w4_chunk", "kv4_decode_attention",
+                                   "decode_attention"}
     assert all(v == 0 for v in T_ops.counts().values())
     assert all(v == 0 for v in T_ops.counts("plain_calls").values())
 
@@ -205,3 +206,19 @@ def test_kernel_paths_refuse_foreign_devices():
             "colsum": torch.zeros((128,), device="meta")}
     with pytest.raises(ValueError):
         w4a8_matmul(x, pack, 1.0, 128.0)
+    from mobilequant_tpu_torch.ops.decode_attention import decode_attention
+    from mobilequant_tpu_torch.ops.kv4_attention import kv4_decode_attention
+    meta = [1.0] * 12 + [-40000.0]
+    q = torch.zeros((2, 2, 4, 64), dtype=torch.int8, device="meta")
+    kv = torch.zeros((2, 2, 16, 64), dtype=torch.int8, device="meta")
+    valid = torch.ones((2,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        decode_attention(q, kv, kv, meta, valid)
+    kp = torch.zeros((1, 4, 64, 8), dtype=torch.int8, device="meta")
+    st = torch.zeros((1, 4, 2, 64), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError):
+        kv4_decode_attention(q.reshape(4, 4, 64), kp, kp,
+                             torch.zeros((1, 4, 16), device="meta"), st, st,
+                             torch.zeros((4, 64), dtype=torch.int8, device="meta"),
+                             torch.zeros((4, 64), dtype=torch.int8, device="meta"), meta,
+                             valid, 0, 0)
