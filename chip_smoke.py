@@ -49,6 +49,21 @@
      path;
    - the attn() route: 8 B=1 decode steps, one decode attention launch per
      layer and step, against the plain path;
+   - phase 2w and 3e, on a W8A8 pack of their own (per-tensor asymmetric W8
+     layers, a W8 per-channel head, seeded; a generator of their own): each W8
+     edition (qkv_rope and w13_gate at M=128, the MLP block's dp4a and row
+     kernels at M = 1, 2, 8, 32, 128, the whole-model kernel with the W8 head
+     at B = 1, 8, the whole-layer kernel, the chunk kernel with the W8 head at
+     B = 16, 32, 48) and w8a8_matmul (M = 1, 8, 32 on qkv / o / w13 / w2,
+     beside torch._int_mm) against its plain version, then the W8 routes:
+     B=1 generate_fast (the W8 qkv and w13 epilogue kernels, one W8
+     whole-model launch per token), a 32-token prompt (the W8 MLP block),
+     decode_per_layer(), the attn_all() route (w8a8_matmul for qkv and o),
+     B=32 on the entry config (one W8 chunk launch a step) and B=128 (the
+     staged route), each with tok/s, wall / device ms a step, idle share and
+     launches; the B=1 step and its engine-numerics witness, one 32-step B=32
+     chunk on the serving route, its plain version, the engine's numerics and
+     the plain path, and the attn_all() route against the plain path;
    the decode-attention rows of phase 2, the int4-cache phase and the attn()
    phase draw their inputs from a generator of their own, so what they draw
    moves no input of the other checks;
@@ -298,6 +313,7 @@ def main() -> None:
         from mobilequant_tpu_torch.ops.w13_gate import w13_gate, w13_gate_plain
         from mobilequant_tpu_torch.ops.w4a8_matmul import (
             layer_pack, w4a8_matmul, w4a8_matmul_plain, w4a8_matmul_stacked)
+        from mobilequant_tpu_torch.ops.w8a8_matmul import w8a8_matmul, w8a8_matmul_plain
         from mobilequant_tpu_torch.quant.policy import relax_16bit
         from mobilequant_tpu_torch.runtime import engine as E
         from mobilequant_tpu_torch.runtime.generate import Generator
@@ -1285,6 +1301,423 @@ def main() -> None:
     if max(e_ak[0], e_av[0]) > 1 or max(e_ak[1], e_av[1]) > 1e-3:
         failures.append(f"attn route vs plain: written rows {e_ak} {e_av}")
 
+    # ---- phase 2w: the W8 editions and w8a8_matmul against their plain versions
+    # (a W8A8/h8 pack of its own and a generator of its own, so that the
+    # earlier phases' inputs stay as they were)
+    print("phase 2w: W8 editions vs plain versions, TinyLlama-1.1B W8A8/h8", flush=True)
+    wgen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    packed8, _, strict8, ecfg8 = build_synthetic_packed(
+        "tinyllama-1.1b", w_bits=8, head_bits=8, max_seq_len=MAX_SEQ, seed=SEED, device=dev)
+    policy8 = relax_16bit(strict8)
+    ly8 = packed8["layers"]
+    Vp8 = packed8["head_q"]["wq"].shape[1]
+    mlp_w8 = D * 2 * F + F * D                             # W8 weight bytes
+    layer_w8 = D * Nq + Ko * D + mlp_w8
+    head_bytes8 = D * Vp8 + 2 * Vp8 * 4 + 2 * D * 4
+    print(f"  W8 weight bytes: layers {L * layer_w8 / 1e6:.1f} MB, head {D * Vp8 / 1e6:.1f} MB",
+          flush=True)
+
+    # row 14 at M = 1, 8, 32 on the four projections (layers rotated while
+    # timing); yardstick: torch._int_mm on the same W8 matrix, rows padded to 32
+    for Mr in (1, 8, 32):
+        for tag, pk in (("qkv", ly8["qkv_proj"]), ("o", ly8["o_proj"]),
+                        ("w13", ly8["w13_proj"]), ("w2", ly8["w2"])):
+            K, N = pk["wq"].shape[1], pk["wq"].shape[2]
+            lp = layer_pack(pk, 0)
+            x = torch.randint(-128, 128, (Mr, K), generator=wgen, device=dev, dtype=torch.int8)
+            out = w8a8_matmul(x, pk, 0.02, 121.0, 0)
+            ref = w8a8_matmul_plain(x, lp["wq"], lp["scale"], lp["offset"], lp["colsum"],
+                                    lp["bias"], 0.02, 121.0)
+            err = float_err(out, ref)
+            ms = time_ms(lambda i, x=x, pk=pk: w8a8_matmul(x, pk, 0.02, 121.0, i % L))
+            plain_ms = time_ms(lambda i, x=x, lp=lp: w8a8_matmul_plain(
+                x, lp["wq"], lp["scale"], lp["offset"], lp["colsum"], lp["bias"], 0.02, 121.0),
+                n=5)
+            xp = x if Mr == 32 else torch.cat(
+                [x, torch.zeros((32 - Mr, K), dtype=torch.int8, device=dev)])
+            lib_ms = time_ms(lambda i, xp=xp, pk=pk: torch._int_mm(xp, pk["wq"][i % L]))
+            record("w8a8_matmul", f"M={Mr} {tag} {K}->{N}", err, err[1] <= 1e-6, ms, plain_ms,
+                   lib_ms, bound(Mr * K + K * N + 4 * N * 4 + Mr * N * 4,
+                                 int8_ops=2.0 * Mr * K * N),
+                   note=None if Mr == 32 else "library: torch._int_mm on rows padded to 32",
+                   main=(Mr, tag) == (1, "w13"))
+
+    # the W8 prefill epilogue kernels at M = 128
+    Mr = PROMPT_LEN
+    cos_p, sin_p = MM.rope_cos_sin(torch.arange(Mr, device=dev)[None], cfg)
+    cs_p = E._rope_cs_rows(cos_p, sin_p, hd, cfg.rotary_dim)
+    ofq8 = E._qkv_ofq_rows(packed8, policy8)
+    outq8 = E._qkv_outq_rows(packed8["ranges"], cfg, L, dev)
+    h8w = torch.randint(-128, 128, (Mr, D), generator=wgen, device=dev, dtype=torch.int8)
+    qkv8 = ly8["qkv_proj"]
+    out = qkv_rope(h8w, qkv8, ofq8[0], outq8[0], cs_p, 0.02, 121.0, 0, hd, cfg.rotary_dim)
+    ref = qkv_rope_plain(h8w, layer_pack(qkv8, 0), ofq8[0], outq8[0], cs_p, 0.02, 121.0, hd,
+                         cfg.rotary_dim)
+    err = int8_err(out, ref)
+    ms = time_ms(lambda i: qkv_rope(h8w, qkv8, ofq8[i % L], outq8[i % L], cs_p, 0.02, 121.0,
+                                    i % L, hd, cfg.rotary_dim))
+    plain_ms = time_ms(lambda i: qkv_rope_plain(h8w, layer_pack(qkv8, 0), ofq8[0], outq8[0],
+                                                cs_p, 0.02, 121.0, hd, cfg.rotary_dim), n=5)
+    record("qkv_rope[w8]", f"M={Mr} {D}->{Nq}", err, err[0] == 0, ms, plain_ms, None,
+           bound(Mr * D + D * Nq + 11 * Nq * 4 + Mr * 2 * hd * 4 + Mr * Nq,
+                 int8_ops=2.0 * Mr * D * Nq))
+    lr8 = E.layer_ranges(packed8["ranges"], 1)
+    meta8 = E._mlp_block_meta(lr8, policy8, cfg)
+    so8 = E._mlp_block_site_on(policy8)
+    w13w, w2w, mn8 = ly8["w13_proj"], ly8["w2"], ly8["mlp_norm"]
+    out = w13_gate(h8w, w13w, meta8, 1, cfg.hidden_act, so8[1:5])
+    ref = w13_gate_plain(h8w, layer_pack(w13w, 1), meta8, cfg.hidden_act, so8[1:5])
+    err = int8_err(out, ref)
+    ms = time_ms(lambda i: w13_gate(h8w, w13w, meta8, i % L, cfg.hidden_act, so8[1:5]))
+    plain_ms = time_ms(lambda i: w13_gate_plain(h8w, layer_pack(w13w, 1), meta8, cfg.hidden_act,
+                                                so8[1:5]), n=5)
+    record("w13_gate[w8]", f"M={Mr} {D}->2x{F}", err, err[0] == 0, ms, plain_ms, None,
+           bound(Mr * D + D * 2 * F + 2 * F * 16 + Mr * F, int8_ops=2.0 * Mr * D * 2 * F))
+
+    # the W8 MLP block: the dp4a kernel at M <= DP4A_ROWS, the row kernel above
+    def mlp8_plain(x):
+        return fused_mlp_block_w4_plain(x, mn8["w"][1], mn8["b"][1], layer_pack(w13w, 1),
+                                        layer_pack(w2w, 1), meta8, cfg.hidden_act, so8)
+
+    for Mr in (1, 2, 8, SHORT_PROMPT, BIG_B):
+        x = torch.randn((Mr, D), generator=wgen, device=dev)
+        out = fused_mlp_block_w4(x, mn8["w"], mn8["b"], w13w, w2w, meta8, 1, cfg.hidden_act, so8)
+        err = float_err(out, mlp8_plain(x))
+        ms = time_ms(lambda i, x=x: fused_mlp_block_w4(x, mn8["w"], mn8["b"], w13w, w2w, meta8,
+                                                       i % L, cfg.hidden_act, so8))
+        plain_ms = time_ms(lambda i, x=x: mlp8_plain(x), n=5)
+        record("fused_mlp_block_w4[w8]",
+               f"M={Mr} {'dp4a' if Mr <= DP4A_ROWS else 'row'} kernel {D}->2x{F}->{D}", err,
+               err[1] <= 2e-3, ms, plain_ms, None,
+               bound(2 * Mr * D * 4 + mlp_w8 + mlp_vec,
+                     int8_ops=2.0 * Mr * (D * 2 * F + F * D)),
+               main=Mr == BIG_B)
+
+    # the W8 whole-model (B = 1, 8, with the W8 head) and whole-layer (B = 1)
+    # kernels over random full-length caches, positions near POS0
+    kp8 = E._kernel_prep(packed8, policy8, cfg)
+    hargs8 = (packed8["head_q"], packed8["norm"])
+    stage_us8 = {}
+    for Bm in (1, 8):
+        kc = torch.randint(-128, 128, (L, Bm, Hkv, MAX_SEQ, hd), generator=wgen, device=dev,
+                           dtype=torch.int8)
+        vc = torch.randint(-128, 128, kc.shape, generator=wgen, device=dev, dtype=torch.int8)
+        posb = torch.tensor([POS0 - 3 * b for b in range(Bm)], dtype=torch.int32, device=dev)
+        cos, sin = MM.rope_cos_sin(posb[:, None], cfg)
+        csb = E._rope_cs_rows(cos, sin, hd, cfg.rotary_dim).reshape(Bm, 2, hd)
+        x = torch.randn((Bm, D), generator=wgen, device=dev)
+        fargs = (x, posb, csb, kp8["ofq"], ly8["attn_norm"], qkv8, ly8["o_proj"],
+                 ly8["mlp_norm"], w13w, w2w, kc, vc, kp8["meta"])
+        valid = int(posb.sum())
+        att_ops = 2.0 * Hq * hd * valid
+        step_io = 2 * Bm * D * 4 + Bm * 2 * hd * 4 + Bm * 4
+        out = fused_model_w4(*fargs, *hargs8, **fkw)
+        ref = fused_model_w4_plain(*fargs, *hargs8, **fkw)
+        e_x, e_lg, e_kv = float_err(out[0], ref[0]), float_err(out[2], ref[2]), int8_err(out[1], ref[1])
+        ok = e_x[1] <= 2e-3 and e_lg[1] <= 2e-3 and e_kv[0] == 0
+        ms = time_ms(lambda i: fused_model_w4(*fargs, *hargs8, **fkw), n=10)
+        plain_ms = event_ms(lambda: fused_model_w4_plain(*fargs, *hargs8, **fkw), n=2)
+        nbytes = (L * (layer_w8 + layer_vec + valid * Hkv * hd * 2 + Bm * 2 * Hkv * hd)
+                  + step_io + head_bytes8 + Bm * Vp8 * 4)
+        ops_i8 = L * (2.0 * Bm * (D * Nq + Ko * D + D * 2 * F + F * D) + att_ops) \
+            + 2.0 * Bm * D * Vp8
+        record("fused_model_w4[w8]", f"B={Bm} L={L} S={MAX_SEQ} pos<={POS0} +W8 head",
+               (max(e_x[0], e_lg[0]), max(e_x[1], e_lg[1])), ok, ms, plain_ms, None,
+               bound(nbytes, int8_ops=ops_i8, fp32_ops=L * att_ops),
+               note=f"kv_new max diff {e_kv[0]} on {e_kv[1]:.3g} of bytes; "
+                    f"plain timed with events", main=Bm == 1)
+        if Bm == 1:
+            tr = torch.zeros(2 + 5 * L, dtype=torch.int64, device=dev)
+            for _ in range(2):
+                fused_model_w4(*fargs, *hargs8, trace=tr, **fkw)
+            torch.cuda.synchronize()
+            dt = (tr[1:] - tr[:-1]).double().cpu() / 1e3
+            per = dt[:5 * L].reshape(L, 5).mean(0).tolist()
+            stage_us8 = dict(zip(("qkv", "attention", "o_proj", "w13_gate", "w2"), per))
+            stage_us8["head"] = float(dt[5 * L])
+            stage_us8["step_traced"] = float(dt.sum())
+            print("  fused_model_w4[w8] B=1 stage us (mean per layer): "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in stage_us8.items()), flush=True)
+            out = fused_layer_w4(*fargs, 1, **fkw)
+            ref = fused_layer_w4_plain(*fargs, 1, **fkw)
+            e_x, e_kv = float_err(out[0], ref[0]), int8_err(out[1], ref[1])
+            ms = time_ms(lambda i: fused_layer_w4(*fargs, i % L, **fkw))
+            plain_ms = event_ms(lambda: fused_layer_w4_plain(*fargs, 1, **fkw), n=3)
+            record("fused_layer_w4[w8]", f"B=1 S={MAX_SEQ} pos={POS0}", e_x,
+                   e_x[1] <= 2e-3 and e_kv[0] == 0, ms, plain_ms, None,
+                   bound(layer_w8 + layer_vec + valid * Hkv * hd * 2 + 2 * Hkv * hd + step_io,
+                         int8_ops=2.0 * (D * Nq + Ko * D + D * 2 * F + F * D) + att_ops,
+                         fp32_ops=att_ops),
+                   note=f"kv_new max diff {e_kv[0]} on {e_kv[1]:.3g} of bytes; "
+                        f"plain timed with events")
+        del kc, vc
+
+    # the W8 chunk kernel with the W8 head: B=16 at staggered chunk starts,
+    # B=32, and B=48 (the edge of the JAX gate that turns it on); m staged
+    # columns of CHUNK_COLS; relaxed, and strict at B=32
+    chunk_stage_us8 = {}
+    for Bc, stag, cases in ((16, True, ((0, False), (STAGED_M, False))),
+                            (SERVE_B, False, ((0, False), (STAGED_M, False), (STAGED_M, True))),
+                            (48, False, ((STAGED_M, False),))):
+        kc = torch.randint(-128, 128, (L, Bc, Hkv, MAX_SEQ, hd), generator=wgen, device=dev,
+                           dtype=torch.int8)
+        vc = torch.randint(-128, 128, kc.shape, generator=wgen, device=dev, dtype=torch.int8)
+        skc = torch.randint(-128, 128, (L, Bc, Hkv, CHUNK_COLS, hd), generator=wgen,
+                            device=dev, dtype=torch.int8)
+        svc = torch.randint(-128, 128, skc.shape, generator=wgen, device=dev, dtype=torch.int8)
+        kcs = E.kv_colsums(kc)
+        pos0 = torch.tensor([POS0 - (3 * b if stag else 0) for b in range(Bc)],
+                            dtype=torch.int32, device=dev)
+        x = torch.randn((Bc, D), generator=wgen, device=dev)
+        valid = int(pos0.sum())
+        for mst, strict in cases:
+            cos, sin = MM.rope_cos_sin((pos0 + mst)[:, None], cfg)
+            csb = E._rope_cs_rows(cos, sin, hd, cfg.rotary_dim).reshape(Bc, 2, hd)
+            rows_kv = valid + Bc * mst
+            att_ops = 2.0 * Hq * hd * (rows_kv + Bc)
+            nbytes = (L * (layer_w8 + layer_vec + rows_kv * Hkv * hd * 2 + valid * Hkv * 4
+                           + Bc * 2 * Hkv * hd)
+                      + 2 * Bc * D * 4 + Bc * 2 * hd * 4 + Bc * 4 + head_bytes8 + Bc * Vp8 * 4)
+            ops_i8 = L * (2.0 * Bc * (D * Nq + Ko * D + D * 2 * F + F * D) + att_ops) \
+                + 2.0 * Bc * D * Vp8
+            kpc = E._kernel_prep(packed8, strict8 if strict else policy8, cfg)
+            cargs = (x, pos0, csb, kpc["ofq"], ly8["attn_norm"], qkv8, ly8["o_proj"],
+                     ly8["mlp_norm"], w13w, w2w, kc, vc, kcs, skc, svc, mst, kpc["meta"],
+                     *hargs8)
+            ckw = dict(fkw, qk_fq_on=strict, pv_fq_on=strict)
+            out = fused_model_w4_chunk(*cargs, **ckw)
+            ref = fused_model_w4_chunk_plain(*cargs, **ckw)
+            e_x, e_lg = float_err(out[0], ref[0]), float_err(out[2], ref[2])
+            e_kv = int8_err(out[1], ref[1])
+            ok = e_x[1] <= 2e-3 and e_lg[1] <= 2e-3 and e_kv[0] == 0
+            ms = time_ms(lambda i: fused_model_w4_chunk(*cargs, **ckw), n=5)
+            plain_ms = event_ms(lambda: fused_model_w4_chunk_plain(*cargs, **ckw), n=2)
+            record("fused_model_w4_chunk[w8]",
+                   f"B={Bc} pos0{'<=' if stag else '='}{POS0} m={mst} "
+                   f"{'strict' if strict else 'relaxed'} +W8 head",
+                   (max(e_x[0], e_lg[0]), max(e_x[1], e_lg[1])), ok, ms, plain_ms, None,
+                   bound(nbytes, int8_ops=ops_i8, fp32_ops=L * att_ops),
+                   note=f"kv_new max diff {e_kv[0]} on {e_kv[1]:.3g} of bytes; "
+                        f"plain timed with events",
+                   main=(Bc, mst, strict) == (SERVE_B, STAGED_M, False))
+            if (Bc, mst, strict) == (SERVE_B, STAGED_M, False):
+                tr = torch.zeros(3 + 5 * L, dtype=torch.int64, device=dev)
+                for _ in range(2):
+                    fused_model_w4_chunk(*cargs, trace=tr, **ckw)
+                torch.cuda.synchronize()
+                dt = (tr[1:] - tr[:-1]).double().cpu() / 1e3
+                per = dt[:5 * L].reshape(L, 5).mean(0).tolist()
+                st_us = dict(zip(("norm1", "qkv", "attention", "o_proj", "mlp_block"), per))
+                st_us["head_norm"], st_us["head"] = float(dt[5 * L]), float(dt[5 * L + 1])
+                st_us["step_traced"] = float(dt.sum())
+                chunk_stage_us8[f"B={Bc}"] = st_us
+                print(f"  fused_model_w4_chunk[w8] B={Bc} m={mst} stage us (mean per layer): "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in st_us.items()), flush=True)
+        del kc, vc, skc, svc, kcs
+
+    # ---- phase 3e: W8A8 serving --------------------------------------------
+    # generate_fast and decode_loop on the W8/h8 pack through the port's
+    # entry points, each route's launches counted from 0 around its run
+    print("phase 3e: generate_fast, TinyLlama-1.1B W8A8/h8, int8 KV, relaxed", flush=True)
+    serve8 = {}
+
+    def w8_route(route, gen8, prompt_np, n_new, n_loop, want):
+        """generate_fast on one route (its launch counts held to `want`), then
+        decode_loop's per-step readings from the same state (loop_numbers)."""
+        gen8.generate_fast(prompt_np, 3)                 # warm-up
+        tk, stt = counted(route, lambda: gen8.generate_fast(prompt_np, n_new,
+                                                            return_stats=True))
+        nums = loop_numbers(gen8, prompt_np, n_loop)
+        nums.update(decode_tok_s=stt["decode_tok_s"], prefill_ms=stt["prefill_s"] * 1e3,
+                    launches=runs[route], batch=prompt_np.shape[0], prompt=prompt_np.shape[1],
+                    new_tokens=n_new)
+        serve8[route] = nums
+        print(f"  {route}: decode {stt['decode_tok_s']:.2f} tok/s (generate_fast), prefill "
+              f"{stt['prefill_s'] * 1e3:.2f} ms, loop step wall {nums['wall_ms_per_step']:.3f} "
+              f"ms, device {nums['device_ms_per_step']:.3f} ms, idle {nums['idle_share']:.3f}, "
+              f"{nums['launches_per_step']:.1f} launches/step; counts {runs[route]}", flush=True)
+        for k, ms_, c in nums["top_kernels"]:
+            print(f"    {route}/step {ms_:8.4f} ms  x{c:6.1f}  {k}", flush=True)
+        if tk.shape != (prompt_np.shape[0], n_new) or tk.min() < 0 or tk.max() >= cfg.vocab_size:
+            failures.append(f"{route}: bad tokens {tk.shape}")
+        got = {k: runs[route][k] for k in want}
+        if got != want:
+            failures.append(f"{route}: launches {got}, expected {want}")
+        return tk, stt
+
+    steps = NEW_TOKENS - 1
+    g8 = Generator(packed8, cfg, policy8, ecfg8, device=dev)
+    prompt8 = torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN), generator=wgen,
+                            device=dev).cpu().numpy()
+    # B=1: the W8 qkv and w13 epilogue kernels in the prefill, then exactly one
+    # W8 whole-model launch per token; o, w2 and the prefill head plain
+    toks8, st8 = w8_route("w8_main", g8, prompt8, NEW_TOKENS, CHUNK_COLS,
+                          {"fused_model_w4": steps, "qkv_rope": L, "w13_gate": L,
+                           "prefill_attention": L, "fused_mlp_block_w4": 0,
+                           "w4a8_matmul": 0, "w4a8_matmul_stacked": 0, "w8a8_matmul": 0})
+    tp8 = torch.as_tensor(prompt8, device=dev)
+    pre8_dev, pre8_top, pre8_n = device_profile(
+        lambda: g8.prefill(tp8, E.init_kv_cache(ecfg8, 1, device=dev)))
+    serve8["w8_main"].update(prefill_device_ms=pre8_dev, prefill_kernel_launches=pre8_n,
+                             prefill_top_kernels=pre8_top)
+    print(f"  w8 prefill: wall {st8['prefill_s'] * 1e3:.3f} ms, device {pre8_dev:.3f} ms, "
+          f"{pre8_n} launches", flush=True)
+    # the 32-token prompt: the W8 MLP-block kernel in every prefill layer
+    w8_route("w8_short_prompt", g8, prompt8[:, :SHORT_PROMPT], 8, 7,
+             {"fused_mlp_block_w4": L, "w13_gate": 0, "fused_model_w4": 7})
+    # the per-layer route: one W8 whole-layer launch per layer and step
+    gpl8 = Generator(packed8, cfg, policy8, ecfg8, device=dev)
+    gpl8.decode_kc = KernelConfig.decode_per_layer()
+    w8_route("w8_per_layer", gpl8, prompt8, PER_LAYER_STEPS + 1, PER_LAYER_STEPS,
+             {"fused_layer_w4": PER_LAYER_STEPS * L, "fused_model_w4": 0})
+    # the attn_all() route: W8 qkv and o through w8a8_matmul, the int8 decode
+    # attention kernel and the W8 MLP block in every layer
+    gaa8 = Generator(packed8, cfg, policy8, ecfg8, device=dev)
+    gaa8.decode_kc = KernelConfig.attn_all()
+    w8_route("w8_attn_all", gaa8, prompt8, PER_LAYER_STEPS + 1, PER_LAYER_STEPS,
+             {"w8a8_matmul": 2 * L * PER_LAYER_STEPS, "decode_attention": L * PER_LAYER_STEPS,
+              "fused_mlp_block_w4": L * PER_LAYER_STEPS, "fused_model_w4": 0})
+    # the serving batch on the entry config: B=32 takes the W8 chunk kernel
+    # (one launch a step), B=128 the staged route (the W8 MLP-block row kernel)
+    gs8 = Generator(packed8, cfg, policy8, ecfg8, device=dev)
+    p32w = torch.randint(0, cfg.vocab_size, (SERVE_B, PROMPT_LEN), generator=wgen,
+                         device=dev).cpu().numpy()
+    p128w = torch.randint(0, cfg.vocab_size, (BIG_B, SHORT_PROMPT), generator=wgen,
+                          device=dev).cpu().numpy()
+    if not KernelConfig.serving(cfg, gs8.packed, SERVE_B).chunk_kernel:
+        failures.append("KernelConfig.serving does not take the chunk kernel for W8 at B=32")
+    w8_route("w8_b32", gs8, p32w, NEW_TOKENS, CHUNK_COLS,
+             {"fused_model_w4_chunk": steps, "staged_append": steps, "fused_model_w4": 0,
+              "fused_mlp_block_w4": 0})
+    w8_route("w8_b128", gs8, p128w, BIG_STEPS + 1, BIG_STEPS,
+             {"fused_mlp_block_w4": L * BIG_STEPS, "staged_append": BIG_STEPS,
+              "fused_model_w4_chunk": 0})
+
+    # B=1 against the plain path: prefill logits, one decode() step, and the
+    # witness (plain prefill, the decode() step with the W8 whole-model
+    # kernel's plain version on the plain engine's numerics), which must equal
+    # the plain step bit for bit
+    res8 = {}
+    wit8 = {(E, "fused_model_w4"): fused_model_w4_plain, **engine_numerics(E, cfg, policy8)}
+    for tag, kc_p, kc_d in (("kernel", KernelConfig.prefill(), KernelConfig.decode()),
+                            ("plain", KernelConfig.none(), KernelConfig.none()),
+                            ("witness", KernelConfig.none(), KernelConfig.decode())):
+        cache = E.init_kv_cache(ecfg8, 1, device=dev)
+        lg, cache = E.forward(g8.packed, tp8, cfg, policy8, kv_cache=cache,
+                              cache_position=torch.zeros(1, dtype=torch.int32, device=dev),
+                              kv_valid_len=torch.full((1,), PROMPT_LEN, dtype=torch.int32,
+                                                      device=dev),
+                              kc=kc_p, logits_at=torch.full((1,), PROMPT_LEN - 1, device=dev))
+        nxt = torch.argmax(lg[:, -1], -1)[:, None]
+        p = torch.full((1,), PROMPT_LEN, dtype=torch.int32, device=dev)
+        with patched(wit8 if tag == "witness" else {}):
+            lg2, cache = counted(f"w8_b1_step_{tag}", lambda: E.forward(
+                g8.packed, nxt, cfg, policy8, positions=p[:, None], kv_cache=cache,
+                cache_position=p, kv_valid_len=p + 1, kc=kc_d))
+        res8[tag] = (lg, lg2, cache, nxt)
+    e8_pre = float_err(res8["kernel"][0], res8["plain"][0])
+    same8 = bool(torch.equal(res8["kernel"][3], res8["plain"][3]))
+    e8_dec = float_err(res8["kernel"][1], res8["plain"][1])
+    e8_cache = [int8_err(res8["kernel"][2].k, res8["plain"][2].k),
+                int8_err(res8["kernel"][2].v, res8["plain"][2].v)]
+    e8_wit = float_err(res8["witness"][1], res8["plain"][1])
+    wit8_equal = all(bool(torch.equal(getattr(res8["witness"][2], kv),
+                                      getattr(res8["plain"][2], kv))) for kv in ("k", "v"))
+    fin8 = all(bool(torch.isfinite(r[0]).all() and torch.isfinite(r[1]).all())
+               for r in res8.values())
+    print(f"  W8 prefill logits kernel vs plain: rel {e8_pre[1]:.3g}; decode step rel "
+          f"{e8_dec[1]:.3g} (same input token: {same8}); K / V cache max diff, share of bytes "
+          f"{e8_cache[0]} / {e8_cache[1]}; finite {fin8}; witness vs plain: logits rel "
+          f"{e8_wit[1]:.3g}, caches equal {wit8_equal}", flush=True)
+    if not fin8 or res8["kernel"][0].shape != (1, 1, cfg.vocab_size) or e8_pre[1] > 2e-3:
+        failures.append(f"W8 prefill logits kernel vs plain rel {e8_pre[1]}, finite {fin8}")
+    if same8 and e8_dec[1] > 4e-3:
+        failures.append(f"W8 decode logits kernel vs plain rel {e8_dec[1]}")
+    if max(e[0] for e in e8_cache) > 63 or max(e[1] for e in e8_cache) > 2.5e-3:
+        failures.append(f"W8 K / V caches kernel vs plain {e8_cache}")
+    if runs["w8_b1_step_witness"]["fused_model_w4"] or runs["w8_b1_step_kernel"]["fused_model_w4"] != 1 \
+            or e8_wit[1] > 1e-6 or not wit8_equal:
+        failures.append(f"W8 B=1 witness vs plain: logits rel {e8_wit[1]}, caches equal "
+                        f"{wit8_equal}, launches {runs['w8_b1_step_witness']}")
+
+    # one CHUNK_COLS-step B=32 chunk fed the same tokens on the serving route
+    # (the W8 chunk kernel), on that route with the kernel's plain version, on
+    # that plain version moved onto the plain engine's numerics, and on the
+    # plain path; held as the W4 chunk route is held above
+    c32w = E.init_kv_cache(ecfg8, SERVE_B, device=dev)
+    _, c32w = gs8.prefill(torch.as_tensor(p32w, device=dev), c32w)
+    ftoks8 = torch.randint(0, cfg.vocab_size, (SERVE_B, CHUNK_COLS), generator=wgen, device=dev)
+    kc_s8 = KernelConfig.serving(cfg, gs8.packed, SERVE_B)
+    plain_chunk = {(E, "fused_model_w4_chunk"): fused_model_w4_chunk_plain}
+    stand8 = {"w8_chunk_plain_fn": plain_chunk,
+              "w8_chunk_engine_attention": {**plain_chunk, **engine_numerics(E, cfg, policy8,
+                                                                             norms=False)},
+              "w8_chunk_engine_norms": {**plain_chunk, **engine_numerics(E, cfg, policy8,
+                                                                         attention=False)},
+              "w8_chunk_engine_numerics": {**plain_chunk, **engine_numerics(E, cfg, policy8)}}
+    chain8 = {}
+    for tag, kc_c in (("w8_serving", kc_s8), *((w, kc_s8) for w in stand8),
+                      ("w8_plain", KernelConfig.none())):
+        cc = E.EngineKVCache(c32w.k.clone(), c32w.v.clone())
+        with patched(stand8.get(tag, {})):
+            chain8[tag] = counted(f"chain_{tag}", lambda: staged_chunk(
+                kc_c, cc, ftoks8, fpos, gs8.packed, policy8))
+    if runs["chain_w8_serving"]["fused_model_w4_chunk"] != CHUNK_COLS \
+            or any(runs["chain_w8_plain"].values()):
+        failures.append(f"W8 chain launches {runs['chain_w8_serving']} / {runs['chain_w8_plain']}")
+    # limits as the W4 route's: the kernel equals its plain version and that
+    # plain version on the plain engine's numerics equals the plain path, the
+    # raw gaps held to about twice their readings. On this pack the first run
+    # measured the serving route against the plain path at logits rel 3.34e-3
+    # with 0.51% / 0.57% of the flushed K / V bytes off by up to 2 steps (the
+    # W4 pack: 2.07e-3, 0.12%, 31 steps), while both witnesses held exactly:
+    # the same rounding, grown through another random model
+    for tag, ref, lim in (("w8_serving", "w8_chunk_plain_fn", (2e-3, 0, 0.0)),
+                          ("w8_chunk_engine_numerics", "w8_plain", (2e-3, 0, 0.0)),
+                          ("w8_chunk_engine_attention", "w8_plain", (7e-3, 63, 1.2e-2)),
+                          ("w8_chunk_engine_norms", "w8_plain", (7e-3, 63, 1.2e-2)),
+                          ("w8_serving", "w8_plain", (7e-3, 63, 1.2e-2))):
+        e_l = float_err(chain8[tag][0], chain8[ref][0])
+        stp = [float_err(chain8[tag][0][:, i], chain8[ref][0][:, i])[1] for i in range(CHUNK_COLS)]
+        e_k = int8_err(chain8[tag][1].k[:, :, :, window], chain8[ref][1].k[:, :, :, window])
+        e_v = int8_err(chain8[tag][1].v[:, :, :, window], chain8[ref][1].v[:, :, :, window])
+        fin = bool(torch.isfinite(chain8[tag][0]).all())
+        chain_err[f"{tag}_vs_{ref}"] = {"logits_rel": e_l[1], "logits_rel_first_step": stp[0],
+                                        "logits_rel_per_step": stp,
+                                        "k_rows": e_k, "v_rows": e_v, "finite": fin}
+        print(f"  W8 B={SERVE_B} {CHUNK_COLS}-step chunk, {tag} vs {ref}: logits rel "
+              f"{e_l[1]:.3g} (step 0: {stp[0]:.3g}); flushed K rows {e_k}, V rows {e_v}",
+              flush=True)
+        if not fin or e_l[1] > lim[0]:
+            failures.append(f"{tag} chunk vs {ref}: logits rel {e_l[1]}, finite {fin}")
+        if max(e_k[0], e_v[0]) > lim[1] or max(e_k[1], e_v[1]) > lim[2]:
+            failures.append(f"{tag} chunk vs {ref}: flushed rows {e_k} {e_v}")
+
+    # the attn_all() route against the plain path: the same tokens fed to both
+    # from one prefill cache over PER_LAYER_STEPS steps
+    _, ca8 = gaa8.prefill(tp8, E.init_kv_cache(ecfg8, 1, device=dev))
+    atoks8 = torch.randint(0, cfg.vocab_size, (1, PER_LAYER_STEPS), generator=wgen, device=dev)
+    aa8 = {}
+    for tag, kc_a in (("attn_all", KernelConfig.attn_all()), ("plain", KernelConfig.none())):
+        cc = E.EngineKVCache(ca8.k.clone(), ca8.v.clone())
+        lgs = []
+        for i in range(PER_LAYER_STEPS):
+            pa = torch.full((1,), PROMPT_LEN + i, dtype=torch.int32, device=dev)
+            lg_a, cc = E.forward(g8.packed, atoks8[:, i:i + 1], cfg, policy8,
+                                 positions=pa[:, None], kv_cache=cc, cache_position=pa,
+                                 kv_valid_len=pa + 1, kc=kc_a)
+            lgs.append(lg_a[:, -1])
+        aa8[tag] = (torch.stack(lgs, 1), cc)
+    e8_al = float_err(aa8["attn_all"][0], aa8["plain"][0])
+    e8_ak = int8_err(aa8["attn_all"][1].k[:, :, :, arows], aa8["plain"][1].k[:, :, :, arows])
+    e8_av = int8_err(aa8["attn_all"][1].v[:, :, :, arows], aa8["plain"][1].v[:, :, :, arows])
+    print(f"  W8 attn_all route vs plain over {PER_LAYER_STEPS} steps: logits rel "
+          f"{e8_al[1]:.3g}; written K rows {e8_ak}, V rows {e8_av}", flush=True)
+    if e8_al[1] > 2e-3 or not bool(torch.isfinite(aa8["attn_all"][0]).all()):
+        failures.append(f"W8 attn_all route vs plain: logits rel {e8_al[1]}")
+    if max(e8_ak[0], e8_av[0]) > 1 or max(e8_ak[1], e8_av[1]) > 1e-3:
+        failures.append(f"W8 attn_all route vs plain: written rows {e8_ak} {e8_av}")
+
     # ---- phase 4: report ---------------------------------------------------
     sources = {"w4a8_matmul": ("csrc/w4a8_matmul.cu",
                                "mobilequant_tpu/ops/pallas_matmul.py:59"),
@@ -1309,18 +1742,34 @@ def main() -> None:
                "kv4_decode_attention": ("csrc/kv4_attention.cu",
                                         "mobilequant_tpu/ops/pallas_kv4.py:219"),
                "decode_attention": ("csrc/decode_attention.cu",
-                                    "mobilequant_tpu/ops/pallas_attention.py:79")}
+                                    "mobilequant_tpu/ops/pallas_attention.py:79"),
+               "w8a8_matmul": ("csrc/w8a8_matmul.cu",
+                               "mobilequant_tpu/ops/pallas_matmul.py:123"),
+               "qkv_rope[w8]": ("csrc/qkv_rope.cu", "mobilequant_tpu/ops/pallas_qkv.py:126"),
+               "w13_gate[w8]": ("csrc/w13_gate.cu", "mobilequant_tpu/ops/pallas_mlp.py:680"),
+               "fused_mlp_block_w4[w8]": ("csrc/fused_rows_w8.cu",
+                                          "mobilequant_tpu/ops/pallas_mlp.py:950"),
+               "fused_layer_w4[w8]": ("csrc/fused_layer.cu",
+                                      "mobilequant_tpu/ops/pallas_layer.py:607"),
+               "fused_model_w4[w8]": ("csrc/fused_layer.cu",
+                                      "mobilequant_tpu/ops/pallas_layer.py:773"),
+               "fused_model_w4_chunk[w8]": ("csrc/fused_rows_w8.cu",
+                                            "mobilequant_tpu/ops/pallas_chunk.py:575")}
     # the route whose run each kernel's launch count is read from: the main
-    # path (B=1 generate_fast) unless named here; each was counted from 0
+    # path (B=1 generate_fast) unless named here; each was counted from 0. A
+    # W8 edition ("name[w8]") counts on its kernel's wrapper, on a W8 route.
     route_of = {"fused_mlp_block_w4": "b32_staged", "fused_layer_w4": "per_layer",
                 "staged_append": "b32_staged", "fused_otail_block_w4": "b32_otail",
                 "fused_model_w4_chunk": "b32_chunk", "kv4_decode_attention": "kv4_b32",
-                "decode_attention": "attn_b1"}
+                "decode_attention": "attn_b1", "w8a8_matmul": "w8_attn_all",
+                "qkv_rope[w8]": "w8_main", "w13_gate[w8]": "w8_main",
+                "fused_mlp_block_w4[w8]": "w8_b128", "fused_layer_w4[w8]": "w8_per_layer",
+                "fused_model_w4[w8]": "w8_main", "fused_model_w4_chunk[w8]": "w8_b32"}
     kernels = []
     for name, shapes in rows.items():
         head = next((r for r in shapes if r["main"]), shapes[0])
         src, rep = sources[name]
-        n_launch = runs[route_of.get(name, "main")][name]
+        n_launch = runs[route_of.get(name, "main")][name.split("[")[0]]
         if n_launch <= 0:
             failures.append(f"{name} was not launched on its route "
                             f"{route_of.get(name, 'main')}")
@@ -1354,7 +1803,17 @@ def main() -> None:
                                      "witness_caches_equal": wit_equal},
                          "attn_decode_tok_s": stats_a["decode_tok_s"],
                          "attn_vs_plain": {"logits_rel": e_al[1], "k_rows": e_ak,
-                                           "v_rows": e_av}}}
+                                           "v_rows": e_av}},
+              "w8": {"serving": serve8, "fused_model_stage_us": stage_us8,
+                     "chunk_stage_us": chunk_stage_us8,
+                     "b1_step": {"prefill_logits_rel_kernel_vs_plain": e8_pre[1],
+                                 "decode_logits_rel_kernel_vs_plain": e8_dec[1],
+                                 "k_cache_kernel_vs_plain": e8_cache[0],
+                                 "v_cache_kernel_vs_plain": e8_cache[1],
+                                 "witness_logits_rel_vs_plain": e8_wit[1],
+                                 "witness_caches_equal": wit8_equal},
+                     "attn_all_vs_plain": {"logits_rel": e8_al[1], "k_rows": e8_ak,
+                                           "v_rows": e8_av}}}
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     if failures:
         fail("; ".join(failures))

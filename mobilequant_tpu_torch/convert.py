@@ -2,9 +2,10 @@
 
 from_jax_packed        the JAX engine's pack() output (as a tree of numpy
                        arrays) -> the port's packed dict, canonical keys only
-build_synthetic_packed a full-width packed model with seeded random weights
-                       and plausible static ranges, made on the target device
-                       (real checkpoints are not in the repository)
+build_synthetic_packed a full-width W4A8 or W8A8 packed model with seeded
+                       random weights and plausible static ranges, made on the
+                       target device (real checkpoints are not in the
+                       repository)
 """
 
 from __future__ import annotations
@@ -46,21 +47,29 @@ def from_jax_packed(tree: dict, device="cuda") -> dict:
 def build_synthetic_packed(model_name: str = "tinyllama-1.1b", w_bits: int = 4,
                            head_bits: int = 4, max_seq_len: int = 1024,
                            seed: int = 0, device="cuda", kv_bits: int = 8):
-    """-> (packed, config, policy, ecfg): a W4A8 packed model at the named
-    model's full width with random weights from `seed`. Weights are unsigned
-    nibbles with zero-point 8 and per-channel scales 1/(4.6·√K), so every
-    projection keeps O(1) outputs; static ranges span ±4 at each site's
-    bitwidth; the head is a seeded N(0, 0.02²) matrix through pack_head. The
-    policy is the strict default W4A8 policy (serve with relax_16bit), with
-    the 4-bit KV-cache sites for kv_bits=4 (kv_bits_policy; their ranges then
-    span the 4-bit bound, qmax 15)."""
-    if w_bits != 4:
-        raise NotImplementedError("the port's synthetic builder makes W4 packs")
+    """-> (packed, config, policy, ecfg): a W4A8 (w_bits 4) or W8A8 (w_bits
+    8) packed model at the named model's full width with random weights from
+    `seed`. W4 weights are unsigned nibbles with zero-point 8 and per-channel
+    scales 1/(4.6·√K); W8 weights are the JAX package's per-tensor asymmetric
+    packs (qops.pack_weight): uint8 values stored as int8 − 128, one scale
+    1/(74·√K) and a zero-point drawn from 112..143 per projection and layer,
+    stored shifted (zp − 128, so the o_w·rowsum term is exercised), per-tensor
+    (L,) for o / w2 and per column (L, 1, N) for the fused qkv / w13 packs, as
+    engine.pack lays them out. Either way every projection keeps O(1)
+    outputs. Static ranges span ±4 at each site's bitwidth; the head is a
+    seeded N(0, 0.02²) matrix through pack_head (head_bits 4 or 8), or the fp
+    head (16). The policy is the strict default policy of the weight width
+    (W4: per-channel symmetric; W8: per-tensor asymmetric, the JAX bench's W8
+    policy; serve with relax_16bit), with the 4-bit KV-cache sites for
+    kv_bits=4 (kv_bits_policy; their ranges then span the 4-bit bound, qmax
+    15)."""
+    if w_bits not in (4, 8):
+        raise NotImplementedError("the port's synthetic builder makes W4 and W8 packs")
     cfg = get_config(model_name)
     E._check_config(cfg)
-    policy = kv_bits_policy(default_policy(
-        cfg, QuantConfig(bitwidth=4, is_per_channel=True, is_symmetric=True),
-        QuantConfig(bitwidth=8)), kv_bits)
+    wcfg = (QuantConfig(bitwidth=4, is_per_channel=True, is_symmetric=True) if w_bits == 4
+            else QuantConfig(bitwidth=8, is_per_channel=False, is_symmetric=False))
+    policy = kv_bits_policy(default_policy(cfg, wcfg, QuantConfig(bitwidth=8)), kv_bits)
     ecfg = E.EngineConfig(model=cfg, max_seq_len=max_seq_len, kv_bits=kv_bits,
                           head_bits=head_bits)
     dev = torch.device(device)
@@ -68,15 +77,30 @@ def build_synthetic_packed(model_name: str = "tinyllama-1.1b", w_bits: int = 4,
     L, D, F = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
 
     def proj(din, dout):
-        q = torch.randint(0, 16, (L, din, dout), generator=gen, device=dev, dtype=torch.int8)
-        return {"wq": pack_nibbles(q),
-                "scale": torch.full((L, 1, dout), 1.0 / (4.6 * math.sqrt(din)), device=dev),
-                "offset": torch.full((L, 1, dout), 8.0, device=dev),
+        if w_bits == 4:
+            q = torch.randint(0, 16, (L, din, dout), generator=gen, device=dev,
+                              dtype=torch.int8)
+            return {"wq": pack_nibbles(q),
+                    "scale": torch.full((L, 1, dout), 1.0 / (4.6 * math.sqrt(din)),
+                                        device=dev),
+                    "offset": torch.full((L, 1, dout), 8.0, device=dev),
+                    "colsum": q.to(torch.float32).sum(1),
+                    "bias": torch.zeros((L, dout), device=dev)}
+        q = torch.randint(-128, 128, (L, din, dout), generator=gen, device=dev,
+                          dtype=torch.int8)
+        zp = torch.randint(112, 144, (L,), generator=gen, device=dev).to(torch.float32)
+        return {"wq": q,
+                "scale": torch.full((L,), 1.0 / (74.0 * math.sqrt(din)), device=dev),
+                "offset": zp - 128.0,
                 "colsum": q.to(torch.float32).sum(1),
                 "bias": torch.zeros((L, dout), device=dev)}
 
     def cat(ps):
-        return {k: torch.cat([p[k] for p in ps], -1) for k in ps[0]}
+        # the fused packs carry per-tensor scales per column (engine.pack's fuse)
+        def chan(p, k):
+            v = p[k]
+            return v[:, None, None].expand(L, 1, p["wq"].shape[-1]) if v.dim() == 1 else v
+        return {k: torch.cat([chan(p, k) for p in ps], -1).contiguous() for k in ps[0]}
 
     ranges = {}
     for site, role, qc in static_range_sites(policy):

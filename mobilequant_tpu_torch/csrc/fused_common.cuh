@@ -14,8 +14,10 @@
 
 #include "mqt_common.cuh"
 
-// One layer-stacked W4 projection pack: wq (L, kin/2, n) unsigned block
-// nibbles; scale/offset element l·s_l + col·s_c; colsum/bias (L, n).
+// One layer-stacked projection pack: wq (L, kin/2, n) unsigned block nibbles
+// (bits 4) or (L, kin, n) shifted int8 (bits 8); scale/offset element
+// l·s_l + col·s_c (s_c 0: per tensor, the W8 packs' o and w2); colsum/bias
+// (L, n).
 struct MqtStackedW4 {
   const int8_t* wq;
   const float* scale;
@@ -26,7 +28,7 @@ struct MqtStackedW4 {
   int s_c;
   int kin;
   int n;
-  int pad_;
+  int bits;                // 4 or 8
 };
 
 struct MqtFusedArgs {
@@ -44,7 +46,7 @@ struct MqtFusedArgs {
   const float* mnb;
   const int8_t* kcache;    // (L, B, Hkv, S, hd)
   const int8_t* vcache;
-  const int8_t* hwq;       // (K/2, Vp) W4 head
+  const int8_t* hwq;       // the head: (K/2, Vp) W4 or (K, Vp) W8 (hbits)
   const float* hscale;     // (Vp,)
   const float* hoffset;    // (Vp,)
   const float* fnw;        // (K,) final norm
@@ -65,7 +67,7 @@ struct MqtFusedArgs {
   int M, K, Hq, Hkv, hd, rot, S, F, Vp, L, l0, l1, gelu;
   int ncs, mst;            // staged columns: allocated, valid (chunk)
   int qk_fq, pv_fq;        // the qk_bmm output / pv_bmm input fake-quant enables
-  int pad_;
+  int hbits;               // the head's weight bits, 4 or 8 (with logits)
   float inv_sqrt_hd;
   float mlp_meta[46];      // MLP-block meta, then the o-tail's 14 entries
 };
@@ -100,6 +102,13 @@ __device__ __forceinline__ float fqm(float x, float s, float o, float qmax) {
 __device__ __forceinline__ float quant_u8s(float x, float s, float o) {
   float q = rintf(x / s) + o;
   return fminf(fmaxf(q, 0.0f), 255.0f) - 128.0f;
+}
+
+// layer l's weight matrix of a stacked pack: kin/2 packed rows (WB 4) or kin
+// rows (WB 8) of n bytes
+template <int WB>
+__device__ __forceinline__ const int8_t* layer_w(const W4& p, int l) {
+  return p.wq + (size_t)l * (WB == 4 ? p.kin >> 1 : p.kin) * p.n;
 }
 
 // the fp32 affine bracket of layer l, column col

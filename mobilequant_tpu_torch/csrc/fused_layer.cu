@@ -1,9 +1,13 @@
-// Whole-decode-step, whole-layer and whole-MLP-block W4A8 kernels.
+// Whole-decode-step, whole-layer and whole-MLP-block W4A8 / W8A8 kernels.
 //
 // Replaces mobilequant_tpu/ops/pallas_layer.py fused_model_w4_stacked
 // (_model_kernel, _layer_phase, _head_phase) and fused_layer_w4_stacked
 // (_layer_kernel), and mobilequant_tpu/ops/pallas_mlp.py
-// fused_mlp_block_w4_stacked (_w4_mlp_block_kernel, _w4_mlp_phase).
+// fused_mlp_block_w4_stacked (_w4_mlp_block_kernel, _w4_mlp_phase), each in
+// both of its editions: the JAX kernels take the bit width from the pack's
+// shape, these kernels from the packs' `bits` (a template parameter of the
+// layer stages: 4, nibble-packed (kin/2, n); 8, shifted int8 (kin, n)), and
+// the head's from a.hbits (a W8 head is (K, Vp), per-column scales).
 //
 // One cooperative, persistent launch (cudaLaunchCooperativeKernel, one or two
 // blocks per SM, all resident) runs every stage; a grid-wide barrier separates
@@ -36,12 +40,15 @@
 // the non-coherent read-only path.
 //
 // Bound: device-memory bytes. At B <= 8 one decode step streams every packed
-// weight byte once (518 MB for TinyLlama-1.1B with its W4 head) plus the
-// valid KV rows; the integer work is a few GOP. This is the simple SIMT +
-// dp4a edition: a warp streams 32·CPL contiguous bytes of each packed row
-// (CPL = 16 columns per lane at B <= 2), nibbles are unpacked in registers
-// (4x4 byte transposes), scores live in shared memory. Tensor cores, TMA,
-// cp.async pipelining and fewer grid barriers are later work.
+// weight byte once (518 MB for TinyLlama-1.1B with its W4 head, 1,036 MB
+// with W8 layers and a W8 head) plus the valid KV rows; the integer work is
+// a few GOP. This is the simple SIMT + dp4a edition: a warp streams 32·CPL
+// contiguous bytes of each weight row (CPL = 16 columns per lane at B <= 2);
+// 4x4 byte transposes put 4 consecutive k of a column in one dp4a operand
+// (W4: then the nibble masks; W8 reads twice the rows, low rows j and high
+// rows j + kin/2 of a group, so the activation words are those of W4), and
+// scores live in shared memory. Tensor cores, TMA, cp.async pipelining and
+// fewer grid barriers are later work.
 //
 // Numerics repeat the plain versions' fp32 operation order (built with
 // --fmad=false; rintf is round-half-even, divisions are true divisions). The
@@ -113,11 +120,44 @@ __device__ __forceinline__ Tile gate_tile(int t, int F) {
   return Tile{t * H, F + t * H, H, n, n};
 }
 
-// sm.red[m][n] += act[m] · W[:, gcol(n)] over packed-row groups [g0, g1)
-template <int MR>
+// The CPL bytes at row `row`, columns col.. of a weight matrix, transposed:
+// cw[wd][cc] holds rows row..row+3 of column col + 4 wd + cc (one byte a row).
+template <int NWD>
+__device__ __forceinline__ void load_group(const int8_t* __restrict__ w, int row, int N,
+                                           int col, bool ok, int (&cw)[NWD][4]) {
+  int r[4][NWD];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int8_t* p = w + (size_t)(row + i) * N + col;
+    if constexpr (NWD == 4) {
+      const int4 v = ok ? __ldg(reinterpret_cast<const int4*>(p)) : make_int4(0, 0, 0, 0);
+      r[i][0] = v.x;
+      r[i][1] = v.y;
+      r[i][2] = v.z;
+      r[i][3] = v.w;
+    } else if constexpr (NWD == 2) {
+      const int2 v = ok ? __ldg(reinterpret_cast<const int2*>(p)) : make_int2(0, 0);
+      r[i][0] = v.x;
+      r[i][1] = v.y;
+    } else {
+      r[i][0] = ok ? ld_i32(p) : 0;
+    }
+  }
+#pragma unroll
+  for (int wd = 0; wd < NWD; ++wd) {
+    const int rr[4] = {r[0][wd], r[1][wd], r[2][wd], r[3][wd]};
+    transpose4x4(rr, cw[wd]);
+  }
+}
+
+// sm.red[m][n] += act[m] · W[:, gcol(n)] over row groups [g0, g1): group g
+// is k = 4g..4g+3 and kin/2 + 4g..+3 (W4: one packed row group, its low and
+// high nibbles; W8: rows 4g.. and kin/2 + 4g..)
+template <int MR, int WB>
 __device__ __forceinline__ void gemv_partial(const Smem& sm, int rows, int kin,
                                              const int8_t* __restrict__ w, int N,
                                              const Tile& t, int g0, int g1) {
+  static_assert(WB == 4 || WB == 8, "W4 or W8");
   constexpr int CPL = Cfg<MR>::CPL, TC = Cfg<MR>::TC, NWD = CPL / 4;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nl = lane * CPL;
@@ -131,29 +171,18 @@ __device__ __forceinline__ void gemv_partial(const Smem& sm, int rows, int kin,
     for (int c = 0; c < CPL; ++c) acc[m][c] = 0;
 #pragma unroll 2
   for (int g = g0 + warp; g < g1; g += NW) {
-    int r[4][NWD];
+    int cw[NWD][4], ch[NWD][4];
+    load_group<NWD>(w, 4 * g, N, col, ok, cw);
+    if constexpr (WB == 8) {
+      load_group<NWD>(w, k2 + 4 * g, N, col, ok, ch);
+    } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int8_t* p = w + (size_t)(4 * g + i) * N + col;
-      if constexpr (NWD == 4) {
-        const int4 v = ok ? __ldg(reinterpret_cast<const int4*>(p)) : make_int4(0, 0, 0, 0);
-        r[i][0] = v.x;
-        r[i][1] = v.y;
-        r[i][2] = v.z;
-        r[i][3] = v.w;
-      } else if constexpr (NWD == 2) {
-        const int2 v = ok ? __ldg(reinterpret_cast<const int2*>(p)) : make_int2(0, 0);
-        r[i][0] = v.x;
-        r[i][1] = v.y;
-      } else {
-        r[i][0] = ok ? ld_i32(p) : 0;
-      }
-    }
-    int cw[NWD][4];
+      for (int wd = 0; wd < NWD; ++wd)
 #pragma unroll
-    for (int wd = 0; wd < NWD; ++wd) {
-      const int rr[4] = {r[0][wd], r[1][wd], r[2][wd], r[3][wd]};
-      transpose4x4(rr, cw[wd]);
+        for (int cc = 0; cc < 4; ++cc) {
+          ch[wd][cc] = (int)(((unsigned)cw[wd][cc] >> 4) & NIB);
+          cw[wd][cc] &= (int)NIB;
+        }
     }
 #pragma unroll
     for (int m = 0; m < MR; ++m) {
@@ -165,8 +194,8 @@ __device__ __forceinline__ void gemv_partial(const Smem& sm, int rows, int kin,
 #pragma unroll
         for (int cc = 0; cc < 4; ++cc) {
           int& a = acc[m][wd * 4 + cc];
-          a = __dp4a(cw[wd][cc] & (int)NIB, xl, a);
-          a = __dp4a((int)(((unsigned)cw[wd][cc] >> 4) & NIB), xh, a);
+          a = __dp4a(cw[wd][cc], xl, a);
+          a = __dp4a(ch[wd][cc], xh, a);
         }
     }
   }
@@ -304,7 +333,7 @@ __device__ __forceinline__ void pick_ks(int tiles, int kin, int& ks, int& gpb) {
 // ---- the stages ----------------------------------------------------------
 
 // 1. norm1 + quantize + qkv matvec + affine + per-column output fq -> yq
-template <int MR>
+template <int MR, int WB>
 __device__ void stage_qkv(const Args& a, const Smem& sm, int l) {
   constexpr int TC = Cfg<MR>::TC;
   const float* m = a.meta + (size_t)l * META;
@@ -315,7 +344,7 @@ __device__ void stage_qkv(const Args& a, const Smem& sm, int l) {
   const float* xin = l == a.l0 ? a.x_in : a.x_out;
   bool staged = false;
   const float xs = m[4], ox = m[5] - 128.0f, kox = (float)K * ox;
-  const int8_t* w = a.qkv.wq + (size_t)l * (K >> 1) * N;
+  const int8_t* w = layer_w<WB>(a.qkv, l);
   const float* ofq = a.ofq + (size_t)l * 4 * N;
   for (int it = blockIdx.x; it < tiles * ks; it += gridDim.x) {
     if (!staged) {
@@ -327,7 +356,7 @@ __device__ void stage_qkv(const Args& a, const Smem& sm, int l) {
     const Tile t = plain_tile<MR>(tile, N);
     for (int i = threadIdx.x; i < MR * TC; i += FT) sm.red[i] = 0;
     __syncthreads();
-    gemv_partial<MR>(sm, a.M, K, w, N, t, sp * gpb, min((K >> 3), (sp + 1) * gpb));
+    gemv_partial<MR, WB>(sm, a.M, K, w, N, t, sp * gpb, min((K >> 3), (sp + 1) * gpb));
     if (!finish_tile<TC>(sm, a.ws, tile, ks, a.M, 0, N, t)) continue;
     for (int i = threadIdx.x; i < a.M * TC; i += FT) {
       if (!t.valid(i % TC)) continue;
@@ -494,7 +523,7 @@ __device__ void stage_attention(const Args& a, const Smem& sm, int l) {
 }
 
 // 3. o-proj + output fq + resid_add_1 -> resid
-template <int MR>
+template <int MR, int WB>
 __device__ void stage_o(const Args& a, const Smem& sm, int l) {
   constexpr int TC = Cfg<MR>::TC;
   const float* m = a.meta + (size_t)l * META;
@@ -504,7 +533,7 @@ __device__ void stage_o(const Args& a, const Smem& sm, int l) {
   pick_ks(tiles, Ko, ks, gpb);
   const float* xin = l == a.l0 ? a.x_in : a.x_out;
   const float xs = m[19], ox = m[20] - 128.0f, kox = (float)Ko * ox;
-  const int8_t* w = a.o.wq + (size_t)l * (Ko >> 1) * N;
+  const int8_t* w = layer_w<WB>(a.o, l);
   bool staged = false;
   for (int it = blockIdx.x; it < tiles * ks; it += gridDim.x) {
     if (!staged) {
@@ -515,7 +544,7 @@ __device__ void stage_o(const Args& a, const Smem& sm, int l) {
     const Tile t = plain_tile<MR>(tile, N);
     for (int i = threadIdx.x; i < MR * TC; i += FT) sm.red[i] = 0;
     __syncthreads();
-    gemv_partial<MR>(sm, a.M, Ko, w, N, t, sp * gpb, min((Ko >> 3), (sp + 1) * gpb));
+    gemv_partial<MR, WB>(sm, a.M, Ko, w, N, t, sp * gpb, min((Ko >> 3), (sp + 1) * gpb));
     if (!finish_tile<TC>(sm, a.ws, tile, ks, a.M, 0, N, t)) continue;
     for (int i = threadIdx.x; i < a.M * TC; i += FT) {
       if (!t.valid(i % TC)) continue;
@@ -531,7 +560,7 @@ __device__ void stage_o(const Args& a, const Smem& sm, int l) {
 }
 
 // 4. norm2 + quantize + w13 with the gate chain -> act8 (rows in chunks of MR)
-template <int MR>
+template <int MR, int WB>
 __device__ void stage_w13(const Args& a, const Smem& sm, int l, const float* mm,
                           const float* src) {
   constexpr int TC = Cfg<MR>::TC, H = TC / 2;
@@ -541,7 +570,7 @@ __device__ void stage_w13(const Args& a, const Smem& sm, int l, const float* mm,
   int ks, gpb;
   pick_ks(tiles * nch, K, ks, gpb);
   const float xs = mm[0], ox = mm[1] - 128.0f, kox = (float)K * ox;
-  const int8_t* w = a.w13.wq + (size_t)l * (K >> 1) * N;
+  const int8_t* w = layer_w<WB>(a.w13, l);
   int staged = -1;
   for (int it = blockIdx.x; it < nch * tiles * ks; it += gridDim.x) {
     const int ch = it / (tiles * ks), rem = it % (tiles * ks);
@@ -555,7 +584,7 @@ __device__ void stage_w13(const Args& a, const Smem& sm, int l, const float* mm,
     const Tile t = gate_tile<MR>(tile, F);
     for (int i = threadIdx.x; i < MR * TC; i += FT) sm.red[i] = 0;
     __syncthreads();
-    gemv_partial<MR>(sm, rows, K, w, N, t, sp * gpb, min((K >> 3), (sp + 1) * gpb));
+    gemv_partial<MR, WB>(sm, rows, K, w, N, t, sp * gpb, min((K >> 3), (sp + 1) * gpb));
     if (!finish_tile<TC>(sm, a.ws, ch * tiles + tile, ks, rows, row0, N, t)) continue;
     for (int i = threadIdx.x; i < rows * H; i += FT) {
       const int r = i / H, j = i % H;
@@ -583,7 +612,7 @@ __device__ void stage_w13(const Args& a, const Smem& sm, int l, const float* mm,
 }
 
 // 5. w2 + output fq + resid_add_2 -> out
-template <int MR>
+template <int MR, int WB>
 __device__ void stage_w2(const Args& a, const Smem& sm, int l, const float* mm,
                          const float* resid, float* out) {
   constexpr int TC = Cfg<MR>::TC;
@@ -593,7 +622,7 @@ __device__ void stage_w2(const Args& a, const Smem& sm, int l, const float* mm,
   int ks, gpb;
   pick_ks(tiles * nch, F, ks, gpb);
   const float xs = mm[14], ox = mm[15] - 128.0f, kox = (float)F * ox;
-  const int8_t* w = a.w2.wq + (size_t)l * (F >> 1) * N;
+  const int8_t* w = layer_w<WB>(a.w2, l);
   int staged = -1;
   for (int it = blockIdx.x; it < nch * tiles * ks; it += gridDim.x) {
     const int ch = it / (tiles * ks), rem = it % (tiles * ks);
@@ -606,7 +635,7 @@ __device__ void stage_w2(const Args& a, const Smem& sm, int l, const float* mm,
     const Tile t = plain_tile<MR>(tile, N);
     for (int i = threadIdx.x; i < MR * TC; i += FT) sm.red[i] = 0;
     __syncthreads();
-    gemv_partial<MR>(sm, rows, F, w, N, t, sp * gpb, min((F >> 3), (sp + 1) * gpb));
+    gemv_partial<MR, WB>(sm, rows, F, w, N, t, sp * gpb, min((F >> 3), (sp + 1) * gpb));
     if (!finish_tile<TC>(sm, a.ws, ch * tiles + tile, ks, rows, row0, N, t)) continue;
     for (int i = threadIdx.x; i < rows * TC; i += FT) {
       if (!t.valid(i % TC)) continue;
@@ -621,7 +650,7 @@ __device__ void stage_w2(const Args& a, const Smem& sm, int l, const float* mm,
   }
 }
 
-// final norm + dynamic per-row A8 + W4 head -> logits
+// final norm + dynamic per-row A8 + the W4 or W8 head (a.hbits) -> logits
 template <int MR>
 __device__ void stage_head(const Args& a, const Smem& sm) {
   constexpr int TC = Cfg<MR>::TC;
@@ -672,7 +701,10 @@ __device__ void stage_head(const Args& a, const Smem& sm) {
     const Tile t = plain_tile<MR>(tile, N);
     for (int i = threadIdx.x; i < MR * TC; i += FT) sm.red[i] = 0;
     __syncthreads();
-    gemv_partial<MR>(sm, a.M, K, a.hwq, N, t, sp * gpb, min((K >> 3), (sp + 1) * gpb));
+    if (a.hbits == 8)
+      gemv_partial<MR, 8>(sm, a.M, K, a.hwq, N, t, sp * gpb, min((K >> 3), (sp + 1) * gpb));
+    else
+      gemv_partial<MR, 4>(sm, a.M, K, a.hwq, N, t, sp * gpb, min((K >> 3), (sp + 1) * gpb));
     if (!finish_tile<TC>(sm, a.ws, tile, ks, a.M, 0, N, t)) continue;
     for (int i = threadIdx.x; i < a.M * TC; i += FT) {
       if (!t.valid(i % TC)) continue;
@@ -686,7 +718,7 @@ __device__ void stage_head(const Args& a, const Smem& sm) {
 }
 
 
-template <int MR>
+template <int MR, int WB>
 __global__ void __launch_bounds__(FT)
 fused_decode_kernel(const Args a, int kmax) {
   const Smem sm = carve(MR, kmax);
@@ -694,19 +726,19 @@ fused_decode_kernel(const Args a, int kmax) {
   int ts = 1;
   for (int l = a.l0; l < a.l1; ++l) {
     const float* mm = a.meta + (size_t)l * META + AM;
-    stage_qkv<MR>(a, sm, l);
+    stage_qkv<MR, WB>(a, sm, l);
     grid_barrier(a.bar);
     stamp(a, ts++);
     stage_attention(a, sm, l);
     grid_barrier(a.bar);
     stamp(a, ts++);
-    stage_o<MR>(a, sm, l);
+    stage_o<MR, WB>(a, sm, l);
     grid_barrier(a.bar);
     stamp(a, ts++);
-    stage_w13<MR>(a, sm, l, mm, a.resid);
+    stage_w13<MR, WB>(a, sm, l, mm, a.resid);
     grid_barrier(a.bar);
     stamp(a, ts++);
-    stage_w2<MR>(a, sm, l, mm, a.resid, a.x_out);
+    stage_w2<MR, WB>(a, sm, l, mm, a.resid, a.x_out);
     if (l + 1 < a.l1 || a.logits || a.trace) grid_barrier(a.bar);
     stamp(a, ts++);
   }
@@ -717,15 +749,15 @@ fused_decode_kernel(const Args a, int kmax) {
   }
 }
 
-template <int MR>
+template <int MR, int WB>
 __global__ void __launch_bounds__(FT)
 fused_mlp_block_kernel(const Args a, int kmax) {
   const Smem sm = carve(MR, kmax);
   if (threadIdx.x < 32) sm.meta[threadIdx.x] = a.mlp_meta[threadIdx.x];
   __syncthreads();
-  stage_w13<MR>(a, sm, a.l0, sm.meta, a.x_in);
+  stage_w13<MR, WB>(a, sm, a.l0, sm.meta, a.x_in);
   grid_barrier(a.bar);
-  stage_w2<MR>(a, sm, a.l0, sm.meta, a.x_in, a.x_out);
+  stage_w2<MR, WB>(a, sm, a.l0, sm.meta, a.x_in, a.x_out);
 }
 
 size_t smem_bytes(const Args& a, int MR, int kmax, bool attention) {
@@ -745,22 +777,47 @@ int kmax_of(const Args& a) {
   return (k + 15) / 16 * 16;
 }
 
+template <int WB>
+int launch_decode(const Args& a, int kmax, cudaStream_t st) {
+  if (a.M <= 1)
+    return launch_coop(fused_decode_kernel<1, WB>, a, kmax, smem_bytes(a, 1, kmax, true), st);
+  if (a.M <= 2)
+    return launch_coop(fused_decode_kernel<2, WB>, a, kmax, smem_bytes(a, 2, kmax, true), st);
+  if (a.M <= 4)
+    return launch_coop(fused_decode_kernel<4, WB>, a, kmax, smem_bytes(a, 4, kmax, true), st);
+  if (a.M <= 8)
+    return launch_coop(fused_decode_kernel<8, WB>, a, kmax, smem_bytes(a, 8, kmax, true), st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int WB>
+int launch_mlp_block(const Args& a, int kmax, cudaStream_t st) {
+  if (a.M <= 1)
+    return launch_coop(fused_mlp_block_kernel<1, WB>, a, kmax, smem_bytes(a, 1, kmax, false), st);
+  if (a.M <= 2)
+    return launch_coop(fused_mlp_block_kernel<2, WB>, a, kmax, smem_bytes(a, 2, kmax, false), st);
+  if (a.M <= 4)
+    return launch_coop(fused_mlp_block_kernel<4, WB>, a, kmax, smem_bytes(a, 4, kmax, false), st);
+  if (a.M <= 8)
+    return launch_coop(fused_mlp_block_kernel<8, WB>, a, kmax, smem_bytes(a, 8, kmax, false), st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // The whole-model (layers [l0, l1) with the head when a.logits is set) and
-// whole-layer kernels: B = a.M <= 8 sequences.
+// whole-layer kernels: B = a.M <= 8 sequences; the four packs share one bit
+// width (4 or 8), the head has its own (a.hbits).
 MQT_EXPORT int mqt_fused_decode(const void* args, void* stream) {
   const Args& a = *(const Args*)args;
   cudaStream_t st = (cudaStream_t)stream;
   const int kmax = kmax_of(a);
-  if (a.M <= 1)
-    return launch_coop(fused_decode_kernel<1>, a, kmax, smem_bytes(a, 1, kmax, true), st);
-  if (a.M <= 2)
-    return launch_coop(fused_decode_kernel<2>, a, kmax, smem_bytes(a, 2, kmax, true), st);
-  if (a.M <= 4)
-    return launch_coop(fused_decode_kernel<4>, a, kmax, smem_bytes(a, 4, kmax, true), st);
-  if (a.M <= 8)
-    return launch_coop(fused_decode_kernel<8>, a, kmax, smem_bytes(a, 8, kmax, true), st);
+  const int wb = a.qkv.bits;
+  if (a.o.bits != wb || a.w13.bits != wb || a.w2.bits != wb
+      || (a.logits && a.hbits != 4 && a.hbits != 8))
+    return (int)cudaErrorInvalidValue;
+  if (wb == 8) return launch_decode<8>(a, kmax, st);
+  if (wb == 4) return launch_decode<4>(a, kmax, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -770,13 +827,9 @@ MQT_EXPORT int mqt_fused_mlp_block(const void* args, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int kmax = (a.K > a.F ? a.K : a.F);
   kmax = (kmax + 15) / 16 * 16;
-  if (a.M <= 1)
-    return launch_coop(fused_mlp_block_kernel<1>, a, kmax, smem_bytes(a, 1, kmax, false), st);
-  if (a.M <= 2)
-    return launch_coop(fused_mlp_block_kernel<2>, a, kmax, smem_bytes(a, 2, kmax, false), st);
-  if (a.M <= 4)
-    return launch_coop(fused_mlp_block_kernel<4>, a, kmax, smem_bytes(a, 4, kmax, false), st);
-  if (a.M <= 8)
-    return launch_coop(fused_mlp_block_kernel<8>, a, kmax, smem_bytes(a, 8, kmax, false), st);
+  const int wb = a.w13.bits;
+  if (a.w2.bits != wb) return (int)cudaErrorInvalidValue;
+  if (wb == 8) return launch_mlp_block<8>(a, kmax, st);
+  if (wb == 4) return launch_mlp_block<4>(a, kmax, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,12 +1,18 @@
-// Shared pieces of the port's Hopper kernels: the C export macro, the W4A8
-// dp4a tile core used by w4a8_matmul (M > 8), qkv_rope and w13_gate, and the
-// split-K reduction through a self-cleaning int32 workspace.
+// Shared pieces of the port's Hopper kernels: the C export macro, the W4A8 /
+// W8A8 dp4a tile core used by w4a8_matmul (M > 8), w8a8_matmul (M > 8),
+// qkv_rope and w13_gate, and the split-K reduction through a self-cleaning
+// int32 workspace.
 //
-// Weight layout (unsigned block nibbles, as the JAX package packs W4): a
+// Weight layouts. W4 (unsigned block nibbles, as the JAX package packs it): a
 // (K/2, N) int8 matrix, N contiguous; packed row j holds k = j in its low
-// nibble and k = j + K/2 in its high nibble, both 0..15. Activations are
-// shifted int8 (uint8 − 128). Integer accumulation is exact in int32, so the
-// split-K partial sums may be added in any order.
+// nibble and k = j + K/2 in its high nibble, both 0..15. W8 (the JAX
+// package's shifted int8, uint8 − 128 for asymmetric packs): a (K, N) int8
+// matrix, N contiguous. The kernels read a W8 matrix as the same two halves:
+// "low" row j is row j, "high" row j is row j + K/2, so both editions share
+// the chunking and the activation words, and differ only in where the high
+// half's bytes come from and in the nibble masks. Activations are shifted
+// int8 (uint8 − 128). Integer accumulation is exact in int32, so the split-K
+// partial sums may be added in any order.
 //
 // Build without --use_fast_math and with --fmad=false: the epilogues repeat
 // the JAX package's fp32 arithmetic op for op (true division, rintf for
@@ -94,13 +100,16 @@ struct ColMap {
 };
 
 // acc[i][j] (row ty + 16 i, column tx + 16 j) += x[rows] · W[:, cols] over the
-// packed rows of chunks [c0, c1); rs gets this block's partial row sums of x
-// (threads 0..63, one row each).
+// row pairs (j, j + K/2) of chunks [c0, c1) (32 pairs a chunk); rs gets this
+// block's partial row sums of x (threads 0..63, one row each). WB: the weight
+// bits (4: nibble-packed (K/2, N); 8: (K, N)).
+template <int WB>
 __device__ __forceinline__ void tile_mma(const int8_t* __restrict__ x,
                                          const int8_t* __restrict__ w,
                                          int M, int K, int N, int m0,
                                          const ColMap& cm, int c0, int c1,
                                          TileSmem& sm, int acc[4][8], int& rs) {
+  static_assert(WB == 4 || WB == 8, "W4 or W8");
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int K2 = K >> 1;
@@ -115,10 +124,24 @@ __device__ __forceinline__ void tile_mma(const int8_t* __restrict__ x,
     for (int i = 0; i < 4; ++i)
       r[i] = wok ? ld_i32(w + (size_t)(j0 + rg * 4 + i) * N + wcol) : 0;
     transpose4x4(r, c);
+    if constexpr (WB == 4) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      sm.u.mm.wlo[ncol + i][rg] = c[i] & NIB;
-      sm.u.mm.whi[ncol + i][rg] = (int)(((unsigned)c[i] >> 4) & NIB);
+      for (int i = 0; i < 4; ++i) {
+        sm.u.mm.wlo[ncol + i][rg] = c[i] & NIB;
+        sm.u.mm.whi[ncol + i][rg] = (int)(((unsigned)c[i] >> 4) & NIB);
+      }
+    } else {
+      // W8: the bytes are the operands; the high half is rows K/2 + j
+      int rh[4], chi[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        rh[i] = wok ? ld_i32(w + (size_t)(K2 + j0 + rg * 4 + i) * N + wcol) : 0;
+      transpose4x4(rh, chi);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sm.u.mm.wlo[ncol + i][rg] = c[i];
+        sm.u.mm.whi[ncol + i][rg] = chi[i];
+      }
     }
 #pragma unroll
     for (int rr = 0; rr < 4; ++rr) {

@@ -1,5 +1,5 @@
 // Prefill qkv projection with the attention-input epilogue:
-//   h8 (M, K) shifted int8 × W4 qkv (K/2, Nq) -> affine bracket
+//   h8 (M, K) shifted int8 × W4 qkv (K/2, Nq) or W8 qkv (K, Nq) -> affine bracket
 //   -> per-column output fake-quant (ofq rows: scale, offset, clip, enabled)
 //   -> rotate-half RoPE inside each head (partner = y[d ± rot/2], cos=1 /
 //      sin=0 past rotary_dim, the rope mask lets v columns pass)
@@ -7,11 +7,12 @@
 //   -> (M, Nq) shifted int8: q rows for attention, k/v rows for the cache.
 //
 // Replaces mobilequant_tpu/ops/pallas_qkv.py: qkv_rope_stacked
-// (_qkv_rope_kernel).
+// (_qkv_rope_kernel), both of its editions (wbits 4 and 8, from the pack's
+// shape there, an argument here).
 //
 // Bound: at prefill M the integer operations of the matmul (the epilogue is
-// a few dozen fp32 operations per output). Design: the shared W4A8 tile core
-// (mqt_common.cuh) with split-K so that a 128-row prompt still fills the
+// a few dozen fp32 operations per output). Design: the shared W4A8 / W8A8
+// tile core (mqt_common.cuh, templated on the weight bits) with split-K so that a 128-row prompt still fills the
 // card; the epilogue stages the 64 x 128 tile in shared memory so that each
 // output can read its RoPE partner column, which is why a tile must hold
 // whole heads (128 % head_dim == 0). The written rows are the int8 KV cache:
@@ -30,6 +31,7 @@ struct QkvArgs {
   int hd, shift;       // head_dim, rotary_dim / 2
 };
 
+template <int WB>
 __global__ void __launch_bounds__(TTHREADS)
 qkv_rope_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                 Affine aff, QkvArgs qa, int8_t* __restrict__ out, int* ws,
@@ -45,7 +47,7 @@ qkv_rope_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   ColMap cm{n0, 0, TBN, TBN, 0};   // N % 128 == 0 (checked by the caller)
   int acc[4][8] = {};
   int rs = 0;
-  tile_mma(x, w, M, K, N, m0, cm, c0, c1, sm, acc, rs);
+  tile_mma<WB>(x, w, M, K, N, m0, cm, c0, c1, sm, acc, rs);
   if (!splitk_reduce(ws, ntiles, tile, ks, M, N, m0, cm, sm, acc, rs)) return;
 
   // affine bracket + output fake-quant, staged in shared memory
@@ -94,7 +96,7 @@ MQT_EXPORT int mqt_qkv_rope(const void* x, const void* w, const void* scale,
                             const void* bias, const void* ofq, const void* outq,
                             const void* cs, void* out, void* ws, int M, int K,
                             int N, int sstride, float h_scale, float h_offset,
-                            int head_dim, int rotary_dim, void* stream) {
+                            int head_dim, int rotary_dim, int wbits, void* stream) {
   Affine aff;
   aff.scale = (const float*)scale;
   aff.offset = (const float*)offset;
@@ -111,8 +113,16 @@ MQT_EXPORT int mqt_qkv_rope(const void* x, const void* w, const void* scale,
   int ks, cps;
   pick_split(tn * tm, nchunks, 4, ks, cps);
   dim3 grid(tn, tm, ks);
-  qkv_rope_kernel<<<grid, TTHREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const int8_t*)w, aff, qa, (int8_t*)out, (int*)ws, M, K,
-      N, ks, cps);
+  const int8_t* xp = (const int8_t*)x;
+  const int8_t* wp = (const int8_t*)w;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (wbits == 8)
+    qkv_rope_kernel<8><<<grid, TTHREADS, 0, st>>>(xp, wp, aff, qa, (int8_t*)out, (int*)ws,
+                                                   M, K, N, ks, cps);
+  else if (wbits == 4)
+    qkv_rope_kernel<4><<<grid, TTHREADS, 0, st>>>(xp, wp, aff, qa, (int8_t*)out, (int*)ws,
+                                                   M, K, N, ks, cps);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -1,18 +1,19 @@
 // Prefill w1|w3 projection with the gated-activation epilogue:
-//   h8 (M, K) shifted int8 × W4 w13 (K/2, 2F): column j of w1 and column
-//   F + j of w3 -> affine bracket -> w1 / w3 output fake-quant
+//   h8 (M, K) shifted int8 × W4 w13 (K/2, 2F) or W8 w13 (K, 2F): column j of
+//   w1 and column F + j of w3 -> affine bracket -> w1 / w3 output fake-quant
 //   -> SiLU as g1 · fq(1 / (1 + exp(−g1))) (or gelu_tanh) -> fq
 //   -> gate multiply -> w2-input quantization -> (M, F) shifted int8.
 //
 // Replaces mobilequant_tpu/ops/pallas_mlp.py: w13_gate_stacked
-// (_w13_gate_kernel). The meta vector is the JAX engine's _mlp_block_meta
-// (indices 0..15 used); site_on switches the four optional fake-quant sites.
+// (_w13_gate_kernel), both of its editions (wbits 4 and 8). The meta vector
+// is the JAX engine's _mlp_block_meta (indices 0..15 used); site_on switches
+// the four optional fake-quant sites.
 //
 // Bound: at prefill M the integer operations of the 2F-wide matmul. Design:
-// the shared W4A8 tile core with a split column map (tile columns 0..63 read
-// w1 columns j0.., columns 64..127 read w3 columns F + j0..), so one block
-// holds both operands of its 64 gate outputs; the (M, 2F) fp32 intermediate
-// never leaves shared memory.
+// the shared W4A8 / W8A8 tile core (templated on the weight bits) with a
+// split column map (tile columns 0..63 read w1 columns j0.., columns 64..127
+// read w3 columns F + j0..), so one block holds both operands of its 64 gate
+// outputs; the (M, 2F) fp32 intermediate never leaves shared memory.
 #include "mqt_common.cuh"
 
 namespace {
@@ -33,6 +34,7 @@ __device__ __forceinline__ float fq(float x, float s, float o, float qmax) {
   return qmax > 0.5f ? (q - o) * s : x;
 }
 
+template <int WB>
 __global__ void __launch_bounds__(TTHREADS)
 w13_gate_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                 Affine aff, GateArgs ga, int8_t* __restrict__ out, int* ws,
@@ -49,7 +51,7 @@ w13_gate_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   ColMap cm{j0, F + j0, HALF, HALF, HALF};   // F % 64 == 0 (checked by the caller)
   int acc[4][8] = {};
   int rs = 0;
-  tile_mma(x, w, M, K, N2, m0, cm, c0, c1, sm, acc, rs);
+  tile_mma<WB>(x, w, M, K, N2, m0, cm, c0, c1, sm, acc, rs);
   if (!splitk_reduce(ws, ntiles, tile, ks, M, N2, m0, cm, sm, acc, rs)) return;
 
 #pragma unroll
@@ -98,7 +100,7 @@ MQT_EXPORT int mqt_w13_gate(const void* x, const void* w, const void* scale,
                             const void* bias, const void* meta_host, void* out,
                             void* ws, int M, int K, int F, int sstride,
                             int s_w1, int s_sig, int s_act, int s_w3, int gelu,
-                            void* stream) {
+                            int wbits, void* stream) {
   const float* meta = (const float*)meta_host;
   Affine aff;
   aff.scale = (const float*)scale;
@@ -121,8 +123,16 @@ MQT_EXPORT int mqt_w13_gate(const void* x, const void* w, const void* scale,
   int ks, cps;
   pick_split(tn * tm, nchunks, 4, ks, cps);
   dim3 grid(tn, tm, ks);
-  w13_gate_kernel<<<grid, TTHREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const int8_t*)w, aff, ga, (int8_t*)out, (int*)ws, M, K,
-      F, ks, cps);
+  const int8_t* xp = (const int8_t*)x;
+  const int8_t* wp = (const int8_t*)w;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (wbits == 8)
+    w13_gate_kernel<8><<<grid, TTHREADS, 0, st>>>(xp, wp, aff, ga, (int8_t*)out, (int*)ws,
+                                                   M, K, F, ks, cps);
+  else if (wbits == 4)
+    w13_gate_kernel<4><<<grid, TTHREADS, 0, st>>>(xp, wp, aff, ga, (int8_t*)out, (int*)ws,
+                                                   M, K, F, ks, cps);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,7 @@
 
 Each kernel wrapper carries two plain integer counts: `launches` (CUDA kernel
 launches) and `plain_calls` (runs of its plain PyTorch version on CPU
-tensors)."""
+tensors). A kernel's W4 and W8 editions count on its one wrapper."""
 
 from __future__ import annotations
 
@@ -20,8 +20,9 @@ def kernel_wrappers() -> dict:
     from mobilequant_tpu_torch.ops.staged_append import staged_append
     from mobilequant_tpu_torch.ops.w13_gate import w13_gate
     from mobilequant_tpu_torch.ops.w4a8_matmul import w4a8_matmul, w4a8_matmul_stacked
+    from mobilequant_tpu_torch.ops.w8a8_matmul import w8a8_matmul
     return {"w4a8_matmul": w4a8_matmul, "w4a8_matmul_stacked": w4a8_matmul_stacked,
-            "qkv_rope": qkv_rope,
+            "w8a8_matmul": w8a8_matmul, "qkv_rope": qkv_rope,
             "prefill_attention": prefill_attention, "w13_gate": w13_gate,
             "fused_mlp_block_w4": fused_mlp_block_w4, "fused_layer_w4": fused_layer_w4,
             "fused_model_w4": fused_model_w4, "staged_append": staged_append,

@@ -26,9 +26,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "mqt_kernels"
 LIB_PATH = BUILD_DIR / "libmqt_kernels.so"
-SOURCES = ("w4a8_matmul.cu", "qkv_rope.cu", "prefill_attention.cu", "w13_gate.cu",
-           "fused_layer.cu", "fused_rows.cu", "staged_append.cu", "kv4_attention.cu",
-           "decode_attention.cu")
+SOURCES = ("w4a8_matmul.cu", "w8a8_matmul.cu", "qkv_rope.cu", "prefill_attention.cu",
+           "w13_gate.cu", "fused_layer.cu", "fused_rows.cu", "fused_rows_w8.cu",
+           "staged_append.cu", "kv4_attention.cu", "decode_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 
@@ -40,8 +40,9 @@ LL = ctypes.c_longlong
 # entry name -> argtypes (restype int for all, the cudaError_t of the launch)
 SIGNATURES = {
     "mqt_w4a8_matmul": [P, P, P, P, P, P, P, P, I, I, I, I, F, F, P],
-    "mqt_qkv_rope": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, I, I, P],
-    "mqt_w13_gate": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    "mqt_w8a8_matmul": [P, P, P, P, P, P, P, P, I, I, I, I, F, F, P],
+    "mqt_qkv_rope": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, I, I, I, P],
+    "mqt_w13_gate": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
     "mqt_prefill_attention": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "mqt_fused_decode": [P, P],       # (const MqtFusedArgs*, stream)
     "mqt_fused_mlp_block": [P, P],

@@ -2,31 +2,35 @@
 
 fused_model_w4_chunk: every layer of a T=1 step on the chunked-staging decode
 path (runtime/engine.decode_loop at B > 8), then (optionally) the final norm
-and the W4 quantized head:
+and the quantized head:
 
-  per layer: [fq16] -> RMS norm -> quantize -> W4 qkv -> per-column output fq
+  per layer: [fq16] -> RMS norm -> quantize -> qkv -> per-column output fq
   -> RoPE -> joint segment quantization (the step's K/V rows) -> attention
   over [stale cache rows < pos0 | staged columns < m | self term] with one
-  shared max, per-part exp and one denominator -> pv-output quantize -> W4 o
+  shared max, per-part exp and one denominator -> pv-output quantize -> o
   -> fq -> resid_add_1 -> the MLP block (ops/mlp_block)
-  head: RMS norm -> dynamic per-row A8 -> W4 head -> logits (B, Vp)
+  head: RMS norm -> dynamic per-row A8 -> W4 or W8 head -> logits (B, Vp)
 
-Kernel: csrc/fused_rows.cu (mqt_fused_chunk), which replaces the JAX
-package's mobilequant_tpu/ops/pallas_chunk.py fused_model_w4_chunk
-(_chunk_kernel, _chunk_mlp_phase). Bound: device-memory bytes: each packed
-weight byte once per step (518 MB for TinyLlama-1.1B with its W4 head) plus
-the valid cache rows, the staged columns and the K column sums. Design: the
-cooperative persistent launch of ops/fused_layer with its grid barrier and
-self-cleaning split-K workspace, and three changes for B rows: the norms are
-stages of their own (one block per row, writing int8 rows), the matvec tiles
-hold every row of the batch so each weight byte is read once per step (int8
-mma.sync on the tensor cores, the activation rows streamed through shared
-memory K-chunk by K-chunk: at B = 128 a (B, K) int8 activation does not fit
-one SM), and the attention runs one block per (sequence, q head) (above 64
-rows, one per (sequence, kv head) with its q heads, so each K/V row is read
-once for them), reading only valid rows: the cache's K column sums come from
-kcs (computed once per chunk), the staged columns' are computed in the
-kernel.
+The layer packs are all W4 or all W8 (the JAX kernel's two editions, there
+by the packs' shapes); the head has its own width (the W8 head folded as the
+JAX chunk kernel folds it).
+
+Kernel: csrc/fused_rows.cu / fused_rows_w8.cu (mqt_fused_chunk), which replace
+the JAX package's mobilequant_tpu/ops/pallas_chunk.py fused_model_w4_chunk
+(_chunk_kernel, _chunk_mlp_phase). Bound: device-memory bytes: each weight
+byte once per step (518 MB for TinyLlama-1.1B with its W4 head, 1,036 MB with
+W8 layers and head) plus the valid cache rows, the staged columns and the K
+column sums. Design: the cooperative persistent launch of ops/fused_layer with
+its grid barrier and self-cleaning split-K workspace, and three changes for B
+rows: the norms are stages of their own (one block per row, writing int8
+rows), the matvec tiles hold every row of the batch so each weight byte is
+read once per step (int8 mma.sync on the tensor cores, the activation rows
+streamed through shared memory K-chunk by K-chunk: at B = 128 a (B, K) int8
+activation does not fit one SM), and the attention runs one block per
+(sequence, q head) (above 64 rows, one per (sequence, kv head) with its q
+heads, so each K/V row is read once for them), reading only valid rows: the
+cache's K column sums come from kcs (computed once per chunk), the staged
+columns' are computed in the kernel.
 
 The caches are read-only within a chunk (cache_position is the chunk-start
 position pos0); the step's rows come back as kv_new (L, B, 2 Hkv, hd), the
@@ -53,13 +57,13 @@ import torch
 
 from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.fused_layer import (
-    LAYER_META_LEN, head_kernel_supported, layer_kernel_supported, layer_tail_plain,
-    qkv_rows_plain)
+    LAYER_META_LEN, head_kernel_supported, layer_kernel_supported, layer_pack_bits,
+    layer_tail_plain, qkv_rows_plain)
 from mobilequant_tpu_torch.ops.mlp_block import (
     BARRIER, MAX_ROWS, FusedArgs, ptr, rms_norm, rows_workspace, stacked_w4, sum_f32)
 from mobilequant_tpu_torch.ops.qops import f32, int_dot, int_head_linear, rowsum_i8
 from mobilequant_tpu_torch.ops.w13_gate import _fq
-from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack
+from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, weight_bits
 
 SMEM_LIMIT = 200 * 1024
 
@@ -189,7 +193,8 @@ def fused_model_w4_chunk(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
     (L, B, Hkv, S) or (L, B, Hkv, 1, S) fp32 K column sums of the caches;
     sk / sv (L, B, Hkv, ncs, hd) int8 staged columns, m_staged of them valid
     -> (x_out (B, K), kv_new (L, B, 2 Hkv, hd) int8 [k rows; v rows]) and,
-    with a W4 head pack and final_norm {w, b}, logits (B, Vp). qk_fq_on /
+    with a W4 or W8 head pack and final_norm {w, b}, logits (B, Vp); the
+    layer packs all W4 or all W8. qk_fq_on /
     pv_fq_on: the policy's qk_bmm output and pv_bmm input enables. trace:
     optional int64 (3 + 5 L,) device tensor that receives the global timer
     (ns) at the start and at the end of each stage (norm1, qkv, attention,
@@ -202,13 +207,13 @@ def fused_model_w4_chunk(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
     ncs, mst = sk.shape[3], int(m_staged)
     if not (8 <= B <= MAX_ROWS and B % 8 == 0):
         raise NotImplementedError(f"chunk kernel: B={B} (B % 8 == 0, 8 <= B <= 128)")
-    if qkv["wq"].shape[1] * 2 != K or w13["wq"].shape[1] * 2 != K \
-            or o["wq"].shape[1] * 2 != Hq * hd or w2["wq"].shape[1] * 2 != F:
-        raise NotImplementedError("the chunk kernel takes W4 packs")
+    if not layer_pack_bits(K, Hq * hd, qkv, o, w13, w2):
+        raise NotImplementedError("the chunk kernel takes all-W4 or all-W8 packs")
     if act_kind not in ("silu", "gelu_tanh"):
         raise NotImplementedError(f"chunk kernel: act {act_kind!r}")
     if head is not None and not head_kernel_supported(head, K):
-        raise NotImplementedError("the chunk kernel folds a W4 head only")
+        raise NotImplementedError("the chunk kernel folds W4 (K/2, Vp) or W8 (K, Vp) heads "
+                                  "with Vp % 128 == 0")
     if kcache.shape != (L, B, Hkv, S, hd) or vcache.shape != kcache.shape \
             or kcs.numel() != L * B * Hkv * S or tuple(sk.shape[:3]) != (L, B, Hkv) \
             or sk.shape[4] != hd or sv.shape != sk.shape or not 0 <= mst <= ncs:
@@ -256,6 +261,7 @@ def fused_model_w4_chunk(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
         Vp = head["wq"].shape[1]
         logits = torch.empty((B, Vp), dtype=torch.float32, device=dev)
         a.hwq = ptr(i8c(head["wq"]))
+        a.hbits = weight_bits(head["wq"], K)
         a.hscale = ptr(f32c(head["scale"].reshape(-1)))
         a.hoffset = ptr(f32c(head["offset"].reshape(-1)))
         a.fnw = ptr(f32c(final_norm["w"]))
@@ -276,8 +282,8 @@ def fused_model_w4_chunk(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
         if trace.dtype != torch.int64 or trace.device != dev or trace.numel() < 3 + 5 * L:
             raise ValueError("trace: an int64 tensor of 3 + 5·layers entries on the device")
         a.trace = ptr(trace)
-    a.qkv, a.o = stacked_w4(qkv, keep), stacked_w4(o, keep)
-    a.w13, a.w2 = stacked_w4(w13, keep), stacked_w4(w2, keep)
+    a.qkv, a.o = stacked_w4(qkv, keep, K), stacked_w4(o, keep, Hq * hd)
+    a.w13, a.w2 = stacked_w4(w13, keep, K), stacked_w4(w2, keep, F)
     a.M, a.K, a.Hq, a.Hkv, a.hd, a.rot, a.S, a.F = B, K, Hq, Hkv, hd, rotary_dim, S, F
     a.Vp, a.L, a.l0, a.l1 = Vp, L, 0, L
     a.gelu = int(act_kind == "gelu_tanh")

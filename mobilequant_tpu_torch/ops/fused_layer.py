@@ -1,28 +1,33 @@
 """A whole decode step, or one whole decoder layer, in one kernel.
 
 fused_model_w4: every layer of a T=1 decode step at B <= 8 sequences, then
-(optionally) the final norm and the W4 quantized head:
+(optionally) the final norm and the quantized head:
 
-  per layer: [fq16] -> RMS norm -> quantize -> W4 qkv -> per-column output fq
+  per layer: [fq16] -> RMS norm -> quantize -> qkv -> per-column output fq
   -> RoPE -> joint segment quantization (the new K/V rows) -> decode-light
   attention over the int8 cache (stale rows < pos, plus the self term) ->
-  pv-output quantize -> W4 o -> fq -> resid_add_1 -> the MLP block
+  pv-output quantize -> o -> fq -> resid_add_1 -> the MLP block
   (ops/mlp_block)
-  head: RMS norm -> dynamic per-row A8 -> W4 head -> logits (B, Vp)
+  head: RMS norm -> dynamic per-row A8 -> W4 or W8 head -> logits (B, Vp)
 
 fused_layer_w4: one layer of the same at B = 1, no head.
+
+The layer packs are all W4 (nibble-packed, (L, kin/2, n)) or all W8 ((L,
+kin, n), per-tensor or per-channel scales); the head, W4 (K/2, Vp) or W8
+(K, Vp), has its own width. The names keep the JAX package's, whose kernels
+also take both editions by the packs' shapes.
 
 Kernel: csrc/fused_layer.cu (mqt_fused_decode), which replaces the JAX
 package's mobilequant_tpu/ops/pallas_layer.py fused_model_w4_stacked
 (_model_kernel, _layer_phase, _head_phase) and fused_layer_w4_stacked
-(_layer_kernel). Bound: device-memory bytes (each packed weight byte once per
-step, plus the valid K/V rows). Design: one cooperative persistent launch;
-stages split by grid barriers (five per layer); split-K matvecs meet in an
-integer workspace, so results do not depend on block arrival order; the
-attention runs one block per (sequence, q head), its scores and the cache
-rows in shared memory. The TPU column / row permutations of the JAX kernels' qkv and o packs
-(a Mosaic layout workaround) are not ported: the kernels read the canonical
-qkv_proj / o_proj packs.
+(_layer_kernel), W4 and W8 editions. Bound: device-memory bytes (each weight
+byte once per step, plus the valid K/V rows). Design: one cooperative
+persistent launch; stages split by grid barriers (five per layer); split-K
+matvecs meet in an integer workspace, so results do not depend on block
+arrival order; the attention runs one block per (sequence, q head), its scores
+and the cache rows in shared memory. The TPU column / row permutations of the
+JAX kernels' qkv and o packs (a Mosaic layout workaround) are not ported: the
+kernels read the canonical qkv_proj / o_proj packs.
 
 Operands, as the engine prepares them once per (packed model, policy):
 meta_L (L, 65) = the JAX engine's _layer_meta per layer (33 attention entries
@@ -51,11 +56,11 @@ import torch
 from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.mlp_block import (
     BARRIER, WS_COUNTERS, FusedArgs, fused_mlp_block_w4_plain, mlp_block_supported,
-    ptr, rms_norm, stacked_w4, sum_f32)
+    mlp_pack_bits, ptr, rms_norm, stacked_w4, sum_f32)
 from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope_plain
 from mobilequant_tpu_torch.ops.qops import f32, int_head_linear, int_matmul_qk, quantize_act
 from mobilequant_tpu_torch.ops.w13_gate import _fq
-from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, w4a8_matmul_plain
+from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, w4a8_matmul_plain, weight_bits
 
 LAYER_META_LEN = 65
 MAX_BATCH = 8
@@ -82,9 +87,10 @@ def layer_kernel_supported(c, max_seq_len: int) -> bool:
 
 
 def head_kernel_supported(head_pack: dict, hidden_size: int) -> bool:
-    """Whether a quantized head folds into the whole-model kernel (W4)."""
-    K2, Vp = head_pack["wq"].shape
-    return K2 * 2 == hidden_size and Vp % 128 == 0
+    """Whether a quantized head folds into the whole-model and chunk kernels:
+    W4 (K/2, Vp) or W8 (K, Vp) (the JAX package's Kh in (K, K/2))."""
+    Kh, Vp = head_pack["wq"].shape
+    return Kh in (hidden_size, hidden_size // 2) and Vp % 128 == 0
 
 
 def _outq(m: list, Hq: int, Hkv: int, hd: int, device) -> torch.Tensor:
@@ -244,6 +250,7 @@ def _launch(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2, kcache, vca
         hwq = _build.aligned(head["wq"], 16)
         keep.append(hwq)
         a.hwq = ptr(hwq)
+        a.hbits = weight_bits(hwq, K)
         a.hscale = ptr(f32c(head["scale"].reshape(-1)))
         a.hoffset = ptr(f32c(head["offset"].reshape(-1)))
         a.fnw = ptr(f32c(final_norm["w"]))
@@ -260,8 +267,8 @@ def _launch(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2, kcache, vca
         if trace.dtype != torch.int64 or trace.device != dev or trace.numel() < 2 + 5 * len(layers):
             raise ValueError("trace: an int64 tensor of 2 + 5·layers entries on the device")
         a.trace = ptr(trace)
-    a.qkv, a.o = stacked_w4(qkv, keep), stacked_w4(o, keep)
-    a.w13, a.w2 = stacked_w4(w13, keep), stacked_w4(w2, keep)
+    a.qkv, a.o = stacked_w4(qkv, keep, K), stacked_w4(o, keep, Hq * hd)
+    a.w13, a.w2 = stacked_w4(w13, keep, K), stacked_w4(w2, keep, F)
     a.M, a.K, a.Hq, a.Hkv, a.hd, a.rot, a.S, a.F = B, K, Hq, Hkv, hd, rot, S, F
     a.Vp, a.L, a.l0, a.l1 = Vp, L, layers[0], layers[-1] + 1
     a.gelu = int(act_kind == "gelu_tanh")
@@ -270,13 +277,22 @@ def _launch(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2, kcache, vca
     return code, out, kv_new, logits
 
 
+def layer_pack_bits(K: int, Ko: int, qkv: dict, o: dict, w13: dict, w2: dict) -> int:
+    """4 or 8 when the four stacked packs of a layer share that bit width
+    (W4: (L, kin/2, n); W8: (L, kin, n)), else 0."""
+    bits = mlp_pack_bits(K, w13, w2)
+    div = 2 if bits == 4 else 1
+    if bits and qkv["wq"].shape[1] * div == K and o["wq"].shape[1] * div == Ko:
+        return bits
+    return 0
+
+
 def _check(x, qkv, w13, w2, o, Hq, hd, act_kind, B_max):
     B, K = x.shape
     if B > B_max:
         raise NotImplementedError(f"fused decode kernel: B={B} > {B_max}")
-    if qkv["wq"].shape[1] * 2 != K or w13["wq"].shape[1] * 2 != K \
-            or o["wq"].shape[1] * 2 != Hq * hd or w2["wq"].shape[1] * 2 != w13["wq"].shape[2] // 2:
-        raise NotImplementedError("the fused decode kernels take W4 packs")
+    if not layer_pack_bits(K, Hq * hd, qkv, o, w13, w2):
+        raise NotImplementedError("the fused decode kernels take all-W4 or all-W8 packs")
     if act_kind not in ("silu", "gelu_tanh"):
         raise NotImplementedError(f"fused decode kernel: act {act_kind!r}")
 
@@ -291,13 +307,15 @@ def fused_model_w4(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
                    trace: Optional[torch.Tensor] = None):
     """x (B<=8, K) fp32, pos (B,), cs (B, 2, hd), caches (L, B, Hkv, S, hd) int8
     -> (x_out (B, K), kv_new (L, B, 2 Hkv, hd) int8 [k rows; v rows]) and,
-    with a W4 head pack (pack_head) and final_norm {w, b}, logits (B, Vp).
+    with a W4 or W8 head pack (pack_head) and final_norm {w, b}, logits
+    (B, Vp). The layer packs are all W4 or all W8.
     trace: optional int64 (2 + 5 L,) device tensor that receives the global
     timer (ns) at the start and at the end of each stage (qkv, attention, o,
     w13, w2 per layer, then the head); every stage then ends in a barrier."""
     _check(x, qkv, w13, w2, o, num_q_heads, head_dim, act_kind, MAX_BATCH)
     if head is not None and not head_kernel_supported(head, x.shape[1]):
-        raise NotImplementedError("the whole-model kernel folds a W4 head only")
+        raise NotImplementedError("the whole-model kernel folds W4 (K/2, Vp) or W8 (K, Vp) "
+                                  "heads with Vp % 128 == 0")
     kw = dict(num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
               head_dim=head_dim, rotary_dim=rotary_dim, act_kind=act_kind)
     if x.device.type == "cpu":

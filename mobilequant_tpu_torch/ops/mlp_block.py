@@ -1,15 +1,18 @@
 """The whole MLP block of one layer in one kernel:
 
-  x (M, K) fp32 -> [fq16] -> RMS norm -> quantize -> W4 w1|w3 -> output fq
-  -> gate chain (SiLU with its sigmoid fq, or gelu_tanh) -> fq -> ·g3
-  -> w2-input int8 -> W4 w2 -> output fq -> resid_add_2 -> (M, K) fp32
+  x (M, K) fp32 -> [fq16] -> RMS norm -> quantize -> W4 or W8 w1|w3 -> output
+  fq -> gate chain (SiLU with its sigmoid fq, or gelu_tanh) -> fq -> ·g3
+  -> w2-input int8 -> W4 or W8 w2 -> output fq -> resid_add_2 -> (M, K) fp32
 
 Kernel: csrc/fused_layer.cu (mqt_fused_mlp_block, dp4a, M <= DP4A_ROWS) and
-csrc/fused_rows.cu (mqt_fused_mlp_rows, int8 mma.sync, DP4A_ROWS < M <= 128),
-which replace the JAX package's mobilequant_tpu/ops/pallas_mlp.py
-fused_mlp_block_w4_stacked (_w4_mlp_block_kernel, phase body _w4_mlp_phase).
-Bound: the bytes of the two W4 weight matrices at decode-sized M (<=
-stacked_bt_max: 64 rows, 128 in the decode loop). Design: one cooperative
+csrc/fused_rows.cu / fused_rows_w8.cu (mqt_fused_mlp_rows, int8 mma.sync,
+DP4A_ROWS < M <= 128), which replace the JAX package's
+mobilequant_tpu/ops/pallas_mlp.py fused_mlp_block_w4_stacked
+(_w4_mlp_block_kernel, phase body _w4_mlp_phase) in both of its editions: the
+JAX kernel takes the bit width from the packs' shapes (W4: w13 (L, K/2, 2F),
+w2 (L, F/2, K); W8: (L, K, 2F), (L, F, K)), the port's kernels from the packs'
+`bits` field. Bound: the bytes of the two weight matrices at decode-sized M
+(<= stacked_bt_max: 64 rows, 128 in the decode loop). Design: one cooperative
 launch. The dp4a kernel runs two stages split by a grid barrier: every block
 normalises and quantizes the rows itself, the w13 matvec runs over tiles that
 hold the w1 and w3 columns of 64 gate outputs and finishes the gate chain in
@@ -39,7 +42,7 @@ import torch
 
 from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.qops import quantize_act
-from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, w4a8_matmul_plain
+from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, w4a8_matmul_plain, weight_bits
 from mobilequant_tpu_torch.ops.w13_gate import _fq, w13_gate_plain
 
 _P = ctypes.c_void_p
@@ -47,10 +50,10 @@ _I = ctypes.c_int
 
 
 class StackedW4(ctypes.Structure):
-    """MqtStackedW4: one layer-stacked W4 pack as the kernels read it."""
+    """MqtStackedW4: one layer-stacked W4 or W8 pack as the kernels read it."""
     _fields_ = [("wq", _P), ("scale", _P), ("offset", _P), ("colsum", _P),
                 ("bias", _P), ("s_l", ctypes.c_longlong), ("s_c", _I),
-                ("kin", _I), ("n", _I), ("pad_", _I)]
+                ("kin", _I), ("n", _I), ("bits", _I)]
 
 
 MLP_META_LEN = 46       # 32 MLP-block entries + the o-tail's 14 (ops/otail)
@@ -66,7 +69,7 @@ class FusedArgs(ctypes.Structure):
                 + [(n, StackedW4) for n in ("qkv", "o", "w13", "w2")]
                 + [(n, _I) for n in ("M", "K", "Hq", "Hkv", "hd", "rot", "S", "F",
                                      "Vp", "L", "l0", "l1", "gelu", "ncs", "mst",
-                                     "qk_fq", "pv_fq", "pad_")]
+                                     "qk_fq", "pv_fq", "hbits")]
                 + [("inv_sqrt_hd", ctypes.c_float),
                    ("mlp_meta", ctypes.c_float * MLP_META_LEN)])
 
@@ -93,12 +96,14 @@ def ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def stacked_w4(pack: dict, keep: list) -> StackedW4:
-    """The StackedW4 of a layer-stacked W4 pack {wq (L, kin/2, n), scale /
-    offset (L, 1, n) per channel or (L,) per tensor, colsum (L, n), bias}.
-    Converted operands are appended to `keep` so they outlive the launch."""
+def stacked_w4(pack: dict, keep: list, kin: int) -> StackedW4:
+    """The StackedW4 of a layer-stacked pack over kin inputs: W4 {wq (L,
+    kin/2, n)} or W8 {wq (L, kin, n)}, scale / offset (L, 1, n) per channel
+    or (L,) per tensor, colsum (L, n), bias. Converted operands are appended
+    to `keep` so they outlive the launch."""
     wq = _build.aligned(pack["wq"], 16)
-    L, k2, n = wq.shape
+    L, _, n = wq.shape
+    bits = weight_bits(wq, kin)
     sc = pack["scale"].to(torch.float32).contiguous()
     of = pack["offset"].to(torch.float32).contiguous()
     if sc.shape != of.shape:
@@ -114,7 +119,7 @@ def stacked_w4(pack: dict, keep: list) -> StackedW4:
     b = None if b is None else b.to(torch.float32).contiguous().reshape(L, n)
     keep += [wq, sc, of, cs, b]
     return StackedW4(ptr(wq), ptr(sc), ptr(of), ptr(cs), ptr(b), s_l, s_c,
-                     2 * k2, n, 0)
+                     kin, n, bits)
 
 
 def sum_f32(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -157,13 +162,24 @@ def fused_mlp_block_w4_plain(x: torch.Tensor, norm_w: torch.Tensor,
     return fq(xr + y2, 29, s_ro)
 
 
-def check_mlp_packs(M: int, K: int, w13: dict, w2: dict, act_kind: str, name: str):
-    """(L, F) of the stacked W4 MLP packs; raises on what the kernels do not
-    take."""
-    L, K2, F2 = w13["wq"].shape
+def mlp_pack_bits(K: int, w13: dict, w2: dict) -> int:
+    """4 or 8: the bit width of a stacked MLP pack pair (w13 (L, K/2, 2F) and
+    w2 (L, F/2, K), or (L, K, 2F) and (L, F, K)); 0 when they fit neither."""
+    _, rows, F2 = w13["wq"].shape
     F = F2 // 2
-    if K2 * 2 != K or tuple(w2["wq"].shape[1:]) != (F // 2, K):
-        raise NotImplementedError(f"the {name} kernel takes W4 packs")
+    for bits, div in ((4, 2), (8, 1)):
+        if rows * div == K and tuple(w2["wq"].shape[1:]) == (F // div, K):
+            return bits
+    return 0
+
+
+def check_mlp_packs(M: int, K: int, w13: dict, w2: dict, act_kind: str, name: str):
+    """(L, F) of the stacked W4 or W8 MLP packs; raises on what the kernels
+    do not take."""
+    L, _, F2 = w13["wq"].shape
+    F = F2 // 2
+    if not mlp_pack_bits(K, w13, w2):
+        raise NotImplementedError(f"the {name} kernel takes W4 or W8 packs")
     if not mlp_block_supported(K, F) or M > MAX_ROWS:
         raise NotImplementedError(f"{name} kernel: M={M}, K={K}, F={F}")
     if act_kind not in ("silu", "gelu_tanh"):
@@ -192,8 +208,8 @@ def mlp_args(x: torch.Tensor, norm_w, norm_b, w13: dict, w2: dict, meta, layer: 
     a.ws = ptr(rows_workspace(dev, M, max(2 * F, K)) if M > DP4A_ROWS
                else _build.WORKSPACE.get(dev, WS_COUNTERS + M * 2 * F))
     a.bar = ptr(BARRIER.get(dev, 2))
-    a.w13 = stacked_w4(w13, keep)
-    a.w2 = stacked_w4(w2, keep)
+    a.w13 = stacked_w4(w13, keep, K)
+    a.w2 = stacked_w4(w2, keep, F)
     a.M, a.K, a.F, a.L, a.l0, a.l1 = M, K, F, L, int(layer), int(layer) + 1
     a.gelu = int(act_kind == "gelu_tanh")
     vals = [float(v) for v in meta]
@@ -209,8 +225,8 @@ def fused_mlp_block_w4(x: torch.Tensor, norm_w: torch.Tensor, norm_b: torch.Tens
                        act_kind: str = "silu",
                        site_on: tuple = (True,) * 9) -> torch.Tensor:
     """x (M, K) fp32 residual -> x + MLP(norm(x)) for layer `layer` of the
-    stacked W4 packs (w13 wq (L, K/2, 2F), w2 wq (L, F/2, K)) and the stacked
-    norm vectors (L, K). M <= 128."""
+    stacked W4 packs (w13 wq (L, K/2, 2F), w2 wq (L, F/2, K)) or W8 packs
+    ((L, K, 2F), (L, F, K)) and the stacked norm vectors (L, K). M <= 128."""
     M, K = x.shape
     check_mlp_packs(M, K, w13, w2, act_kind, "MLP-block")
     if x.device.type == "cpu":

@@ -28,8 +28,8 @@ import torch
 
 from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.mlp_block import (
-    MLP_META_LEN, check_mlp_packs, fused_mlp_block_w4_plain, mlp_args, rows_workspace,
-    stacked_w4)
+    MLP_META_LEN, check_mlp_packs, fused_mlp_block_w4_plain, mlp_args, mlp_pack_bits,
+    rows_workspace, stacked_w4)
 from mobilequant_tpu_torch.ops.w13_gate import _fq
 from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, w4a8_matmul_plain
 
@@ -68,6 +68,10 @@ def fused_otail_block_w4(a8: torch.Tensor, x: torch.Tensor, o: dict,
     M, K = x.shape
     Ko = a8.shape[1]
     check_mlp_packs(M, K, w13, w2, act_kind, "o-tail")
+    if mlp_pack_bits(K, w13, w2) != 4:
+        raise NotImplementedError("the o-tail kernel takes W4 packs (its W8 edition, "
+                                  "pallas_mlp.fused_otail_block_stacked on W8, is not "
+                                  "ported)")
     if a8.shape[0] != M or a8.dtype != torch.int8 or o["wq"].shape[1] * 2 != Ko \
             or o["wq"].shape[2] != K or Ko % 64:
         raise NotImplementedError(f"o-tail kernel: a8 {tuple(a8.shape)}, o "
@@ -87,7 +91,7 @@ def fused_otail_block_w4(a8: torch.Tensor, x: torch.Tensor, o: dict,
     a8c = _build.aligned(a8)
     keep.append(a8c)
     a.a8 = a8c.data_ptr()
-    a.o = stacked_w4(o, keep)
+    a.o = stacked_w4(o, keep, Ko)
     a.ws = rows_workspace(dev, M, max(w13["wq"].shape[2], K)).data_ptr()
     code = lib.mqt_fused_otail(ctypes.addressof(a), _build.stream_ptr(dev))
     _build.check(code, "fused_otail_block_w4")

@@ -1,11 +1,13 @@
 """Prefill qkv projection with the attention-input epilogue in one kernel:
-W4A8 matmul -> per-column output fake-quant -> rotate-half RoPE (partial
-rotary) -> per-segment int8 quantization of q | k | v.
+W4A8 or W8A8 matmul -> per-column output fake-quant -> rotate-half RoPE
+(partial rotary) -> per-segment int8 quantization of q | k | v.
 
 Kernel: csrc/qkv_rope.cu, which replaces the JAX package's
-mobilequant_tpu/ops/pallas_qkv.py qkv_rope_stacked (_qkv_rope_kernel). Bound:
-integer operations of the matmul at prefill M. Design: the W4A8 tile core
-with split-K, the tile staged in shared memory so each output reads its RoPE
+mobilequant_tpu/ops/pallas_qkv.py qkv_rope_stacked (_qkv_rope_kernel), in both
+of its editions: the weight bits come from the pack's shape (W4 (K/2, Nq)
+nibble-packed, W8 (K, Nq)), as in the JAX kernel. Bound: integer operations
+of the matmul at prefill M. Design: the int8 tile core (templated on the
+weight bits) with split-K, the tile staged in shared memory so each output reads its RoPE
 partner column (tiles hold whole heads); the int8 rows it writes are the KV
 cache, so the epilogue rounds exactly as the plain version does.
 
@@ -22,7 +24,7 @@ import torch
 
 from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.w4a8_matmul import (
-    affine_args, check_w4, layer_pack, w4a8_matmul_plain)
+    affine_args, check_w48, layer_pack, w4a8_matmul_plain)
 
 
 def qkv_rope_supported(Nq: int, head_dim: int, rotary_dim: int) -> bool:
@@ -59,9 +61,9 @@ def qkv_rope(h8: torch.Tensor, pack: dict, ofq: torch.Tensor,
              h_offset: float, layer: Optional[int], head_dim: int,
              rotary_dim: int) -> torch.Tensor:
     """h8 (M, K) shifted int8 -> (M, Nq) shifted int8 q | k | v rows, over
-    layer `layer` of the stacked qkv pack."""
+    layer `layer` of the stacked W4 or W8 qkv pack."""
     p = layer_pack(pack, layer)
-    M, K, Nq = check_w4(h8, p["wq"])
+    M, K, Nq, bits = check_w48(h8, p["wq"])
     if not qkv_rope_supported(Nq, head_dim, rotary_dim):
         raise NotImplementedError(f"qkv_rope: Nq={Nq}, head_dim={head_dim}")
     if h8.device.type == "cpu":
@@ -87,7 +89,7 @@ def qkv_rope(h8: torch.Tensor, pack: dict, ofq: torch.Tensor,
         x.data_ptr(), w.data_ptr(), sc.data_ptr(), of.data_ptr(), csum.data_ptr(),
         None if b is None else b.data_ptr(), ofq_.data_ptr(), outq_.data_ptr(),
         cs_.data_ptr(), out.data_ptr(), ws.data_ptr(), M, K, Nq, ss,
-        float(h_scale), float(h_offset), head_dim, rotary_dim,
+        float(h_scale), float(h_offset), head_dim, rotary_dim, bits,
         _build.stream_ptr(dev))
     _build.check(code, "qkv_rope")
     qkv_rope.launches += 1

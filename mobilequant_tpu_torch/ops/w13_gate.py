@@ -1,11 +1,13 @@
 """Prefill w1|w3 projection with the gated-activation epilogue in one kernel:
-W4A8 matmul over [w1 | w3] -> output fake-quant -> SiLU (sigmoid fake-quant)
-or gelu_tanh -> fake-quant -> gate multiply -> w2-input int8.
+W4A8 or W8A8 matmul over [w1 | w3] -> output fake-quant -> SiLU (sigmoid
+fake-quant) or gelu_tanh -> fake-quant -> gate multiply -> w2-input int8.
 
 Kernel: csrc/w13_gate.cu, which replaces the JAX package's
-mobilequant_tpu/ops/pallas_mlp.py w13_gate_stacked (_w13_gate_kernel). Bound:
-integer operations of the 2F-wide matmul at prefill M. Design: the W4A8 tile
-core with a split column map, so one block computes both the w1 and the w3
+mobilequant_tpu/ops/pallas_mlp.py w13_gate_stacked (_w13_gate_kernel), in
+both of its editions (the weight bits from the pack's shape: W4 (K/2, 2F),
+W8 (K, 2F)). Bound: integer operations of the 2F-wide matmul at prefill M.
+Design: the int8 tile core (templated on the weight bits) with a split column
+map, so one block computes both the w1 and the w3
 column of its gate outputs and the (M, 2F) fp32 intermediate stays in shared
 memory.
 
@@ -25,11 +27,13 @@ import torch
 
 from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.w4a8_matmul import (
-    affine_args, check_w4, layer_pack, w4a8_matmul_plain)
+    affine_args, check_w48, layer_pack, w4a8_matmul_plain)
 
 
-def w13_gate_supported(K: int, F: int) -> bool:
-    return K % 64 == 0 and F % 64 == 0
+def w13_gate_supported(K: int, F: int, wbits: int = 4) -> bool:
+    """Shapes the kernel takes, W4 or W8 (the tile core reads both as 64-k
+    chunks of row pairs k, k + K/2)."""
+    return wbits in (4, 8) and K % 64 == 0 and F % 64 == 0
 
 
 def _fq(x: torch.Tensor, s: float, o: float, qmax: float) -> torch.Tensor:
@@ -71,11 +75,12 @@ def w13_gate(h8: torch.Tensor, pack: dict, meta: Sequence[float],
              layer: Optional[int], act_kind: str = "silu",
              site_on: tuple = (True,) * 4) -> torch.Tensor:
     """h8 (M, K) shifted int8 -> g8 (M, F) shifted int8 (the w2 input), over
-    layer `layer` of the stacked w13 pack (w1 columns [0, F), w3 [F, 2F))."""
+    layer `layer` of the stacked W4 or W8 w13 pack (w1 columns [0, F), w3
+    [F, 2F))."""
     p = layer_pack(pack, layer)
-    M, K, N2 = check_w4(h8, p["wq"])
+    M, K, N2, bits = check_w48(h8, p["wq"])
     F = N2 // 2
-    if not w13_gate_supported(K, F):
+    if not w13_gate_supported(K, F, bits):
         raise NotImplementedError(f"w13_gate: K={K}, F={F}")
     if act_kind not in ("silu", "gelu_tanh"):
         raise NotImplementedError(f"w13_gate: act {act_kind!r}")
@@ -96,7 +101,7 @@ def w13_gate(h8: torch.Tensor, pack: dict, meta: Sequence[float],
         x.data_ptr(), w.data_ptr(), sc.data_ptr(), of.data_ptr(), cs.data_ptr(),
         None if b is None else b.data_ptr(), _build.addr(meta_h), out.data_ptr(),
         ws.data_ptr(), M, K, F, ss, s_w1, s_sig, s_act, s_w3,
-        int(act_kind == "gelu_tanh"), _build.stream_ptr(dev))
+        int(act_kind == "gelu_tanh"), bits, _build.stream_ptr(dev))
     _build.check(code, "w13_gate")
     w13_gate.launches += 1
     return out

@@ -28,14 +28,27 @@ from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.qops import f32, int_dot, rowsum_i8, unpack_nibbles
 
 
+def weight_bits(wq: torch.Tensor, K: int) -> int:
+    """4 for a nibble-packed (..., K/2, N) weight, 8 for a (..., K, N) one
+    (the JAX package's shape rule)."""
+    rows = wq.shape[-2]
+    if rows * 2 == K:
+        return 4
+    if rows == K:
+        return 8
+    raise ValueError(f"weight rows {rows} match neither W4 nor W8 for K={K}")
+
+
 def w4a8_matmul_plain(x_q: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                       offset: torch.Tensor, colsum: torch.Tensor,
                       bias: Optional[torch.Tensor], x_scale: float,
                       x_offset: float) -> torch.Tensor:
     """The kernel's function in PyTorch operators: x_q (M, K) int8, wq (K/2, N)
-    packed, scale/offset (1, N), (N,) or per-tensor, colsum/bias (N,)."""
+    packed (or a (K, N) W8 matrix: the plain version of the W8 editions of the
+    kernels that call it), scale/offset (1, N), (N,) or per-tensor,
+    colsum/bias (N,)."""
     K = x_q.shape[-1]
-    acc = int_dot(x_q, unpack_nibbles(wq))
+    acc = int_dot(x_q, unpack_nibbles(wq) if weight_bits(wq, K) == 4 else wq)
     ox = f32(np.float32(x_offset) - np.float32(128.0))
     ow = offset.reshape(-1)
     sw = scale.reshape(-1)
@@ -78,16 +91,24 @@ def affine_args(pack: dict, N: int):
     return sc, of, cs, b, ss
 
 
-def check_w4(x_q: torch.Tensor, wq: torch.Tensor) -> tuple:
-    if x_q.dim() != 2 or x_q.dtype != torch.int8 or wq.dtype != torch.int8:
-        raise ValueError("expected x_q (M, K) int8 and packed wq (K/2, N) int8")
+def check_w48(x_q: torch.Tensor, wq: torch.Tensor) -> tuple:
+    """(M, K, N, bits) of x_q (M, K) int8 times a W4 (K/2, N) or W8 (K, N)
+    int8 matrix; raises on shapes the tile kernels do not take."""
+    if x_q.dim() != 2 or x_q.dtype != torch.int8 or wq.dtype != torch.int8 or wq.dim() != 2:
+        raise ValueError("expected x_q (M, K) int8 and wq (K/2, N) or (K, N) int8")
     M, K = x_q.shape
-    K2, N = wq.shape
-    if K2 * 2 != K:
-        raise ValueError(f"packed wq rows {K2} do not match K={K}")
+    bits = weight_bits(wq, K)
+    N = wq.shape[1]
     if K % 64 or N % 4:
-        raise NotImplementedError(f"W4A8 kernels take K % 64 == 0 and N % 4 == 0 "
+        raise NotImplementedError(f"the int8 tile kernels take K % 64 == 0 and N % 4 == 0 "
                                   f"(K={K}, N={N})")
+    return M, K, N, bits
+
+
+def check_w4(x_q: torch.Tensor, wq: torch.Tensor) -> tuple:
+    M, K, N, bits = check_w48(x_q, wq)
+    if bits != 4:
+        raise ValueError(f"packed wq rows {wq.shape[0]} do not match K={K}")
     return M, K, N
 
 

@@ -20,15 +20,22 @@ reads a scalar back from the card.
 
 Kernel dispatch (runtime/kernel_config.py), in the JAX engine's order:
 model_kernel runs a whole T=1 step at B <= 8 (every layer and the folded W4
-head) in one launch; chunk_kernel a whole staged step at B = 16..128;
+or W8 head) in one launch; chunk_kernel a whole staged step at B = 16..128;
 layer_kernel a whole layer at B=1, T=1; otail_kernel the o-proj, resid_add_1
-and the MLP block at B·T <= stacked_bt_max; stacked_mlp_kernel the whole MLP
-block at B·T <= stacked_bt_max; gate_kernel the prefill qkv and w13+gate
-epilogue kernels (the qkv one on the int8 cache only); attn_kernel the prefill
-attention kernel and, at T = 1, the decode attention kernel over the int8
-cache; kv4_attn_kernel the staged attention over the int4 cache; w4_matmul
-every other W4 projection and the W4 head through the W4A8 kernel. Routing
-reads static predicates only (shapes, config, flags). With no flag set the same
+and the MLP block at B·T <= stacked_bt_max (W4 packs); stacked_mlp_kernel the
+whole MLP block at B·T <= stacked_bt_max; gate_kernel the prefill qkv and
+w13+gate epilogue kernels (the qkv one on the int8 cache only); attn_kernel
+the prefill attention kernel and, at T = 1, the decode attention kernel over
+the int8 cache; kv4_attn_kernel the staged attention over the int4 cache;
+w4_matmul every other W4 projection and the W4 head through the W4A8 kernel;
+w8_matmul every other W8 projection of at most 32 rows through the W8A8
+kernel. The whole-step, whole-layer, MLP-block and epilogue kernels take W4
+and W8 packs alike, each in the edition of the pack's bit width; a W8
+projection or head that no flag routes takes the plain integer matmul, as in
+the JAX engine. The JAX engine keeps its W8 prefill qkv in XLA for a reason
+of the TPU (a custom-call boundary there cost more than the epilogue saved);
+here the epilogue kernel runs on W8 packs as on W4 ones. Routing reads static
+predicates only (shapes, config, flags). With no flag set the same
 function runs in PyTorch operators alone (the plain engine, the counterpart
 of the JAX engine's XLA body). The whole-layer, whole-model and chunk kernels
 take per-layer metas and qkv output fake-quant rows that are made on the
@@ -51,8 +58,9 @@ chunk when staged; decode_loop stages at every B on it.
 
 Out of this slice (NotImplementedError): MoE, parallel residual, 2-linear
 MLPs, layernorm models, policies with the q/k/v or w1/w3 output sites off,
-attn_kernel on the int4 cache (the JAX engine refuses it too), context/tensor
-parallelism, weight-only mode, and any kernel flag on W8 packs.
+attn_kernel on the int4 cache (the JAX engine refuses it too), the o-tail
+kernel on W8 packs, kernel flags on W8 packs over the int4 cache,
+context/tensor parallelism and weight-only mode.
 """
 
 from __future__ import annotations
@@ -79,7 +87,9 @@ from mobilequant_tpu_torch.ops.prefill_attention import prefill_attention
 from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope, qkv_rope_supported
 from mobilequant_tpu_torch.ops.staged_append import staged_append, staged_append_plain
 from mobilequant_tpu_torch.ops.w13_gate import w13_gate, w13_gate_supported
-from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, w4a8_matmul, w4a8_matmul_stacked
+from mobilequant_tpu_torch.ops.w4a8_matmul import (
+    layer_pack, w4a8_matmul, w4a8_matmul_stacked, weight_bits)
+from mobilequant_tpu_torch.ops.w8a8_matmul import MAX_ROWS as W8_MAX_ROWS, w8a8_matmul
 from mobilequant_tpu_torch.quant.policy import QPolicy, policy_kv_bits
 from mobilequant_tpu_torch.quant.quantizer import (
     QuantConfig, fake_quant, fake_quant_weight)
@@ -515,15 +525,18 @@ def _is_w4(pack: dict, K: int) -> bool:
 
 
 def _int_linear(x_q, r, pack, l, kc: KernelConfig):
-    """Integer matmul of layer l of a stacked pack: the W4A8 kernel under
-    kc.w4_matmul, else the plain qops.int_linear."""
+    """Integer matmul of layer l of a stacked pack, in the JAX engine's
+    order: a W4 pack through the W4A8 kernel under kc.w4_matmul, a W8 pack of
+    at most 32 rows through the W8A8 kernel under kc.w8_matmul, anything else
+    (a W8 pack under w4_matmul among them) through the plain
+    qops.int_linear."""
     K = x_q.shape[-1]
-    if kc.w4_matmul:
-        if not _is_w4(pack, K):
-            raise NotImplementedError("the port has W4 kernels only; run W8 packs "
-                                      "with KernelConfig.none()")
-        lead = x_q.shape[:-1]
+    lead = x_q.shape[:-1]
+    if kc.w4_matmul and _is_w4(pack, K):
         out = w4a8_matmul_stacked(x_q.reshape(-1, K), pack, r["scale"], r["offset"], l)
+        return out.reshape(*lead, out.shape[-1])
+    if kc.w8_matmul and pack["wq"].shape[-2] == K and math.prod(lead) <= W8_MAX_ROWS:
+        out = w8a8_matmul(x_q.reshape(-1, K), pack, r["scale"], r["offset"], l)
         return out.reshape(*lead, out.shape[-1])
     p = layer_pack(pack, l)
     return qops.int_linear(x_q, r["scale"], r["offset"], p, p.get("bias"))
@@ -737,9 +750,7 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
     if kc.gate_kernel and T > 1 and kv_bits == 8:
         # (the epilogue kernel clips every row at 255: on the int4 cache the
         # K / V rows take the per-segment 15 of the plain path below)
-        if not _is_w4(qkvp, D):
-            raise NotImplementedError("the qkv epilogue kernel takes W4 packs")
-        # stacked qkv matmul + output fq + RoPE + segment quantization
+        # stacked W4 or W8 qkv matmul + output fq + RoPE + segment quantization
         q8kv = qkv_rope(h8.reshape(B * T, D), qkvp, prep["ofq"][l], prep["outq"][l],
                         prep["cs"], hr["scale"], hr["offset"], l, hd, c.rotary_dim)
         q8 = q8kv[:, :qd].reshape(B, T, Hq, hd)
@@ -844,8 +855,8 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
                                  _mlp_block_site_on(policy))
         return out.reshape(B, T, D), rows
     if kc.gate_kernel and T > 1:
-        if not (_is_w4(w13, D) and w13_gate_supported(D, F)):
-            raise NotImplementedError("the w13+gate kernel takes W4 packs, F % 64 == 0")
+        if not w13_gate_supported(D, F, weight_bits(w13["wq"], D)):
+            raise NotImplementedError("the w13+gate kernel takes K % 64 == 0, F % 64 == 0")
         act8 = w13_gate(h28.reshape(B * T, D), w13, _mlp_block_meta(lr, policy, c), l,
                         c.hidden_act, site_on=_mlp_block_site_on(policy)[1:5])
         act8 = act8.reshape(B, T, F)
@@ -893,6 +904,10 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
     tokens = torch.as_tensor(tokens, device=dev).to(torch.long)
     B, T = tokens.shape
     kv_bits = policy_kv_bits(policy)
+    if kv_bits == 4 and kc.any_kernel and not _is_w4(packed["layers"]["qkv_proj"],
+                                                     c.hidden_size):
+        raise NotImplementedError("W8 packs on the int4 cache run the plain path only "
+                                  "(KernelConfig.none()): that route is not ported")
     staging = None
     if isinstance(kv_cache, StagedKVCache):
         if T != 1 or kc.attn_kernel:
@@ -962,7 +977,7 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
     logits = None
     if (staging is not None and kc.chunk_kernel and kv_bits == 8
             and chunk_kernel_supported(c, S, B)):
-        # the whole staged step in one launch (B = 16..128), with the W4 head
+        # the whole staged step in one launch (B = 16..128), with the W4 / W8 head
         # folded when it fits
         kp = _kernel_prep(packed, policy, c)
         fold = "head_q" in packed and head_kernel_supported(packed["head_q"], c.hidden_size)
@@ -983,7 +998,7 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
         if fold:
             logits = res[2][:, :c.vocab_size].reshape(B, T, c.vocab_size)
     elif fused and kc.model_kernel and B <= MAX_BATCH:
-        # the whole step in one launch, with the W4 head folded when it fits
+        # the whole step in one launch, with the W4 / W8 head folded when it fits
         kp = _kernel_prep(packed, policy, c)
         fold = "head_q" in packed and head_kernel_supported(packed["head_q"], c.hidden_size)
         res = fused_model_w4(
@@ -1059,12 +1074,12 @@ def quantized_head_logits(y: torch.Tensor, hq: dict, vocab_size: int,
     logits (B, T, vocab). use_kernel: decode-sized rows (B·T <= 64) of a W4
     head go through the W4A8 kernel with x_scale 1 / x_offset 128, the per-row
     dynamic scales multiplied after (exact: the acts are symmetric and the
-    head has no bias), as in the JAX engine; otherwise the plain head."""
+    head has no bias), as in the JAX engine; a W8 head, or more rows, the
+    plain int head (a W8 head runs in a kernel only where the whole-model or
+    chunk kernel folds it)."""
     B, T, D = y.shape
     w4 = hq["wq"].shape[0] * 2 == D
-    if use_kernel and not w4:
-        raise NotImplementedError("the port has a W4 head kernel only")
-    if use_kernel and B * T <= 64:
+    if use_kernel and w4 and B * T <= 64:
         x_q, sx = qops.dynamic_quantize_act(y.reshape(B * T, D))
         logits = w4a8_matmul(x_q, hq, 1.0, 128.0) * sx
         return logits[:, :vocab_size].reshape(B, T, vocab_size)

@@ -2,12 +2,15 @@
 
 Prefill runs the prompt in one pass (KernelConfig.prefill()): the qkv, attention
 and w13+gate kernels with the W4A8 kernel for o-proj, w2 and the one-row
-head, or the whole-MLP-block kernel in every layer when B·T <= 64.
+head, or the whole-MLP-block kernel in every layer when B·T <= 64; on a W8A8
+pack the W8 editions of the same kernels, with o-proj, w2 and the W8 head on
+the plain integer matmul (as in the JAX engine).
 generate_fast decodes with engine.decode_loop's entry config
 (KernelConfig.serving, as the JAX Generator's decode_loop(use_pallas=True)):
 at B <= 8 non-staged T=1 steps, each one launch of the whole-model kernel; at
 B > 8 the chunked-staging loop, whose steps run the W4A8 kernel for qkv and o,
-the whole-MLP-block kernel (up to 128 rows) and staged_append. decode_kc, when
+the whole-MLP-block kernel (up to 128 rows) and staged_append, or, for W8A8
+packs at 8 < B <= 48, one chunk-kernel launch. decode_kc, when
 set, replaces that config (KernelConfig.chunk(): one chunk-kernel launch per
 staged step). On the int4 cache (EngineConfig.kv_bits = 4 with a 4-bit KV
 policy) the prefill is the same kernel set without the qkv epilogue kernel
@@ -33,7 +36,7 @@ from mobilequant_tpu_torch.runtime.sampling import loop_next_token
 
 
 class Generator:
-    """Prefill + decode over a packed W4A8 model on one device."""
+    """Prefill + decode over a packed W4A8 or W8A8 model on one device."""
 
     def __init__(self, packed: dict, config: ModelConfig, policy: QPolicy,
                  ecfg: Optional[E.EngineConfig] = None, device="cuda"):

@@ -59,9 +59,10 @@ def test_generator_on_cuda_refuses_without_a_card():
 
 def test_unported_configurations_raise():
     """What stays unported raises: attn_kernel on the int4 cache (the JAX
-    engine refuses it too), kernel flags on W8 packs, MoE configurations."""
+    engine refuses it too), the o-tail kernel on W8 packs (its W8 edition is
+    not ported), kernel flags on W8 packs over the int4 cache, MoE
+    configurations. W8 packs under the other kernel flags run (test_torch_w8)."""
     from mobilequant_tpu_torch.convert import build_synthetic_packed
-    from mobilequant_tpu_torch.ops.qops import unpack_nibbles
     from mobilequant_tpu_torch.quant.policy import relax_16bit
     from mobilequant_tpu_torch.runtime import engine as E
     from mobilequant_tpu_torch.runtime.kernel_config import KernelConfig
@@ -76,15 +77,23 @@ def test_unported_configurations_raise():
     with pytest.raises(NotImplementedError):
         E.decode_loop(packed, tok, E.init_kv_cache(ecfg, 1, device="cpu"), pos, 2, cfg,
                       policy, kc=KernelConfig.attn())
-    packed, cfg, policy, ecfg = build_synthetic_packed("test-llama-256", max_seq_len=32,
-                                                       device="cpu")
-    qkv = packed["layers"]["qkv_proj"]
-    qkv["wq"] = unpack_nibbles(qkv["wq"])           # a W8-shaped (L, K, N) pack
-    with pytest.raises(NotImplementedError):
-        E.forward(packed, tok, cfg, relax_16bit(policy), kc=KernelConfig(w4_matmul=True))
+    packed, cfg, policy, ecfg = build_synthetic_packed("test-llama-256", w_bits=8,
+                                                       max_seq_len=32, device="cpu")
+    prompt = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="o-tail"):
+        E.forward(packed, prompt, cfg, relax_16bit(policy), kc=KernelConfig(otail_kernel=True))
+    E.forward(packed, prompt, cfg, relax_16bit(policy), kc=KernelConfig.prefill())   # runs
     with pytest.raises(NotImplementedError):
         E.forward(packed, tok, cfg.replace(num_local_experts=4, num_experts_per_tok=2),
                   relax_16bit(policy))
+    packed, cfg, policy, ecfg = build_synthetic_packed("test-llama-256", w_bits=8,
+                                                       max_seq_len=32, device="cpu", kv_bits=4)
+    policy = relax_16bit(policy)
+    with pytest.raises(NotImplementedError, match="int4 cache"):
+        E.decode_loop(packed, tok, E.init_kv_cache(ecfg, 1, device="cpu"), pos, 2, cfg,
+                      policy, kc=None)
+    E.decode_loop(packed, tok, E.init_kv_cache(ecfg, 1, device="cpu"), pos, 2, cfg, policy,
+                  kc=KernelConfig.none())                                         # runs
 
 
 def test_synthetic_pack_runs_the_plain_path_on_cpu():

@@ -187,7 +187,7 @@ def test_w13_gate_plain_matches_pallas(act, site_on):
 
 def test_kernel_registry_counts_reset():
     T_ops.reset_counts()
-    assert set(T_ops.counts()) == {"w4a8_matmul", "w4a8_matmul_stacked", "qkv_rope",
+    assert set(T_ops.counts()) == {"w4a8_matmul", "w4a8_matmul_stacked", "w8a8_matmul", "qkv_rope",
                                    "prefill_attention", "w13_gate", "fused_mlp_block_w4", "fused_layer_w4",
                                    "fused_model_w4", "staged_append", "fused_otail_block_w4",
                                    "fused_model_w4_chunk", "kv4_decode_attention",
