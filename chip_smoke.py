@@ -56,17 +56,34 @@
      at B = 1, 8, the whole-layer kernel, the chunk kernel with the W8 head at
      B = 16, 32, 48) and w8a8_matmul (M = 1, 8, 32 on qkv / o / w13 / w2,
      beside torch._int_mm) against its plain version, then the W8 routes:
-     B=1 generate_fast (the W8 qkv and w13 epilogue kernels, one W8
-     whole-model launch per token), a 32-token prompt (the W8 MLP block),
+     B=1 generate_fast (qkv on the plain integer matmul and the W8 w13
+     epilogue kernel, one W8 whole-model launch per token), a 32-token
+     prompt (the W8 MLP block),
      decode_per_layer(), the attn_all() route (w8a8_matmul for qkv and o),
      B=32 on the entry config (one W8 chunk launch a step) and B=128 (the
      staged route), each with tok/s, wall / device ms a step, idle share and
      launches; the B=1 step and its engine-numerics witness, one 32-step B=32
      chunk on the serving route, its plain version, the engine's numerics and
      the plain path, and the attn_all() route against the plain path;
-   the decode-attention rows of phase 2, the int4-cache phase and the attn()
-   phase draw their inputs from a generator of their own, so what they draw
-   moves no input of the other checks;
+   - phase 2q: the weight-only kernels against their plain versions:
+     wonly_matmul_stacked at M = 1, 8 on the TinyLlama projections in W4
+     g128, W4 and W8 per channel (bf16 rows), w4a16_matmul at M = 1, 8, 128,
+     each beside torch.matmul on the bf16-dequantized weight;
+   - phase 3w: weight-only serving, Generator(ecfg.act_bits=16)
+     .generate_fast at B=1 on TinyLlama-1.1B W4A16 g128 (seeded FP weights
+     through convert.build_synthetic_wonly, bf16 activations, fp KV cache)
+     with the fp head and the W4 head: a prefill with no kernel, then one
+     wonly_matmul_stacked launch per projection and token (and one
+     w4a8_matmul launch a token for the W4 head); a 16-step chain fed the
+     same tokens on the kernel and the plain route, in fp32 and in bf16;
+   - phase 3f: W8A8/h8 on the int4 cache through generate_fast at B = 1,
+     32, 128 (one kv4 and one W8 MLP-block launch a layer and step), and a
+     32-step B=32 chunk on that route, with the kv4 kernel's plain version,
+     on the plain engine's numerics (kv4_engine_numerics) and on the plain
+     path;
+   the decode-attention rows of phase 2, the int4-cache phase, the attn()
+   phase and phases 2q, 3w and 3f draw their inputs from generators of their
+   own, so what they draw moves no input of the other checks;
 4. prints one JSON line of per-kernel numbers, then the result line.
 
 Any failure exits non-zero before the result line. Without a CUDA device, or
@@ -106,6 +123,12 @@ def bound(nbytes: float, int8_ops: float = 0.0, fp32_ops: float = 0.0):
     t_bytes = nbytes / HBM_BYTES_S
     t_ops = int8_ops / INT8_OPS_S + fp32_ops / FP32_OPS_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def cold_count(nbytes: float, limit: int) -> int:
+    """How many copies of an operand of nbytes a timing loop rotates over so
+    that one pass reads 100 MB, twice the H100's 50 MB L2 (at most limit)."""
+    return max(1, min(limit, -(-int(100e6) // max(int(nbytes), 1))))
 
 
 def time_ms(fn, n: int = 20) -> float:
@@ -289,7 +312,7 @@ def main() -> None:
         fail("no CUDA device")
     try:
         from mobilequant_tpu_torch import ops
-        from mobilequant_tpu_torch.convert import build_synthetic_packed
+        from mobilequant_tpu_torch.convert import build_synthetic_packed, build_synthetic_wonly
         from mobilequant_tpu_torch.models import model as MM
         from mobilequant_tpu_torch.ops import _build
         from mobilequant_tpu_torch.ops import qops
@@ -314,8 +337,12 @@ def main() -> None:
         from mobilequant_tpu_torch.ops.w4a8_matmul import (
             layer_pack, w4a8_matmul, w4a8_matmul_plain, w4a8_matmul_stacked)
         from mobilequant_tpu_torch.ops.w8a8_matmul import w8a8_matmul, w8a8_matmul_plain
+        from mobilequant_tpu_torch.ops.wonly_matmul import (
+            w4a16_matmul, w4a16_matmul_plain, wonly_matmul_stacked, wonly_matmul_stacked_plain)
         from mobilequant_tpu_torch.quant.policy import relax_16bit
+        from mobilequant_tpu_torch.quant.quantizer import QuantConfig
         from mobilequant_tpu_torch.runtime import engine as E
+        from mobilequant_tpu_torch.runtime import wonly as W
         from mobilequant_tpu_torch.runtime.generate import Generator
         from mobilequant_tpu_torch.runtime.kernel_config import KernelConfig
     except ImportError as exc:
@@ -405,15 +432,19 @@ def main() -> None:
         ms = time_ms(lambda i: call(x, i))
         plain_ms = time_ms(lambda i: w4a8_matmul_plain(
             x, lp["wq"], lp["scale"], lp["offset"], lp["colsum"], None, xs, xo), n=5)
-        lib_ms = None
-        if Mr > 16:           # torch._int_mm (cuBLAS int8) on pre-unpacked weights
-            from mobilequant_tpu_torch.ops.qops import unpack_nibbles
-            wu = unpack_nibbles(lp["wq"]).contiguous()
-            lib_ms = time_ms(lambda i: torch._int_mm(x, wu))
-            del wu
+        # yardstick: torch._int_mm (cuBLAS int8) on pre-unpacked weights,
+        # rotated over enough layers (head copies) to read past the L2; it
+        # takes M > 16 only, so fewer rows run padded to 32 (as row 14's)
+        wus = [qops.unpack_nibbles(heads[j]["wq"] if pk is None else pk["wq"][j]).contiguous()
+               for j in range(cold_count(K * N, 3 if pk is None else L))]
+        xp = x if Mr > 16 else torch.cat(
+            [x, torch.zeros((32 - Mr, K), dtype=torch.int8, device=dev)])
+        lib_ms = time_ms(lambda i: torch._int_mm(xp, wus[i % len(wus)]))
+        del wus
         nbytes = Mr * K + K // 2 * N + 4 * N * 4 + Mr * N * 4
         record(name, f"M={Mr} {tag} {K}->{N}", err, err[1] <= 1e-5, ms,
                plain_ms, lib_ms, bound(nbytes, int8_ops=2.0 * Mr * K * N),
+               note=None if Mr > 16 else "library: torch._int_mm on rows padded to 32",
                main=(Mr, tag) in ((1, "w13"), (1, "head")))
 
     # qkv_rope at M = 128 (the main path's prefill)
@@ -1018,12 +1049,11 @@ def main() -> None:
         steps from the same state."""
         Bq = prompt_np.shape[0]
         tp = torch.as_tensor(prompt_np, device=dev)
-        cache = E.init_kv_cache(gs.ecfg, Bq, device=dev)
-        last, cache = gs.prefill(tp, cache)
+        last, cache = gs.prefill(tp, gs.init_cache(Bq))
         tok = torch.argmax(last, -1)[:, None]
         start = torch.full((Bq,), prompt_np.shape[1], dtype=torch.int32, device=dev)
         def fn(k):
-            return E.decode_loop(gs.packed, tok, cache, start, k, cfg, gs.policy, gs.decode_kc)
+            return gs.decode(tok, cache, start, k)
         def wall_ms(k):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1549,10 +1579,11 @@ def main() -> None:
     g8 = Generator(packed8, cfg, policy8, ecfg8, device=dev)
     prompt8 = torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN), generator=wgen,
                             device=dev).cpu().numpy()
-    # B=1: the W8 qkv and w13 epilogue kernels in the prefill, then exactly one
-    # W8 whole-model launch per token; o, w2 and the prefill head plain
+    # B=1: the W8 w13 epilogue kernel in the prefill (qkv on the plain integer
+    # matmul, as the JAX engine keeps it on W8 packs), then exactly one W8
+    # whole-model launch per token; o, w2 and the prefill head plain
     toks8, st8 = w8_route("w8_main", g8, prompt8, NEW_TOKENS, CHUNK_COLS,
-                          {"fused_model_w4": steps, "qkv_rope": L, "w13_gate": L,
+                          {"fused_model_w4": steps, "qkv_rope": 0, "w13_gate": L,
                            "prefill_attention": L, "fused_mlp_block_w4": 0,
                            "w4a8_matmul": 0, "w4a8_matmul_stacked": 0, "w8a8_matmul": 0})
     tp8 = torch.as_tensor(prompt8, device=dev)
@@ -1718,6 +1749,258 @@ def main() -> None:
     if max(e8_ak[0], e8_av[0]) > 1 or max(e8_ak[1], e8_av[1]) > 1e-3:
         failures.append(f"W8 attn_all route vs plain: written rows {e8_ak} {e8_av}")
 
+    # ---- phase 2q: the weight-only kernels against their plain versions ----
+    # (packs and a generator of their own). Row 12 at M = 1 and 8 on the
+    # TinyLlama projections of the W4 g128 pack phase 3w serves (bf16 rows,
+    # layers rotated while timing) and of L-layer W4 / W8 per-channel stacks;
+    # row 13 at M = 1, 8, 128 on q. Yardstick: torch.matmul of the bf16 rows
+    # on the weight dequantized once to bf16 (cuBLAS on 4x the W4 bytes)
+    print("phase 2q: weight-only kernels vs plain versions, TinyLlama-1.1B W4A16 / W8A16",
+          flush=True)
+    qgen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    pk_w16, _, pol_w16, ecfg_w16 = build_synthetic_wonly(
+        "tinyllama-1.1b", w_bits=4, group_size=128, head_bits=16, act_dtype=torch.bfloat16,
+        max_seq_len=MAX_SEQ, seed=SEED, device=dev)
+
+    def pc_stack(bits, K, N, n_layers=L):
+        ps = [qops.pack_weight(torch.randn((K, N), generator=qgen, device=dev) * 0.02,
+                               QuantConfig(bitwidth=bits, is_per_channel=True))
+              for _ in range(n_layers)]
+        out = {k: torch.stack([p[k] for p in ps]) for k in ("wq", "scale", "offset")}
+        out["bias"] = torch.zeros((n_layers, N), device=dev)
+        return out
+
+    proj_shapes = (("q", "q_proj", D, Hq * hd), ("k/v", "k_proj", D, Hkv * hd),
+                   ("o", "o_proj", Hq * hd, D), ("w1/w3", "w1", D, F), ("w2", "w2", F, D))
+    wq_layer_bytes = {}
+    for tag_c, packs_c in (("W4 g128", pk_w16["packs"]),
+                           ("W4 pc", {key: pc_stack(4, K, N) for _, key, K, N in proj_shapes}),
+                           ("W8 pc", {key: pc_stack(8, K, N) for _, key, K, N in proj_shapes})):
+        for tag_p, key, K, N in proj_shapes:
+            pk = packs_c[key]
+            Lc, Kr = pk["wq"].shape[0], pk["wq"].shape[1]
+            G = pk["scale"].shape[1] if pk["scale"].dim() == 4 else 1
+            lb = Kr * N + 2 * G * N * 4 + N * 4
+            wq_layer_bytes[(tag_c, key)] = lb
+            # the kernel's loop reads one layer a call, over copies of the
+            # stack; the yardstick's over bf16 copies of the layers: both
+            # read at least 100 MB a pass, past the 50 MB L2
+            args = (pk["wq"], pk["scale"], pk["offset"], pk["bias"])
+            stacks = [args] + [tuple(t.clone() for t in args)
+                               for _ in range(cold_count(lb * Lc, 64) - 1)]
+            n_k = max(20, cold_count(lb, Lc * len(stacks)))
+            w_bf = [qops.dequant_weight(pk["wq"][j % Lc], pk["scale"][j % Lc],
+                                        pk["offset"][j % Lc], K).to(torch.bfloat16)
+                    for j in range(cold_count(2 * K * N, 128))]
+            for Mr in (1, 8):
+                x = torch.randn((Mr, K), generator=qgen, device=dev).to(torch.bfloat16)
+                out = wonly_matmul_stacked(x, *args, 1)
+                ref = wonly_matmul_stacked_plain(x, *args, 1)
+                err = float_err(out, ref)
+                ms = time_ms(lambda i, x=x, stacks=stacks, Lc=Lc: wonly_matmul_stacked(
+                    x, *stacks[(i // Lc) % len(stacks)], i % Lc), n=n_k)
+                plain_ms = time_ms(lambda i, x=x, args=args: wonly_matmul_stacked_plain(
+                    x, *args, 1), n=5)
+                lib_ms = time_ms(lambda i, x=x, w_bf=w_bf: torch.matmul(
+                    x, w_bf[i % len(w_bf)]), n=max(20, len(w_bf)))
+                record("wonly_matmul_stacked", f"{tag_c} M={Mr} {tag_p} {K}->{N}", err,
+                       err[1] <= 1e-5, ms, plain_ms, lib_ms,
+                       bound(wq_layer_bytes[(tag_c, key)] + Mr * K * 2 + Mr * N * 4,
+                             fp32_ops=2.0 * Mr * K * N + 2.0 * K * N),
+                       note="library: torch.matmul, bf16 rows x the bf16-dequantized weight",
+                       main=(tag_c, tag_p, Mr) == ("W4 g128", "w1/w3", 1))
+            del w_bf, stacks
+    # row 13: per-channel W4 q matrices (fp32 rows), one checked, enough of
+    # them rotated while timing to read past the L2
+    Nq13 = Hq * hd
+    pk13 = pc_stack(4, D, Nq13, cold_count(D // 2 * Nq13, 64))
+    w13s = [(pk13["wq"][j], pk13["scale"][j], pk13["offset"][j], pk13["bias"][j])
+            for j in range(pk13["wq"].shape[0])]
+    w13a = w13s[0]
+    w_bf13 = [qops.dequant_weight(*w[:3], D).to(torch.bfloat16)
+              for w in w13s[:cold_count(2 * D * Nq13, len(w13s))]]
+    for Mr in (1, 8, PROMPT_LEN):
+        x = torch.randn((Mr, D), generator=qgen, device=dev)
+        err = float_err(w4a16_matmul(x, *w13a), w4a16_matmul_plain(x, *w13a))
+        ms = time_ms(lambda i, x=x: w4a16_matmul(x, *w13s[i % len(w13s)]), n=len(w13s))
+        plain_ms = time_ms(lambda i, x=x: w4a16_matmul_plain(x, *w13a), n=5)
+        xb = x.to(torch.bfloat16)
+        lib_ms = time_ms(lambda i, xb=xb: torch.matmul(xb, w_bf13[i % len(w_bf13)]),
+                         n=max(20, len(w_bf13)))
+        Nq = Hq * hd
+        record("w4a16_matmul", f"M={Mr} q {D}->{Nq} (W4 per channel)", err, err[1] <= 1e-5,
+               ms, plain_ms, lib_ms,
+               bound(D // 2 * Nq + 3 * Nq * 4 + Mr * D * 4 + Mr * Nq * 4,
+                     fp32_ops=2.0 * Mr * D * Nq + 2.0 * D * Nq),
+               note="library: torch.matmul, bf16 rows x the bf16-dequantized weight",
+               main=Mr == 1)
+    del pk13, w13s, w13a, w_bf13
+
+    # ---- phase 3w: weight-only serving through the entry points -----------
+    # Generator(ecfg.act_bits=16).generate_fast at B=1 on TinyLlama-1.1B
+    # W4A16 g128 (bf16 activations, fp KV cache), with the fp head (the JAX
+    # bench's w4a16 row) and the W4 head (w4a16_h4): the prefill takes no
+    # kernel, every decode projection one wonly_matmul_stacked launch, the W4
+    # head one w4a8_matmul launch a token
+    print("phase 3w: generate_fast, TinyLlama-1.1B W4A16 g128, bf16, fp KV, B=1", flush=True)
+    wonly = {}
+    prompt_w = torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN), generator=qgen,
+                             device=dev).cpu().numpy()
+    n_proj = 7
+    for route, hb in (("wonly_main", 16), ("wonly_h4", 4)):
+        if hb == 16:
+            gw = Generator(pk_w16, cfg, pol_w16, ecfg_w16, device=dev)
+        else:
+            pk_h, _, pol_h, ecfg_h = build_synthetic_wonly(
+                "tinyllama-1.1b", w_bits=4, group_size=128, head_bits=4,
+                act_dtype=torch.bfloat16, max_seq_len=MAX_SEQ, seed=SEED, device=dev)
+            gw = Generator(pk_h, cfg, pol_h, ecfg_h, device=dev)
+        gw.generate_fast(prompt_w, 4)                         # warm-up
+        tk, stt = counted(route, lambda: gw.generate_fast(prompt_w, NEW_TOKENS,
+                                                          return_stats=True))
+        nums = loop_numbers(gw, prompt_w, CHUNK_COLS)
+        tpw = torch.as_tensor(prompt_w, device=dev)
+        pre_d, pre_t, pre_l = device_profile(lambda: gw.prefill(tpw, gw.init_cache(1)))
+        nums.update(decode_tok_s=stt["decode_tok_s"], prefill_ms=stt["prefill_s"] * 1e3,
+                    prefill_device_ms=pre_d, prefill_kernel_launches=pre_l,
+                    prefill_top_kernels=pre_t, launches=runs[route], batch=1,
+                    prompt=PROMPT_LEN, new_tokens=NEW_TOKENS)
+        wonly[route] = nums
+        print(f"  {route}: decode {stt['decode_tok_s']:.2f} tok/s (generate_fast), prefill "
+              f"{stt['prefill_s'] * 1e3:.2f} ms wall / {pre_d:.3f} ms device ({pre_l} "
+              f"launches), loop step wall {nums['wall_ms_per_step']:.3f} ms, device "
+              f"{nums['device_ms_per_step']:.3f} ms, idle {nums['idle_share']:.3f}, "
+              f"{nums['launches_per_step']:.1f} launches/step; counts {runs[route]}", flush=True)
+        for k, ms_, c in nums["top_kernels"]:
+            print(f"    {route}/step {ms_:8.4f} ms  x{c:6.1f}  {k}", flush=True)
+        if tk.shape != (1, NEW_TOKENS) or tk.min() < 0 or tk.max() >= cfg.vocab_size:
+            failures.append(f"{route}: bad tokens {tk.shape}")
+        steps_w = NEW_TOKENS - 1
+        want = {"wonly_matmul_stacked": n_proj * L * steps_w,
+                "w4a8_matmul": steps_w if hb == 4 else 0, "w4a16_matmul": 0,
+                "fused_model_w4": 0, "w4a8_matmul_stacked": 0}
+        got = {k: runs[route][k] for k in want}
+        if got != want:
+            failures.append(f"{route}: launches {got}, expected {want}")
+        if hb == 4:
+            del pk_h, gw
+    # kernel route against the plain route: a prefill, then 16 decode steps fed
+    # the same tokens, in fp32 activations (a pack of its own, the same seed)
+    # and in the bf16 pack served above
+    pk_w32, _, pol_w32, ecfg_w32 = build_synthetic_wonly(
+        "tinyllama-1.1b", w_bits=4, group_size=128, head_bits=16, act_dtype=torch.float32,
+        max_seq_len=MAX_SEQ, seed=SEED, device=dev)
+    wtoks = torch.randint(0, cfg.vocab_size, (1, 16), generator=qgen, device=dev)
+    wchain = {}
+    for tag, pk_c, ecfg_c in (("fp32", pk_w32, ecfg_w32), ("bf16", pk_w16, ecfg_w16)):
+        gc = Generator(pk_c, cfg, None, ecfg_c, device=dev)
+        _, c0 = gc.prefill(torch.as_tensor(prompt_w, device=dev), gc.init_cache(1))
+        res_w = {}
+        for route_k in (True, False):
+            cc = MM.KVCache(c0.k.clone(), c0.v.clone())
+            lgs = []
+
+            def chain_w(cc=cc, lgs=lgs, route_k=route_k):
+                for i in range(wtoks.shape[1]):
+                    pw = torch.full((1,), PROMPT_LEN + i, dtype=torch.int32, device=dev)
+                    lg_w, _ = W.forward(gc.packed, wtoks[:, i:i + 1], cfg, positions=pw[:, None],
+                                        kv_cache=cc, cache_position=pw, kv_valid_len=pw + 1,
+                                        kc=KernelConfig.decode() if route_k else KernelConfig())
+                    lgs.append(lg_w[:, -1])
+                return torch.stack(lgs, 1)
+            res_w[route_k] = counted(f"wonly_chain_{tag}_{'kernel' if route_k else 'plain'}",
+                                     chain_w)
+        e_w = float_err(res_w[True], res_w[False])
+        fin = bool(torch.isfinite(res_w[True]).all())
+        wchain[tag] = {"logits_rel": e_w[1], "max_abs": e_w[0], "finite": fin}
+        print(f"  weight-only {tag} 16-step chain, kernel route vs plain route: logits rel "
+              f"{e_w[1]:.3g} (max abs {e_w[0]:.3g})", flush=True)
+        n_k = runs[f"wonly_chain_{tag}_kernel"]["wonly_matmul_stacked"]
+        if n_k != n_proj * L * 16 or any(runs[f"wonly_chain_{tag}_plain"].values()):
+            failures.append(f"weight-only {tag} chain launches {n_k}")
+        # bf16: one bf16 rounding of a projection output in another sum order,
+        # grown through 22 layers; held at about twice its first reading on the
+        # card (2.14e-2)
+        lim = 1e-4 if tag == "fp32" else 5e-2
+        if not fin or e_w[1] > lim:
+            failures.append(f"weight-only {tag} chain kernel vs plain: logits rel {e_w[1]}")
+        del gc
+    del pk_w32
+
+    # ---- phase 3f: W8A8/h8 on the int4 KV cache ---------------------------
+    # generate_fast at B = 1, 32, 128 on the entry config: every step staged,
+    # one kv4 launch and one W8 MLP-block launch a layer, qkv / o / the W8
+    # head on the plain integer matmul; then a CHUNK_COLS-step B=32 chunk fed
+    # the same tokens on that route, with the kv4 kernel's plain version, on
+    # the plain engine's numerics (kv4_engine_numerics) and on the plain path
+    print("phase 3f: W8A8/h8 on the int4 KV cache, TinyLlama-1.1B, relaxed", flush=True)
+    fgen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    packed8k, _, strict8k, ecfg8k = build_synthetic_packed(
+        "tinyllama-1.1b", w_bits=8, head_bits=8, max_seq_len=MAX_SEQ, seed=SEED, device=dev,
+        kv_bits=4)
+    policy8k = relax_16bit(strict8k)
+    g8k = Generator(packed8k, cfg, policy8k, ecfg8k, device=dev)
+    for route, Bq, Tp, n_new, n_loop in (("w8kv4_b1", 1, PROMPT_LEN, NEW_TOKENS, CHUNK_COLS),
+                                         ("w8kv4_b32", SERVE_B, PROMPT_LEN, NEW_TOKENS,
+                                          CHUNK_COLS),
+                                         ("w8kv4_b128", BIG_B, SHORT_PROMPT, BIG_STEPS + 1,
+                                          BIG_STEPS)):
+        steps = n_new - 1
+        pr = torch.randint(0, cfg.vocab_size, (Bq, Tp), generator=fgen, device=dev).cpu().numpy()
+        w8_route(route, g8k, pr, n_new, n_loop,
+                 {"kv4_decode_attention": L * steps, "staged_append": steps,
+                  "fused_mlp_block_w4": L * steps, "fused_model_w4": 0,
+                  "fused_model_w4_chunk": 0, "qkv_rope": 0, "w8a8_matmul": 0,
+                  "prefill_attention": L, "w13_gate": L})
+    c8k = E.init_kv_cache(ecfg8k, SERVE_B, device=dev)
+    p8k = torch.randint(0, cfg.vocab_size, (SERVE_B, PROMPT_LEN), generator=fgen, device=dev)
+    _, c8k = g8k.prefill(p8k, c8k)
+    ftoks8k = torch.randint(0, cfg.vocab_size, (SERVE_B, CHUNK_COLS), generator=fgen, device=dev)
+    kc8k = KernelConfig.serving(cfg, g8k.packed, SERVE_B)
+    stand8k = {"w8kv4_kernel_plain_fn": {(E, "kv4_decode_attention"): kv4_decode_attention_plain},
+               "w8kv4_engine_numerics": kv4_engine_numerics(E, cfg, g8k.packed, policy8k)}
+    chain8k = {}
+    for tag, kc_c in (("w8kv4_kernel", kc8k), ("w8kv4_kernel_plain_fn", kc8k),
+                      ("w8kv4_engine_numerics", kc8k), ("w8kv4_plain", KernelConfig.none())):
+        cc = E.EngineKVCache(c8k.k.clone(), c8k.v.clone())
+        with patched(stand8k.get(tag, {})):
+            lg_c, cc = counted(f"chain_{tag}", lambda: staged_chunk(
+                kc_c, cc, ftoks8k, fpos, g8k.packed, policy8k, kv4=True))
+        chain8k[tag] = (lg_c, qops.unpack_kv_s(cc.k)[:, :, :, window],
+                        qops.unpack_kv_s(cc.v)[:, :, :, window])
+    wit8k = runs["chain_w8kv4_engine_numerics"]
+    if runs["chain_w8kv4_kernel"]["kv4_decode_attention"] != L * CHUNK_COLS \
+            or runs["chain_w8kv4_kernel"]["fused_mlp_block_w4"] != L * CHUNK_COLS \
+            or any(runs["chain_w8kv4_plain"].values()) \
+            or wit8k["kv4_decode_attention"] or wit8k["fused_mlp_block_w4"]:
+        failures.append(f"W8 kv4 chain launches {runs['chain_w8kv4_kernel']} / {wit8k} / "
+                        f"{runs['chain_w8kv4_plain']}")
+    # limits as phase 3c's: the kernel equals its plain version and the route
+    # on the plain engine's numerics equals the plain path; the raw route
+    # against the plain path is held at about twice its first reading on the
+    # card (logits rel 4.96e-3, one 4-bit step on 0.052% / 0.048% of the K /
+    # V values: the same rounding through another random model)
+    for tag, ref, lim in (("w8kv4_kernel", "w8kv4_kernel_plain_fn", (1e-6, 0, 0.0)),
+                          ("w8kv4_engine_numerics", "w8kv4_plain", (1e-6, 0, 0.0)),
+                          ("w8kv4_kernel", "w8kv4_plain", (1e-2, 1, 1e-3))):
+        e_l = float_err(chain8k[tag][0], chain8k[ref][0])
+        stp = [float_err(chain8k[tag][0][:, i], chain8k[ref][0][:, i])[1]
+               for i in range(CHUNK_COLS)]
+        e_k = int8_err(chain8k[tag][1], chain8k[ref][1])
+        e_v = int8_err(chain8k[tag][2], chain8k[ref][2])
+        fin = bool(torch.isfinite(chain8k[tag][0]).all())
+        chain_err[f"{tag}_vs_{ref}"] = {"logits_rel": e_l[1], "logits_rel_first_step": stp[0],
+                                        "logits_rel_per_step": stp,
+                                        "k_rows": e_k, "v_rows": e_v, "finite": fin}
+        print(f"  W8 kv4 B={SERVE_B} {CHUNK_COLS}-step chunk, {tag} vs {ref}: logits rel "
+              f"{e_l[1]:.3g} (step 0: {stp[0]:.3g}); flushed K rows {e_k}, V rows {e_v} "
+              f"(max diff in 4-bit steps, share of values)", flush=True)
+        if not fin or e_l[1] > lim[0]:
+            failures.append(f"{tag} W8 kv4 chunk vs {ref}: logits rel {e_l[1]}, finite {fin}")
+        if max(e_k[0], e_v[0]) > lim[1] or max(e_k[1], e_v[1]) > lim[2]:
+            failures.append(f"{tag} W8 kv4 chunk vs {ref}: flushed rows {e_k} {e_v}")
+    del packed8k, g8k, c8k
+
     # ---- phase 4: report ---------------------------------------------------
     sources = {"w4a8_matmul": ("csrc/w4a8_matmul.cu",
                                "mobilequant_tpu/ops/pallas_matmul.py:59"),
@@ -1754,7 +2037,11 @@ def main() -> None:
                "fused_model_w4[w8]": ("csrc/fused_layer.cu",
                                       "mobilequant_tpu/ops/pallas_layer.py:773"),
                "fused_model_w4_chunk[w8]": ("csrc/fused_rows_w8.cu",
-                                            "mobilequant_tpu/ops/pallas_chunk.py:575")}
+                                            "mobilequant_tpu/ops/pallas_chunk.py:575"),
+               "wonly_matmul_stacked": ("csrc/wonly_matmul.cu",
+                                        "mobilequant_tpu/ops/pallas_matmul.py:411"),
+               "w4a16_matmul": ("csrc/wonly_matmul.cu",
+                                "mobilequant_tpu/ops/pallas_matmul.py:180")}
     # the route whose run each kernel's launch count is read from: the main
     # path (B=1 generate_fast) unless named here; each was counted from 0. A
     # W8 edition ("name[w8]") counts on its kernel's wrapper, on a W8 route.
@@ -1762,20 +2049,28 @@ def main() -> None:
                 "staged_append": "b32_staged", "fused_otail_block_w4": "b32_otail",
                 "fused_model_w4_chunk": "b32_chunk", "kv4_decode_attention": "kv4_b32",
                 "decode_attention": "attn_b1", "w8a8_matmul": "w8_attn_all",
-                "qkv_rope[w8]": "w8_main", "w13_gate[w8]": "w8_main",
+                "w13_gate[w8]": "w8_main",
                 "fused_mlp_block_w4[w8]": "w8_b128", "fused_layer_w4[w8]": "w8_per_layer",
-                "fused_model_w4[w8]": "w8_main", "fused_model_w4_chunk[w8]": "w8_b32"}
+                "fused_model_w4[w8]": "w8_main", "fused_model_w4_chunk[w8]": "w8_b32",
+                "wonly_matmul_stacked": "wonly_main", "w4a16_matmul": "wonly_main"}
+    # no runtime path calls w4a16_matmul, in the JAX package either: its
+    # launches are the weight-only run's count (0, held there), and it may be
+    # 0. qkv_rope's W8 edition (no JAX route takes it either) stands in
+    # chip_smoke.json only; it counts on qkv_rope's wrapper.
+    off_route = {"w4a16_matmul"}
     kernels = []
     for name, shapes in rows.items():
+        if name == "qkv_rope[w8]":
+            continue
         head = next((r for r in shapes if r["main"]), shapes[0])
         src, rep = sources[name]
-        n_launch = runs[route_of.get(name, "main")][name.split("[")[0]]
-        if n_launch <= 0:
-            failures.append(f"{name} was not launched on its route "
-                            f"{route_of.get(name, 'main')}")
+        route = route_of.get(name, "main")
+        n_launch = runs[route][name.split("[")[0]]
+        if n_launch <= 0 and name not in off_route:
+            failures.append(f"{name} was not launched on its route {route}")
         kernels.append({"name": name, "route": "cuda",
                         "source": "mobilequant_tpu_torch/" + src, "replaces": rep,
-                        "launches": n_launch, "launch_route": route_of.get(name, "main"),
+                        "launches": n_launch, "launch_route": route,
                         "max_abs_err": head["max_abs_err"],
                         "ms": head["ms"], "plain_ms": head["plain_ms"],
                         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1813,7 +2108,8 @@ def main() -> None:
                                  "witness_logits_rel_vs_plain": e8_wit[1],
                                  "witness_caches_equal": wit8_equal},
                      "attn_all_vs_plain": {"logits_rel": e8_al[1], "k_rows": e8_ak,
-                                           "v_rows": e8_av}}}
+                                           "v_rows": e8_av}},
+              "weight_only": {"serving": wonly, "chain_kernel_vs_plain": wchain}}
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     if failures:
         fail("; ".join(failures))

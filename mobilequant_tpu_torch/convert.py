@@ -2,10 +2,16 @@
 
 from_jax_packed        the JAX engine's pack() output (as a tree of numpy
                        arrays) -> the port's packed dict, canonical keys only
+from_jax_params        a JAX tree of numpy leaves -> the port's, the same keys
+                       and shapes: the FP parameter tree (models/model), or
+                       the wonly.pack_weight_only output (skeleton, packs,
+                       head_q)
 build_synthetic_packed a full-width W4A8 or W8A8 packed model with seeded
                        random weights and plausible static ranges, made on the
                        target device (real checkpoints are not in the
                        repository)
+build_synthetic_wonly  a full-width weight-only (W4A16 / W8A16) packed model:
+                       seeded FP params on the device, then pack_weight_only
 """
 
 from __future__ import annotations
@@ -16,11 +22,13 @@ import numpy as np
 import torch
 
 from mobilequant_tpu_torch.models import get_config
+from mobilequant_tpu_torch.models import model as M
 from mobilequant_tpu_torch.ops.qops import pack_nibbles
 from mobilequant_tpu_torch.quant.policy import (
-    default_policy, kv_bits_policy, static_range_sites)
+    default_policy, kv_bits_policy, static_range_sites, weight_only_policy)
 from mobilequant_tpu_torch.quant.quantizer import QuantConfig
 from mobilequant_tpu_torch.runtime import engine as E
+from mobilequant_tpu_torch.runtime import wonly as W
 
 # TPU-layout packs of the JAX whole-layer kernels; the port reads the
 # canonical qkv_proj / o_proj packs instead
@@ -28,7 +36,18 @@ _TPU_ONLY_KEYS = ("qkvp", "op", "qkv_seg", "rvec")
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(device)
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":      # numpy's bf16 (ml_dtypes) has no torch twin
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(a).to(device)
+
+
+def from_jax_params(tree: dict, device="cuda") -> dict:
+    """A JAX tree of numpy leaves (the FP parameter tree, or the weight-only
+    pack {"skeleton", "packs"[, "head_q"]}) -> the port's on `device`."""
+    if isinstance(tree, dict):
+        return {k: from_jax_params(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
 
 
 def from_jax_packed(tree: dict, device="cuda") -> dict:
@@ -138,3 +157,25 @@ def build_synthetic_packed(model_name: str = "tinyllama-1.1b", w_bits: int = 4,
     else:
         packed["lm_head"] = {"w": head_w}
     return packed, cfg, policy, ecfg
+
+
+def build_synthetic_wonly(model_name: str = "tinyllama-1.1b", w_bits: int = 4,
+                          group_size: int = 128, head_bits: int = 16,
+                          act_dtype=torch.bfloat16, max_seq_len: int = 1024,
+                          seed: int = 0, device="cuda"):
+    """-> (packed, config, policy, ecfg): the named model at full width with
+    FP params drawn from `seed` on `device` (models/model.init_params:
+    N(0, 0.02²) weights), packed weight-only (runtime/wonly.pack_weight_only)
+    with the auto_gptq layout (per-channel asymmetric, grouped by group_size,
+    -1: not grouped) at w_bits, and the fp head (head_bits 16) or the W8 / W4
+    quantized head. ecfg serves it in weight-only mode (act_bits 16) with
+    activations and KV cache in act_dtype."""
+    cfg = get_config(model_name)
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = M.init_params(cfg, gen, device=dev)
+    wcfg = W.default_weight_cfg(w_bits, group_size)
+    packed = W.pack_weight_only(params, cfg, wcfg, act_dtype=act_dtype, head_bits=head_bits)
+    ecfg = E.EngineConfig(model=cfg, max_seq_len=max_seq_len, head_bits=head_bits,
+                          act_bits=16, act_dtype=act_dtype)
+    return packed, cfg, weight_only_policy(cfg, wcfg, head_bits), ecfg

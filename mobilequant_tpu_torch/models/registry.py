@@ -3,6 +3,10 @@ mobilequant_tpu/models/registry.py; the port imports nothing of the JAX
 package).
 
   tinyllama-1.1b : n_layer=22 n_head=32 n_kv=4 head_dim=64 d=2048 ffn=5632 vocab=32000
+
+and the small test configurations the parity tests run (test-llama,
+test-gemma, test-mixtral, test-stablelm, and test-llama-256 at the narrowest
+widths the prefill kernels take).
 """
 
 from __future__ import annotations
@@ -20,6 +24,27 @@ MODEL_CONFIGS: dict[str, ModelConfig] = {
         vocab_size=256, hidden_size=64, intermediate_size=128,
         num_layers=3, num_heads=4, num_kv_heads=2, head_dim=16,
         norm_class="rmsnorm", num_linears_per_mlp=3, hidden_act="silu",
+        max_position_embeddings=128,
+    ),
+    "test-gemma": ModelConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_layers=2, num_heads=2, num_kv_heads=1, head_dim=32,
+        norm_class="skiprms", norm_eps=1e-6, num_linears_per_mlp=3,
+        hidden_act="gelu_tanh", normalize_embed=True, tie_word_embeddings=True,
+        max_position_embeddings=128,
+    ),
+    "test-mixtral": ModelConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
+        norm_class="rmsnorm", num_linears_per_mlp=3, hidden_act="silu",
+        num_local_experts=4, num_experts_per_tok=2,
+        max_position_embeddings=128,
+    ),
+    "test-stablelm": ModelConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_layers=2, num_heads=4, num_kv_heads=4, head_dim=16,
+        norm_class="layernorm", num_linears_per_mlp=3, hidden_act="silu",
+        partial_rotary_factor=0.25, use_qkv_bias_only=True,
         max_position_embeddings=128,
     ),
     # test-llama at the narrowest widths the prefill kernels take (head_dim

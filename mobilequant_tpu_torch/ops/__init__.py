@@ -21,6 +21,7 @@ def kernel_wrappers() -> dict:
     from mobilequant_tpu_torch.ops.w13_gate import w13_gate
     from mobilequant_tpu_torch.ops.w4a8_matmul import w4a8_matmul, w4a8_matmul_stacked
     from mobilequant_tpu_torch.ops.w8a8_matmul import w8a8_matmul
+    from mobilequant_tpu_torch.ops.wonly_matmul import w4a16_matmul, wonly_matmul_stacked
     return {"w4a8_matmul": w4a8_matmul, "w4a8_matmul_stacked": w4a8_matmul_stacked,
             "w8a8_matmul": w8a8_matmul, "qkv_rope": qkv_rope,
             "prefill_attention": prefill_attention, "w13_gate": w13_gate,
@@ -28,7 +29,8 @@ def kernel_wrappers() -> dict:
             "fused_model_w4": fused_model_w4, "staged_append": staged_append,
             "fused_otail_block_w4": fused_otail_block_w4,
             "fused_model_w4_chunk": fused_model_w4_chunk,
-            "kv4_decode_attention": kv4_decode_attention, "decode_attention": decode_attention}
+            "kv4_decode_attention": kv4_decode_attention, "decode_attention": decode_attention,
+            "wonly_matmul_stacked": wonly_matmul_stacked, "w4a16_matmul": w4a16_matmul}
 
 
 def reset_counts() -> None:

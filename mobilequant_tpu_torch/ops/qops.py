@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from mobilequant_tpu_torch.quant.quantizer import (
-    QuantConfig, scale_offset_from_min_max, weight_min_max,
+    QuantConfig, _group_reshape, scale_offset_from_min_max, weight_min_max,
 )
 
 
@@ -154,12 +154,17 @@ def pack_weight(w: torch.Tensor, qcfg: QuantConfig) -> dict:
     """Quantize one (in, out) fp weight to its integer representation.
 
     Returns {wq, scale, offset, colsum}: wq int8 (nibble-packed (in/2, out) for
-    4 bits); scale/offset fp32 () per-tensor or (1, out) per-channel; offset
-    is the shifted zero-point; colsum the per-out-channel sum of the stored
-    integer values."""
+    4 bits); scale/offset fp32 () per-tensor, (1, out) per-channel or
+    (G, 1, out) grouped along the input axis (the auto_gptq W4 g128 layout);
+    offset is the shifted zero-point; colsum the per-out-channel sum of the
+    stored integer values, (G, out) per group when grouped."""
+    grouped = qcfg.is_per_channel and qcfg.group_size != -1
+    if qcfg.group_size != -1 and not qcfg.is_per_channel:
+        raise ValueError("group_size requires is_per_channel")
     wf = w.to(torch.float32)
     scale, offset = scale_offset_from_min_max(*weight_min_max(wf, qcfg), qcfg)
-    q = torch.clamp(torch.round(wf / scale) + offset, qcfg.qmin, qcfg.qmax)
+    x = _group_reshape(wf, qcfg.group_size) if grouped else wf
+    q = torch.clamp(torch.round(x / scale) + offset, qcfg.qmin, qcfg.qmax).reshape(wf.shape)
     if qcfg.bitwidth == 4:
         shift = float(qcfg.qmin)        # unsigned nibbles q - qmin in [0, 15]
     elif qcfg.is_symmetric:
@@ -169,8 +174,9 @@ def pack_weight(w: torch.Tensor, qcfg: QuantConfig) -> dict:
     q = q - shift
     q_i8 = q.to(torch.int8)
     wq = pack_nibbles(q_i8) if qcfg.bitwidth == 4 else q_i8
+    colsum = _group_reshape(q, qcfg.group_size).sum(dim=-2) if grouped else q.sum(dim=-2)
     return {"wq": wq, "scale": scale.to(torch.float32),
-            "offset": (offset - shift).to(torch.float32), "colsum": q.sum(dim=-2)}
+            "offset": (offset - shift).to(torch.float32), "colsum": colsum}
 
 
 def int_linear(x_q: torch.Tensor, x_scale: float, x_offset: float, pack: dict,
@@ -222,6 +228,52 @@ def int_head_linear(x: torch.Tensor, pack: dict,
     if bias is not None:
         out = out + bias
     return out
+
+
+def dequant_weight(wq: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
+                   K: int) -> torch.Tensor:
+    """A weight-only pack's fp32 weight (..., K, N): wq (..., K or K/2, N),
+    scale / offset per tensor (...), per channel (..., 1, N) or grouped
+    (..., G, 1, N) along the input axis; w = (q − offset)·scale."""
+    if wq.shape[-2] * 2 == K:
+        wq = unpack_nibbles(wq)
+    wf = wq.to(torch.float32)
+    lead, N = wf.shape[:-2], wf.shape[-1]
+    if scale.dim() == len(lead) + 3:                      # grouped (..., G, 1, N)
+        G = scale.shape[-3]
+        wg = wf.reshape(*lead, G, K // G, N)
+        return ((wg - offset) * scale).reshape(*lead, K, N)
+    sh = (*lead, 1, -1)
+    return (wf - offset.reshape(sh)) * scale.reshape(sh)
+
+
+def weight_only_linear(x: torch.Tensor, pack: dict,
+                       bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """W4A16 / W8A16: fp activations × one layer's integer weight dequantized
+    on the fly, x.float() @ (q − offset)·scale + bias, returned in x's dtype
+    (scale / offset per tensor (), per channel (1, N) or grouped (G, 1, N))."""
+    w = dequant_weight(pack["wq"], pack["scale"], pack["offset"], x.shape[-1])
+    y = torch.matmul(x.to(torch.float32), w)
+    if bias is not None:
+        y = y + bias
+    return y.to(x.dtype)
+
+
+def weight_only_expert_linear(x: torch.Tensor, pack: dict,
+                              bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Weight-only MoE expert projection over per-expert stacks wq (E, K, N)
+    (W4: (E, K/2, N)), scale / offset (E,), (E, 1, N) or grouped (E, G, 1, N):
+    x (B, T, K) -> (B, T, E, N) (w1 / w3), x (B, T, E, K) -> (B, T, E, N)
+    (w2). Plain PyTorch, as the JAX package leaves it to XLA."""
+    w = dequant_weight(pack["wq"], pack["scale"], pack["offset"], x.shape[-1])
+    xf = x.to(torch.float32)
+    if x.dim() == 3:
+        y = torch.einsum("btd,edf->btef", xf, w)
+    else:
+        y = torch.einsum("btef,efd->bted", xf, w)
+    if bias is not None:
+        y = y + bias
+    return y.to(x.dtype)
 
 
 def int_matmul_qk(q_i8: torch.Tensor, k_i8: torch.Tensor, q_scale: float,

@@ -142,3 +142,26 @@ def static_range_sites(policy: QPolicy):
                 continue
             if cfg.enabled and not cfg.is_dynamic:
                 yield site, role, cfg
+
+
+# Projection param keys carrying weight-only quantizers (the decoder Linears;
+# norms and the lm_head stay fp unless a quantized head is asked for).
+WEIGHT_ONLY_PROJ_KEYS = ("q_proj", "k_proj", "v_proj", "o_proj", "w1", "w2", "w3")
+
+_WEIGHT_ONLY_SITES = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                      "self_attn.o_proj", "mlp.w1", "mlp.w2", "mlp.w3")
+
+
+def weight_only_policy(config: ModelConfig, wcfg: QuantConfig,
+                       head_bits: int = 16) -> QPolicy:
+    """W4A16 / W8A16 placement: a weight quantizer on every projection and no
+    activation quantizer anywhere. head_bits 8 / 4 adds the quantized lm_head
+    (per-channel symmetric weights × dynamic per-token A8, engine.pack_head)."""
+    sites = [s for s in _WEIGHT_ONLY_SITES
+             if config.num_linears_per_mlp == 3 or not s.endswith("w3")]
+    policy = {s: SiteQuant(weight=wcfg) for s in sites}
+    if head_bits in (4, 8):
+        policy["lm_head"] = SiteQuant(
+            weight=QuantConfig(bitwidth=head_bits, is_symmetric=True, is_per_channel=True),
+            input=QuantConfig(bitwidth=8, is_symmetric=True, is_dynamic=True))
+    return policy

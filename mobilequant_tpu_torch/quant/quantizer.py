@@ -9,8 +9,9 @@ op so that packs built here are bit-identical to the JAX package's:
   * fake quant: deq = (clip(round(x/scale)+offset, qmin, qmax) - offset) * scale
   * bitwidth > 16 disables quantization
 Linear weights are (in_features, out_features): per-channel statistics reduce
-over axis -2. Grouped (g128) weights belong to the weight-only mode, which is
-not ported yet.
+over axis -2; grouped (g128-style) statistics over groups of `group_size`
+input rows, (..., G, 1, out). Learned weight clipping (LWC) comes with the
+quantization pipeline.
 """
 
 from __future__ import annotations
@@ -84,21 +85,34 @@ def fake_quant(x: torch.Tensor, scale, offset, qcfg: QuantConfig):
     return ((q - offset) * scale).to(x.dtype)
 
 
+def _group_reshape(w: torch.Tensor, group_size: int) -> torch.Tensor:
+    """(..., in, out) -> (..., n_groups, gs, out); groups along the input axis."""
+    *lead, d_in, d_out = w.shape
+    if d_in % group_size:
+        raise ValueError(f"in={d_in} not divisible by group={group_size}")
+    return w.reshape(*lead, d_in // group_size, group_size, d_out)
+
+
 def weight_min_max(w: torch.Tensor, qcfg: QuantConfig):
-    """min/max statistics of a (..., in, out) weight: per-tensor -> scalars,
-    per-channel -> (..., 1, out)."""
-    if qcfg.group_size != -1:
-        raise NotImplementedError("grouped weight quantization is not ported")
+    """min/max statistics of a (..., in, out) weight (leading axes are
+    independent linears): per-tensor -> scalars, per-channel -> (..., 1, out),
+    per-channel grouped -> (..., G, 1, out)."""
     if qcfg.is_per_channel:
+        if qcfg.group_size != -1:
+            wg = _group_reshape(w, qcfg.group_size)
+            return wg.amin(dim=-2, keepdim=True), wg.amax(dim=-2, keepdim=True)
         return w.amin(dim=-2, keepdim=True), w.amax(dim=-2, keepdim=True)
     return w.amin(), w.amax()
 
 
 def fake_quant_weight(w: torch.Tensor, qcfg: QuantConfig):
-    """On-the-fly weight fake-quant from the weight's own min/max."""
+    """On-the-fly weight fake-quant from the weight's own min/max (per group
+    of input rows when grouped)."""
     if not qcfg.enabled:
         return w
     wf = w.to(torch.float32)
+    grouped = qcfg.is_per_channel and qcfg.group_size != -1
+    x = _group_reshape(wf, qcfg.group_size) if grouped else wf
     scale, offset = scale_offset_from_min_max(*weight_min_max(wf, qcfg), qcfg)
-    q = torch.clamp(torch.round(wf / scale) + offset, qcfg.qmin, qcfg.qmax)
-    return ((q - offset) * scale).to(w.dtype)
+    q = torch.clamp(torch.round(x / scale) + offset, qcfg.qmin, qcfg.qmax)
+    return ((q - offset) * scale).reshape(wf.shape).to(w.dtype)

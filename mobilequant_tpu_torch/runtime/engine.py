@@ -24,17 +24,17 @@ or W8 head) in one launch; chunk_kernel a whole staged step at B = 16..128;
 layer_kernel a whole layer at B=1, T=1; otail_kernel the o-proj, resid_add_1
 and the MLP block at B·T <= stacked_bt_max (W4 packs); stacked_mlp_kernel the
 whole MLP block at B·T <= stacked_bt_max; gate_kernel the prefill qkv and
-w13+gate epilogue kernels (the qkv one on the int8 cache only); attn_kernel
+w13+gate epilogue kernels (the qkv one on W4 packs over the int8 cache
+only, as in the JAX engine); attn_kernel
 the prefill attention kernel and, at T = 1, the decode attention kernel over
 the int8 cache; kv4_attn_kernel the staged attention over the int4 cache;
 w4_matmul every other W4 projection and the W4 head through the W4A8 kernel;
 w8_matmul every other W8 projection of at most 32 rows through the W8A8
-kernel. The whole-step, whole-layer, MLP-block and epilogue kernels take W4
+kernel. The whole-step, whole-layer, MLP-block and w13+gate kernels take W4
 and W8 packs alike, each in the edition of the pack's bit width; a W8
 projection or head that no flag routes takes the plain integer matmul, as in
-the JAX engine. The JAX engine keeps its W8 prefill qkv in XLA for a reason
-of the TPU (a custom-call boundary there cost more than the epilogue saved);
-here the epilogue kernel runs on W8 packs as on W4 ones. Routing reads static
+the JAX engine (the qkv epilogue kernel's W8 edition is built and tested, but
+no JAX route takes it, so no route here does). Routing reads static
 predicates only (shapes, config, flags). With no flag set the same
 function runs in PyTorch operators alone (the plain engine, the counterpart
 of the JAX engine's XLA body). The whole-layer, whole-model and chunk kernels
@@ -59,8 +59,8 @@ chunk when staged; decode_loop stages at every B on it.
 Out of this slice (NotImplementedError): MoE, parallel residual, 2-linear
 MLPs, layernorm models, policies with the q/k/v or w1/w3 output sites off,
 attn_kernel on the int4 cache (the JAX engine refuses it too), the o-tail
-kernel on W8 packs, kernel flags on W8 packs over the int4 cache,
-context/tensor parallelism and weight-only mode.
+kernel on W8 packs, and context/tensor parallelism. Weight-only mode
+(act_bits = 16) is runtime/wonly.py.
 """
 
 from __future__ import annotations
@@ -135,6 +135,12 @@ class EngineConfig:
                                 # reads at serving batches; the policy carries
                                 # the matching 4-bit qk / pv input2 sites
     head_bits: int = 16         # 16 = fp head; 8/4 = quantized head (pack_head)
+    act_bits: int = 8           # 8: this integer engine; 16: weight-only mode
+                                # (W4A16 / W8A16, runtime/wonly.py: fp
+                                # activations and KV cache, packs dequantized
+                                # on the fly)
+    act_dtype: torch.dtype = torch.float32   # weight-only mode's activations
+                                             # and KV cache
 
 
 # ---------------------------------------------------------------------------
@@ -747,10 +753,11 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
     h = _norm(x, ly["attn_norm"], l, "input_layernorm", lr, policy, c)
     h8, hr = out_q8(h, "input_layernorm")
     qkvp = ly["qkv_proj"]
-    if kc.gate_kernel and T > 1 and kv_bits == 8:
+    if kc.gate_kernel and T > 1 and kv_bits == 8 and _is_w4(qkvp, D):
         # (the epilogue kernel clips every row at 255: on the int4 cache the
-        # K / V rows take the per-segment 15 of the plain path below)
-        # stacked W4 or W8 qkv matmul + output fq + RoPE + segment quantization
+        # K / V rows take the per-segment 15 of the plain path below; W4 packs
+        # only, as in the JAX engine, which measured its W8 edition negative)
+        # stacked W4 qkv matmul + output fq + RoPE + segment quantization
         q8kv = qkv_rope(h8.reshape(B * T, D), qkvp, prep["ofq"][l], prep["outq"][l],
                         prep["cs"], hr["scale"], hr["offset"], l, hd, c.rotary_dim)
         q8 = q8kv[:, :qd].reshape(B, T, Hq, hd)
@@ -904,10 +911,6 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
     tokens = torch.as_tensor(tokens, device=dev).to(torch.long)
     B, T = tokens.shape
     kv_bits = policy_kv_bits(policy)
-    if kv_bits == 4 and kc.any_kernel and not _is_w4(packed["layers"]["qkv_proj"],
-                                                     c.hidden_size):
-        raise NotImplementedError("W8 packs on the int4 cache run the plain path only "
-                                  "(KernelConfig.none()): that route is not ported")
     staging = None
     if isinstance(kv_cache, StagedKVCache):
         if T != 1 or kc.attn_kernel:

@@ -3,8 +3,8 @@
 Prefill runs the prompt in one pass (KernelConfig.prefill()): the qkv, attention
 and w13+gate kernels with the W4A8 kernel for o-proj, w2 and the one-row
 head, or the whole-MLP-block kernel in every layer when B·T <= 64; on a W8A8
-pack the W8 editions of the same kernels, with o-proj, w2 and the W8 head on
-the plain integer matmul (as in the JAX engine).
+pack the W8 editions of the w13+gate and MLP-block kernels, with qkv, o-proj,
+w2 and the W8 head on the plain integer matmul (as in the JAX engine).
 generate_fast decodes with engine.decode_loop's entry config
 (KernelConfig.serving, as the JAX Generator's decode_loop(use_pallas=True)):
 at B <= 8 non-staged T=1 steps, each one launch of the whole-model kernel; at
@@ -16,8 +16,14 @@ staged step). On the int4 cache (EngineConfig.kv_bits = 4 with a 4-bit KV
 policy) the prefill is the same kernel set without the qkv epilogue kernel
 (the engine gates it: it clips K / V rows at the 8-bit bound) and decode is
 staged at every B, its attention one kv4 kernel launch per layer and step.
-On a CPU device the kernel wrappers run their plain versions (tests); the
-default device is the GPU, and a GPU device without CUDA raises.
+Weight-only mode (EngineConfig.act_bits = 16, a pack of
+runtime/wonly.pack_weight_only): the same Generator drives runtime/wonly.py
+instead, as the JAX one does. Its prefill takes no kernel (the dequantized
+weight once a layer, then a plain matmul); its decode takes the weight-only
+kernel (wonly_matmul_stacked) for every projection and, with a W4 head, the
+W4A8 kernel for the head; the KV cache is fp in act_dtype and the policy is
+not read. On a CPU device the kernel wrappers run their plain versions
+(tests); the default device is the GPU, and a GPU device without CUDA raises.
 """
 
 from __future__ import annotations
@@ -31,14 +37,16 @@ import torch
 from mobilequant_tpu_torch.models.config import ModelConfig
 from mobilequant_tpu_torch.quant.policy import QPolicy, policy_kv_bits
 from mobilequant_tpu_torch.runtime import engine as E
+from mobilequant_tpu_torch.runtime import wonly as W
 from mobilequant_tpu_torch.runtime.kernel_config import KernelConfig
 from mobilequant_tpu_torch.runtime.sampling import loop_next_token
 
 
 class Generator:
-    """Prefill + decode over a packed W4A8 or W8A8 model on one device."""
+    """Prefill + decode over a packed W4A8 or W8A8 model, or a weight-only
+    (W4A16 / W8A16) one, on one device."""
 
-    def __init__(self, packed: dict, config: ModelConfig, policy: QPolicy,
+    def __init__(self, packed: dict, config: ModelConfig, policy: Optional[QPolicy],
                  ecfg: Optional[E.EngineConfig] = None, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -47,28 +55,44 @@ class Generator:
         self.config = config
         self.policy = policy
         self.ecfg = ecfg or E.EngineConfig(model=config)
-        if policy_kv_bits(policy) != self.ecfg.kv_bits:
-            raise ValueError("policy KV bitwidth must match EngineConfig.kv_bits")
         self.packed = E.packed_to(packed, self.device)
-        self.prefill_kc = KernelConfig.prefill()
+        if self.ecfg.act_bits == 16:
+            # weight-only: runtime/wonly.py, signature-compatible with the
+            # engine; its prefill takes no kernel (as the JAX Generator's)
+            self._mod = W
+            self.prefill_kc = KernelConfig.none()
+        else:
+            if policy_kv_bits(policy) != self.ecfg.kv_bits:
+                raise ValueError("policy KV bitwidth must match EngineConfig.kv_bits")
+            self._mod = E
+            self.prefill_kc = KernelConfig.prefill()
         self.decode_kc: Optional[KernelConfig] = None   # None: decode_loop's entry config
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def prefill(self, tokens: torch.Tensor, cache: E.EngineKVCache):
+    def init_cache(self, batch: int):
+        return self._mod.init_kv_cache(self.ecfg, batch, device=self.device)
+
+    def prefill(self, tokens: torch.Tensor, cache):
         """Prompt (B, T) -> (last-position logits (B, V), cache)."""
         B, T = tokens.shape
-        logits, cache = E.forward(
-            self.packed, tokens, self.config, self.policy,
-            positions=torch.arange(T, device=self.device)[None].expand(B, T),
-            kv_cache=cache,
-            cache_position=torch.zeros((B,), dtype=torch.int32, device=self.device),
-            kv_valid_len=torch.full((B,), T, dtype=torch.int32, device=self.device),
-            kc=self.prefill_kc,
-            logits_at=torch.full((B,), T - 1, dtype=torch.int32, device=self.device))
+        kw = dict(positions=torch.arange(T, device=self.device)[None].expand(B, T),
+                  kv_cache=cache,
+                  cache_position=torch.zeros((B,), dtype=torch.int32, device=self.device),
+                  kv_valid_len=torch.full((B,), T, dtype=torch.int32, device=self.device),
+                  logits_at=torch.full((B,), T - 1, dtype=torch.int32, device=self.device))
+        logits, cache = self._mod.forward(self.packed, tokens, self.config, self.policy,
+                                          kc=self.prefill_kc, **kw)
         return logits[:, -1], cache
+
+    def decode(self, token: torch.Tensor, cache, pos: torch.Tensor, n_steps: int,
+               temperature: float = 0.0, generator: Optional[torch.Generator] = None):
+        """n_steps of decode from token (B, 1) at positions pos (B,) -> (tokens
+        (B, n_steps), cache, last logits (B, V))."""
+        return self._mod.decode_loop(self.packed, token, cache, pos, n_steps, self.config,
+                                     self.policy, self.decode_kc, temperature, generator)
 
     def generate_fast(self, prompt_tokens, max_new_tokens: int,
                       temperature: float = 0.0, seed: int = 0,
@@ -80,7 +104,7 @@ class Generator:
         tokens = torch.as_tensor(np.asarray(prompt_tokens), device=self.device).to(torch.long)
         B, T0 = tokens.shape
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        cache = E.init_kv_cache(self.ecfg, B, device=self.device)
+        cache = self.init_cache(B)
         self._sync()
         t0 = time.perf_counter()
         last, cache = self.prefill(tokens, cache)
@@ -94,8 +118,7 @@ class Generator:
         while n_done < max_new_tokens:
             n = min(chunk, max_new_tokens - n_done)
             pos = torch.full((B,), T0 + n_done - 1, dtype=torch.int32, device=self.device)
-            toks, cache, _ = E.decode_loop(self.packed, token, cache, pos, n, self.config,
-                                           self.policy, self.decode_kc, temperature, gen)
+            toks, cache, _ = self.decode(token, cache, pos, n, temperature, gen)
             pieces.append(toks)
             n_done += n
             token = toks[:, -1:]
@@ -116,7 +139,7 @@ class Generator:
         """Greedy step-by-step generation (EOS checked after every token)."""
         tokens = torch.as_tensor(np.asarray(prompt_tokens), device=self.device).to(torch.long)
         B, T0 = tokens.shape
-        cache = E.init_kv_cache(self.ecfg, B, device=self.device)
+        cache = self.init_cache(B)
         self._sync()
         t0 = time.perf_counter()
         last, cache = self.prefill(tokens, cache)
@@ -132,10 +155,11 @@ class Generator:
             if step == max_new_tokens - 1:
                 break
             pos = torch.full((B,), T0 + step, dtype=torch.int32, device=self.device)
-            logits, cache = E.forward(self.packed, token[:, None], self.config, self.policy,
-                                      positions=pos[:, None], kv_cache=cache,
-                                      cache_position=pos, kv_valid_len=pos + 1,
-                                      kc=self.decode_kc or KernelConfig.decode())
+            kw = dict(positions=pos[:, None], kv_cache=cache, cache_position=pos,
+                      kv_valid_len=pos + 1)
+            logits, cache = self._mod.forward(self.packed, token[:, None], self.config,
+                                              self.policy,
+                                              kc=self.decode_kc or KernelConfig.decode(), **kw)
             last = logits[:, 0]
         self._sync()
         t_decode = time.perf_counter() - t_dec

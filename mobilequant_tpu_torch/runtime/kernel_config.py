@@ -21,9 +21,9 @@ class KernelConfig:
                                 # plain integer matmul, as in the JAX engine)
     w8_matmul: bool = False     # W8 projections of at most 32 rows through
                                 # ops/w8a8_matmul (the JAX "all" set)
-    gate_kernel: bool = False   # prefill qkv epilogue kernel (ops/qkv_rope) and
-                                # w13+gate epilogue kernel (ops/w13_gate), W4
-                                # and W8 packs
+    gate_kernel: bool = False   # prefill qkv epilogue kernel (ops/qkv_rope, W4
+                                # packs, as in the JAX engine) and w13+gate
+                                # epilogue kernel (ops/w13_gate, W4 and W8)
     attn_kernel: bool = False   # attention kernels over the int8 cache: the
                                 # prefill kernel (ops/prefill_attention) at
                                 # T > 1, the decode kernel

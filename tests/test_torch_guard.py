@@ -60,8 +60,10 @@ def test_generator_on_cuda_refuses_without_a_card():
 def test_unported_configurations_raise():
     """What stays unported raises: attn_kernel on the int4 cache (the JAX
     engine refuses it too), the o-tail kernel on W8 packs (its W8 edition is
-    not ported), kernel flags on W8 packs over the int4 cache, MoE
-    configurations. W8 packs under the other kernel flags run (test_torch_w8)."""
+    not ported), MoE configurations in the integer engine. W8 packs under the
+    other kernel flags run (test_torch_w8), on the int4 cache too: the entry
+    config's decode_loop (kc=None) and the prefill kernel set run there
+    (test_torch_w8_kv4 holds them against the JAX package)."""
     from mobilequant_tpu_torch.convert import build_synthetic_packed
     from mobilequant_tpu_torch.quant.policy import relax_16bit
     from mobilequant_tpu_torch.runtime import engine as E
@@ -89,9 +91,11 @@ def test_unported_configurations_raise():
     packed, cfg, policy, ecfg = build_synthetic_packed("test-llama-256", w_bits=8,
                                                        max_seq_len=32, device="cpu", kv_bits=4)
     policy = relax_16bit(policy)
-    with pytest.raises(NotImplementedError, match="int4 cache"):
-        E.decode_loop(packed, tok, E.init_kv_cache(ecfg, 1, device="cpu"), pos, 2, cfg,
-                      policy, kc=None)
+    toks, cache, last = E.decode_loop(packed, tok, E.init_kv_cache(ecfg, 1, device="cpu"),
+                                      pos, 2, cfg, policy, kc=None)               # runs
+    assert toks.shape == (1, 2) and bool(torch.isfinite(last).all())
+    E.forward(packed, prompt, cfg, policy, kv_cache=E.init_kv_cache(ecfg, 1, device="cpu"),
+              cache_position=pos, kc=KernelConfig.prefill())                      # runs
     E.decode_loop(packed, tok, E.init_kv_cache(ecfg, 1, device="cpu"), pos, 2, cfg, policy,
                   kc=KernelConfig.none())                                         # runs
 
