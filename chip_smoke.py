@@ -81,9 +81,25 @@
      32-step B=32 chunk on that route, with the kv4 kernel's plain version,
      on the plain engine's numerics (kv4_engine_numerics) and on the plain
      path;
+   - phase 2m: the alternate MLP routes' kernels against their plain
+     versions on the W8A8/h8 pack (and the W4A8 one for row 19): fused_mlp
+     (M = 1, 8, 128; its raw sums and row sums exactly), fused_mlp_block
+     (M = 1 mxu and vpu, 8, 128 RMSNorm, 8 LayerNorm), the W8 o-tail (M =
+     32, 128) and w13_gate_w2 W4 / W8 (M = 128, 1024) beside its split path
+     (w13_gate, then the w2 matmul of the JAX split route); rows 16 and 17
+     also at the test-llama width;
+   - phase 3m: the routes through the entry points on the W8A8/h8 pack:
+     Generator(EngineConfig(use_pallas="mlp" / "mlpblock" / "mlpblockvpu"))
+     .generate_fast at B=1 (128-token prompt, 64 new tokens; one launch of
+     the route's kernel a layer and step), the W8 o-tail route
+     (KernelConfig.otail()) at B = 32 and 128 with its 32-step B=32 chunk
+     against its kernel's plain version and the plain path, the same chunk
+     on the "mlp" and "mlpblock" routes against the plain path, and the T=128
+     prefill on KernelConfig.prefill() with and without w2fold_kernel (W4A8
+     and W8A8): wall, device time, launches;
    the decode-attention rows of phase 2, the int4-cache phase, the attn()
-   phase and phases 2q, 3w and 3f draw their inputs from generators of their
-   own, so what they draw moves no input of the other checks;
+   phase and phases 2q, 3w, 3f, 2m and 3m draw their inputs from generators
+   of their own, so what they draw moves no input of the other checks;
 4. prints one JSON line of per-kernel numbers, then the result line.
 
 Any failure exits non-zero before the result line. Without a CUDA device, or
@@ -95,6 +111,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import io
 import json
 import re
@@ -112,6 +129,17 @@ SEED = 0
 PROMPT_LEN, NEW_TOKENS, MAX_SEQ = 128, 64, 1024
 SHORT_PROMPT, PER_LAYER_STEPS, POS0 = 32, 8, 192
 SERVE_B, BIG_B, BIG_STEPS, STAGED_M, CHUNK_COLS = 32, 128, 8, 16, 32
+# the W8 o-tail route's 32-step B=32 chunk against the plain path: (logits
+# rel, max int8 step, share of differing flushed bytes), about twice the
+# first reading on the card (3.78e-3; 2 steps on 0.26% / 0.30% of the K / V
+# bytes), as phase 3e holds its chunk
+OTAIL_W8_VS_PLAIN = (8e-3, 63, 6e-3)
+# the same chunk on the "mlp" route against the plain path: exact, as first
+# read on the card (row 16's sums are exact and the engine's w2 epilogue is
+# the plain path's own code); on the "mlpblock" route: about twice the first
+# reading (3.78e-3; 2 steps on 0.26% / 0.30% of the bytes, as the o-tail's)
+MLP_W8_VS_PLAIN = (0.0, 0, 0.0)
+MLPBLOCK_W8_VS_PLAIN = (8e-3, 63, 6e-3)
 
 
 def fail(msg: str) -> None:
@@ -325,11 +353,15 @@ def main() -> None:
         from mobilequant_tpu_torch.ops.otail import (
             fused_otail_block_w4, fused_otail_block_w4_plain)
         from mobilequant_tpu_torch.ops.staged_append import staged_append, staged_append_plain
+        from mobilequant_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+        from mobilequant_tpu_torch.ops.fused_mlp_block import (
+            fused_mlp_block, fused_mlp_block_plain)
+        from mobilequant_tpu_torch.ops.w13_gate_w2 import w13_gate_w2, w13_gate_w2_plain
         from mobilequant_tpu_torch.ops.fused_layer import (
             fused_layer_w4, fused_layer_w4_plain, fused_model_w4, fused_model_w4_plain)
         from mobilequant_tpu_torch.ops.mlp_block import (
-            DP4A_ROWS, fused_mlp_block_w4, fused_mlp_block_w4_plain, mlp_args, ptr,
-            rows_workspace)
+            DP4A_ROWS, MLP_BLOCK, fused_mlp_block_w4, fused_mlp_block_w4_plain, mlp_args,
+            mlp_tiles)
         from mobilequant_tpu_torch.ops.prefill_attention import (
             prefill_attention, prefill_attention_plain)
         from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope, qkv_rope_plain
@@ -557,12 +589,16 @@ def main() -> None:
     # the wrapper's fork at mlp_block.DP4A_ROWS: both MLP-block kernels at
     # M = 1..8 (on inputs of their own, so that the later phases' inputs do
     # not depend on this comparison)
-    def mlp_entry(entry, x, layer):
-        keep = []
-        a, out = mlp_args(x, mn["w"], mn["b"], w13p, w2p, bmeta, layer, cfg.hidden_act, keep)
-        a.ws = ptr(rows_workspace(dev, x.shape[0], max(2 * F, D)))   # holds either layout
-        _build.check(getattr(_build.lib(), entry)(ctypes.addressof(a), _build.stream_ptr(dev)),
-                     entry)
+    def mlp_entry(kname, x, layer):
+        if kname == "row":
+            code, out, _ = mlp_tiles(MLP_BLOCK, x, w13p, w2p, bmeta, layer, cfg.hidden_act,
+                                     mn["w"], mn["b"])
+        else:
+            keep = []
+            a, out = mlp_args(x, mn["w"], mn["b"], w13p, w2p, bmeta, layer, cfg.hidden_act,
+                              keep)
+            code = _build.lib().mqt_fused_mlp_block(ctypes.addressof(a), _build.stream_ptr(dev))
+        _build.check(code, f"fused_mlp_block_w4 {kname} kernel")
         return out
 
     fgen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -570,9 +606,9 @@ def main() -> None:
         x = torch.randn((Mr, D), generator=fgen, device=dev)
         ref = mlp_plain(x)
         plain_ms = time_ms(lambda i, x=x: mlp_plain(x), n=5)
-        for entry, kname in (("mqt_fused_mlp_block", "dp4a"), ("mqt_fused_mlp_rows", "row")):
-            err = float_err(mlp_entry(entry, x, 1), ref)
-            ms = time_ms(lambda i, x=x, entry=entry: mlp_entry(entry, x, i % L))
+        for kname in ("dp4a", "row"):
+            err = float_err(mlp_entry(kname, x, 1), ref)
+            ms = time_ms(lambda i, x=x, kname=kname: mlp_entry(kname, x, i % L))
             took = (Mr <= DP4A_ROWS) == (kname == "dp4a")
             record("fused_mlp_block_w4", f"M={Mr} {kname} kernel{' (wrapper)' if took else ''}",
                    err, err[1] <= 2e-3, ms, plain_ms, None, mlp_bound(Mr))
@@ -895,8 +931,9 @@ def main() -> None:
 
     # the per-layer route: KernelConfig.decode_per_layer(), one whole-layer
     # launch per layer and decode step
-    gpl = Generator(packed, cfg, policy, ecfg, device=dev)
-    gpl.decode_kc = KernelConfig.decode_per_layer()
+    gpl = Generator(packed, cfg, policy,
+                    dataclasses.replace(ecfg, use_pallas=KernelConfig.decode_per_layer()),
+                    device=dev)
     gpl.generate_fast(prompt, 2)
     toks_pl, stats_pl = counted("per_layer", lambda: gpl.generate_fast(
         prompt, PER_LAYER_STEPS + 1, return_stats=True))
@@ -914,7 +951,7 @@ def main() -> None:
     start = torch.full((1,), PROMPT_LEN, dtype=torch.int32, device=dev)
     tok0 = torch.zeros((1, 1), dtype=torch.long, device=dev)
     dec_dev, dec_top, dec_n = device_profile(lambda: E.decode_loop(
-        g.packed, tok0, pcache, start, 8, cfg, policy, g.decode_kc))
+        g.packed, tok0, pcache, start, 8, cfg, policy, g.ecfg.use_pallas))
     pl_dev, pl_top, pl_n = device_profile(lambda: E.decode_loop(
         g.packed, tok0, pcache, start, 8, cfg, policy, KernelConfig.decode_per_layer()))
     step_ms = 1e3 / stats["decode_tok_s"]
@@ -1074,9 +1111,9 @@ def main() -> None:
                 "loop_tok_s": Bq * 1e3 / wall, "profiled_steps": n_p,
                 "top_kernels": [(k, ms / n_p, c / n_p) for k, ms, c in top]}
 
-    for rname, kc_r in (("staged", None), ("chunk", KernelConfig.chunk())):
-        gs = Generator(packed, cfg, policy, ecfg, device=dev)
-        gs.decode_kc = kc_r
+    for rname, kc_r in (("staged", True), ("chunk", KernelConfig.chunk())):
+        gs = Generator(packed, cfg, policy, dataclasses.replace(ecfg, use_pallas=kc_r),
+                       device=dev)
         for tag, pr, n_new in (("b32", p32, NEW_TOKENS), ("b128", p128, BIG_STEPS + 1)):
             gs.generate_fast(pr, 3)                      # warm-up
             route = f"{tag}_{rname}"
@@ -1102,8 +1139,8 @@ def main() -> None:
             if got != want:
                 failures.append(f"{route}: launches {got}, expected {want}")
 
-    gs = Generator(packed, cfg, policy, ecfg, device=dev)
-    gs.decode_kc = KernelConfig.otail()
+    gs = Generator(packed, cfg, policy,
+                   dataclasses.replace(ecfg, use_pallas=KernelConfig.otail()), device=dev)
     gs.generate_fast(p32, 3)
     _, stt = counted("b32_otail", lambda: gs.generate_fast(p32, BIG_STEPS + 1,
                                                            return_stats=True))
@@ -1294,8 +1331,8 @@ def main() -> None:
     # PER_LAYER_STEPS B=1 decode steps, each writing its row into the int8
     # cache and launching the decode attention kernel once per layer
     print("phase 3d: the attn() route (int8 decode attention kernel), B=1", flush=True)
-    ga = Generator(packed, cfg, policy, ecfg, device=dev)
-    ga.decode_kc = KernelConfig.attn()
+    ga = Generator(packed, cfg, policy, dataclasses.replace(ecfg, use_pallas=KernelConfig.attn()),
+                   device=dev)
     ga.generate_fast(prompt, 2)
     toks_a, stats_a = counted("attn_b1", lambda: ga.generate_fast(
         prompt, PER_LAYER_STEPS + 1, return_stats=True))
@@ -1597,14 +1634,15 @@ def main() -> None:
     w8_route("w8_short_prompt", g8, prompt8[:, :SHORT_PROMPT], 8, 7,
              {"fused_mlp_block_w4": L, "w13_gate": 0, "fused_model_w4": 7})
     # the per-layer route: one W8 whole-layer launch per layer and step
-    gpl8 = Generator(packed8, cfg, policy8, ecfg8, device=dev)
-    gpl8.decode_kc = KernelConfig.decode_per_layer()
+    gpl8 = Generator(packed8, cfg, policy8,
+                     dataclasses.replace(ecfg8, use_pallas=KernelConfig.decode_per_layer()),
+                     device=dev)
     w8_route("w8_per_layer", gpl8, prompt8, PER_LAYER_STEPS + 1, PER_LAYER_STEPS,
              {"fused_layer_w4": PER_LAYER_STEPS * L, "fused_model_w4": 0})
     # the attn_all() route: W8 qkv and o through w8a8_matmul, the int8 decode
     # attention kernel and the W8 MLP block in every layer
-    gaa8 = Generator(packed8, cfg, policy8, ecfg8, device=dev)
-    gaa8.decode_kc = KernelConfig.attn_all()
+    gaa8 = Generator(packed8, cfg, policy8,
+                     dataclasses.replace(ecfg8, use_pallas=KernelConfig.attn_all()), device=dev)
     w8_route("w8_attn_all", gaa8, prompt8, PER_LAYER_STEPS + 1, PER_LAYER_STEPS,
              {"w8a8_matmul": 2 * L * PER_LAYER_STEPS, "decode_attention": L * PER_LAYER_STEPS,
               "fused_mlp_block_w4": L * PER_LAYER_STEPS, "fused_model_w4": 0})
@@ -2001,6 +2039,246 @@ def main() -> None:
             failures.append(f"{tag} W8 kv4 chunk vs {ref}: flushed rows {e_k} {e_v}")
     del packed8k, g8k, c8k
 
+    # ---- phase 2m: the alternate MLP routes' kernels against their plain versions
+    # (inputs from a generator of their own, so the earlier phases' inputs
+    # stay as they were). Rows 16 and 17 on the W8A8/h8 pack's per-layer
+    # packs, row 18's W8 edition and row 19 (W4 and W8) on the stacked ones;
+    # the layer rotates while timing (22 layers of 34.6 MB of W8 MLP weights
+    # a pass, past the 50 MB L2). Row 19 beside its split path: w13_gate then
+    # the w2 matmul the JAX split route runs (W4: w4a8_matmul_stacked; W8:
+    # the plain integer matmul). Rows 16 and 17 also at the test-llama width
+    # (hidden 64, F 128), the narrowest the tile kernel takes.
+    print("phase 2m: alternate MLP routes' kernels vs plain versions, TinyLlama-1.1B",
+          flush=True)
+    mgen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    meta16 = meta8[:16]
+    w13_vec = 2 * F * 4 * 4                                 # scale / offset / colsum / bias
+    mlp_routes = {}
+    for Mr in (1, 8, PROMPT_LEN):
+        h8m = torch.randint(-128, 128, (Mr, D), generator=mgen, device=dev, dtype=torch.int8)
+        out = fused_mlp(h8m, layer_pack(w13w, 1), layer_pack(w2w, 1), meta16, cfg.hidden_act)
+        ref = fused_mlp_plain(h8m, layer_pack(w13w, 1), layer_pack(w2w, 1), meta16,
+                              cfg.hidden_act)
+        e_acc, e_rs = float_err(out[0], ref[0]), float_err(out[1], ref[1])
+        ms = time_ms(lambda i, h=h8m: fused_mlp(h, layer_pack(w13w, i % L), layer_pack(w2w, i % L),
+                                                meta16, cfg.hidden_act))
+        plain_ms = time_ms(lambda i, h=h8m: fused_mlp_plain(
+            h, layer_pack(w13w, 1), layer_pack(w2w, 1), meta16, cfg.hidden_act), n=5)
+        record("fused_mlp", f"M={Mr} {D}->2x{F}->{D} raw sums", (max(e_acc[0], e_rs[0]),
+               max(e_acc[1], e_rs[1])), e_acc[0] == 0 and e_rs[0] == 0, ms, plain_ms, None,
+               bound(Mr * D + mlp_w8 + w13_vec + Mr * D * 4 + Mr * 4,
+                     int8_ops=2.0 * Mr * (D * 2 * F + F * D)),
+               note="acc and rsum held exactly", main=Mr == 1)
+    x_ln = None
+    for Mr, nk, mk in ((1, "rmsnorm", "mxu"), (1, "rmsnorm", "vpu"), (8, "rmsnorm", "mxu"),
+                       (PROMPT_LEN, "rmsnorm", "mxu"), (8, "layernorm", "mxu")):
+        x = torch.randn((Mr, D), generator=mgen, device=dev)
+        args = (mn8["w"][1], mn8["b"][1], layer_pack(w13w, 1), layer_pack(w2w, 1), meta8,
+                cfg.hidden_act, nk)
+        out = fused_mlp_block(x, *args, mk)
+        err = float_err(out, fused_mlp_block_plain(x, *args))
+        ms = time_ms(lambda i, x=x, nk=nk, mk=mk: fused_mlp_block(
+            x, mn8["w"][i % L], mn8["b"][i % L], layer_pack(w13w, i % L), layer_pack(w2w, i % L),
+            meta8, cfg.hidden_act, nk, mk))
+        plain_ms = time_ms(lambda i, x=x: fused_mlp_block_plain(x, *args), n=5)
+        record("fused_mlp_block", f"M={Mr} {nk} {mk} {D}->2x{F}->{D}", err, err[1] <= 2e-3,
+               ms, plain_ms, None,
+               bound(2 * Mr * D * 4 + mlp_w8 + mlp_vec, int8_ops=2.0 * Mr * (D * 2 * F + F * D)),
+               main=(Mr, mk) == (1, "mxu"))
+    # row 18's W8 edition at M = 32 and 128
+    op8 = ly8["o_proj"]
+    omet8 = meta8 + E._otail_meta_ext(lr8, policy8)
+    oso8 = E._otail_site_on(policy8)
+    for Mr in (SERVE_B, BIG_B):
+        x = torch.randn((Mr, D), generator=mgen, device=dev)
+        a8 = torch.randint(-128, 128, (Mr, Ko), generator=mgen, device=dev, dtype=torch.int8)
+        out = fused_otail_block_w4(a8, x, op8, mn8["w"], mn8["b"], w13w, w2w, omet8, 1,
+                                   cfg.hidden_act, so8, oso8)
+        plain = lambda i, x=x, a8=a8: fused_otail_block_w4_plain(    # noqa: E731
+            a8, x, layer_pack(op8, 1), mn8["w"][1], mn8["b"][1], layer_pack(w13w, 1),
+            layer_pack(w2w, 1), omet8, cfg.hidden_act, so8, oso8)
+        err = float_err(out, plain(0))
+        ms = time_ms(lambda i, x=x, a8=a8: fused_otail_block_w4(
+            a8, x, op8, mn8["w"], mn8["b"], w13w, w2w, omet8, i % L, cfg.hidden_act, so8, oso8))
+        plain_ms = time_ms(plain, n=5)
+        record("fused_otail_block_w4[w8]", f"M={Mr} {Ko}->{D} + MLP block", err, err[1] <= 2e-3,
+               ms, plain_ms, None,
+               bound(Mr * Ko + 2 * Mr * D * 4 + Ko * D + mlp_w8 + mlp_vec + D * 16,
+                     int8_ops=2.0 * Mr * (Ko * D + D * 2 * F + F * D)),
+               main=Mr == SERVE_B)
+    # row 19, W4 (the W4A8 pack of phases 2-3) and W8, at M = 128 and 1024
+    lr4 = E.layer_ranges(packed["ranges"], 1)
+    meta4, so4 = E._mlp_block_meta(lr4, policy, cfg), E._mlp_block_site_on(policy)
+    mlp_w4 = D * F + F * D // 2
+    for wb, pk, met, so, wbytes in ((4, ly, meta4, so4, mlp_w4), (8, ly8, meta8, so8, mlp_w8)):
+        w13p, w2p = pk["w13_proj"], pk["w2"]
+        name = "w13_gate_w2" if wb == 4 else "w13_gate_w2[w8]"
+        for Mr in (PROMPT_LEN, MAX_SEQ):
+            h8m = torch.randint(-128, 128, (Mr, D), generator=mgen, device=dev, dtype=torch.int8)
+            out = w13_gate_w2(h8m, w13p, w2p, met, 1, cfg.hidden_act, so[1:5])
+            ref = w13_gate_w2_plain(h8m, layer_pack(w13p, 1), layer_pack(w2p, 1), met,
+                                    cfg.hidden_act, so[1:5])
+            err = float_err(out, ref)
+            ms = time_ms(lambda i, h=h8m: w13_gate_w2(h, w13p, w2p, met, i % L, cfg.hidden_act,
+                                                      so[1:5]))
+            plain_ms = time_ms(lambda i, h=h8m: w13_gate_w2_plain(
+                h, layer_pack(w13p, 1), layer_pack(w2p, 1), met, cfg.hidden_act, so[1:5]), n=5)
+            w2in = lr4["mlp.w2"]["input"] if wb == 4 else lr8["mlp.w2"]["input"]
+
+            def split(i, h=h8m, w13p=w13p, w2p=w2p, met=met, so=so, wb=wb, w2in=w2in):
+                a = w13_gate(h, w13p, met, i % L, cfg.hidden_act, so[1:5])
+                if wb == 4:
+                    return w4a8_matmul_stacked(a, w2p, w2in["scale"], w2in["offset"], i % L)
+                return E._int_linear(a, w2in, w2p, i % L, KernelConfig(w4_matmul=True))
+            split_ms = time_ms(split, n=5)
+            mlp_routes[f"{name} M={Mr} split_ms"] = split_ms
+            record(name, f"M={Mr} {D}->2x{F}->{D}", err, err[1] <= 2e-3, ms, plain_ms, None,
+                   bound(Mr * D + wbytes + w13_vec + D * 16 + Mr * D * 4,
+                         int8_ops=2.0 * Mr * (D * 2 * F + F * D)),
+                   note=f"split path (w13_gate, then the w2 matmul of the JAX split route) "
+                        f"{split_ms:.4f} ms", main=Mr == PROMPT_LEN)
+    # the test-llama width (hidden 64, F 128): the tile kernel's narrowest shapes
+    packed_t, cfg_t, pol_t, _ = build_synthetic_packed("test-llama", w_bits=8, head_bits=8,
+                                                       max_seq_len=64, seed=SEED, device=dev)
+    pol_t = relax_16bit(pol_t)
+    lyt = packed_t["layers"]
+    met_t = E._mlp_block_meta(E.layer_ranges(packed_t["ranges"], 1), pol_t, cfg_t)
+    w13t, w2t = layer_pack(lyt["w13_proj"], 1), layer_pack(lyt["w2"], 1)
+    ht = torch.randint(-128, 128, (5, cfg_t.hidden_size), generator=mgen, device=dev,
+                       dtype=torch.int8)
+    xt = torch.randn((5, cfg_t.hidden_size), generator=mgen, device=dev)
+    nargs = (lyt["mlp_norm"]["w"][1], lyt["mlp_norm"]["b"][1], w13t, w2t, met_t)
+    narrow = {"fused_mlp": [float_err(a, r) for a, r in zip(
+                  fused_mlp(ht, w13t, w2t, met_t[:16]), fused_mlp_plain(ht, w13t, w2t,
+                                                                          met_t[:16]))],
+              "fused_mlp_block": [float_err(fused_mlp_block(xt, *nargs, norm_kind=nk),
+                                            fused_mlp_block_plain(xt, *nargs, norm_kind=nk))
+                                  for nk in ("rmsnorm", "layernorm")]}
+    mlp_routes["test_llama_width_errors"] = narrow
+    print(f"  test-llama width (M=5, hidden 64, F 128): fused_mlp {narrow['fused_mlp']}, "
+          f"fused_mlp_block (rms, ln) {narrow['fused_mlp_block']}", flush=True)
+    if any(e[0] for e in narrow["fused_mlp"]) \
+            or any(e[1] > 2e-3 for e in narrow["fused_mlp_block"]):
+        failures.append(f"rows 16 / 17 at the test-llama width: {narrow}")
+    del packed_t
+
+    # ---- phase 3m: the alternate MLP routes through the entry points ---------
+    print("phase 3m: the alternate MLP routes, TinyLlama-1.1B W8A8/h8 (W4A8/h4 for the "
+          "w2-folded prefill)", flush=True)
+    # B=1 generate_fast on EngineConfig(use_pallas=<legacy mode>): the prefill
+    # set, then every decode step staged with the route's kernel in each layer
+    # (these host-bound routes' per-step loop readings over PER_LAYER_STEPS
+    # steps, which keeps the run near ten minutes)
+    steps = NEW_TOKENS - 1
+    for mode, kernel in (("mlp", "fused_mlp"), ("mlpblock", "fused_mlp_block"),
+                         ("mlpblockvpu", "fused_mlp_block")):
+        gm = Generator(packed8, cfg, policy8, dataclasses.replace(ecfg8, use_pallas=mode),
+                       device=dev)
+        w8_route(f"w8_{mode}", gm, prompt8, NEW_TOKENS, PER_LAYER_STEPS,
+                 {kernel: L * steps, "staged_append": steps, "fused_model_w4": 0,
+                  "fused_mlp_block_w4": 0, "w13_gate": L, "prefill_attention": L})
+    # the W8 staged route under KernelConfig.otail() at B = 32 and 128
+    go8 = Generator(packed8, cfg, policy8,
+                    dataclasses.replace(ecfg8, use_pallas=KernelConfig.otail()), device=dev)
+    w8_route("w8_otail_b32", go8, p32w, NEW_TOKENS, PER_LAYER_STEPS,
+             {"fused_otail_block_w4": L * steps, "staged_append": steps,
+              "fused_model_w4_chunk": 0, "fused_mlp_block_w4": 0})
+    w8_route("w8_otail_b128", go8, p128w, BIG_STEPS + 1, BIG_STEPS,
+             {"fused_otail_block_w4": L * BIG_STEPS, "staged_append": BIG_STEPS,
+              "fused_model_w4_chunk": 0, "fused_mlp_block_w4": 0})
+    # one CHUNK_COLS-step B=32 chunk fed the same tokens on the W8 o-tail
+    # route, on that route with the kernel's plain version, and on the plain
+    # path (the prefill cache and tokens of phase 3e's chain)
+    def otail_plain(a8, x, o, nw, nb, w13, w2, meta, layer, act_kind="silu",
+                    site_on=(True,) * 9, osite_on=(True,) * 4):
+        return fused_otail_block_w4_plain(a8, x, layer_pack(o, layer), nw[layer], nb[layer],
+                                          layer_pack(w13, layer), layer_pack(w2, layer), meta,
+                                          act_kind, site_on, osite_on)
+    # the same chunk on the "mlp" and "mlpblock" routes (decode_loop's config
+    # for the legacy value at B=32), which holds the engine's side of each
+    # route (the "mlp" route's w2 epilogue and resid_add_2) on the card
+    chaino = {}
+    for tag, kc_c, stand in (("w8_otail", KernelConfig.otail(), {}),
+                             ("w8_otail_plain_fn", KernelConfig.otail(),
+                              {(E, "fused_otail_block_w4"): otail_plain}),
+                             ("w8_mlp", KernelConfig.serving(cfg, packed8, SERVE_B, "mlp"), {}),
+                             ("w8_mlpblock",
+                              KernelConfig.serving(cfg, packed8, SERVE_B, "mlpblock"), {}),
+                             ("w8_otail_ref_plain", KernelConfig.none(), {})):
+        cc = E.EngineKVCache(c32w.k.clone(), c32w.v.clone())
+        with patched(stand):
+            chaino[tag] = counted(f"chain_{tag}", lambda: staged_chunk(
+                kc_c, cc, ftoks8, fpos, go8.packed, policy8))
+    if runs["chain_w8_otail"]["fused_otail_block_w4"] != L * CHUNK_COLS \
+            or runs["chain_w8_otail_plain_fn"]["fused_otail_block_w4"] \
+            or any(runs["chain_w8_otail_ref_plain"].values()):
+        failures.append(f"W8 o-tail chain launches {runs['chain_w8_otail']}")
+    for tag, kernel in (("w8_mlp", "fused_mlp"), ("w8_mlpblock", "fused_mlp_block")):
+        got = {k: runs[f"chain_{tag}"][k] for k in (kernel, "fused_mlp_block_w4",
+                                                    "fused_model_w4_chunk")}
+        if got != {kernel: L * CHUNK_COLS, "fused_mlp_block_w4": 0, "fused_model_w4_chunk": 0}:
+            failures.append(f"{tag} chain launches {got}")
+    # the kernel equals its plain version on the route; each route against the
+    # plain path is held at about twice its first reading on the card
+    for tag, ref, lim in (("w8_otail", "w8_otail_plain_fn", (2e-3, 0, 0.0)),
+                          ("w8_otail", "w8_otail_ref_plain", OTAIL_W8_VS_PLAIN),
+                          ("w8_mlp", "w8_otail_ref_plain", MLP_W8_VS_PLAIN),
+                          ("w8_mlpblock", "w8_otail_ref_plain", MLPBLOCK_W8_VS_PLAIN)):
+        e_l = float_err(chaino[tag][0], chaino[ref][0])
+        e_k = int8_err(chaino[tag][1].k[:, :, :, window], chaino[ref][1].k[:, :, :, window])
+        e_v = int8_err(chaino[tag][1].v[:, :, :, window], chaino[ref][1].v[:, :, :, window])
+        fin = bool(torch.isfinite(chaino[tag][0]).all())
+        chain_err[f"{tag}_vs_{ref}"] = {"logits_rel": e_l[1], "k_rows": e_k, "v_rows": e_v,
+                                        "finite": fin}
+        print(f"  W8 B={SERVE_B} {CHUNK_COLS}-step chunk, {tag} vs {ref}: logits rel "
+              f"{e_l[1]:.3g}; flushed K rows {e_k}, V rows {e_v}", flush=True)
+        if not fin or e_l[1] > lim[0]:
+            failures.append(f"{tag} chunk vs {ref}: logits rel {e_l[1]}, finite {fin}")
+        if max(e_k[0], e_v[0]) > lim[1] or max(e_k[1], e_v[1]) > lim[2]:
+            failures.append(f"{tag} chunk vs {ref}: flushed rows {e_k} {e_v}")
+    # prefill at T = PROMPT_LEN on the prefill set with w2fold_kernel against
+    # KernelConfig.prefill() (the split gate path), W4A8/h4 and W8A8/h8:
+    # wall (host clock around a synchronised prefill), device time and
+    # launches (torch.profiler), the route's launches counted from 0, and the
+    # two prefills' logits against each other (the same function)
+    fold_prefill = {}
+    for tag, gp, pr in (("w4", g, prompt), ("w8", g8, prompt8)):
+        tpf = torch.as_tensor(pr, device=dev)
+        res_p = {}
+        for set_name, kc_p in (("prefill", KernelConfig.prefill()),
+                               ("w2fold", KernelConfig.prefill().replace(w2fold_kernel=True))):
+            gp.prefill_kc = kc_p
+            route = f"{tag}_prefill_{set_name}"
+            lg_p, _ = counted(route, lambda: gp.prefill(tpf, gp.init_cache(1)))
+            walls = []
+            for _ in range(3):
+                cache_p = gp.init_cache(1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gp.prefill(tpf, cache_p)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            d_ms, top, n_l = device_profile(lambda: gp.prefill(tpf, gp.init_cache(1)))
+            res_p[set_name] = {"wall_ms": sum(walls) / len(walls), "device_ms": d_ms,
+                               "launches": n_l, "top_kernels": top, "counts": runs[route],
+                               "logits": lg_p}
+            print(f"  {route}: wall {res_p[set_name]['wall_ms']:.3f} ms, device {d_ms:.3f} ms, "
+                  f"{n_l} launches; counts w13_gate {runs[route]['w13_gate']}, w13_gate_w2 "
+                  f"{runs[route]['w13_gate_w2']}", flush=True)
+            for k, ms_, c_ in top:
+                print(f"    {route} {ms_:8.4f} ms  x{c_:6.1f}  {k}", flush=True)
+        gp.prefill_kc = KernelConfig.prefill()
+        e_p = float_err(res_p["w2fold"].pop("logits"), res_p["prefill"].pop("logits"))
+        res_p["logits_rel_w2fold_vs_prefill"] = e_p[1]
+        fold_prefill[tag] = res_p
+        print(f"  {tag} prefill logits, w2fold vs split: rel {e_p[1]:.3g}", flush=True)
+        if runs[f"{tag}_prefill_w2fold"]["w13_gate_w2"] != L \
+                or runs[f"{tag}_prefill_w2fold"]["w13_gate"] \
+                or runs[f"{tag}_prefill_prefill"]["w13_gate"] != L or e_p[1] > 2e-3:
+            failures.append(f"{tag} w2-folded prefill: counts {runs[f'{tag}_prefill_w2fold']}, "
+                            f"logits rel {e_p[1]}")
+    mlp_routes["w2fold_prefill"] = fold_prefill
+
     # ---- phase 4: report ---------------------------------------------------
     sources = {"w4a8_matmul": ("csrc/w4a8_matmul.cu",
                                "mobilequant_tpu/ops/pallas_matmul.py:59"),
@@ -2041,7 +2319,15 @@ def main() -> None:
                "wonly_matmul_stacked": ("csrc/wonly_matmul.cu",
                                         "mobilequant_tpu/ops/pallas_matmul.py:411"),
                "w4a16_matmul": ("csrc/wonly_matmul.cu",
-                                "mobilequant_tpu/ops/pallas_matmul.py:180")}
+                                "mobilequant_tpu/ops/pallas_matmul.py:180"),
+               "fused_mlp": ("csrc/fused_mlp_tiles.cu", "mobilequant_tpu/ops/pallas_mlp.py:117"),
+               "fused_mlp_block": ("csrc/fused_rows_w8.cu",
+                                   "mobilequant_tpu/ops/pallas_mlp.py:301"),
+               "fused_otail_block_w4[w8]": ("csrc/fused_otail_w8.cu",
+                                            "mobilequant_tpu/ops/pallas_mlp.py:828"),
+               "w13_gate_w2": ("csrc/fused_mlp_tiles.cu", "mobilequant_tpu/ops/pallas_mlp.py:1194"),
+               "w13_gate_w2[w8]": ("csrc/fused_mlp_tiles.cu",
+                                   "mobilequant_tpu/ops/pallas_mlp.py:1194")}
     # the route whose run each kernel's launch count is read from: the main
     # path (B=1 generate_fast) unless named here; each was counted from 0. A
     # W8 edition ("name[w8]") counts on its kernel's wrapper, on a W8 route.
@@ -2052,16 +2338,18 @@ def main() -> None:
                 "w13_gate[w8]": "w8_main",
                 "fused_mlp_block_w4[w8]": "w8_b128", "fused_layer_w4[w8]": "w8_per_layer",
                 "fused_model_w4[w8]": "w8_main", "fused_model_w4_chunk[w8]": "w8_b32",
-                "wonly_matmul_stacked": "wonly_main", "w4a16_matmul": "wonly_main"}
+                "wonly_matmul_stacked": "wonly_main", "w4a16_matmul": "wonly_main",
+                "qkv_rope[w8]": "w8_main", "fused_mlp": "w8_mlp",
+                "fused_mlp_block": "w8_mlpblock", "fused_otail_block_w4[w8]": "w8_otail_b32",
+                "w13_gate_w2": "w4_prefill_w2fold", "w13_gate_w2[w8]": "w8_prefill_w2fold"}
     # no runtime path calls w4a16_matmul, in the JAX package either: its
     # launches are the weight-only run's count (0, held there), and it may be
-    # 0. qkv_rope's W8 edition (no JAX route takes it either) stands in
-    # chip_smoke.json only; it counts on qkv_rope's wrapper.
-    off_route = {"w4a16_matmul"}
+    # 0. qkv_rope's W8 edition has no route either (the JAX engine takes the
+    # qkv epilogue kernel on W4 packs only): its launches are the W8 main
+    # route's count on qkv_rope's wrapper (0, held there).
+    off_route = {"w4a16_matmul", "qkv_rope[w8]"}
     kernels = []
     for name, shapes in rows.items():
-        if name == "qkv_rope[w8]":
-            continue
         head = next((r for r in shapes if r["main"]), shapes[0])
         src, rep = sources[name]
         route = route_of.get(name, "main")
@@ -2109,7 +2397,8 @@ def main() -> None:
                                  "witness_caches_equal": wit8_equal},
                      "attn_all_vs_plain": {"logits_rel": e8_al[1], "k_rows": e8_ak,
                                            "v_rows": e8_av}},
-              "weight_only": {"serving": wonly, "chain_kernel_vs_plain": wchain}}
+              "weight_only": {"serving": wonly, "chain_kernel_vs_plain": wchain},
+              "mlp_routes": mlp_routes}
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     if failures:
         fail("; ".join(failures))

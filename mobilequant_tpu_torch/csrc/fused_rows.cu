@@ -1,32 +1,31 @@
-// The C entries of the row kernels (fused_rows.cuh) and their W4 editions;
-// the W8 editions are instantiated in fused_rows_w8.cu.
+// The C entries of the row kernels (fused_rows.cuh) and the W4 editions of
+// the MLP-block, o-tail and chunk kernels; the others are instantiated in
+// fused_rows_w8.cu, fused_otail_w8.cu and fused_mlp_tiles.cu.
 #include "fused_rows.cuh"
 
-// The whole MLP block over 1 <= a.M <= 128 rows of layer a.l0 (mlp_meta[0..31]),
-// W4 or W8 packs.
-MQT_EXPORT int mqt_fused_mlp_rows(const void* args, void* stream) {
+// The MLP kernels over a.M >= 1 rows of layer a.l0, in 128-row tiles (mode:
+// MLP_BLOCK, W8 MLP_BLOCK | MLP_LN, MLP_RAW or MLP_W2; see
+// fused_mlp_tiles_kernel), W4 or W8.
+MQT_EXPORT int mqt_fused_mlp_tiles(const void* args, int mode, void* stream) {
   const Args& a = *(const Args*)args;
-  if (!rows_ok(a) || a.w2.bits != a.w13.bits) return (int)cudaErrorInvalidValue;
+  if (!tiles_ok(a, mode)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (a.w13.bits == 8) return mqt_rows_w8_mlp(a, st);
-  if (a.w13.bits == 4) return launch_mlp_rows<4>(a, st);
-  return (int)cudaErrorInvalidValue;
+  if ((mode & 15) != MLP_BLOCK) return mqt_rows_mlp_raw_w2(a, mode, st);
+  if (a.w13.bits == 8) return mqt_rows_w8_mlp(a, mode, st);
+  return launch_mlp_tiles<4, MLP_BLOCK>(a, st);
 }
 
 // o-proj of a.a8 (a.M <= 128 rows) + resid_add_1 with a.x_in + the MLP block,
-// layer a.l0 (mlp_meta[0..45]); W4 packs.
+// layer a.l0 (mlp_meta[0..45]); the four packs W4, or all W8.
 MQT_EXPORT int mqt_fused_otail(const void* args, void* stream) {
   const Args& a = *(const Args*)args;
-  if (!rows_ok(a) || a.o.kin % 64 || a.o.bits != 4 || a.w13.bits != 4 || a.w2.bits != 4)
+  const int wb = a.o.bits;
+  if (!rows_ok(a) || a.o.kin % 64 || a.w13.bits != wb || a.w2.bits != wb)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t sm = sizeof(RowSmem);
-  switch (mi_of(a.M)) {
-    case 1: return launch_coop(fused_otail_kernel<1>, a, 0, sm, st);
-    case 2: return launch_coop(fused_otail_kernel<2>, a, 0, sm, st);
-    case 4: return launch_coop(fused_otail_kernel<4>, a, 0, sm, st);
-    default: return launch_coop(fused_otail_kernel<8>, a, 0, sm, st);
-  }
+  if (wb == 8) return mqt_rows_w8_otail(a, st);
+  if (wb == 4) return launch_otail<4>(a, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // A whole staged decode step, layers [a.l0, a.l1) over a.M <= 128 sequences,

@@ -1,24 +1,31 @@
-// Row kernels: the fused W4A8 / W8A8 kernels for many rows (M <= 128), as
-// templates on the weight bits (WB). fused_rows.cu instantiates the W4
-// editions and holds the C entries, fused_rows_w8.cu the W8 editions (two
-// translation units, so that the build compiles them at the same time).
+// Row kernels: the fused W4A8 / W8A8 kernels for many rows, as templates on
+// the weight bits (WB). fused_rows.cu instantiates the W4 editions and holds
+// the C entries, fused_rows_w8.cu the W8 editions of the MLP-block and chunk
+// kernels, fused_otail_w8.cu the W8 o-tail, fused_mlp_tiles.cu the raw-sum
+// and w2-epilogue MLP kernels of both widths (four translation units, so that
+// the build compiles them at the same time).
 //
 // Replaces mobilequant_tpu/ops/pallas_chunk.py fused_model_w4_chunk
 // (_chunk_kernel, _chunk_mlp_phase: a whole staged decode step of a serving
-// batch, B = 16..128), mobilequant_tpu/ops/pallas_mlp.py
+// batch, B = 16..128), and of mobilequant_tpu/ops/pallas_mlp.py
 // fused_otail_block_stacked (_otail_block_kernel: o-proj + resid_add_1 + the
-// MLP block; W4 only here) and, above ops/mlp_block.DP4A_ROWS rows,
-// fused_mlp_block_w4_stacked (_w4_mlp_phase). The chunk and MLP-block kernels
-// come in both editions of their JAX counterparts (W4 nibble-packed (kin/2,
-// n), W8 shifted int8 (kin, n)); the chunk kernel's head has its own width
-// (a.hbits: W4, or W8 as the JAX chunk kernel's folded head, per column).
+// MLP block), fused_mlp_block_w4_stacked (_w4_mlp_phase; above
+// ops/mlp_block.DP4A_ROWS rows), fused_mlp_block (_mlp_block_kernel: the
+// per-layer MLP block, RMSNorm or LayerNorm), fused_mlp (_mlp_kernel: w13,
+// the gate chain and the raw int32 w2 sums) and w13_gate_w2_stacked
+// (_w13_gate_w2_kernel: w13, the gate chain, w2 and its affine epilogue).
+// Every kernel comes in both editions of its JAX counterparts (W4
+// nibble-packed (kin/2, n), W8 shifted int8 (kin, n)); the chunk kernel's
+// head has its own width (a.hbits: W4, or W8 as the JAX chunk kernel's folded
+// head, per column).
 //
 // The cooperative, persistent launch of fused_layer.cu (fused_common.cuh:
 // grid barrier, split-K meeting in the self-cleaning workspace), with the
 // stages rebuilt for many rows:
-//   - a norm is a stage of its own, one block per row (the fp64 sum of squares,
-//     the norm, the quantization), writing int8 rows; a grid barrier follows;
-//   - a matvec tile is 128 columns by every row of the launch: per K chunk of
+//   - a norm is a stage of its own, one block per row (the fp64 sums, the
+//     norm, the quantization), writing int8 rows; a grid barrier follows;
+//   - a matvec tile is 128 columns by every row of the launch (at most 128):
+//     per K chunk of
 //     128 k values the block unpacks the tile's weights (W4: 64 packed rows;
 //     W8: 64 rows j and 64 rows kin/2 + j, twice the bytes) into shared
 //     memory once and streams the chunk of every activation row beside
@@ -29,6 +36,11 @@
 //     The tile's row sums come from the same activation words; split-K
 //     partials (accumulators and row sums) meet in the workspace, and the last
 //     block of a tile runs the epilogue;
+//   - the MLP kernels of any M (the per-layer MLP block, fused_mlp, w13 +
+//     gate + w2) walk the rows in 128-row tiles inside the one launch: per
+//     tile the norm (the MLP block), the w13 + gate stage and the w2 stage,
+//     a grid barrier after each; the weights are re-read per row tile (from
+//     the 50 MB L2 when a layer's matrices fit it);
 //   - the chunk kernel's attention: one block per (sequence, q head), RoPE
 //     and joint quantization (the group's first q head writes the new K/V
 //     rows), scores over the stale cache rows [0, pos0) staged through shared
@@ -45,7 +57,9 @@
 // Bound: device-memory bytes (at B = 32 the 518 MB of TinyLlama-1.1B's W4
 // weights, or 1,036 MB of W8 ones, 75 MB of valid KV rows at pos0 192 and
 // 2.2 MB of kcs: 0.178 / 0.333 ms at 3.35 TB/s); the int8 products (at
-// B = 128 about 10 GOP per layer) run on the tensor cores.
+// B = 128 about 10 GOP per layer) run on the tensor cores. The MLP kernels at
+// prefill M (1024 rows: 71 G int8 operations a W8 layer, 36 us at 1,979
+// TOP/s) are bound by operations.
 //
 // Numerics: the chunk kernel's math (the JAX chunk kernel's): without the
 // qk_bmm output fake-quant the score scale folds 1/sqrt(hd) in; without the
@@ -309,22 +323,30 @@ __device__ void rows_matvec(const int8_t* x, int M, int kin, const int8_t* w, in
   }
 }
 
-// fq16(src row) -> RMS norm (fp64 sum of squares) -> ·w + b -> quantize ->
-// dst (M, K) int8; one block per row.
+// fq16(src row) -> RMS norm, or LayerNorm (LN: mean-centred), with fp64 sums
+// -> ·w + b -> quantize -> dst (M, K) int8; one block per row.
+template <bool LN = false>
 __device__ void rows_norm(const float* src, int M, int K, const float* nw, const float* nb,
                           float fs, float fo, float fqmax, float eps, float hs, float ho,
                           int8_t* dst, RowSmem& s) {
   for (int r = blockIdx.x; r < M; r += gridDim.x) {
     const float* x = src + (size_t)r * K;
+    float mu = 0.0f;
+    if constexpr (LN) {
+      double acc = 0.0;
+      for (int k = threadIdx.x; k < K; k += FT) acc += (double)fqm(__ldcg(x + k), fs, fo, fqmax);
+      mu = block_sum(acc, s.dred) / (float)K;
+    }
     double acc = 0.0;
     for (int k = threadIdx.x; k < K; k += FT) {
-      const float v = fqm(__ldcg(x + k), fs, fo, fqmax);
+      const float v = fqm(__ldcg(x + k), fs, fo, fqmax) - (LN ? mu : 0.0f);
       acc += (double)(v * v);
     }
     const float t = block_sum(acc, s.dred);
     const float rn = 1.0f / sqrtf(t / (float)K + eps);
     for (int k = threadIdx.x; k < K; k += FT) {
-      const float y = fqm(__ldcg(x + k), fs, fo, fqmax) * rn * __ldg(nw + k) + __ldg(nb + k);
+      const float v = fqm(__ldcg(x + k), fs, fo, fqmax) - (LN ? mu : 0.0f);
+      const float y = v * rn * __ldg(nw + k) + __ldg(nb + k);
       dst[(size_t)r * K + k] = (int8_t)(int)quant_u8s(y, hs, ho);
     }
   }
@@ -387,72 +409,85 @@ __device__ void rows_o(const Args& a, RowSmem& s, int l, const float* mo, const 
   });
 }
 
-// The MLP block of layer l over src (M, K) -> out (M, K); mm is the 32-float
-// MLP-block meta. Three stages, two grid barriers between them.
+// w13 + gate chain of layer l over h (M, K) int8 -> a.act8 (M, F) int8 (the
+// w2 input); mm is the 32-float MLP-block meta (entries 0..15 read).
 template <int MI, int WB>
+__device__ void rows_gate(const Args& a, RowSmem& s, int l, const float* mm, const int8_t* h,
+                          int M) {
+  const int K = a.K, F = a.F;
+  const float xs = mm[0], ox = mm[1] - 128.0f, kox = (float)K * ox;
+  rows_matvec<MI, WB>(h, M, K, layer_w<WB>(a.w13, l), 2 * F, true, F,
+                      a.ws, s, [&](const Tile& t, int (&acc)[MI][8]) {
+    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const int r = ty + 16 * i;
+      if (r >= M) continue;
+      const float rs = (float)s.rsum[r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = tx + 16 * j;
+        if (n >= t.na) continue;
+        float g1 = affine(a.w13, l, acc[i][j], t.colA + n, rs, xs, ox, kox);
+        g1 = fqm(g1, mm[2], mm[3], mm[4]);
+        float act;
+        if (!a.gelu) {
+          float sig = 1.0f / (1.0f + expf(-g1));
+          sig = fqm(sig, mm[5], mm[6], mm[7]);
+          act = g1 * sig;
+        } else {
+          const float u = 0.7978845608028654f * (g1 + 0.044715f * g1 * g1 * g1);
+          act = 0.5f * g1 * (1.0f + tanhf(u));
+        }
+        act = fqm(act, mm[8], mm[9], mm[10]);
+        float g3 = affine(a.w13, l, acc[i][j + 4], t.colB + n, rs, xs, ox, kox);
+        g3 = fqm(g3, mm[11], mm[12], mm[13]);
+        a.act8[(size_t)r * F + t.colA + n] = (int8_t)(int)quant_u8s(act * g3, mm[14], mm[15]);
+      }
+    }
+  });
+}
+
+// w2 of layer l over a.act8 (M, F): out(r, col, acc, rowsum) for every output
+// of the M rows, with the raw int32 sum and the act row's sum.
+template <int MI, int WB, typename Out>
+__device__ void rows_w2(const Args& a, RowSmem& s, int l, int M, Out out) {
+  rows_matvec<MI, WB>(a.act8, M, a.F, layer_w<WB>(a.w2, l), a.K, false, 0, a.ws, s,
+                      [&](const Tile& t, int (&acc)[MI][8]) {
+    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const int r = ty + 16 * i;
+      if (r >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = tx + 16 * j;
+        if (t.valid(n)) out(r, t.colA + n, acc[i][j], s.rsum[r]);
+      }
+    }
+  });
+}
+
+// The MLP block of layer l over src (M, K) -> out (M, K); mm is the 32-float
+// MLP-block meta; LN: LayerNorm, else RMSNorm. Three stages, two grid
+// barriers between them.
+template <int MI, int WB, bool LN = false>
 __device__ void rows_mlp(const Args& a, RowSmem& s, int l, const float* mm, const float* src,
-                         float* out) {
-  const int K = a.K, F = a.F, M = a.M;
-  rows_norm(src, M, K, a.mnw + (size_t)l * K, a.mnb + (size_t)l * K, mm[16], mm[17], mm[18],
-            mm[19], mm[0], mm[1], a.h8, s);
+                         float* out, int M) {
+  const int K = a.K, F = a.F;
+  rows_norm<LN>(src, M, K, a.mnw + (size_t)l * K, a.mnb + (size_t)l * K, mm[16], mm[17],
+                mm[18], mm[19], mm[0], mm[1], a.h8, s);
   grid_barrier(a.bar);
-  {
-    const float xs = mm[0], ox = mm[1] - 128.0f, kox = (float)K * ox;
-    rows_matvec<MI, WB>(a.h8, M, K, layer_w<WB>(a.w13, l), 2 * F, true, F,
-                        a.ws, s, [&](const Tile& t, int (&acc)[MI][8]) {
-      const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const int r = ty + 16 * i;
-        if (r >= M) continue;
-        const float rs = (float)s.rsum[r];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = tx + 16 * j;
-          if (n >= t.na) continue;
-          float g1 = affine(a.w13, l, acc[i][j], t.colA + n, rs, xs, ox, kox);
-          g1 = fqm(g1, mm[2], mm[3], mm[4]);
-          float act;
-          if (!a.gelu) {
-            float sig = 1.0f / (1.0f + expf(-g1));
-            sig = fqm(sig, mm[5], mm[6], mm[7]);
-            act = g1 * sig;
-          } else {
-            const float u = 0.7978845608028654f * (g1 + 0.044715f * g1 * g1 * g1);
-            act = 0.5f * g1 * (1.0f + tanhf(u));
-          }
-          act = fqm(act, mm[8], mm[9], mm[10]);
-          float g3 = affine(a.w13, l, acc[i][j + 4], t.colB + n, rs, xs, ox, kox);
-          g3 = fqm(g3, mm[11], mm[12], mm[13]);
-          a.act8[(size_t)r * F + t.colA + n] = (int8_t)(int)quant_u8s(act * g3, mm[14], mm[15]);
-        }
-      }
-    });
-  }
+  rows_gate<MI, WB>(a, s, l, mm, a.h8, M);
   grid_barrier(a.bar);
-  {
-    const float xs = mm[14], ox = mm[15] - 128.0f, kox = (float)F * ox;
-    rows_matvec<MI, WB>(a.act8, M, F, layer_w<WB>(a.w2, l), K, false, 0, a.ws, s,
-                        [&](const Tile& t, int (&acc)[MI][8]) {
-      const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const int r = ty + 16 * i;
-        if (r >= M) continue;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int n = tx + 16 * j;
-          if (!t.valid(n)) continue;
-          const int col = t.colA + n;
-          float y = affine(a.w2, l, acc[i][j], col, (float)s.rsum[r], xs, ox, kox);
-          y = fqm(y, mm[20], mm[21], mm[22]);
-          const float xr = fqm(__ldcg(src + (size_t)r * K + col), mm[23], mm[24], mm[25]);
-          y = fqm(y, mm[26], mm[27], mm[28]);
-          out[(size_t)r * K + col] = fqm(xr + y, mm[29], mm[30], mm[31]);
-        }
-      }
-    });
-  }
+  const float xs = mm[14], ox = mm[15] - 128.0f, kox = (float)F * ox;
+  rows_w2<MI, WB>(a, s, l, M, [&](int r, int col, int acc, int rs) {
+    float y = affine(a.w2, l, acc, col, (float)rs, xs, ox, kox);
+    y = fqm(y, mm[20], mm[21], mm[22]);
+    const float xr = fqm(__ldcg(src + (size_t)r * K + col), mm[23], mm[24], mm[25]);
+    y = fqm(y, mm[26], mm[27], mm[28]);
+    out[(size_t)r * K + col] = fqm(xr + y, mm[29], mm[30], mm[31]);
+  });
 }
 
 // ---- the chunk kernel's attention ------------------------------------------
@@ -976,21 +1011,52 @@ __device__ __forceinline__ void copy_mlp_meta(const Args& a, RowSmem& s) {
   __syncthreads();
 }
 
-template <int MI, int WB>
-__global__ void __launch_bounds__(FT) fused_mlp_rows_kernel(const Args a, int) {
+// The MLP kernels of layer a.l0 over a.M rows of any count, walked in
+// 128-row tiles (mlp_meta[0..31]), one instantiation per kind: MLP_BLOCK
+// x_in (M, K) fp32 -> x_in + MLP(norm(x_in)) in x_out (RMSNorm; with MLP_LN
+// added, LayerNorm); MLP_RAW h8 (M, K) int8 -> the raw Σ g8·w2 int32 sums as
+// fp32 in x_out (M, K) and the g8 row sums in sx (M,); MLP_W2 h8 -> the w2
+// output with its affine epilogue in x_out. The C entry's mode is the kind.
+constexpr int MLP_BLOCK = 0, MLP_RAW = 1, MLP_W2 = 2, MLP_LN = 16;
+
+template <int MI, int WB, int KIND>
+__global__ void __launch_bounds__(FT) fused_mlp_tiles_kernel(const Args a, int) {
   RowSmem& s = row_smem();
   copy_mlp_meta(a, s);
-  rows_mlp<MI, WB>(a, s, a.l0, s.meta, a.x_in, a.x_out);
+  const float* mm = s.meta;
+  const int K = a.K, l = a.l0;
+  for (int m0 = 0; m0 < a.M; m0 += MAXR) {
+    const int M = min(MAXR, a.M - m0);
+    float* out = a.x_out + (size_t)m0 * K;
+    if (m0 > 0) grid_barrier(a.bar);          // the last tile's act8 and workspace are free
+    if constexpr ((KIND & 15) == MLP_BLOCK) {
+      rows_mlp<MI, WB, (KIND & MLP_LN) != 0>(a, s, l, mm, a.x_in + (size_t)m0 * K, out, M);
+    } else {
+      rows_gate<MI, WB>(a, s, l, mm, a.h8 + (size_t)m0 * K, M);
+      grid_barrier(a.bar);
+      if constexpr (KIND == MLP_RAW) {
+        float* rsum = a.sx + m0;
+        rows_w2<MI, WB>(a, s, l, M, [&](int r, int col, int acc, int rs) {
+          out[(size_t)r * K + col] = (float)acc;
+          if (col == 0) rsum[r] = (float)rs;
+        });
+      } else {
+        const float xs = mm[14], ox = mm[15] - 128.0f, kox = (float)a.F * ox;
+        rows_w2<MI, WB>(a, s, l, M, [&](int r, int col, int acc, int rs) {
+          out[(size_t)r * K + col] = affine(a.w2, l, acc, col, (float)rs, xs, ox, kox);
+        });
+      }
+    }
+  }
 }
 
-// the o-tail: W4 packs only (its W8 edition is not ported)
-template <int MI>
+template <int MI, int WB>
 __global__ void __launch_bounds__(FT) fused_otail_kernel(const Args a, int) {
   RowSmem& s = row_smem();
   copy_mlp_meta(a, s);
-  rows_o<MI, 4>(a, s, a.l0, s.meta + 32, a.x_in);
+  rows_o<MI, WB>(a, s, a.l0, s.meta + 32, a.x_in);
   grid_barrier(a.bar);
-  rows_mlp<MI, 4>(a, s, a.l0, s.meta, a.resid, a.x_out);
+  rows_mlp<MI, WB>(a, s, a.l0, s.meta, a.resid, a.x_out, a.M);
 }
 
 template <int MI, int WB>
@@ -1048,7 +1114,7 @@ __global__ void __launch_bounds__(FT) fused_chunk_kernel(const Args a, int) {
     rows_o<MI, WB>(a, s, l, m + 19, xin);
     grid_barrier(a.bar);
     stamp(a, ts++);
-    rows_mlp<MI, WB>(a, s, l, m + AM, a.resid, a.x_out);
+    rows_mlp<MI, WB>(a, s, l, m + AM, a.resid, a.x_out, M);
     if (l + 1 < a.l1 || a.logits || a.trace) grid_barrier(a.bar);
     stamp(a, ts++);
   }
@@ -1097,14 +1163,34 @@ size_t chunk_smem(const Args& a) {
   return glay.end > sm ? glay.end : sm;
 }
 
+// the MLP tiles kernel's arguments; LayerNorm comes in the W8 block only
+// (the per-layer MLP block of the JAX package takes W8 packs)
+bool tiles_ok(const Args& a, int mode) {
+  return a.M >= 1 && a.K % 64 == 0 && a.F % 64 == 0 && a.w2.bits == a.w13.bits
+         && (a.w13.bits == 4 || a.w13.bits == 8)
+         && (mode & 15) <= MLP_W2 && (mode & ~(15 | MLP_LN)) == 0
+         && ((mode & MLP_LN) == 0 || ((mode & 15) == MLP_BLOCK && a.w13.bits == 8));
+}
+
+template <int WB, int KIND>
+int launch_mlp_tiles(const Args& a, cudaStream_t st) {
+  const size_t sm = sizeof(RowSmem);
+  switch (mi_of(a.M < MAXR ? a.M : MAXR)) {
+    case 1: return launch_coop(fused_mlp_tiles_kernel<1, WB, KIND>, a, 0, sm, st);
+    case 2: return launch_coop(fused_mlp_tiles_kernel<2, WB, KIND>, a, 0, sm, st);
+    case 4: return launch_coop(fused_mlp_tiles_kernel<4, WB, KIND>, a, 0, sm, st);
+    default: return launch_coop(fused_mlp_tiles_kernel<8, WB, KIND>, a, 0, sm, st);
+  }
+}
+
 template <int WB>
-int launch_mlp_rows(const Args& a, cudaStream_t st) {
+int launch_otail(const Args& a, cudaStream_t st) {
   const size_t sm = sizeof(RowSmem);
   switch (mi_of(a.M)) {
-    case 1: return launch_coop(fused_mlp_rows_kernel<1, WB>, a, 0, sm, st);
-    case 2: return launch_coop(fused_mlp_rows_kernel<2, WB>, a, 0, sm, st);
-    case 4: return launch_coop(fused_mlp_rows_kernel<4, WB>, a, 0, sm, st);
-    default: return launch_coop(fused_mlp_rows_kernel<8, WB>, a, 0, sm, st);
+    case 1: return launch_coop(fused_otail_kernel<1, WB>, a, 0, sm, st);
+    case 2: return launch_coop(fused_otail_kernel<2, WB>, a, 0, sm, st);
+    case 4: return launch_coop(fused_otail_kernel<4, WB>, a, 0, sm, st);
+    default: return launch_coop(fused_otail_kernel<8, WB>, a, 0, sm, st);
   }
 }
 
@@ -1121,7 +1207,11 @@ int launch_chunk(const Args& a, cudaStream_t st) {
 
 }  // namespace
 
-// The W8 editions' launches, in fused_rows_w8.cu (the arguments checked by
-// the entries of fused_rows.cu).
-int mqt_rows_w8_mlp(const MqtFusedArgs& a, cudaStream_t st);
+// The launches of the other translation units: the W8 MLP block and chunk
+// kernels (fused_rows_w8.cu), the W8 o-tail (fused_otail_w8.cu) and the
+// MLP_RAW / MLP_W2 kernels, W4 and W8 (fused_mlp_tiles.cu); the arguments
+// are checked by the entries of fused_rows.cu.
+int mqt_rows_w8_mlp(const MqtFusedArgs& a, int mode, cudaStream_t st);
 int mqt_rows_w8_chunk(const MqtFusedArgs& a, cudaStream_t st);
+int mqt_rows_w8_otail(const MqtFusedArgs& a, cudaStream_t st);
+int mqt_rows_mlp_raw_w2(const MqtFusedArgs& a, int mode, cudaStream_t st);

@@ -1,9 +1,11 @@
-// The W8 editions of the row kernels (fused_rows.cuh): the MLP block above
-// ops/mlp_block.DP4A_ROWS rows and the chunk kernel over W8 packs, in a
+// The W8 editions of the MLP-block and chunk row kernels (fused_rows.cuh), in a
 // translation unit of their own so that the build compiles them beside the
 // W4 editions of fused_rows.cu. The entries there check the arguments.
 #include "fused_rows.cuh"
 
-int mqt_rows_w8_mlp(const MqtFusedArgs& a, cudaStream_t st) { return launch_mlp_rows<8>(a, st); }
+int mqt_rows_w8_mlp(const MqtFusedArgs& a, int mode, cudaStream_t st) {
+  return (mode & MLP_LN) ? launch_mlp_tiles<8, MLP_BLOCK | MLP_LN>(a, st)
+                       : launch_mlp_tiles<8, MLP_BLOCK>(a, st);
+}
 
 int mqt_rows_w8_chunk(const MqtFusedArgs& a, cudaStream_t st) { return launch_chunk<8>(a, st); }

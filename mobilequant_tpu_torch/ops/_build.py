@@ -28,8 +28,8 @@ BUILD_DIR = PKG_DIR.parent / "build" / "mqt_kernels"
 LIB_PATH = BUILD_DIR / "libmqt_kernels.so"
 SOURCES = ("w4a8_matmul.cu", "w8a8_matmul.cu", "qkv_rope.cu", "prefill_attention.cu",
            "w13_gate.cu", "fused_layer.cu", "fused_rows.cu", "fused_rows_w8.cu",
-           "staged_append.cu", "kv4_attention.cu", "decode_attention.cu",
-           "wonly_matmul.cu")
+           "fused_otail_w8.cu", "fused_mlp_tiles.cu", "staged_append.cu",
+           "kv4_attention.cu", "decode_attention.cu", "wonly_matmul.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 
@@ -47,7 +47,7 @@ SIGNATURES = {
     "mqt_prefill_attention": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "mqt_fused_decode": [P, P],       # (const MqtFusedArgs*, stream)
     "mqt_fused_mlp_block": [P, P],
-    "mqt_fused_mlp_rows": [P, P],
+    "mqt_fused_mlp_tiles": [P, I, P],   # (args, mode, stream)
     "mqt_fused_otail": [P, P],
     "mqt_fused_chunk": [P, P],
     "mqt_staged_append": [P, P, P, P, I, I, I, I, LL, I, P],

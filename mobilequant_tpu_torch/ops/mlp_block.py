@@ -5,8 +5,9 @@
   -> w2-input int8 -> W4 or W8 w2 -> output fq -> resid_add_2 -> (M, K) fp32
 
 Kernel: csrc/fused_layer.cu (mqt_fused_mlp_block, dp4a, M <= DP4A_ROWS) and
-csrc/fused_rows.cu / fused_rows_w8.cu (mqt_fused_mlp_rows, int8 mma.sync,
-DP4A_ROWS < M <= 128), which replace the JAX package's
+csrc/fused_rows.cu / fused_rows_w8.cu (mqt_fused_mlp_tiles through
+mlp_tiles: the MLP tiles kernel of fused_rows.cuh in its MLP_BLOCK kind,
+int8 mma.sync, DP4A_ROWS < M <= 128), which replace the JAX package's
 mobilequant_tpu/ops/pallas_mlp.py fused_mlp_block_w4_stacked
 (_w4_mlp_block_kernel, phase body _w4_mlp_phase) in both of its editions: the
 JAX kernel takes the bit width from the packs' shapes (W4: w13 (L, K/2, 2F),
@@ -133,17 +134,46 @@ def rms_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
     return x * (1.0 / torch.sqrt(sum_f32(x * x) / x.shape[-1] + eps))
 
 
+def layer_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """(x − mean(x)) / sqrt(mean((x − mean)²) + eps), both sums by sum_f32."""
+    d = x - sum_f32(x) / x.shape[-1]
+    return d * (1.0 / torch.sqrt(sum_f32(d * d) / x.shape[-1] + eps))
+
+
 def mlp_block_supported(K: int, F: int) -> bool:
+    """Shapes the MLP-block and o-tail row kernels take."""
     return K % 128 == 0 and F % 64 == 0
+
+
+def pick_block_fh(K: int, half_f: int, wbits: int = 4) -> int:
+    """The JAX package's w2 row-block width of its stacked MLP-block kernel
+    (pallas_mlp._pick_block_fh); 0: no aligned tiling."""
+    per_tfh = 3 * K if wbits == 4 else 6 * K
+    cap = max(128, min(1024, (4 * 1024 * 1024) // per_tfh, half_f // 2))
+    for t in (1024, 512, 256, 128):
+        if t <= cap and half_f % t == 0:
+            return t
+    return 0
+
+
+def stacked_mlp_supported(K: int, F: int, wbits: int) -> bool:
+    """The JAX engine's gate of its stacked MLP-block and o-tail routes
+    (pallas_mlp.w4_mlp_block_supported / w8_mlp_block_supported), with the
+    row kernels' own shape rule."""
+    return (K % 256 == 0 and F % 256 == 0 and pick_block_fh(K, F // 2, wbits) != 0
+            and mlp_block_supported(K, F))
 
 
 def fused_mlp_block_w4_plain(x: torch.Tensor, norm_w: torch.Tensor,
                              norm_b: torch.Tensor, w13: dict, w2: dict,
                              meta: Sequence[float], act_kind: str = "silu",
-                             site_on: tuple = (True,) * 9) -> torch.Tensor:
+                             site_on: tuple = (True,) * 9,
+                             norm_kind: str = "rmsnorm") -> torch.Tensor:
     """The kernel's function in PyTorch operators, over one layer's packs and
     norm vectors (K,); the order of fp32 operations is the JAX phase body's,
-    the norm's sum of squares is order-independent (sum_f32)."""
+    the norm's sums are order-independent (sum_f32). norm_kind "layernorm":
+    the mean-centred norm of the per-layer MLP-block kernel
+    (ops/fused_mlp_block)."""
     m = [float(v) for v in meta]
     s_x16, s_w1, s_sig, s_act, s_w3, s_w2o, s_r1, s_r2, s_ro = site_on
 
@@ -152,7 +182,8 @@ def fused_mlp_block_w4_plain(x: torch.Tensor, norm_w: torch.Tensor,
 
     xf = x.to(torch.float32)
     xx = fq(xf, 16, s_x16)
-    h8 = quantize_act(rms_norm(xx, m[19]) * norm_w + norm_b, m[0], m[1])
+    norm = layer_norm if norm_kind == "layernorm" else rms_norm
+    h8 = quantize_act(norm(xx, m[19]) * norm_w + norm_b, m[0], m[1])
     act8 = w13_gate_plain(h8, w13, m[:16], act_kind, (s_w1, s_sig, s_act, s_w3))
     y2 = w4a8_matmul_plain(act8, w2["wq"], w2["scale"], w2["offset"], w2["colsum"],
                            w2.get("bias"), m[14], m[15])
@@ -189,8 +220,9 @@ def check_mlp_packs(M: int, K: int, w13: dict, w2: dict, act_kind: str, name: st
 
 def mlp_args(x: torch.Tensor, norm_w, norm_b, w13: dict, w2: dict, meta, layer: int,
              act_kind: str, keep: list):
-    """(FusedArgs, out) of an MLP-block-shaped launch over x (M, K) with the
-    MLP section of its meta; the o-tail fills in its o-proj fields after."""
+    """(FusedArgs, out) of the dp4a MLP-block launch over x (M, K) with the
+    MLP section of its meta; the o-tail fills in its o-proj fields and its
+    row-kernel workspace after."""
     M, K = x.shape
     L, F = w13["wq"].shape[0], w13["wq"].shape[2] // 2
     dev = x.device
@@ -205,8 +237,7 @@ def mlp_args(x: torch.Tensor, norm_w, norm_b, w13: dict, w2: dict, meta, layer: 
     a = FusedArgs()
     a.x_in, a.x_out, a.mnw, a.mnb = ptr(xin), ptr(out), ptr(nw), ptr(nb)
     a.act8, a.h8, a.resid = ptr(act8), ptr(h8), ptr(resid)
-    a.ws = ptr(rows_workspace(dev, M, max(2 * F, K)) if M > DP4A_ROWS
-               else _build.WORKSPACE.get(dev, WS_COUNTERS + M * 2 * F))
+    a.ws = ptr(_build.WORKSPACE.get(dev, WS_COUNTERS + M * 2 * F))
     a.bar = ptr(BARRIER.get(dev, 2))
     a.w13 = stacked_w4(w13, keep, K)
     a.w2 = stacked_w4(w2, keep, F)
@@ -218,6 +249,60 @@ def mlp_args(x: torch.Tensor, norm_w, norm_b, w13: dict, w2: dict, meta, layer: 
     for i, v in enumerate(vals):
         a.mlp_meta[i] = v
     return a, out
+
+
+MLP_BLOCK, MLP_RAW, MLP_W2, MLP_LN = 0, 1, 2, 16   # modes of mqt_fused_mlp_tiles
+
+
+def tiles_supported(K: int, F: int) -> bool:
+    """Shapes the MLP tiles kernel (any M) takes."""
+    return K % 64 == 0 and F % 64 == 0
+
+
+def layer_stack(pack: dict) -> dict:
+    """One layer's pack as a one-layer stack (views, no copy)."""
+    return {k: v[None] for k, v in pack.items() if isinstance(v, torch.Tensor)}
+
+
+def mlp_tiles(mode: int, x: torch.Tensor, w13: dict, w2: dict, meta: Sequence[float],
+              layer: int, act_kind: str, norm_w=None, norm_b=None):
+    """Launch the MLP tiles kernel of csrc/fused_rows.cuh over every row of x
+    for layer `layer` of the stacked W4 or W8 packs: x (M, K) fp32 with the
+    stacked norm vectors (L, K) (MLP_BLOCK), or int8 (MLP_RAW, MLP_W2) ->
+    (out (M, K) fp32, the rows' g8 sums (M,) fp32, written by MLP_RAW)."""
+    M, K = x.shape
+    R = min(M, MAX_ROWS)
+    L, F = w13["wq"].shape[0], w13["wq"].shape[2] // 2
+    dev = x.device
+    keep = []
+    a = FusedArgs()
+    if mode & 15 == MLP_BLOCK:
+        xin = _build.aligned(x.to(torch.float32))
+        nw = norm_w.to(torch.float32).contiguous()
+        nb = norm_b.to(torch.float32).contiguous()
+        h8 = torch.empty((R, K), dtype=torch.int8, device=dev)
+        keep += [xin, nw, nb]
+        a.x_in, a.mnw, a.mnb = ptr(xin), ptr(nw), ptr(nb)
+    else:
+        h8 = _build.aligned(x)
+    out = torch.empty((M, K), dtype=torch.float32, device=dev)
+    rsum = torch.empty((M,), dtype=torch.float32, device=dev)
+    act8 = torch.empty((R, F), dtype=torch.int8, device=dev)
+    keep += [h8, act8]
+    a.x_out, a.h8, a.act8, a.sx = ptr(out), ptr(h8), ptr(act8), ptr(rsum)
+    a.ws = ptr(rows_workspace(dev, R, max(2 * F, K)))
+    a.bar = ptr(BARRIER.get(dev, 2))
+    a.w13 = stacked_w4(w13, keep, K)
+    a.w2 = stacked_w4(w2, keep, F)
+    a.M, a.K, a.F, a.L, a.l0, a.l1 = M, K, F, L, int(layer), int(layer) + 1
+    a.gelu = int(act_kind == "gelu_tanh")
+    vals = [float(v) for v in meta]
+    if len(vals) > 32:
+        raise ValueError(f"an MLP meta of {len(vals)} entries")
+    for i, v in enumerate(vals):
+        a.mlp_meta[i] = v
+    code = _build.lib().mqt_fused_mlp_tiles(ctypes.addressof(a), mode, _build.stream_ptr(dev))
+    return code, out, rsum
 
 
 def fused_mlp_block_w4(x: torch.Tensor, norm_w: torch.Tensor, norm_b: torch.Tensor,
@@ -235,11 +320,13 @@ def fused_mlp_block_w4(x: torch.Tensor, norm_w: torch.Tensor, norm_b: torch.Tens
                                         layer_pack(w13, layer), layer_pack(w2, layer),
                                         meta, act_kind, site_on)
     dev = _build.require_cuda(x, norm_w, norm_b, w13["wq"], w2["wq"])
-    lib = _build.lib()
-    keep = []
-    a, out = mlp_args(x, norm_w, norm_b, w13, w2, list(meta)[:32], layer, act_kind, keep)
-    entry = lib.mqt_fused_mlp_block if M <= DP4A_ROWS else lib.mqt_fused_mlp_rows
-    code = entry(ctypes.addressof(a), _build.stream_ptr(dev))
+    meta = list(meta)[:32]
+    if M <= DP4A_ROWS:
+        keep = []
+        a, out = mlp_args(x, norm_w, norm_b, w13, w2, meta, layer, act_kind, keep)
+        code = _build.lib().mqt_fused_mlp_block(ctypes.addressof(a), _build.stream_ptr(dev))
+    else:
+        code, out, _ = mlp_tiles(MLP_BLOCK, x, w13, w2, meta, layer, act_kind, norm_w, norm_b)
     _build.check(code, "fused_mlp_block_w4")
     fused_mlp_block_w4.launches += 1
     return out

@@ -1,12 +1,16 @@
 """The attention tail of one layer in one kernel:
 
-  a8 (M, Ko) int8 -> W4 o-proj -> output fq -> resid_add_1 with x (M, K)
-  -> the whole MLP block (ops/mlp_block) -> (M, K) fp32
+  a8 (M, Ko) int8 -> W4 or W8 o-proj -> output fq -> resid_add_1 with x
+  (M, K) -> the whole MLP block (ops/mlp_block) -> (M, K) fp32
 
-Kernel: csrc/fused_rows.cu (mqt_fused_otail), which replaces the JAX
-package's mobilequant_tpu/ops/pallas_mlp.py fused_otail_block_stacked
-(_otail_block_kernel). Bound: the bytes of the o, w1|w3 and w2 W4 matrices
-at decode-sized M (<= 128 rows). Design: the row kernels of the MLP block with
+Kernel: csrc/fused_rows.cuh (fused_otail_kernel; entry mqt_fused_otail in
+fused_rows.cu, the W4 edition there, the W8 edition in fused_otail_w8.cu),
+which replaces the JAX package's mobilequant_tpu/ops/pallas_mlp.py
+fused_otail_block_stacked (_otail_block_kernel) in both of its editions (W4:
+o (L, Ko/2, K), w13 (L, K/2, 2F), w2 (L, F/2, K); W8: (L, Ko, K), (L, K, 2F),
+(L, F, K)). Bound: the bytes of the o, w1|w3 and w2 matrices at decode-sized
+M (<= 128 rows; 38.8 MB a W8 TinyLlama-1.1B layer, 11.6 us at 3.35 TB/s).
+Design: the row kernels of the MLP block with
 a prologue stage: the o-proj matvec tiles hold every row (each weight byte
 read once), the block that completes a tile runs the affine epilogue, the
 four optional fake-quant sites and the residual add into a (M, K) buffer; a
@@ -64,18 +68,17 @@ def fused_otail_block_w4(a8: torch.Tensor, x: torch.Tensor, o: dict,
                          osite_on: tuple = (True,) * 4) -> torch.Tensor:
     """a8 (M, Ko) int8 attention output + x (M, K) fp32 layer input ->
     the layer's output (M, K), for layer `layer` of the stacked W4 packs
-    (o wq (L, Ko/2, K), w13, w2) and norm vectors (L, K). M <= 128."""
+    (o wq (L, Ko/2, K), w13, w2) or W8 packs (o wq (L, Ko, K), ...) and norm
+    vectors (L, K). M <= 128."""
     M, K = x.shape
     Ko = a8.shape[1]
     check_mlp_packs(M, K, w13, w2, act_kind, "o-tail")
-    if mlp_pack_bits(K, w13, w2) != 4:
-        raise NotImplementedError("the o-tail kernel takes W4 packs (its W8 edition, "
-                                  "pallas_mlp.fused_otail_block_stacked on W8, is not "
-                                  "ported)")
-    if a8.shape[0] != M or a8.dtype != torch.int8 or o["wq"].shape[1] * 2 != Ko \
+    bits = mlp_pack_bits(K, w13, w2)
+    o_rows = Ko // 2 if bits == 4 else Ko
+    if a8.shape[0] != M or a8.dtype != torch.int8 or o["wq"].shape[1] != o_rows \
             or o["wq"].shape[2] != K or Ko % 64:
         raise NotImplementedError(f"o-tail kernel: a8 {tuple(a8.shape)}, o "
-                                  f"{tuple(o['wq'].shape)} (W4, Ko % 64 == 0)")
+                                  f"{tuple(o['wq'].shape)} (W{bits}, Ko % 64 == 0)")
     if len(meta) != MLP_META_LEN:
         raise ValueError(f"o-tail meta of {len(meta)} entries, expected {MLP_META_LEN}")
     if x.device.type == "cpu":

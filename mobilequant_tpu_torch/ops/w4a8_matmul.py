@@ -49,10 +49,19 @@ def w4a8_matmul_plain(x_q: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     colsum/bias (N,)."""
     K = x_q.shape[-1]
     acc = int_dot(x_q, unpack_nibbles(wq) if weight_bits(wq, K) == 4 else wq)
+    return int_affine(acc, rowsum_i8(x_q), scale, offset, colsum, bias, x_scale, x_offset, K)
+
+
+def int_affine(acc: torch.Tensor, rowsum: torch.Tensor, scale: torch.Tensor,
+               offset: torch.Tensor, colsum: torch.Tensor, bias: Optional[torch.Tensor],
+               x_scale: float, x_offset: float, K: int) -> torch.Tensor:
+    """The affine epilogue of an integer matmul over K inputs, in the JAX
+    engine's fp32 order: acc (M, N) and the activation row sums (M, 1) as
+    fp32 -> s_x·s_w·[acc − o'_x·colsum − o_w·rowsum + K·o'_x·o_w] + bias."""
     ox = f32(np.float32(x_offset) - np.float32(128.0))
     ow = offset.reshape(-1)
     sw = scale.reshape(-1)
-    acc = (acc - ox * colsum.reshape(-1) - ow * rowsum_i8(x_q)
+    acc = (acc - ox * colsum.reshape(-1) - ow * rowsum
            + f32(K * np.float32(ox)) * ow)
     out = acc * (x_scale * sw)
     if bias is not None:

@@ -22,10 +22,15 @@ Kernel dispatch (runtime/kernel_config.py), in the JAX engine's order:
 model_kernel runs a whole T=1 step at B <= 8 (every layer and the folded W4
 or W8 head) in one launch; chunk_kernel a whole staged step at B = 16..128;
 layer_kernel a whole layer at B=1, T=1; otail_kernel the o-proj, resid_add_1
-and the MLP block at B·T <= stacked_bt_max (W4 packs); stacked_mlp_kernel the
-whole MLP block at B·T <= stacked_bt_max; gate_kernel the prefill qkv and
-w13+gate epilogue kernels (the qkv one on W4 packs over the int8 cache
-only, as in the JAX engine); attn_kernel
+and the MLP block at B·T <= stacked_bt_max; stacked_mlp_kernel the whole MLP
+block at B·T <= stacked_bt_max (both where the JAX engine's stacked-kernel
+predicate holds: ops/mlp_block.stacked_mlp_supported); the alternate MLP
+routes on W8 packs at any B·T: mlp_block_kernel the whole MLP block on the
+layer's packs (ops/fused_mlp_block), mlp_kernel w13, the gate chain and the
+raw w2 sums (ops/fused_mlp) with the w2 epilogue here; gate_kernel the
+prefill qkv and w13+gate epilogue kernels (the qkv one on W4 packs over the
+int8 cache only, as in the JAX engine), with w2fold_kernel the w13+gate+w2
+kernel (ops/w13_gate_w2) where w13_gate_w2_supported holds; attn_kernel
 the prefill attention kernel and, at T = 1, the decode attention kernel over
 the int8 cache; kv4_attn_kernel the staged attention over the int4 cache;
 w4_matmul every other W4 projection and the W4 head through the W4A8 kernel;
@@ -56,10 +61,13 @@ the K / V rows clipped at 15, and repacks it; a decode step reads it packed
 and its rows are merged into it in place (qops.kv_flush_packed), once per
 chunk when staged; decode_loop stages at every B on it.
 
+forward and decode_loop take a KernelConfig or a legacy use_pallas value of
+the JAX package (a bool or a mode string, KernelConfig.coerce).
+
 Out of this slice (NotImplementedError): MoE, parallel residual, 2-linear
 MLPs, layernorm models, policies with the q/k/v or w1/w3 output sites off,
-attn_kernel on the int4 cache (the JAX engine refuses it too), the o-tail
-kernel on W8 packs, and context/tensor parallelism. Weight-only mode
+attn_kernel on the int4 cache (the JAX engine refuses it too), and
+context/tensor parallelism. Weight-only mode
 (act_bits = 16) is runtime/wonly.py.
 """
 
@@ -81,14 +89,17 @@ from mobilequant_tpu_torch.ops.fused_layer import (
     MAX_BATCH, fused_layer_w4, fused_model_w4, head_kernel_supported,
     layer_kernel_supported)
 from mobilequant_tpu_torch.ops.kv4_attention import kv4_attn_supported, kv4_decode_attention
-from mobilequant_tpu_torch.ops.mlp_block import fused_mlp_block_w4, mlp_block_supported
+from mobilequant_tpu_torch.ops.fused_mlp import fused_mlp
+from mobilequant_tpu_torch.ops.fused_mlp_block import fused_mlp_block
+from mobilequant_tpu_torch.ops.mlp_block import fused_mlp_block_w4, stacked_mlp_supported
 from mobilequant_tpu_torch.ops.otail import fused_otail_block_w4
 from mobilequant_tpu_torch.ops.prefill_attention import prefill_attention
 from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope, qkv_rope_supported
 from mobilequant_tpu_torch.ops.staged_append import staged_append, staged_append_plain
 from mobilequant_tpu_torch.ops.w13_gate import w13_gate, w13_gate_supported
+from mobilequant_tpu_torch.ops.w13_gate_w2 import w13_gate_w2, w13_gate_w2_supported
 from mobilequant_tpu_torch.ops.w4a8_matmul import (
-    layer_pack, w4a8_matmul, w4a8_matmul_stacked, weight_bits)
+    int_affine, layer_pack, w4a8_matmul, w4a8_matmul_stacked, weight_bits)
 from mobilequant_tpu_torch.ops.w8a8_matmul import MAX_ROWS as W8_MAX_ROWS, w8a8_matmul
 from mobilequant_tpu_torch.quant.policy import QPolicy, policy_kv_bits
 from mobilequant_tpu_torch.quant.quantizer import (
@@ -141,6 +152,12 @@ class EngineConfig:
                                 # on the fly)
     act_dtype: torch.dtype = torch.float32   # weight-only mode's activations
                                              # and KV cache
+    use_pallas: object = True   # the Generator's decode kernels, in
+                                # weight-only mode too: a KernelConfig, or a
+                                # legacy value of the JAX package (True: the
+                                # entry config; a mode string such as "mlp",
+                                # "mlpblock", "mlpblockvpu", "otail"), as
+                                # engine.decode_loop takes it
 
 
 # ---------------------------------------------------------------------------
@@ -836,12 +853,13 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
                                       pv["input2"]["scale"], pv["input2"]["offset"])
             attn = attn.reshape(B, Hkv, G, T, hd).permute(0, 3, 1, 2, 4).reshape(B, T, qd)
     a8, ar = out_q8(attn, "self_attn.pv_bmm")
-    w13 = ly["w13_proj"]
+    w13, w2 = ly["w13_proj"], ly["w2"]
     F = w13["wq"].shape[-1] // 2
-    if kc.otail_kernel and B * T <= kc.stacked_bt_max and mlp_block_supported(D, F):
+    wb = weight_bits(w13["wq"], D)
+    if kc.otail_kernel and B * T <= kc.stacked_bt_max and stacked_mlp_supported(D, F, wb):
         # o-proj -> o fq -> resid_add_1 -> the whole MLP block in one launch
         out = fused_otail_block_w4(a8.reshape(B * T, qd), x.reshape(B * T, D), ly["o_proj"],
-                                   ly["mlp_norm"]["w"], ly["mlp_norm"]["b"], w13, ly["w2"],
+                                   ly["mlp_norm"]["w"], ly["mlp_norm"]["b"], w13, w2,
                                    _mlp_block_meta(lr, policy, c) + _otail_meta_ext(lr, policy),
                                    l, c.hidden_act, _mlp_block_site_on(policy),
                                    _otail_site_on(policy))
@@ -851,18 +869,46 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
     resid = _resid_add(x, o, lr, policy, "resid_add_1")
 
     # --- mlp ---
-    h2 = _norm(resid, ly["mlp_norm"], l, "post_attention_layernorm", lr, policy, c)
-    h28, h2r = out_q8(h2, "post_attention_layernorm")
-    if kc.stacked_mlp_kernel and B * T <= kc.stacked_bt_max and mlp_block_supported(D, F):
+    if (kc.stacked_mlp_kernel and B * T <= kc.stacked_bt_max
+            and stacked_mlp_supported(D, F, wb)):
         # the whole MLP block (norm -> w13 -> gate -> w2 -> resid_add_2) in one
         # launch, checked before the split path as in the JAX engine
         out = fused_mlp_block_w4(resid.reshape(B * T, D), ly["mlp_norm"]["w"],
-                                 ly["mlp_norm"]["b"], w13, ly["w2"],
+                                 ly["mlp_norm"]["b"], w13, w2,
                                  _mlp_block_meta(lr, policy, c), l, c.hidden_act,
                                  _mlp_block_site_on(policy))
         return out.reshape(B, T, D), rows
+    if kc.mlp_block_kernel and wb == 8:
+        # the whole MLP block on the layer's W8 packs in one launch, any B·T
+        mm_kind = "vpu" if (kc.vpu_matvec and B * T == 1) else "mxu"
+        out = fused_mlp_block(resid.reshape(B * T, D), ly["mlp_norm"]["w"][l],
+                              ly["mlp_norm"]["b"][l], layer_pack(w13, l), layer_pack(w2, l),
+                              _mlp_block_meta(lr, policy, c), c.hidden_act, "rmsnorm",
+                              mm_kind)
+        return out.reshape(B, T, D), rows
+    h2 = _norm(resid, ly["mlp_norm"], l, "post_attention_layernorm", lr, policy, c)
+    h28, h2r = out_q8(h2, "post_attention_layernorm")
+    w2in = lr["mlp.w2"]["input"]
+    if kc.mlp_kernel and wb == 8:
+        # w13, the gate chain and the raw w2 sums in one launch (any B·T); the
+        # w2 affine epilogue here, as in the JAX engine
+        w2l = layer_pack(w2, l)
+        acc, rsum = fused_mlp(h28.reshape(B * T, D), layer_pack(w13, l), w2l,
+                              _mlp_block_meta(lr, policy, c)[:16], c.hidden_act)
+        y = int_affine(acc, rsum, w2l["scale"], w2l["offset"], w2l["colsum"], w2l.get("bias"),
+                       w2in["scale"], w2in["offset"], F).reshape(B, T, D)
+        y = _fq16(y, lr["mlp.w2"].get("output"), policy["mlp.w2"].output)
+        return _resid_add(resid, y, lr, policy, "resid_add_2"), rows
+    if (kc.gate_kernel and kc.w2fold_kernel and T > 1
+            and w13_gate_w2_supported(B * T, D, F, wb)):
+        # w13, the gate chain, w2 and its epilogue in one launch (the JAX
+        # engine's w2-folded prefill route)
+        y = w13_gate_w2(h28.reshape(B * T, D), w13, w2, _mlp_block_meta(lr, policy, c), l,
+                        c.hidden_act, _mlp_block_site_on(policy)[1:5]).reshape(B, T, D)
+        y = _fq16(y, lr["mlp.w2"].get("output"), policy["mlp.w2"].output)
+        return _resid_add(resid, y, lr, policy, "resid_add_2"), rows
     if kc.gate_kernel and T > 1:
-        if not w13_gate_supported(D, F, weight_bits(w13["wq"], D)):
+        if not w13_gate_supported(D, F, wb):
             raise NotImplementedError("the w13+gate kernel takes K % 64 == 0, F % 64 == 0")
         act8 = w13_gate(h28.reshape(B * T, D), w13, _mlp_block_meta(lr, policy, c), l,
                         c.hidden_act, site_on=_mlp_block_site_on(policy)[1:5])
@@ -882,9 +928,8 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
             act = torch.nn.functional.gelu(g1, approximate="tanh")
         act = _fq16(act, lr["mlp.act_fn"].get("output"), policy["mlp.act_fn"].output)
         act = act * g3
-        w2in = lr["mlp.w2"]["input"]
         act8 = qops.quantize_act(act, w2in["scale"], w2in["offset"])
-    y = _int_linear(act8, lr["mlp.w2"]["input"], ly["w2"], l, kc)
+    y = _int_linear(act8, w2in, w2, l, kc)
     y = _fq16(y, lr["mlp.w2"].get("output"), policy["mlp.w2"].output)
     return _resid_add(resid, y, lr, policy, "resid_add_2"), rows
 
@@ -892,7 +937,7 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
 def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
             positions=None, kv_cache: Optional[EngineKVCache] = None,
             cache_position=None, kv_valid_len=None,
-            kc: KernelConfig = KernelConfig(), logits_at=None):
+            kc=KernelConfig(), logits_at=None):
     """Packed-int forward -> (logits, kv_cache), on the device of the packed
     model. T > 1 is a prefill (rows written into the cache in place), T = 1
     with a cache the decode-light step (under attn_kernel: the row written
@@ -903,8 +948,10 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
     On the int4 cache (the policy's KV bitwidth 4) a prefill unpacks the
     cache once and repacks it in place; a decode step reads it packed.
     logits_at: optional (B,) row index, to run the final norm and head on
-    that single position ((B, 1, V))."""
+    that single position ((B, 1, V)). kc: a KernelConfig or a legacy
+    use_pallas value (KernelConfig.coerce)."""
     c = config
+    kc = KernelConfig.coerce(kc)
     _check_config(c)
     _check_policy(policy)
     dev = packed["embed"].device
@@ -1115,15 +1162,18 @@ def _flush(cache: torch.Tensor, staged: torch.Tensor, pos0: torch.Tensor) -> Non
 
 def decode_loop(packed: dict, first_token: torch.Tensor, kv_cache: EngineKVCache,
                 start_pos: torch.Tensor, n_steps: int, config: ModelConfig,
-                policy: QPolicy, kc: Optional[KernelConfig] = None,
+                policy: QPolicy, kc=None,
                 temperature=0.0, generator: Optional[torch.Generator] = None,
                 staging_chunk: int = 32):
     """n_steps of decode, one T=1 forward per step. first_token (B, 1),
     start_pos (B,) -> (tokens (B, n_steps), cache, last logits (B, V)).
 
-    kc None is the entry point's config (KernelConfig.serving, as the JAX
-    decode_loop makes it for use_pallas=True); an explicit KernelConfig is
-    used as it is. On the int8 cache at B <= 8 with a whole-step or
+    kc takes what the JAX decode_loop's use_pallas takes: an explicit
+    KernelConfig is used as it is; a legacy value (a bool or a mode string;
+    None is True, the entry point's) is coerced and then, as the JAX
+    decode_loop does, gets stacked_bt_max raised to 128 and the chunk kernel
+    beside the whole-model kernel for W8 packs at 8 < B <= 48
+    (KernelConfig.serving). On the int8 cache at B <= 8 with a whole-step or
     whole-layer kernel, or under attn_kernel, each step writes its rows into
     the cache (one whole-model launch a step under KernelConfig.decode()).
     Otherwise (B > 8, the int4 cache, or no such kernel) the loop runs in
@@ -1138,8 +1188,8 @@ def decode_loop(packed: dict, first_token: torch.Tensor, kv_cache: EngineKVCache
     per call, before the first step)."""
     from mobilequant_tpu_torch.runtime.sampling import loop_next_token
     B = first_token.shape[0]
-    if kc is None:
-        kc = KernelConfig.serving(config, packed, B)
+    if not isinstance(kc, KernelConfig):
+        kc = KernelConfig.serving(config, packed, B, True if kc is None else kc)
     kv4 = policy_kv_bits(policy) == 4
     if kv4 and kc.attn_kernel:
         raise NotImplementedError("int4 KV decode: the attention kernels read int8 caches "

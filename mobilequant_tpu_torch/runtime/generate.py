@@ -5,23 +5,29 @@ and w13+gate kernels with the W4A8 kernel for o-proj, w2 and the one-row
 head, or the whole-MLP-block kernel in every layer when B·T <= 64; on a W8A8
 pack the W8 editions of the w13+gate and MLP-block kernels, with qkv, o-proj,
 w2 and the W8 head on the plain integer matmul (as in the JAX engine).
-generate_fast decodes with engine.decode_loop's entry config
-(KernelConfig.serving, as the JAX Generator's decode_loop(use_pallas=True)):
-at B <= 8 non-staged T=1 steps, each one launch of the whole-model kernel; at
-B > 8 the chunked-staging loop, whose steps run the W4A8 kernel for qkv and o,
-the whole-MLP-block kernel (up to 128 rows) and staged_append, or, for W8A8
-packs at 8 < B <= 48, one chunk-kernel launch. decode_kc, when
-set, replaces that config (KernelConfig.chunk(): one chunk-kernel launch per
-staged step). On the int4 cache (EngineConfig.kv_bits = 4 with a 4-bit KV
-policy) the prefill is the same kernel set without the qkv epilogue kernel
-(the engine gates it: it clips K / V rows at the 8-bit bound) and decode is
-staged at every B, its attention one kv4 kernel launch per layer and step.
+generate_fast decodes with engine.decode_loop(kc=ecfg.use_pallas), as the
+JAX Generator's decode_loop(use_pallas=ecfg.use_pallas). With the default
+True, the entry config (KernelConfig.serving): at B <= 8 non-staged T=1 steps,
+each one launch of the whole-model kernel; at B > 8 the chunked-staging loop,
+whose steps run the W4A8 kernel for qkv and o, the whole-MLP-block kernel (up
+to 128 rows) and staged_append, or, for W8A8 packs at 8 < B <= 48, one
+chunk-kernel launch. A legacy mode string takes the JAX route it names, in
+every layer of a staged step: on a W8A8 pack "mlp" (ops/fused_mlp),
+"mlpblock" and "mlpblockvpu" (ops/fused_mlp_block); "otail" the o-tail (it
+keeps the whole-model kernel on, so W8A8 packs at 8 < B <= 48 take the chunk
+kernel, as in the JAX engine). An explicit KernelConfig keeps its own gate
+(KernelConfig.chunk(): one chunk-kernel launch per staged step;
+KernelConfig.otail(): the o-tail at every B > 8). On the int4 cache
+(EngineConfig.kv_bits = 4 with a 4-bit KV policy) the prefill is the same
+kernel set without the qkv epilogue kernel (the engine gates it: it clips K /
+V rows at the 8-bit bound) and decode is staged at every B, its attention one
+kv4 kernel launch per layer and step.
 Weight-only mode (EngineConfig.act_bits = 16, a pack of
 runtime/wonly.pack_weight_only): the same Generator drives runtime/wonly.py
 instead, as the JAX one does. Its prefill takes no kernel (the dequantized
 weight once a layer, then a plain matmul); its decode takes the weight-only
 kernel (wonly_matmul_stacked) for every projection and, with a W4 head, the
-W4A8 kernel for the head; the KV cache is fp in act_dtype and the policy is
+W4A8 kernel for the head, when ecfg.use_pallas sets any kernel; the KV cache is fp in act_dtype and the policy is
 not read. On a CPU device the kernel wrappers run their plain versions
 (tests); the default device is the GPU, and a GPU device without CUDA raises.
 """
@@ -66,7 +72,6 @@ class Generator:
                 raise ValueError("policy KV bitwidth must match EngineConfig.kv_bits")
             self._mod = E
             self.prefill_kc = KernelConfig.prefill()
-        self.decode_kc: Optional[KernelConfig] = None   # None: decode_loop's entry config
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -92,7 +97,8 @@ class Generator:
         """n_steps of decode from token (B, 1) at positions pos (B,) -> (tokens
         (B, n_steps), cache, last logits (B, V))."""
         return self._mod.decode_loop(self.packed, token, cache, pos, n_steps, self.config,
-                                     self.policy, self.decode_kc, temperature, generator)
+                                     self.policy, self.ecfg.use_pallas, temperature,
+                                     generator)
 
     def generate_fast(self, prompt_tokens, max_new_tokens: int,
                       temperature: float = 0.0, seed: int = 0,
@@ -159,7 +165,8 @@ class Generator:
                       kv_valid_len=pos + 1)
             logits, cache = self._mod.forward(self.packed, token[:, None], self.config,
                                               self.policy,
-                                              kc=self.decode_kc or KernelConfig.decode(), **kw)
+                                              kc=KernelConfig.coerce(self.ecfg.use_pallas),
+                                              **kw)
             last = logits[:, 0]
         self._sync()
         t_decode = time.perf_counter() - t_dec

@@ -183,14 +183,15 @@ def forward(packed: dict, tokens, config: ModelConfig, policy=None, positions=No
 
 def decode_loop(packed: dict, first_token: torch.Tensor, kv_cache: M.KVCache,
                 start_pos: torch.Tensor, n_steps: int, config: ModelConfig, policy=None,
-                kc: Optional[KernelConfig] = None, temperature: float = 0.0,
+                kc=None, temperature: float = 0.0,
                 generator: Optional[torch.Generator] = None):
     """n_steps of decode, one T = 1 forward a step (the cache written in
     place). first_token (B, 1), start_pos (B,) -> (tokens (B, n_steps), cache,
     last logits (B, V)); greedy, or a draw at `temperature` from `generator`.
-    Signature-compatible with engine.decode_loop: kc None is the serving
-    entry config (the kernels on), else read as in forward."""
-    kc = KernelConfig.decode() if kc is None else kc
+    Signature-compatible with engine.decode_loop: kc takes a KernelConfig
+    or a legacy use_pallas value (None is True, the kernels on), read as in
+    forward."""
+    kc = KernelConfig.coerce(True if kc is None else kc)
     token, pos, cache = first_token, start_pos, kv_cache
     toks, last = [], None
     for _ in range(n_steps):

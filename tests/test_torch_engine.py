@@ -202,7 +202,9 @@ def test_slice_reaches_every_kernel_plain_version(built):
     assert plain["w4a8_matmul_stacked"] == 2 * L           # o and w2
     assert plain["w4a8_matmul"] == head                    # the head
     T_ops.reset_counts()
-    gen.decode_kc = KernelConfig.decode_per_layer()
+    gen = Generator(b["packed"], b["cfg"], relax_16bit(b["pol"]),
+                    dataclasses.replace(b["ecfg"], use_pallas=KernelConfig.decode_per_layer()),
+                    device="cpu")
     gen.generate_fast(_prompt(T=10, B=1), 3)
     plain = T_ops.counts("plain_calls")
     assert plain["fused_layer_w4"] == 2 * L and plain["fused_model_w4"] == 0

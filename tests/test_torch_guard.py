@@ -59,11 +59,12 @@ def test_generator_on_cuda_refuses_without_a_card():
 
 def test_unported_configurations_raise():
     """What stays unported raises: attn_kernel on the int4 cache (the JAX
-    engine refuses it too), the o-tail kernel on W8 packs (its W8 edition is
-    not ported), MoE configurations in the integer engine. W8 packs under the
-    other kernel flags run (test_torch_w8), on the int4 cache too: the entry
+    engine refuses it too), MoE configurations in the integer engine. W8
+    packs under the other kernel flags run (test_torch_w8), the o-tail kernel
+    among them (test_torch_w2fold_otail), on the int4 cache too: the entry
     config's decode_loop (kc=None) and the prefill kernel set run there
     (test_torch_w8_kv4 holds them against the JAX package)."""
+    from mobilequant_tpu_torch import ops
     from mobilequant_tpu_torch.convert import build_synthetic_packed
     from mobilequant_tpu_torch.quant.policy import relax_16bit
     from mobilequant_tpu_torch.runtime import engine as E
@@ -82,8 +83,11 @@ def test_unported_configurations_raise():
     packed, cfg, policy, ecfg = build_synthetic_packed("test-llama-256", w_bits=8,
                                                        max_seq_len=32, device="cpu")
     prompt = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="o-tail"):
-        E.forward(packed, prompt, cfg, relax_16bit(policy), kc=KernelConfig(otail_kernel=True))
+    ops.reset_counts()
+    logits, _ = E.forward(packed, prompt, cfg, relax_16bit(policy),
+                          kc=KernelConfig(otail_kernel=True))                 # runs
+    assert ops.counts("plain_calls")["fused_otail_block_w4"] == cfg.num_layers
+    assert bool(torch.isfinite(logits).all())
     E.forward(packed, prompt, cfg, relax_16bit(policy), kc=KernelConfig.prefill())   # runs
     with pytest.raises(NotImplementedError):
         E.forward(packed, tok, cfg.replace(num_local_experts=4, num_experts_per_tok=2),

@@ -191,7 +191,8 @@ def test_kernel_registry_counts_reset():
                                    "prefill_attention", "w13_gate", "fused_mlp_block_w4", "fused_layer_w4",
                                    "fused_model_w4", "staged_append", "fused_otail_block_w4",
                                    "fused_model_w4_chunk", "kv4_decode_attention",
-                                   "decode_attention", "wonly_matmul_stacked", "w4a16_matmul"}
+                                   "decode_attention", "wonly_matmul_stacked", "w4a16_matmul",
+                                   "fused_mlp", "fused_mlp_block", "w13_gate_w2"}
     assert all(v == 0 for v in T_ops.counts().values())
     assert all(v == 0 for v in T_ops.counts("plain_calls").values())
 
