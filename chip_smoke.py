@@ -25,7 +25,8 @@
      kernel (fused_mlp_block_w4) in every layer;
    - 8 decode steps under KernelConfig.decode_per_layer(), one whole-layer
      launch (fused_layer_w4) per layer and step;
-   - the serving batch: B=32 generate_fast (128-token prompt, 64 new tokens)
+   - the serving batch: B=32 generate_fast (128-token prompt, 64 new tokens;
+     17 on the host-bound staged routes, HOST_NEW)
      on the default staged route (W4A8 qkv / o, the MLP-block kernel and
      staged_append each step) and on the chunk route (one fused_model_w4_chunk
      launch and staged_append each step); B=128 decode of 8 steps after a
@@ -40,7 +41,7 @@
    plain engine's numerics (engine_numerics) as the witnesses that the B=1
    and chunk routes' wiring is the engine's;
    - the int4 KV cache (a kv_bits=4 pack): generate_fast at B=1 and B=32
-     (128-token prompts, 64 new tokens), B=128 (32-token prompt, 8 steps) and
+     (128-token prompts, 17 new tokens), B=128 (32-token prompt, 8 steps) and
      B=8 (496-token prompt, 33 new tokens: a chunk straddles S/2 = 512), one
      kv4 kernel launch per layer and step, and one 32-step B=32 chunk fed the
      same tokens on the kv4 kernel route, on that route with the kernel's
@@ -90,16 +91,32 @@
      also at the test-llama width;
    - phase 3m: the routes through the entry points on the W8A8/h8 pack:
      Generator(EngineConfig(use_pallas="mlp" / "mlpblock" / "mlpblockvpu"))
-     .generate_fast at B=1 (128-token prompt, 64 new tokens; one launch of
+     .generate_fast at B=1 (128-token prompt, 17 new tokens; one launch of
      the route's kernel a layer and step), the W8 o-tail route
      (KernelConfig.otail()) at B = 32 and 128 with its 32-step B=32 chunk
      against its kernel's plain version and the plain path, the same chunk
      on the "mlp" and "mlpblock" routes against the plain path, and the T=128
      prefill on KernelConfig.prefill() with and without w2fold_kernel (W4A8
      and W8A8): wall, device time, launches;
+   - phase 2s: StableLM-2-1.6B at full width (24 layers, 32 q / 32 kv heads,
+     rotary on 16 of 64 head dims, LayerNorm with a bias, a q/k/v bias;
+     seeded W4A8/h4 and W8A8/h8 packs): the LayerNorm edition of the
+     whole-model kernel (B = 1, 8, with the head), the whole-layer kernel,
+     the MLP block (M = 1, 2, 8, 32, 128), the chunk kernel (B = 32, 128)
+     and the o-tail (M = 32, 128), W4 and W8, and the qkv epilogue and
+     prefill attention kernels at its T=128 prefill (the bias, partial
+     rotary, G = 1), each against its plain version with times and bounds;
+   - phase 3s: StableLM serving on both packs through the entry points: B=1
+     generate_fast (one whole-model launch a token), a 32-token prompt,
+     decode_per_layer(), B=32 on the chunk route, the staged MLP-block route
+     and the o-tail, the B=1 step and a 32-step B=32 chunk against the plain
+     path with their engine-numerics witnesses (the chunk's equal bit for
+     bit);
    the decode-attention rows of phase 2, the int4-cache phase, the attn()
-   phase and phases 2q, 3w, 3f, 2m and 3m draw their inputs from generators
-   of their own, so what they draw moves no input of the other checks;
+   phase and phases 2q, 3w, 3f, 2m, 3m, 2s and 3s draw their inputs from
+   generators of their own, so what they draw moves no input of the other
+   checks. No wrapper may run its plain version on the card: every counted
+   run checks its plain-call counts;
 4. prints one JSON line of per-kernel numbers, then the result line.
 
 Any failure exits non-zero before the result line. Without a CUDA device, or
@@ -129,6 +146,11 @@ SEED = 0
 PROMPT_LEN, NEW_TOKENS, MAX_SEQ = 128, 64, 1024
 SHORT_PROMPT, PER_LAYER_STEPS, POS0 = 32, 8, 192
 SERVE_B, BIG_B, BIG_STEPS, STAGED_M, CHUNK_COLS = 32, 128, 8, 16, 32
+# the host-bound staged routes (every step hundreds to thousands of
+# launches) run HOST_NEW new tokens and read their per-step loop over
+# HOST_LOOP steps: their rate is the host's per-step cost, the same over 16
+# steps as over 64, and the run stays near ten minutes
+HOST_NEW, HOST_LOOP = 17, 16
 # the W8 o-tail route's 32-step B=32 chunk against the plain path: (logits
 # rel, max int8 step, share of differing flushed bytes), about twice the
 # first reading on the card (3.78e-3; 2 steps on 0.26% / 0.30% of the K / V
@@ -140,6 +162,31 @@ OTAIL_W8_VS_PLAIN = (8e-3, 63, 6e-3)
 # reading (3.78e-3; 2 steps on 0.26% / 0.30% of the bytes, as the o-tail's)
 MLP_W8_VS_PLAIN = (0.0, 0, 0.0)
 MLPBLOCK_W8_VS_PLAIN = (8e-3, 63, 6e-3)
+# StableLM-2-1.6B (W4/h4, W8/h8) against the plain path: (logits rel, max
+# int8 step, share of differing bytes), about twice the first readings on the
+# card (the kernels there equal their plain versions, and the engine-numerics
+# witnesses equal the plain path bit for bit; the random 24-layer MHA model
+# grows the kernels' rounding far more than TinyLlama's): the T=128 prefill
+# and the decode step after it, both routes fed the plain path's greedy token
+# (read W4 3.94e-2, 7 steps on 7.63% of the K / V bytes, the step 4.82e-2;
+# W8 4.32e-2, 7 steps on 7.40%, the step 3.78e-2; the prefill's layer 0 rows
+# equal, the steps grow to 7 by the last layer), and the 32-step B=32 chunk
+# (W4 4.85e-2, 8 steps on 27.0%; W8 4.38e-2, 8 steps on 32.2% of the flushed
+# bytes)
+STABLELM_PREFILL_VS_PLAIN = {4: (8e-2, 15, 0.16), 8: (9e-2, 15, 0.15)}
+STABLELM_STEP_VS_PLAIN = {4: 0.1, 8: 8e-2}
+STABLELM_CHUNK_VS_PLAIN = {4: (0.1, 16, 0.55), 8: (9e-2, 16, 0.65)}
+
+
+T_START = time.perf_counter()
+PHASE_START_S = {}             # phase -> seconds since the script started
+
+
+def phase(title: str) -> None:
+    """Print a phase's header with the seconds since the script started."""
+    t = time.perf_counter() - T_START
+    PHASE_START_S[title.split(":")[0]] = t
+    print(f"{title} [{t:.0f} s]", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -240,18 +287,21 @@ def engine_numerics(E, cfg, policy, attention=True, norms=True):
     plain versions (ops/chunk_model, ops/fused_layer) onto the plain engine
     path's numerics: their attention (engine._decode_light_attention: scores
     scaled by s_q·s_k, then 1/sqrt(hd); P normalised before P·V; fp32 sums)
-    and their fp32 RMS norms (engine._rms) in place of the kernels'
-    fp64-summed rms_norm. With both, the chunk and B <= 8 routes compute what
-    the plain engine path computes, so what remains between them is the
-    route's wiring (K column sums, RoPE rows, positions, staged columns, the
-    row writes and the flush)."""
+    and the plain engine's fp32 RMS norms and LayerNorms (engine._rms,
+    engine._layer_norm) in place of the kernels' fp64-summed rms_norm and
+    layer_norm. With both, the chunk and B <= 8 routes compute what the plain
+    engine path computes, so what remains between them is the route's wiring
+    (K column sums, RoPE rows, positions, staged columns, the row writes and
+    the flush)."""
     from mobilequant_tpu_torch.ops import chunk_model, fused_layer, mlp_block
     out = {}
     if attention:
         out[(chunk_model, "chunk_attention_plain")] = engine_attention(E, cfg, policy)
         out[(fused_layer, "layer_attention_plain")] = engine_layer_attention(E, cfg, policy)
     if norms:
-        out.update({(mod, "rms_norm"): E._rms for mod in (chunk_model, fused_layer, mlp_block)})
+        for mod in (chunk_model, fused_layer, mlp_block):
+            out[(mod, "rms_norm")] = E._rms
+            out[(mod, "layer_norm")] = E._layer_norm
     return out
 
 
@@ -302,6 +352,51 @@ def engine_layer_attention(E, cfg, policy):
     return att
 
 
+def prefill_engine_numerics(E, cfg):
+    """{(module, name): stand-in} that moves the prefill route
+    (KernelConfig.prefill()) onto the plain engine path's numerics: each
+    prefill kernel becomes its plain version on the same operands, and the
+    prefill attention (whose plain version repeats the JAX kernel's math) the
+    plain engine's attention: integer scores, their fake-quant, the causal
+    mask, torch.softmax, P·V. What remains between that route and the plain
+    prefill is the route's wiring (the qkv epilogue's RoPE rows and segment
+    quantization, the cache writes, the gate path, the head)."""
+    import math
+    from mobilequant_tpu_torch.models import model as MM
+    from mobilequant_tpu_torch.ops import qops
+    from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope_plain
+    from mobilequant_tpu_torch.ops.w13_gate import _fq, w13_gate_plain
+    from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, w4a8_matmul_plain
+
+    def matmul(x, p, xs, xo):
+        return w4a8_matmul_plain(x, p["wq"], p["scale"], p["offset"], p["colsum"],
+                                 p.get("bias"), xs, xo)
+
+    def attention(q8, k8, v8, meta, positions, valid, qk_fq=False, pv_fq=False):
+        m = [float(v) for v in meta]
+        B, Hkv, G, T, hd = q8.shape
+        S = k8.shape[2]
+        sc = qops.int_matmul_qk(q8.reshape(B, Hkv, G * T, hd), k8, m[0], m[1], m[2], m[3])
+        sc = sc.reshape(B, Hkv, G, T, S)
+        if qk_fq:
+            sc = _fq(sc, m[6], m[7], m[8])
+        mask = MM.causal_mask(positions, S, cfg.neg_inf, valid)
+        p = torch.softmax(sc / math.sqrt(hd) + mask[:, :, None], dim=-1)
+        if pv_fq:
+            p = _fq(p, m[9], m[10], m[11])
+        out = qops.int_matmul_pv(p.reshape(B, Hkv, G * T, S), v8, m[4], m[5])
+        return out.reshape(B, Hkv, G, T, hd)
+
+    return {(E, "prefill_attention"): attention,
+            (E, "qkv_rope"): lambda h8, pk, ofq, outq, cs, hs, ho, l, hd, rot: qkv_rope_plain(
+                h8, layer_pack(pk, l), ofq, outq, cs, hs, ho, hd, rot),
+            (E, "w13_gate"): lambda h8, pk, meta, l, act, site_on=(True,) * 4: w13_gate_plain(
+                h8, layer_pack(pk, l), meta, act, site_on),
+            (E, "w4a8_matmul_stacked"): lambda x, pk, xs, xo, l: matmul(x, layer_pack(pk, l),
+                                                                       xs, xo),
+            (E, "w4a8_matmul"): matmul}
+
+
 def kv4_engine_numerics(E, cfg, packed, policy):
     """{(module, name): stand-in} that moves the kv4 route onto the plain
     engine path's numerics: the kv4 kernel becomes the plain engine's kv4
@@ -327,10 +422,11 @@ def kv4_engine_numerics(E, cfg, packed, policy):
             ks=seq(sk), vs=seq(sv), staged_len=m_staged, k_colsum=seq(kcs))
         return out.reshape(BH, G, hd)
 
-    def mlp(x, norm_w, norm_b, w13, w2, meta, layer, act_kind="silu", site_on=(True,) * 9):
+    def mlp(x, norm_w, norm_b, w13, w2, meta, layer, act_kind="silu", site_on=(True,) * 9,
+            norm_kind="rmsnorm"):
         return mlp_block.fused_mlp_block_w4_plain(x, norm_w[layer], norm_b[layer],
                                                   layer_pack(w13, layer), layer_pack(w2, layer),
-                                                  meta, act_kind, site_on)
+                                                  meta, act_kind, site_on, norm_kind)
     return {(E, "kv4_decode_attention"): att, (E, "fused_mlp_block_w4"): mlp,
             (mlp_block, "rms_norm"): E._rms}
 
@@ -436,7 +532,7 @@ def main() -> None:
         if not tol_ok:
             failures.append(f"{name} {shape}: error {err}")
 
-    print("phase 2: kernels vs plain versions", flush=True)
+    phase("phase 2: kernels vs plain versions")
     heads = [packed["head_q"]] + [{k: v.clone() for k, v in packed["head_q"].items()}
                                   for _ in range(2)]       # 3 copies > L2
     mm_cases = [("qkv", 1, ly["qkv_proj"]), ("o", 1, ly["o_proj"]),
@@ -890,7 +986,7 @@ def main() -> None:
         del kcd, vcd
 
     # ---- phase 3: the main path --------------------------------------------
-    print("phase 3: generate_fast, TinyLlama-1.1B W4A8/h4, int8 KV, relaxed", flush=True)
+    phase("phase 3: generate_fast, TinyLlama-1.1B W4A8/h4, int8 KV, relaxed")
     g = Generator(packed, cfg, policy, ecfg, device=dev)
     prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN), generator=gen,
                            device=dev).cpu().numpy()
@@ -898,9 +994,14 @@ def main() -> None:
     runs = {}                                            # route -> launch counts
 
     def counted(route, fn):
+        """fn() with every kernel's counts from 0; the launches are kept under
+        `route`. On the card no wrapper may run its plain version."""
         ops.reset_counts()
         out = fn()
         runs[route] = ops.counts()
+        plain = {k: v for k, v in ops.counts("plain_calls").items() if v}
+        if plain:
+            failures.append(f"{route}: plain versions ran on the card {plain}")
         return out
 
     toks, stats = counted("main", lambda: g.generate_fast(prompt, NEW_TOKENS,
@@ -1067,12 +1168,12 @@ def main() -> None:
         failures.append(f"B=4 step launches {runs['b4_kernel']} / {runs['b4_plain']}")
 
     # the serving batch: chunked-staging decode at B = 32 (128-token prompt,
-    # NEW_TOKENS new tokens) and B = 128 (32-token prompt, BIG_STEPS steps) on
-    # the default route (decode_loop's entry config: W4A8 qkv / o, the
-    # MLP-block kernel, staged_append) and on the chunk route (one
-    # fused_model_w4_chunk launch and one staged_append per step); then
-    # BIG_STEPS B = 32 steps on the o-tail route
-    print("phase 3b: serving batch, chunked-staging decode", flush=True)
+    # NEW_TOKENS new tokens, HOST_NEW on the default route) and B = 128
+    # (32-token prompt, BIG_STEPS steps) on the default route (decode_loop's
+    # entry config: W4A8 qkv / o, the MLP-block kernel, staged_append) and on
+    # the chunk route (one fused_model_w4_chunk launch and one staged_append
+    # per step); then BIG_STEPS B = 32 steps on the o-tail route
+    phase("phase 3b: serving batch, chunked-staging decode")
     p32 = torch.randint(0, cfg.vocab_size, (SERVE_B, PROMPT_LEN), generator=gen,
                         device=dev).cpu().numpy()
     p128 = torch.randint(0, cfg.vocab_size, (BIG_B, SHORT_PROMPT), generator=gen,
@@ -1114,11 +1215,14 @@ def main() -> None:
     for rname, kc_r in (("staged", True), ("chunk", KernelConfig.chunk())):
         gs = Generator(packed, cfg, policy, dataclasses.replace(ecfg, use_pallas=kc_r),
                        device=dev)
-        for tag, pr, n_new in (("b32", p32, NEW_TOKENS), ("b128", p128, BIG_STEPS + 1)):
+        b32_new, b32_loop = ((HOST_NEW, HOST_LOOP) if rname == "staged"
+                             else (NEW_TOKENS, CHUNK_COLS))
+        for tag, pr, n_new, n_loop in (("b32", p32, b32_new, b32_loop),
+                                       ("b128", p128, BIG_STEPS + 1, BIG_STEPS)):
             gs.generate_fast(pr, 3)                      # warm-up
             route = f"{tag}_{rname}"
             tk, stt = counted(route, lambda: gs.generate_fast(pr, n_new, return_stats=True))
-            nums = loop_numbers(gs, pr, CHUNK_COLS if tag == "b32" else BIG_STEPS)
+            nums = loop_numbers(gs, pr, n_loop)
             nums.update(decode_tok_s=stt["decode_tok_s"], prefill_ms=stt["prefill_s"] * 1e3,
                         launches=runs[route])
             serve[route] = nums
@@ -1152,22 +1256,24 @@ def main() -> None:
 
     # kernel path vs plain path over one CHUNK_COLS-step chunk at B = 32, the
     # same tokens fed to every route: logits of every step and the flushed caches
-    def staged_chunk(kc_c, cache, toks, pos0, packed_c=None, policy_c=None, kv4=False):
+    def staged_chunk(kc_c, cache, toks, pos0, packed_c=None, policy_c=None, kv4=False,
+                     cfg_c=None):
         """One staged chunk fed `toks` (decode_loop's chunk body) -> (logits of
         every step, the flushed cache)."""
-        packed_c, policy_c = packed_c or gs.packed, policy_c or policy
+        packed_c, policy_c, cfg_c = packed_c or gs.packed, policy_c or policy, cfg_c or cfg
         n = toks.shape[1]
         colsums, flush = ((qops.kv_colsums_packed, qops.kv_flush_packed) if kv4
                           else (E.kv_colsums, E._flush))
-        st = E.StagedKVCache(cache.k, cache.v,
-                             torch.zeros((L, SERVE_B, Hkv, n, hd), dtype=torch.int8, device=dev),
-                             torch.zeros((L, SERVE_B, Hkv, n, hd), dtype=torch.int8, device=dev),
-                             0, colsums(cache.k))
+        Lc, Bc, Hc = cache.k.shape[:3]
+        shape = (Lc, Bc, Hc, n, cfg_c.head_dim_)
+        st = E.StagedKVCache(cache.k, cache.v, torch.zeros(shape, dtype=torch.int8, device=dev),
+                             torch.zeros(shape, dtype=torch.int8, device=dev), 0,
+                             colsums(cache.k))
         lgs = []
         for i in range(n):
             st = E._stage_pending(st, kc_c)
             p = pos0 + i
-            lg, st = E.forward(packed_c, toks[:, i:i + 1], cfg, policy_c, positions=p[:, None],
+            lg, st = E.forward(packed_c, toks[:, i:i + 1], cfg_c, policy_c, positions=p[:, None],
                                kv_cache=st, cache_position=pos0, kv_valid_len=p + 1, kc=kc_c)
             lgs.append(lg[:, -1])
         st = E._stage_pending(st, kc_c)
@@ -1242,10 +1348,10 @@ def main() -> None:
     # generate_fast on the kv4 pack at B = 1, 32, 128 and B = 8 from a
     # 496-token prompt (its 32-step chunk straddles S/2 = 512); decode_loop's
     # entry config: every step staged, one kv4 kernel launch per layer
-    print("phase 3c: int4 KV cache, TinyLlama-1.1B W4A8/h4, kv_bits 4, relaxed", flush=True)
+    phase("phase 3c: int4 KV cache, TinyLlama-1.1B W4A8/h4, kv_bits 4, relaxed")
     g4 = Generator(packed4, cfg, policy4, ecfg4, device=dev)
-    for route, Bq, Tp, n_new, n_loop in (("kv4_b1", 1, PROMPT_LEN, NEW_TOKENS, CHUNK_COLS),
-                                         ("kv4_b32", SERVE_B, PROMPT_LEN, NEW_TOKENS, CHUNK_COLS),
+    for route, Bq, Tp, n_new, n_loop in (("kv4_b1", 1, PROMPT_LEN, HOST_NEW, HOST_LOOP),
+                                         ("kv4_b32", SERVE_B, PROMPT_LEN, HOST_NEW, HOST_LOOP),
                                          ("kv4_b128", BIG_B, SHORT_PROMPT, BIG_STEPS + 1,
                                           BIG_STEPS),
                                          ("kv4_b8_straddle", 8, 496, 33, CHUNK_COLS)):
@@ -1330,7 +1436,7 @@ def main() -> None:
     # ---- phase 3d: the attn() route ------------------------------------------
     # PER_LAYER_STEPS B=1 decode steps, each writing its row into the int8
     # cache and launching the decode attention kernel once per layer
-    print("phase 3d: the attn() route (int8 decode attention kernel), B=1", flush=True)
+    phase("phase 3d: the attn() route (int8 decode attention kernel), B=1")
     ga = Generator(packed, cfg, policy, dataclasses.replace(ecfg, use_pallas=KernelConfig.attn()),
                    device=dev)
     ga.generate_fast(prompt, 2)
@@ -1371,7 +1477,7 @@ def main() -> None:
     # ---- phase 2w: the W8 editions and w8a8_matmul against their plain versions
     # (a W8A8/h8 pack of its own and a generator of its own, so that the
     # earlier phases' inputs stay as they were)
-    print("phase 2w: W8 editions vs plain versions, TinyLlama-1.1B W8A8/h8", flush=True)
+    phase("phase 2w: W8 editions vs plain versions, TinyLlama-1.1B W8A8/h8")
     wgen = torch.Generator(device=dev).manual_seed(SEED + 3)
     packed8, _, strict8, ecfg8 = build_synthetic_packed(
         "tinyllama-1.1b", w_bits=8, head_bits=8, max_seq_len=MAX_SEQ, seed=SEED, device=dev)
@@ -1585,12 +1691,15 @@ def main() -> None:
     # ---- phase 3e: W8A8 serving --------------------------------------------
     # generate_fast and decode_loop on the W8/h8 pack through the port's
     # entry points, each route's launches counted from 0 around its run
-    print("phase 3e: generate_fast, TinyLlama-1.1B W8A8/h8, int8 KV, relaxed", flush=True)
+    phase("phase 3e: generate_fast, TinyLlama-1.1B W8A8/h8, int8 KV, relaxed")
     serve8 = {}
 
-    def w8_route(route, gen8, prompt_np, n_new, n_loop, want):
+    def w8_route(route, gen8, prompt_np, n_new, n_loop, want, store=None):
         """generate_fast on one route (its launch counts held to `want`), then
-        decode_loop's per-step readings from the same state (loop_numbers)."""
+        decode_loop's per-step readings from the same state (loop_numbers),
+        kept in `store` (serve8 unless given)."""
+        store = serve8 if store is None else store
+        vocab = gen8.config.vocab_size
         gen8.generate_fast(prompt_np, 3)                 # warm-up
         tk, stt = counted(route, lambda: gen8.generate_fast(prompt_np, n_new,
                                                             return_stats=True))
@@ -1598,14 +1707,14 @@ def main() -> None:
         nums.update(decode_tok_s=stt["decode_tok_s"], prefill_ms=stt["prefill_s"] * 1e3,
                     launches=runs[route], batch=prompt_np.shape[0], prompt=prompt_np.shape[1],
                     new_tokens=n_new)
-        serve8[route] = nums
+        store[route] = nums
         print(f"  {route}: decode {stt['decode_tok_s']:.2f} tok/s (generate_fast), prefill "
               f"{stt['prefill_s'] * 1e3:.2f} ms, loop step wall {nums['wall_ms_per_step']:.3f} "
               f"ms, device {nums['device_ms_per_step']:.3f} ms, idle {nums['idle_share']:.3f}, "
               f"{nums['launches_per_step']:.1f} launches/step; counts {runs[route]}", flush=True)
         for k, ms_, c in nums["top_kernels"]:
             print(f"    {route}/step {ms_:8.4f} ms  x{c:6.1f}  {k}", flush=True)
-        if tk.shape != (prompt_np.shape[0], n_new) or tk.min() < 0 or tk.max() >= cfg.vocab_size:
+        if tk.shape != (prompt_np.shape[0], n_new) or tk.min() < 0 or tk.max() >= vocab:
             failures.append(f"{route}: bad tokens {tk.shape}")
         got = {k: runs[route][k] for k in want}
         if got != want:
@@ -1793,8 +1902,7 @@ def main() -> None:
     # layers rotated while timing) and of L-layer W4 / W8 per-channel stacks;
     # row 13 at M = 1, 8, 128 on q. Yardstick: torch.matmul of the bf16 rows
     # on the weight dequantized once to bf16 (cuBLAS on 4x the W4 bytes)
-    print("phase 2q: weight-only kernels vs plain versions, TinyLlama-1.1B W4A16 / W8A16",
-          flush=True)
+    phase("phase 2q: weight-only kernels vs plain versions, TinyLlama-1.1B W4A16 / W8A16")
     qgen = torch.Generator(device=dev).manual_seed(SEED + 5)
     pk_w16, _, pol_w16, ecfg_w16 = build_synthetic_wonly(
         "tinyllama-1.1b", w_bits=4, group_size=128, head_bits=16, act_dtype=torch.bfloat16,
@@ -1880,7 +1988,7 @@ def main() -> None:
     # bench's w4a16 row) and the W4 head (w4a16_h4): the prefill takes no
     # kernel, every decode projection one wonly_matmul_stacked launch, the W4
     # head one w4a8_matmul launch a token
-    print("phase 3w: generate_fast, TinyLlama-1.1B W4A16 g128, bf16, fp KV, B=1", flush=True)
+    phase("phase 3w: generate_fast, TinyLlama-1.1B W4A16 g128, bf16, fp KV, B=1")
     wonly = {}
     prompt_w = torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN), generator=qgen,
                              device=dev).cpu().numpy()
@@ -1894,15 +2002,15 @@ def main() -> None:
                 act_dtype=torch.bfloat16, max_seq_len=MAX_SEQ, seed=SEED, device=dev)
             gw = Generator(pk_h, cfg, pol_h, ecfg_h, device=dev)
         gw.generate_fast(prompt_w, 4)                         # warm-up
-        tk, stt = counted(route, lambda: gw.generate_fast(prompt_w, NEW_TOKENS,
+        tk, stt = counted(route, lambda: gw.generate_fast(prompt_w, HOST_NEW,
                                                           return_stats=True))
-        nums = loop_numbers(gw, prompt_w, CHUNK_COLS)
+        nums = loop_numbers(gw, prompt_w, HOST_LOOP)
         tpw = torch.as_tensor(prompt_w, device=dev)
         pre_d, pre_t, pre_l = device_profile(lambda: gw.prefill(tpw, gw.init_cache(1)))
         nums.update(decode_tok_s=stt["decode_tok_s"], prefill_ms=stt["prefill_s"] * 1e3,
                     prefill_device_ms=pre_d, prefill_kernel_launches=pre_l,
                     prefill_top_kernels=pre_t, launches=runs[route], batch=1,
-                    prompt=PROMPT_LEN, new_tokens=NEW_TOKENS)
+                    prompt=PROMPT_LEN, new_tokens=HOST_NEW)
         wonly[route] = nums
         print(f"  {route}: decode {stt['decode_tok_s']:.2f} tok/s (generate_fast), prefill "
               f"{stt['prefill_s'] * 1e3:.2f} ms wall / {pre_d:.3f} ms device ({pre_l} "
@@ -1911,9 +2019,9 @@ def main() -> None:
               f"{nums['launches_per_step']:.1f} launches/step; counts {runs[route]}", flush=True)
         for k, ms_, c in nums["top_kernels"]:
             print(f"    {route}/step {ms_:8.4f} ms  x{c:6.1f}  {k}", flush=True)
-        if tk.shape != (1, NEW_TOKENS) or tk.min() < 0 or tk.max() >= cfg.vocab_size:
+        if tk.shape != (1, HOST_NEW) or tk.min() < 0 or tk.max() >= cfg.vocab_size:
             failures.append(f"{route}: bad tokens {tk.shape}")
-        steps_w = NEW_TOKENS - 1
+        steps_w = HOST_NEW - 1
         want = {"wonly_matmul_stacked": n_proj * L * steps_w,
                 "w4a8_matmul": steps_w if hb == 4 else 0, "w4a16_matmul": 0,
                 "fused_model_w4": 0, "w4a8_matmul_stacked": 0}
@@ -1971,16 +2079,16 @@ def main() -> None:
     # head on the plain integer matmul; then a CHUNK_COLS-step B=32 chunk fed
     # the same tokens on that route, with the kv4 kernel's plain version, on
     # the plain engine's numerics (kv4_engine_numerics) and on the plain path
-    print("phase 3f: W8A8/h8 on the int4 KV cache, TinyLlama-1.1B, relaxed", flush=True)
+    phase("phase 3f: W8A8/h8 on the int4 KV cache, TinyLlama-1.1B, relaxed")
     fgen = torch.Generator(device=dev).manual_seed(SEED + 6)
     packed8k, _, strict8k, ecfg8k = build_synthetic_packed(
         "tinyllama-1.1b", w_bits=8, head_bits=8, max_seq_len=MAX_SEQ, seed=SEED, device=dev,
         kv_bits=4)
     policy8k = relax_16bit(strict8k)
     g8k = Generator(packed8k, cfg, policy8k, ecfg8k, device=dev)
-    for route, Bq, Tp, n_new, n_loop in (("w8kv4_b1", 1, PROMPT_LEN, NEW_TOKENS, CHUNK_COLS),
-                                         ("w8kv4_b32", SERVE_B, PROMPT_LEN, NEW_TOKENS,
-                                          CHUNK_COLS),
+    for route, Bq, Tp, n_new, n_loop in (("w8kv4_b1", 1, PROMPT_LEN, HOST_NEW, HOST_LOOP),
+                                         ("w8kv4_b32", SERVE_B, PROMPT_LEN, HOST_NEW,
+                                          HOST_LOOP),
                                          ("w8kv4_b128", BIG_B, SHORT_PROMPT, BIG_STEPS + 1,
                                           BIG_STEPS)):
         steps = n_new - 1
@@ -2048,8 +2156,7 @@ def main() -> None:
     # the w2 matmul the JAX split route runs (W4: w4a8_matmul_stacked; W8:
     # the plain integer matmul). Rows 16 and 17 also at the test-llama width
     # (hidden 64, F 128), the narrowest the tile kernel takes.
-    print("phase 2m: alternate MLP routes' kernels vs plain versions, TinyLlama-1.1B",
-          flush=True)
+    phase("phase 2m: alternate MLP routes' kernels vs plain versions, TinyLlama-1.1B")
     mgen = torch.Generator(device=dev).manual_seed(SEED + 7)
     meta16 = meta8[:16]
     w13_vec = 2 * F * 4 * 4                                 # scale / offset / colsum / bias
@@ -2163,24 +2270,24 @@ def main() -> None:
     del packed_t
 
     # ---- phase 3m: the alternate MLP routes through the entry points ---------
-    print("phase 3m: the alternate MLP routes, TinyLlama-1.1B W8A8/h8 (W4A8/h4 for the "
-          "w2-folded prefill)", flush=True)
+    phase("phase 3m: the alternate MLP routes, TinyLlama-1.1B W8A8/h8 (W4A8/h4 for the "
+          "w2-folded prefill)")
     # B=1 generate_fast on EngineConfig(use_pallas=<legacy mode>): the prefill
     # set, then every decode step staged with the route's kernel in each layer
     # (these host-bound routes' per-step loop readings over PER_LAYER_STEPS
     # steps, which keeps the run near ten minutes)
-    steps = NEW_TOKENS - 1
+    steps = HOST_NEW - 1
     for mode, kernel in (("mlp", "fused_mlp"), ("mlpblock", "fused_mlp_block"),
                          ("mlpblockvpu", "fused_mlp_block")):
         gm = Generator(packed8, cfg, policy8, dataclasses.replace(ecfg8, use_pallas=mode),
                        device=dev)
-        w8_route(f"w8_{mode}", gm, prompt8, NEW_TOKENS, PER_LAYER_STEPS,
+        w8_route(f"w8_{mode}", gm, prompt8, HOST_NEW, PER_LAYER_STEPS,
                  {kernel: L * steps, "staged_append": steps, "fused_model_w4": 0,
                   "fused_mlp_block_w4": 0, "w13_gate": L, "prefill_attention": L})
     # the W8 staged route under KernelConfig.otail() at B = 32 and 128
     go8 = Generator(packed8, cfg, policy8,
                     dataclasses.replace(ecfg8, use_pallas=KernelConfig.otail()), device=dev)
-    w8_route("w8_otail_b32", go8, p32w, NEW_TOKENS, PER_LAYER_STEPS,
+    w8_route("w8_otail_b32", go8, p32w, HOST_NEW, PER_LAYER_STEPS,
              {"fused_otail_block_w4": L * steps, "staged_append": steps,
               "fused_model_w4_chunk": 0, "fused_mlp_block_w4": 0})
     w8_route("w8_otail_b128", go8, p128w, BIG_STEPS + 1, BIG_STEPS,
@@ -2190,10 +2297,10 @@ def main() -> None:
     # route, on that route with the kernel's plain version, and on the plain
     # path (the prefill cache and tokens of phase 3e's chain)
     def otail_plain(a8, x, o, nw, nb, w13, w2, meta, layer, act_kind="silu",
-                    site_on=(True,) * 9, osite_on=(True,) * 4):
+                    site_on=(True,) * 9, osite_on=(True,) * 4, norm_kind="rmsnorm"):
         return fused_otail_block_w4_plain(a8, x, layer_pack(o, layer), nw[layer], nb[layer],
                                           layer_pack(w13, layer), layer_pack(w2, layer), meta,
-                                          act_kind, site_on, osite_on)
+                                          act_kind, site_on, osite_on, norm_kind)
     # the same chunk on the "mlp" and "mlpblock" routes (decode_loop's config
     # for the legacy value at B=32), which holds the engine's side of each
     # route (the "mlp" route's w2 epilogue and resid_add_2) on the card
@@ -2279,6 +2386,444 @@ def main() -> None:
                             f"logits rel {e_p[1]}")
     mlp_routes["w2fold_prefill"] = fold_prefill
 
+    # ---- phase 2s: StableLM's kernel editions against their plain versions --
+    # StableLM-2-1.6B at full width (24 layers, hidden 2048, 32 q heads over
+    # 32 kv heads of head_dim 64, rotary on 16 of them, LayerNorm with a bias,
+    # a q/k/v bias; seeded synthetic W4A8/h4 and W8A8/h8 packs, inputs from a
+    # generator of their own): the LayerNorm edition of rows 6, 7, 8, 11 and
+    # 18, W4 and W8, and rows 3 and 4 at its T=128 prefill (partial rotary,
+    # the q/k/v bias, G = 1)
+    phase("phase 2s: StableLM-2-1.6B kernel editions vs plain versions")
+    sgen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    spk = {}
+    for wb in (4, 8):
+        pk_s, cfg_s, strict_s, ecfg_s = build_synthetic_packed(
+            "stablelm-2-1.6b", w_bits=wb, head_bits=wb, max_seq_len=MAX_SEQ, seed=SEED,
+            device=dev)
+        spk[wb] = (pk_s, strict_s, relax_16bit(strict_s), ecfg_s)
+    Ls, Ds, Fs = cfg_s.num_layers, cfg_s.hidden_size, cfg_s.intermediate_size
+    hds, Hqs, Hkvs, rots = cfg_s.head_dim_, cfg_s.num_heads, cfg_s.num_kv_heads, cfg_s.rotary_dim
+    Nqs, Kos, Gs = (Hqs + 2 * Hkvs) * hds, Hqs * hds, Hqs // Hkvs
+    Vps = spk[4][0]["head_q"]["wq"].shape[1]
+    skw = dict(num_q_heads=Hqs, num_kv_heads=Hkvs, head_dim=hds, rotary_dim=rots,
+               act_kind=cfg_s.hidden_act, norm_kind="layernorm")
+    vec_s = (Nqs * 4 + Ds * 4 + 2 * Fs * 4 + Ds * 4) * 4 + 4 * Ds * 4 + Nqs * 16 + 65 * 4
+    mlp_vec_s = (2 * Fs + Ds) * 4 * 4 + 2 * Ds * 4 + 32 * 4
+    print(f"  StableLM-2-1.6B: rotary {rots} of {hds}, {Hqs} q / {Hkvs} kv heads, vocab "
+          f"{cfg_s.vocab_size} (Vp {Vps}), q/k/v bias |b| max "
+          f"{spk[4][0]['layers']['qkv_proj']['bias'].abs().max().item():.3f}", flush=True)
+    # rows 3 and 4 at the W4 pack's T=128 prefill: the qkv epilogue kernel
+    # with the q/k/v bias and rotary on 16 of 64 dims, the prefill attention
+    # with one q head a kv head
+    pk_s, _, pol_s, _ = spk[4]
+    lys = pk_s["layers"]
+    lr0s = E.layer_ranges(pk_s["ranges"], 0)
+    cos_s, sin_s = MM.rope_cos_sin(torch.arange(PROMPT_LEN, device=dev)[None], cfg_s)
+    cs_s = E._rope_cs_rows(cos_s, sin_s, hds, rots)
+    ofq_s = E._qkv_ofq_rows(pk_s, pol_s)
+    outq_s = E._qkv_outq_rows(pk_s["ranges"], cfg_s, Ls, dev)
+    h8s = torch.randint(-128, 128, (PROMPT_LEN, Ds), generator=sgen, device=dev,
+                        dtype=torch.int8)
+    qkv_s = lys["qkv_proj"]
+    out = qkv_rope(h8s, qkv_s, ofq_s[0], outq_s[0], cs_s, 0.02, 121.0, 0, hds, rots)
+    ref = qkv_rope_plain(h8s, layer_pack(qkv_s, 0), ofq_s[0], outq_s[0], cs_s, 0.02, 121.0,
+                         hds, rots)
+    err = int8_err(out, ref)
+    ms = time_ms(lambda i: qkv_rope(h8s, qkv_s, ofq_s[i % Ls], outq_s[i % Ls], cs_s, 0.02,
+                                    121.0, i % Ls, hds, rots))
+    plain_ms = time_ms(lambda i: qkv_rope_plain(h8s, layer_pack(qkv_s, 0), ofq_s[0], outq_s[0],
+                                                cs_s, 0.02, 121.0, hds, rots), n=5)
+    record("qkv_rope", f"StableLM M={PROMPT_LEN} {Ds}->{Nqs} rot {rots} +bias", err,
+           err[0] <= 1 and err[1] <= 1e-3, ms, plain_ms, None,
+           bound(PROMPT_LEN * Ds + Ds // 2 * Nqs + 11 * Nqs * 4 + PROMPT_LEN * 2 * hds * 4
+                 + PROMPT_LEN * Nqs, int8_ops=2.0 * PROMPT_LEN * Ds * Nqs))
+    meta_as = E._attn_meta(lr0s, pol_s, cfg_s)
+    T = PROMPT_LEN
+    q8 = torch.randint(-128, 128, (1, Hkvs, Gs, T, hds), generator=sgen, device=dev,
+                       dtype=torch.int8)
+    k8 = torch.randint(-128, 128, (1, Hkvs, MAX_SEQ, hds), generator=sgen, device=dev,
+                       dtype=torch.int8)
+    v8 = torch.randint(-128, 128, k8.shape, generator=sgen, device=dev, dtype=torch.int8)
+    posi = torch.arange(T, device=dev, dtype=torch.int32)[None]
+    valid = torch.full((1,), T, device=dev, dtype=torch.int32)
+    out = prefill_attention(q8, k8, v8, meta_as, posi, valid, False, False)
+    err = float_err(out, prefill_attention_plain(q8, k8, v8, meta_as, posi, valid, False, False))
+    ms = time_ms(lambda i: prefill_attention(q8, k8, v8, meta_as, posi, valid, False, False))
+    plain_ms = time_ms(lambda i: prefill_attention_plain(q8, k8, v8, meta_as, posi, valid,
+                                                         False, False), n=3)
+    qd = q8.float().reshape(1, Hqs, T, hds).to(torch.bfloat16)
+    kd = k8[:, :, :T].float().to(torch.bfloat16)
+    vd = v8[:, :, :T].float().to(torch.bfloat16)
+    lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        qd, kd, vd, is_causal=True))
+    vis = T * (T + 1) / 2
+    record("prefill_attention", f"StableLM T={T} S={MAX_SEQ} G={Gs} relaxed", err,
+           err[1] <= 1e-4, ms, plain_ms, lib_ms,
+           bound(Hqs * T * hds + 2 * Hkvs * T * hds + T * 4 + 4 + Hqs * T * hds * 4,
+                 int8_ops=2.0 * Hqs * vis * hds, fp32_ops=2.0 * Hqs * vis * hds))
+    del q8, k8, v8, qd, kd, vd
+
+    def ln_name(base, wb):
+        return f"{base}[ln]" if wb == 4 else f"{base}[w8,ln]"
+
+    stage_us_s, chunk_stage_us_s = {}, {}
+    for wb in (4, 8):
+        pk_s, _, pol_s, _ = spk[wb]
+        lys = pk_s["layers"]
+        div = 2 if wb == 4 else 1
+        mlpw_s = (Ds * 2 * Fs + Fs * Ds) // div
+        layer_ws = (Ds * Nqs + Kos * Ds) // div + mlpw_s
+        head_s = Ds // div * Vps + 2 * Vps * 4 + 2 * Ds * 4
+        mns, w13p_s, w2p_s, op_s = lys["mlp_norm"], lys["w13_proj"], lys["w2"], lys["o_proj"]
+        lr1s = E.layer_ranges(pk_s["ranges"], 1)
+        met_s, so_s = E._mlp_block_meta(lr1s, pol_s, cfg_s), E._mlp_block_site_on(pol_s)
+
+        def mplain(x, met_s=met_s, so_s=so_s, mns=mns, w13p_s=w13p_s, w2p_s=w2p_s):
+            return fused_mlp_block_w4_plain(x, mns["w"][1], mns["b"][1], layer_pack(w13p_s, 1),
+                                            layer_pack(w2p_s, 1), met_s, cfg_s.hidden_act,
+                                            so_s, "layernorm")
+
+        # row 8: the dp4a kernel at M <= DP4A_ROWS, the row kernel above
+        for Mr in (1, 2, 8, SHORT_PROMPT, BIG_B):
+            x = torch.randn((Mr, Ds), generator=sgen, device=dev)
+            margs = (mns["w"], mns["b"], w13p_s, w2p_s, met_s)
+            out = fused_mlp_block_w4(x, *margs, 1, cfg_s.hidden_act, so_s, "layernorm")
+            err = float_err(out, mplain(x))
+            ms = time_ms(lambda i, x=x, margs=margs, so_s=so_s: fused_mlp_block_w4(
+                x, *margs, i % Ls, cfg_s.hidden_act, so_s, "layernorm"))
+            plain_ms = time_ms(lambda i, x=x, mplain=mplain: mplain(x), n=5)
+            record(ln_name("fused_mlp_block_w4", wb),
+                   f"StableLM M={Mr} {'dp4a' if Mr <= DP4A_ROWS else 'row'} kernel "
+                   f"{Ds}->2x{Fs}->{Ds}", err, err[1] <= 2e-3, ms, plain_ms, None,
+                   bound(2 * Mr * Ds * 4 + mlpw_s + mlp_vec_s,
+                         int8_ops=2.0 * Mr * (Ds * 2 * Fs + Fs * Ds)), main=Mr == SERVE_B)
+        # row 18 at M = 32, 128
+        omet_s = met_s + E._otail_meta_ext(lr1s, pol_s)
+        oso_s = E._otail_site_on(pol_s)
+        for Mr in (SERVE_B, BIG_B):
+            x = torch.randn((Mr, Ds), generator=sgen, device=dev)
+            a8 = torch.randint(-128, 128, (Mr, Kos), generator=sgen, device=dev,
+                               dtype=torch.int8)
+            oargs = (op_s, mns["w"], mns["b"], w13p_s, w2p_s, omet_s)
+            out = fused_otail_block_w4(a8, x, *oargs, 1, cfg_s.hidden_act, so_s, oso_s,
+                                       "layernorm")
+            plain = lambda i, x=x, a8=a8, omet_s=omet_s, so_s=so_s, oso_s=oso_s: (  # noqa: E731
+                fused_otail_block_w4_plain(a8, x, layer_pack(op_s, 1), mns["w"][1], mns["b"][1],
+                                           layer_pack(w13p_s, 1), layer_pack(w2p_s, 1), omet_s,
+                                           cfg_s.hidden_act, so_s, oso_s, "layernorm"))
+            err = float_err(out, plain(0))
+            ms = time_ms(lambda i, x=x, a8=a8, oargs=oargs, so_s=so_s, oso_s=oso_s:
+                         fused_otail_block_w4(a8, x, *oargs, i % Ls, cfg_s.hidden_act, so_s,
+                                              oso_s, "layernorm"))
+            plain_ms = time_ms(plain, n=5)
+            record(ln_name("fused_otail_block_w4", wb), f"StableLM M={Mr} {Kos}->{Ds} + MLP block",
+                   err, err[1] <= 2e-3, ms, plain_ms, None,
+                   bound(Mr * Kos + 2 * Mr * Ds * 4 + Kos * Ds // div + mlpw_s + mlp_vec_s
+                         + Ds * 16, int8_ops=2.0 * Mr * (Kos * Ds + Ds * 2 * Fs + Fs * Ds)),
+                   main=Mr == SERVE_B)
+        # rows 6 (B = 1, 8, with the head) and 7 (B = 1) over random full-length
+        # caches, positions near POS0
+        kps = E._kernel_prep(pk_s, pol_s, cfg_s)
+        hargs_s = (pk_s["head_q"], pk_s["norm"])
+        for Bm in (1, 8):
+            kc = torch.randint(-128, 128, (Ls, Bm, Hkvs, MAX_SEQ, hds), generator=sgen,
+                               device=dev, dtype=torch.int8)
+            vc = torch.randint(-128, 128, kc.shape, generator=sgen, device=dev, dtype=torch.int8)
+            posb = torch.tensor([POS0 - 3 * b for b in range(Bm)], dtype=torch.int32, device=dev)
+            cos, sin = MM.rope_cos_sin(posb[:, None], cfg_s)
+            csb = E._rope_cs_rows(cos, sin, hds, rots).reshape(Bm, 2, hds)
+            x = torch.randn((Bm, Ds), generator=sgen, device=dev)
+            fargs = (x, posb, csb, kps["ofq"], lys["attn_norm"], lys["qkv_proj"], op_s,
+                     lys["mlp_norm"], w13p_s, w2p_s, kc, vc, kps["meta"])
+            valid = int(posb.sum())
+            att_ops = 2.0 * Hqs * hds * valid
+            step_io = 2 * Bm * Ds * 4 + Bm * 2 * hds * 4 + Bm * 4
+            out = fused_model_w4(*fargs, *hargs_s, **skw)
+            ref = fused_model_w4_plain(*fargs, *hargs_s, **skw)
+            e_x, e_lg, e_kv = float_err(out[0], ref[0]), float_err(out[2], ref[2]), \
+                int8_err(out[1], ref[1])
+            ok = e_x[1] <= 2e-3 and e_lg[1] <= 2e-3 and e_kv[0] == 0
+            ms = time_ms(lambda i: fused_model_w4(*fargs, *hargs_s, **skw), n=10)
+            plain_ms = event_ms(lambda: fused_model_w4_plain(*fargs, *hargs_s, **skw), n=2)
+            nbytes = (Ls * (layer_ws + vec_s + valid * Hkvs * hds * 2 + Bm * 2 * Hkvs * hds)
+                      + step_io + head_s + Bm * Vps * 4)
+            ops_i8 = Ls * (2.0 * Bm * (Ds * Nqs + Kos * Ds + Ds * 2 * Fs + Fs * Ds) + att_ops) \
+                + 2.0 * Bm * Ds * Vps
+            record(ln_name("fused_model_w4", wb),
+                   f"StableLM B={Bm} L={Ls} S={MAX_SEQ} pos<={POS0} +W{wb} head",
+                   (max(e_x[0], e_lg[0]), max(e_x[1], e_lg[1])), ok, ms, plain_ms, None,
+                   bound(nbytes, int8_ops=ops_i8, fp32_ops=Ls * att_ops),
+                   note=f"kv_new max diff {e_kv[0]} on {e_kv[1]:.3g} of bytes; "
+                        f"plain timed with events", main=Bm == 1)
+            if Bm == 1:
+                tr = torch.zeros(2 + 5 * Ls, dtype=torch.int64, device=dev)
+                for _ in range(2):
+                    fused_model_w4(*fargs, *hargs_s, trace=tr, **skw)
+                torch.cuda.synchronize()
+                dt = (tr[1:] - tr[:-1]).double().cpu() / 1e3
+                per = dt[:5 * Ls].reshape(Ls, 5).mean(0).tolist()
+                st_us = dict(zip(("qkv", "attention", "o_proj", "w13_gate", "w2"), per))
+                st_us["head"], st_us["step_traced"] = float(dt[5 * Ls]), float(dt.sum())
+                stage_us_s[f"w{wb}"] = st_us
+                print(f"  {ln_name('fused_model_w4', wb)} B=1 stage us (mean per layer): "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in st_us.items()), flush=True)
+                out = fused_layer_w4(*fargs, 1, **skw)
+                ref = fused_layer_w4_plain(*fargs, 1, **skw)
+                e_x, e_kv = float_err(out[0], ref[0]), int8_err(out[1], ref[1])
+                ms = time_ms(lambda i: fused_layer_w4(*fargs, i % Ls, **skw))
+                plain_ms = event_ms(lambda: fused_layer_w4_plain(*fargs, 1, **skw), n=3)
+                record(ln_name("fused_layer_w4", wb), f"StableLM B=1 S={MAX_SEQ} pos={POS0}",
+                       e_x, e_x[1] <= 2e-3 and e_kv[0] == 0, ms, plain_ms, None,
+                       bound(layer_ws + vec_s + valid * Hkvs * hds * 2 + 2 * Hkvs * hds + step_io,
+                             int8_ops=2.0 * (Ds * Nqs + Kos * Ds + Ds * 2 * Fs + Fs * Ds)
+                             + att_ops, fp32_ops=att_ops),
+                       note=f"kv_new max diff {e_kv[0]} on {e_kv[1]:.3g} of bytes; "
+                            f"plain timed with events")
+            del kc, vc
+        # row 11 at B = 32 and 128, pos0 POS0, STAGED_M of CHUNK_COLS staged
+        # columns valid, with the head
+        for Bc in (SERVE_B, BIG_B):
+            kc = torch.randint(-128, 128, (Ls, Bc, Hkvs, MAX_SEQ, hds), generator=sgen,
+                               device=dev, dtype=torch.int8)
+            vc = torch.randint(-128, 128, kc.shape, generator=sgen, device=dev, dtype=torch.int8)
+            skc = torch.randint(-128, 128, (Ls, Bc, Hkvs, CHUNK_COLS, hds), generator=sgen,
+                                device=dev, dtype=torch.int8)
+            svc = torch.randint(-128, 128, skc.shape, generator=sgen, device=dev,
+                                dtype=torch.int8)
+            kcs = E.kv_colsums(kc)
+            pos0 = torch.full((Bc,), POS0, dtype=torch.int32, device=dev)
+            cos, sin = MM.rope_cos_sin((pos0 + STAGED_M)[:, None], cfg_s)
+            csb = E._rope_cs_rows(cos, sin, hds, rots).reshape(Bc, 2, hds)
+            x = torch.randn((Bc, Ds), generator=sgen, device=dev)
+            valid = int(pos0.sum())
+            rows_kv = valid + Bc * STAGED_M
+            att_ops = 2.0 * Hqs * hds * (rows_kv + Bc)
+            nbytes = (Ls * (layer_ws + vec_s + rows_kv * Hkvs * hds * 2 + valid * Hkvs * 4
+                            + Bc * 2 * Hkvs * hds)
+                      + 2 * Bc * Ds * 4 + Bc * 2 * hds * 4 + Bc * 4 + head_s + Bc * Vps * 4)
+            ops_i8 = Ls * (2.0 * Bc * (Ds * Nqs + Kos * Ds + Ds * 2 * Fs + Fs * Ds) + att_ops) \
+                + 2.0 * Bc * Ds * Vps
+            cargs = (x, pos0, csb, kps["ofq"], lys["attn_norm"], lys["qkv_proj"], op_s,
+                     lys["mlp_norm"], w13p_s, w2p_s, kc, vc, kcs, skc, svc, STAGED_M,
+                     kps["meta"], *hargs_s)
+            out = fused_model_w4_chunk(*cargs, **skw)
+            ref = fused_model_w4_chunk_plain(*cargs, **skw)
+            e_x, e_lg = float_err(out[0], ref[0]), float_err(out[2], ref[2])
+            e_kv = int8_err(out[1], ref[1])
+            ms = time_ms(lambda i: fused_model_w4_chunk(*cargs, **skw), n=5)
+            plain_ms = event_ms(lambda: fused_model_w4_chunk_plain(*cargs, **skw), n=2)
+            record(ln_name("fused_model_w4_chunk", wb),
+                   f"StableLM B={Bc} pos0={POS0} m={STAGED_M} relaxed +W{wb} head",
+                   (max(e_x[0], e_lg[0]), max(e_x[1], e_lg[1])),
+                   e_x[1] <= 2e-3 and e_lg[1] <= 2e-3 and e_kv[0] == 0, ms, plain_ms, None,
+                   bound(nbytes, int8_ops=ops_i8, fp32_ops=Ls * att_ops),
+                   note=f"kv_new max diff {e_kv[0]} on {e_kv[1]:.3g} of bytes; "
+                        f"plain timed with events", main=Bc == SERVE_B)
+            if Bc == SERVE_B:
+                tr = torch.zeros(3 + 5 * Ls, dtype=torch.int64, device=dev)
+                for _ in range(2):
+                    fused_model_w4_chunk(*cargs, trace=tr, **skw)
+                torch.cuda.synchronize()
+                dt = (tr[1:] - tr[:-1]).double().cpu() / 1e3
+                per = dt[:5 * Ls].reshape(Ls, 5).mean(0).tolist()
+                st_us = dict(zip(("norm1", "qkv", "attention", "o_proj", "mlp_block"), per))
+                st_us["head_norm"], st_us["head"] = float(dt[5 * Ls]), float(dt[5 * Ls + 1])
+                st_us["step_traced"] = float(dt.sum())
+                chunk_stage_us_s[f"w{wb} B={Bc}"] = st_us
+                print(f"  {ln_name('fused_model_w4_chunk', wb)} B={Bc} m={STAGED_M} stage us "
+                      f"(mean per layer): " + ", ".join(f"{k} {v:.2f}" for k, v in st_us.items()),
+                      flush=True)
+            del kc, vc, skc, svc, kcs, cargs
+        torch.cuda.empty_cache()
+
+    # ---- phase 3s: StableLM serving through the entry points ---------------
+    # W4A8/h4 and W8A8/h8 on the int8 cache, relaxed policy: B=1
+    # generate_fast (128-token prompt, 64 new tokens; the prefill kernels,
+    # then one whole-model launch a token), a 32-token prompt (the MLP block
+    # in every prefill layer), decode_per_layer(), B=32 on the chunk route
+    # (W4: KernelConfig.chunk(); W8: the entry config), the staged MLP-block
+    # route (W4: the entry config; W8: KernelConfig.decode()) and the o-tail;
+    # the B=1 step and one 32-step B=32 chunk against the plain path, with
+    # their engine-numerics witnesses
+    phase("phase 3s: StableLM-2-1.6B serving, W4A8/h4 and W8A8/h8, int8 KV, relaxed")
+    serve_s, chain_s, b1_s = {}, {}, {}
+    steps = NEW_TOKENS - 1
+    for wb in (4, 8):
+        pk_s, _, pol_s, ecfg_s = spk[wb]
+        t = f"s{wb}"
+        g_s = Generator(pk_s, cfg_s, pol_s, ecfg_s, device=dev)
+        pr1 = torch.randint(0, cfg_s.vocab_size, (1, PROMPT_LEN), generator=sgen,
+                            device=dev).cpu().numpy()
+        want = {"fused_model_w4": steps, "prefill_attention": Ls, "w13_gate": Ls,
+                "fused_mlp_block_w4": 0, "fused_layer_w4": 0}
+        want.update({"qkv_rope": Ls, "w4a8_matmul_stacked": 2 * Ls, "w4a8_matmul": 1}
+                    if wb == 4 else {"qkv_rope": 0, "w4a8_matmul_stacked": 0, "w4a8_matmul": 0})
+        w8_route(f"{t}_main", g_s, pr1, NEW_TOKENS, CHUNK_COLS, want, store=serve_s)
+        tp_s = torch.as_tensor(pr1, device=dev)
+        pre_d, pre_t, pre_l = device_profile(lambda: g_s.prefill(tp_s, g_s.init_cache(1)))
+        serve_s[f"{t}_main"].update(prefill_device_ms=pre_d, prefill_kernel_launches=pre_l,
+                                    prefill_top_kernels=pre_t)
+        print(f"  {t} prefill: device {pre_d:.3f} ms, {pre_l} launches", flush=True)
+        w8_route(f"{t}_short_prompt", g_s, pr1[:, :SHORT_PROMPT], 8, 7,
+                 {"fused_mlp_block_w4": Ls, "w13_gate": 0, "fused_model_w4": 7}, store=serve_s)
+        gpl_s = Generator(pk_s, cfg_s, pol_s, dataclasses.replace(
+            ecfg_s, use_pallas=KernelConfig.decode_per_layer()), device=dev)
+        w8_route(f"{t}_per_layer", gpl_s, pr1, PER_LAYER_STEPS + 1, PER_LAYER_STEPS,
+                 {"fused_layer_w4": PER_LAYER_STEPS * Ls, "fused_model_w4": 0}, store=serve_s)
+        p32s = torch.randint(0, cfg_s.vocab_size, (SERVE_B, PROMPT_LEN), generator=sgen,
+                             device=dev).cpu().numpy()
+        kc_chunk = KernelConfig.chunk() if wb == 4 else KernelConfig.serving(cfg_s, pk_s, SERVE_B)
+        kc_staged = True if wb == 4 else KernelConfig.decode()
+        if wb == 8 and not kc_chunk.chunk_kernel:
+            failures.append("KernelConfig.serving does not take the chunk kernel for W8 "
+                            "StableLM at B=32")
+        for rname, kc_r, n_new, n_loop, want in (
+                ("b32_chunk", kc_chunk, NEW_TOKENS, CHUNK_COLS,
+                 {"fused_model_w4_chunk": steps, "staged_append": steps,
+                  "fused_mlp_block_w4": 0, "fused_model_w4": 0}),
+                ("b32_staged", kc_staged, BIG_STEPS + 1, BIG_STEPS,
+                 {"fused_mlp_block_w4": Ls * BIG_STEPS, "staged_append": BIG_STEPS,
+                  "fused_model_w4_chunk": 0}),
+                ("b32_otail", KernelConfig.otail(), BIG_STEPS + 1, BIG_STEPS,
+                 {"fused_otail_block_w4": Ls * BIG_STEPS, "staged_append": BIG_STEPS,
+                  "fused_model_w4_chunk": 0, "fused_mlp_block_w4": 0})):
+            g_r = Generator(pk_s, cfg_s, pol_s, dataclasses.replace(ecfg_s, use_pallas=kc_r),
+                            device=dev)
+            w8_route(f"{t}_{rname}", g_r, p32s, n_new, n_loop, want, store=serve_s)
+            del g_r
+
+        # B=1 against the plain path: prefill logits, one decode() step, and
+        # the witnesses: the prefill route on the plain engine's numerics
+        # (prefill_engine_numerics), and the plain prefill, then the decode()
+        # step with the whole-model kernel's plain version on the plain
+        # engine's numerics
+        res_s = {}
+        wit_s = {(E, "fused_model_w4"): fused_model_w4_plain,
+                 **engine_numerics(E, cfg_s, pol_s)}
+        nxt = None          # the plain path's greedy token, fed to every decode step
+        for tag, kc_p, kc_d in (("plain", KernelConfig.none(), KernelConfig.none()),
+                                ("kernel", KernelConfig.prefill(), KernelConfig.decode()),
+                                ("witness", KernelConfig.none(), KernelConfig.decode()),
+                                ("prefill_witness", KernelConfig.prefill(), None)):
+            cache = E.init_kv_cache(ecfg_s, 1, device=dev)
+            with patched(prefill_engine_numerics(E, cfg_s) if tag == "prefill_witness" else {}):
+                lg, cache = counted(f"{t}_b1_prefill_{tag}", lambda: E.forward(
+                    pk_s, tp_s, cfg_s, pol_s, kv_cache=cache,
+                    cache_position=torch.zeros(1, dtype=torch.int32, device=dev),
+                    kv_valid_len=torch.full((1,), PROMPT_LEN, dtype=torch.int32, device=dev),
+                    kc=kc_p, logits_at=torch.full((1,), PROMPT_LEN - 1, device=dev)))
+            pre = E.EngineKVCache(cache.k.clone(), cache.v.clone())    # the prefill's rows
+            if kc_d is None:
+                res_s[tag] = (lg, None, cache, pre)
+                continue
+            if nxt is None:
+                nxt = torch.argmax(lg[:, -1], -1)[:, None]
+            p = torch.full((1,), PROMPT_LEN, dtype=torch.int32, device=dev)
+            with patched(wit_s if tag == "witness" else {}):
+                lg2, cache = counted(f"{t}_b1_step_{tag}", lambda: E.forward(
+                    pk_s, nxt, cfg_s, pol_s, positions=p[:, None], kv_cache=cache,
+                    cache_position=p, kv_valid_len=p + 1, kc=kc_d))
+            res_s[tag] = (lg, lg2, cache, pre)
+        same_s = bool(torch.equal(torch.argmax(res_s["kernel"][0][:, -1], -1)[:, None], nxt))
+        e_pre = float_err(res_s["kernel"][0], res_s["plain"][0])
+        e_dec = float_err(res_s["kernel"][1], res_s["plain"][1])
+        e_cache = [int8_err(res_s["kernel"][2].k, res_s["plain"][2].k),
+                   int8_err(res_s["kernel"][2].v, res_s["plain"][2].v)]
+        e_layer = [[int8_err(getattr(res_s["kernel"][3], kv)[i],
+                             getattr(res_s["plain"][3], kv)[i]) for i in range(Ls)]
+                   for kv in ("k", "v")]
+        e_wit = float_err(res_s["witness"][1], res_s["plain"][1])
+        wit_eq = all(bool(torch.equal(getattr(res_s["witness"][2], kv),
+                                      getattr(res_s["plain"][2], kv))) for kv in ("k", "v"))
+        e_pwit = float_err(res_s["prefill_witness"][0], res_s["plain"][0])
+        pwit_eq = all(bool(torch.equal(getattr(res_s["prefill_witness"][3], kv),
+                                       getattr(res_s["plain"][3], kv))) for kv in ("k", "v"))
+        fin = all(bool(torch.isfinite(r[0]).all()) and (r[1] is None or bool(
+            torch.isfinite(r[1]).all())) for r in res_s.values())
+        b1_s[t] = {"prefill_logits_rel_kernel_vs_plain": e_pre[1],
+                   "decode_logits_rel_kernel_vs_plain": e_dec[1],
+                   "kernel_prefill_greedy_token_is_plain": same_s,
+                   "k_cache_kernel_vs_plain": e_cache[0], "v_cache_kernel_vs_plain": e_cache[1],
+                   "prefill_k_per_layer": e_layer[0], "prefill_v_per_layer": e_layer[1],
+                   "prefill_witness_logits_rel_vs_plain": e_pwit[1],
+                   "prefill_witness_caches_equal": pwit_eq,
+                   "witness_logits_rel_vs_plain": e_wit[1], "witness_caches_equal": wit_eq}
+        print(f"  {t} prefill logits kernel vs plain: rel {e_pre[1]:.3g}; decode step on the "
+              f"plain path's token rel {e_dec[1]:.3g} (the kernel prefill's greedy token is the "
+              f"same: {same_s}); K / V cache max diff, share of bytes {e_cache[0]} / "
+              f"{e_cache[1]}; finite {fin}; prefill "
+              f"witness vs plain: logits rel {e_pwit[1]:.3g}, caches equal {pwit_eq}; step "
+              f"witness vs plain: logits rel {e_wit[1]:.3g}, caches equal {wit_eq}", flush=True)
+        print(f"  {t} prefill K / V max step per layer: "
+              f"{[max(k[0], v[0]) for k, v in zip(*e_layer)]}", flush=True)
+        lim = STABLELM_PREFILL_VS_PLAIN[wb]
+        if not fin or res_s["kernel"][0].shape != (1, 1, cfg_s.vocab_size) or e_pre[1] > lim[0]:
+            failures.append(f"{t} prefill logits kernel vs plain rel {e_pre[1]}, finite {fin}")
+        if e_dec[1] > STABLELM_STEP_VS_PLAIN[wb]:
+            failures.append(f"{t} decode logits kernel vs plain rel {e_dec[1]}")
+        if max(e[0] for e in e_cache) > lim[1] or max(e[1] for e in e_cache) > lim[2]:
+            failures.append(f"{t} K / V caches kernel vs plain {e_cache}")
+        pruns = runs[f"{t}_b1_prefill_prefill_witness"]
+        if e_pwit[1] > 1e-6 or not pwit_eq or pruns["prefill_attention"] or pruns["w13_gate"]:
+            failures.append(f"{t} prefill witness vs plain: logits rel {e_pwit[1]}, caches "
+                            f"equal {pwit_eq}, launches {pruns}")
+        if runs[f"{t}_b1_step_witness"]["fused_model_w4"] \
+                or runs[f"{t}_b1_step_kernel"]["fused_model_w4"] != 1 \
+                or e_wit[1] > 1e-6 or not wit_eq:
+            failures.append(f"{t} B=1 witness vs plain: logits rel {e_wit[1]}, caches equal "
+                            f"{wit_eq}, launches {runs[f'{t}_b1_step_kernel']}")
+
+        # one CHUNK_COLS-step B=32 chunk fed the same tokens on the chunk
+        # route, on that route with the kernel's plain version, on that plain
+        # version moved onto the plain engine's numerics (attention and both
+        # norms, the witness that the route's wiring is the engine's) and on
+        # the plain path
+        c32s = E.init_kv_cache(ecfg_s, SERVE_B, device=dev)
+        _, c32s = g_s.prefill(torch.as_tensor(p32s, device=dev), c32s)
+        ftok_s = torch.randint(0, cfg_s.vocab_size, (SERVE_B, CHUNK_COLS), generator=sgen,
+                               device=dev)
+        plain_chunk = {(E, "fused_model_w4_chunk"): fused_model_w4_chunk_plain}
+        stand_s = {f"{t}_chunk_plain_fn": plain_chunk,
+                   f"{t}_chunk_engine_numerics": {**plain_chunk,
+                                                  **engine_numerics(E, cfg_s, pol_s)}}
+        chn = {}
+        for tag, kc_c in ((f"{t}_chunk", kc_chunk), *((w, kc_chunk) for w in stand_s),
+                          (f"{t}_plain", KernelConfig.none())):
+            cc = E.EngineKVCache(c32s.k.clone(), c32s.v.clone())
+            with patched(stand_s.get(tag, {})):
+                chn[tag] = counted(f"chain_{tag}", lambda: staged_chunk(
+                    kc_c, cc, ftok_s, fpos, pk_s, pol_s, cfg_c=cfg_s))
+        if runs[f"chain_{t}_chunk"]["fused_model_w4_chunk"] != CHUNK_COLS \
+                or runs[f"chain_{t}_chunk_engine_numerics"]["fused_model_w4_chunk"] \
+                or any(runs[f"chain_{t}_plain"].values()):
+            failures.append(f"{t} chain launches {runs[f'chain_{t}_chunk']} / "
+                            f"{runs[f'chain_{t}_plain']}")
+        # the kernel equals its plain version, and that plain version on the
+        # plain engine's numerics equals the plain path bit for bit; the raw
+        # route against the plain path is held at about twice its first
+        # reading on the card
+        for tag, ref, lim in ((f"{t}_chunk", f"{t}_chunk_plain_fn", (2e-3, 0, 0.0)),
+                              (f"{t}_chunk_engine_numerics", f"{t}_plain", (1e-6, 0, 0.0)),
+                              (f"{t}_chunk", f"{t}_plain", STABLELM_CHUNK_VS_PLAIN[wb])):
+            e_l = float_err(chn[tag][0], chn[ref][0])
+            stp = [float_err(chn[tag][0][:, i], chn[ref][0][:, i])[1] for i in range(CHUNK_COLS)]
+            e_k = int8_err(chn[tag][1].k[:, :, :, window], chn[ref][1].k[:, :, :, window])
+            e_v = int8_err(chn[tag][1].v[:, :, :, window], chn[ref][1].v[:, :, :, window])
+            fin = bool(torch.isfinite(chn[tag][0]).all())
+            chain_s[f"{tag}_vs_{ref}"] = {"logits_rel": e_l[1], "logits_rel_first_step": stp[0],
+                                          "logits_rel_per_step": stp, "k_rows": e_k,
+                                          "v_rows": e_v, "finite": fin}
+            print(f"  {t} B={SERVE_B} {CHUNK_COLS}-step chunk, {tag} vs {ref}: logits rel "
+                  f"{e_l[1]:.3g} (step 0: {stp[0]:.3g}); flushed K rows {e_k}, V rows {e_v}",
+                  flush=True)
+            if not fin or e_l[1] > lim[0]:
+                failures.append(f"{tag} chunk vs {ref}: logits rel {e_l[1]}, finite {fin}")
+            if max(e_k[0], e_v[0]) > lim[1] or max(e_k[1], e_v[1]) > lim[2]:
+                failures.append(f"{tag} chunk vs {ref}: flushed rows {e_k} {e_v}")
+        del g_s, gpl_s, c32s, chn
+    del spk
+    torch.cuda.empty_cache()
+
     # ---- phase 4: report ---------------------------------------------------
     sources = {"w4a8_matmul": ("csrc/w4a8_matmul.cu",
                                "mobilequant_tpu/ops/pallas_matmul.py:59"),
@@ -2328,6 +2873,15 @@ def main() -> None:
                "w13_gate_w2": ("csrc/fused_mlp_tiles.cu", "mobilequant_tpu/ops/pallas_mlp.py:1194"),
                "w13_gate_w2[w8]": ("csrc/fused_mlp_tiles.cu",
                                    "mobilequant_tpu/ops/pallas_mlp.py:1194")}
+    # the LayerNorm editions (StableLM): the JAX kernels' layernorm branches
+    for base, w4src, w8src, rep in (
+            ("fused_model_w4", "fused_layer.cu", "fused_layer.cu", "pallas_layer.py:109"),
+            ("fused_layer_w4", "fused_layer.cu", "fused_layer.cu", "pallas_layer.py:109"),
+            ("fused_mlp_block_w4", "fused_rows_ln.cu", "fused_rows_ln.cu", "pallas_mlp.py:433"),
+            ("fused_model_w4_chunk", "fused_rows.cu", "fused_rows_w8.cu", "pallas_chunk.py:293"),
+            ("fused_otail_block_w4", "fused_rows.cu", "fused_otail_w8.cu", "pallas_mlp.py:433")):
+        sources[f"{base}[ln]"] = ("csrc/" + w4src, "mobilequant_tpu/ops/" + rep)
+        sources[f"{base}[w8,ln]"] = ("csrc/" + w8src, "mobilequant_tpu/ops/" + rep)
     # the route whose run each kernel's launch count is read from: the main
     # path (B=1 generate_fast) unless named here; each was counted from 0. A
     # W8 edition ("name[w8]") counts on its kernel's wrapper, on a W8 route.
@@ -2342,6 +2896,12 @@ def main() -> None:
                 "qkv_rope[w8]": "w8_main", "fused_mlp": "w8_mlp",
                 "fused_mlp_block": "w8_mlpblock", "fused_otail_block_w4[w8]": "w8_otail_b32",
                 "w13_gate_w2": "w4_prefill_w2fold", "w13_gate_w2[w8]": "w8_prefill_w2fold"}
+    for wb, tag in ((4, "[ln]"), (8, "[w8,ln]")):
+        route_of.update({f"fused_model_w4{tag}": f"s{wb}_main",
+                         f"fused_layer_w4{tag}": f"s{wb}_per_layer",
+                         f"fused_mlp_block_w4{tag}": f"s{wb}_b32_staged",
+                         f"fused_model_w4_chunk{tag}": f"s{wb}_b32_chunk",
+                         f"fused_otail_block_w4{tag}": f"s{wb}_b32_otail"})
     # no runtime path calls w4a16_matmul, in the JAX package either: its
     # launches are the weight-only run's count (0, held there), and it may be
     # 0. qkv_rope's W8 edition has no route either (the JAX engine takes the
@@ -2363,7 +2923,8 @@ def main() -> None:
                         "ms": head["ms"], "plain_ms": head["plain_ms"],
                         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                         "library_ms": head["library_ms"], "shape": head["shape"]})
-    report = {"card": card, "build_s": build_s, "kernels": kernels, "kernel_rows": rows,
+    report = {"card": card, "build_s": build_s, "phase_start_s": PHASE_START_S,
+              "report_s": time.perf_counter() - T_START, "kernels": kernels, "kernel_rows": rows,
               "main_path": {"prefill_ms": stats["prefill_s"] * 1e3,
                             "decode_tok_s": stats["decode_tok_s"],
                             "prompt": PROMPT_LEN, "new_tokens": NEW_TOKENS,
@@ -2398,7 +2959,10 @@ def main() -> None:
                      "attn_all_vs_plain": {"logits_rel": e8_al[1], "k_rows": e8_ak,
                                            "v_rows": e8_av}},
               "weight_only": {"serving": wonly, "chain_kernel_vs_plain": wchain},
-              "mlp_routes": mlp_routes}
+              "mlp_routes": mlp_routes,
+              "stablelm": {"serving": serve_s, "fused_model_stage_us": stage_us_s,
+                           "chunk_stage_us": chunk_stage_us_s, "b1_step": b1_s,
+                           "chunk_vs_plain": chain_s}}
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     if failures:
         fail("; ".join(failures))

@@ -77,8 +77,13 @@ def build_synthetic_packed(model_name: str = "tinyllama-1.1b", w_bits: int = 4,
     engine.pack lays them out. Either way every projection keeps O(1)
     outputs. Static ranges span ±4 at each site's bitwidth; the head is a
     seeded N(0, 0.02²) matrix through pack_head (head_bits 4 or 8), or the fp
-    head (16). The policy is the strict default policy of the weight width
-    (W4: per-channel symmetric; W8: per-tensor asymmetric, the JAX bench's W8
+    head (16). Norm weights are 1 and every bias 0, except that a LayerNorm
+    model (StableLM) gets norm weights 1 + N(0, 0.05²) and biases N(0,
+    0.02²) (every layer's two norms and the final norm) and a model with a
+    q/k/v bias one of N(0, 0.1²), drawn after the weights from a second
+    generator (seed + 1), so that the other models' packs keep their bits.
+    The policy is the strict default policy of the weight width (W4:
+    per-channel symmetric; W8: per-tensor asymmetric, the JAX bench's W8
     policy; serve with relax_16bit), with the 4-bit KV-cache sites for
     kv_bits=4 (kv_bits_policy; their ranges then span the 4-bit bound, qmax
     15)."""
@@ -151,6 +156,15 @@ def build_synthetic_packed(model_name: str = "tinyllama-1.1b", w_bits: int = 4,
         "norm": {"w": torch.ones((D,), device=dev), "b": torch.zeros((D,), device=dev)},
     }
     head_w = torch.randn((D, cfg.vocab_size), generator=gen, device=dev) * 0.02
+    gen2 = torch.Generator(device=dev).manual_seed(seed + 1)
+    if cfg.norm_class == "layernorm":
+        for norm in (packed["layers"]["attn_norm"], packed["layers"]["mlp_norm"],
+                     packed["norm"]):
+            shape = norm["w"].shape
+            norm["w"] = 1.0 + 0.05 * torch.randn(shape, generator=gen2, device=dev)
+            norm["b"] = 0.02 * torch.randn(shape, generator=gen2, device=dev)
+    if cfg.has_qkv_bias:
+        qkv["bias"] = 0.1 * torch.randn(qkv["bias"].shape, generator=gen2, device=dev)
     if head_bits in (4, 8):
         packed["head_q"] = E.pack_head(head_w, QuantConfig(
             bitwidth=head_bits, is_symmetric=True, is_per_channel=True))

@@ -65,6 +65,7 @@ struct MqtFusedArgs {
   float* sx;               // scratch (M,) dynamic head scales (row kernels)
   MqtStackedW4 qkv, o, w13, w2;
   int M, K, Hq, Hkv, hd, rot, S, F, Vp, L, l0, l1, gelu;
+  int ln;                  // every norm LayerNorm (mean-centred, with a bias), else RMSNorm
   int ncs, mst;            // staged columns: allocated, valid (chunk)
   int qk_fq, pv_fq;        // the qk_bmm output / pv_bmm input fake-quant enables
   int hbits;               // the head's weight bits, 4 or 8 (with logits)
@@ -76,8 +77,9 @@ struct MqtFusedArgs {
 static_assert(sizeof(MqtStackedW4) == 64, "MqtStackedW4 layout");
 static_assert(offsetof(MqtFusedArgs, qkv) == 248, "MqtFusedArgs layout");
 static_assert(offsetof(MqtFusedArgs, M) == 504, "MqtFusedArgs layout");
-static_assert(offsetof(MqtFusedArgs, inv_sqrt_hd) == 576, "MqtFusedArgs layout");
-static_assert(offsetof(MqtFusedArgs, mlp_meta) == 580, "MqtFusedArgs layout");
+static_assert(offsetof(MqtFusedArgs, ln) == 556, "MqtFusedArgs layout");
+static_assert(offsetof(MqtFusedArgs, inv_sqrt_hd) == 580, "MqtFusedArgs layout");
+static_assert(offsetof(MqtFusedArgs, mlp_meta) == 584, "MqtFusedArgs layout");
 static_assert(sizeof(MqtFusedArgs) == 768, "MqtFusedArgs layout");
 
 namespace {

@@ -7,7 +7,10 @@
 // both of its editions: the JAX kernels take the bit width from the pack's
 // shape, these kernels from the packs' `bits` (a template parameter of the
 // layer stages: 4, nibble-packed (kin/2, n); 8, shifted int8 (kin, n)), and
-// the head's from a.hbits (a W8 head is (K, Vp), per-column scales).
+// the head's from a.hbits (a W8 head is (K, Vp), per-column scales). Every
+// norm (norm1, norm2, the head's final norm) is RMSNorm, or with a.ln the
+// JAX kernels' LayerNorm edition (StableLM): the mean first, then the sum of
+// squares of x − mean, both in fp64, then the bias.
 //
 // One cooperative, persistent launch (cudaLaunchCooperativeKernel, one or two
 // blocks per SM, all resident) runs every stage; a grid-wide barrier separates
@@ -80,8 +83,9 @@ struct Smem {
   float* sx;       // 8: dynamic head scales
   int* flags;      // [0] last-block flag
   double* dred;    // NW x 8: per-warp fp64 row partials
-  float* rn;       // 8: per-row 1 / rms
+  float* rn;       // 8: per-row 1 / rms (LayerNorm: 1 / std)
   float* fred;     // NW x 8: per-warp fp32 row partials (max)
+  float* mu;       // 8: per-row mean (LayerNorm)
   int8_t* act;     // MR x kmax
   int* red;        // MR x TC tile sums (TC = Cfg<MR>::TC)
   char* big;
@@ -98,6 +102,7 @@ __device__ __forceinline__ Smem carve(int MR, int kmax) {
   s.dred = reinterpret_cast<double*>(p + 384);
   s.rn = reinterpret_cast<float*>(p + 896);
   s.fred = reinterpret_cast<float*>(p + 928);
+  s.mu = reinterpret_cast<float*>(p + 1184);
   s.big = p + SMALL;
   s.act = reinterpret_cast<int8_t*>(s.big);
   s.red = reinterpret_cast<int*>(s.big + (size_t)MR * kmax);
@@ -292,24 +297,69 @@ __device__ void block_inv_rms(const Smem& sm, int rows, int K, float eps, Val va
   __syncthreads();
 }
 
-// fq16(x) -> RMS norm -> ·w + b -> shifted int8 rows [row0, row0 + rows) in
-// shared memory, with their row sums.
+// LayerNorm's row scalars for rows [0, rows): sm.mu[m] = Σ_k val(m, k) / K
+// (the sum fp64, rounded once), then block_inv_rms over val − mu.
+template <int MR, typename Val>
+__device__ void block_inv_std(const Smem& sm, int rows, int K, float eps, Val val) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  double acc[MR];
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+    acc[m] = 0.0;
+    if (m < rows) {
+#pragma unroll 4
+      for (int k = threadIdx.x; k < K; k += FT) acc[m] += (double)val(m, k);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+    double v = acc[m];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) sm.dred[warp * 8 + m] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < rows) {
+    double t = 0.0;
+    for (int w = 0; w < NW; ++w) t += sm.dred[w * 8 + threadIdx.x];
+    sm.mu[threadIdx.x] = (float)t / (float)K;
+  }
+  __syncthreads();
+  block_inv_rms<MR>(sm, rows, K, eps, [&](int m, int k) { return val(m, k) - sm.mu[m]; });
+}
+
+// fq16(x) -> RMS norm, or LayerNorm (ln: mean-centred) -> ·w + b -> shifted
+// int8 rows [row0, row0 + rows) in shared memory, with their row sums.
 template <int MR>
 __device__ void stage_norm_quant(const Smem& sm, const float* src, int row0, int rows,
                                  int K, const float* nw, const float* nb,
                                  float fs, float fo, float fqmax, float eps,
-                                 float hs, float ho) {
+                                 float hs, float ho, bool ln) {
   const float* x = src + (size_t)row0 * K;
   auto val = [&](int m, int k) { return fqm(__ldcg(x + (size_t)m * K + k), fs, fo, fqmax); };
-  block_inv_rms<MR>(sm, rows, K, eps, val);
+  if (ln) {
+    block_inv_std<MR>(sm, rows, K, eps, val);
 #pragma unroll
-  for (int m = 0; m < MR; ++m) {
-    if (m >= rows) break;
-    const float r = sm.rn[m];
+    for (int m = 0; m < MR; ++m) {
+      if (m >= rows) break;
+      const float r = sm.rn[m], mu = sm.mu[m];
 #pragma unroll 4
-    for (int k = threadIdx.x; k < K; k += FT) {
-      const float y = val(m, k) * r * __ldg(nw + k) + __ldg(nb + k);
-      sm.act[m * K + k] = (int8_t)(int)quant_u8s(y, hs, ho);
+      for (int k = threadIdx.x; k < K; k += FT) {
+        const float y = (val(m, k) - mu) * r * __ldg(nw + k) + __ldg(nb + k);
+        sm.act[m * K + k] = (int8_t)(int)quant_u8s(y, hs, ho);
+      }
+    }
+  } else {
+    block_inv_rms<MR>(sm, rows, K, eps, val);
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      if (m >= rows) break;
+      const float r = sm.rn[m];
+#pragma unroll 4
+      for (int k = threadIdx.x; k < K; k += FT) {
+        const float y = val(m, k) * r * __ldg(nw + k) + __ldg(nb + k);
+        sm.act[m * K + k] = (int8_t)(int)quant_u8s(y, hs, ho);
+      }
     }
   }
   __syncthreads();
@@ -349,7 +399,7 @@ __device__ void stage_qkv(const Args& a, const Smem& sm, int l) {
   for (int it = blockIdx.x; it < tiles * ks; it += gridDim.x) {
     if (!staged) {
       stage_norm_quant<MR>(sm, xin, 0, a.M, K, a.anw + (size_t)l * K, a.anb + (size_t)l * K,
-                       m[0], m[1], m[2], m[3], m[4], m[5]);
+                           m[0], m[1], m[2], m[3], m[4], m[5], a.ln);
       staged = true;
     }
     const int tile = it / ks, sp = it % ks;
@@ -578,7 +628,7 @@ __device__ void stage_w13(const Args& a, const Smem& sm, int l, const float* mm,
     const int row0 = ch * MR, rows = min(MR, a.M - row0);
     if (staged != ch) {
       stage_norm_quant<MR>(sm, src, row0, rows, K, a.mnw + (size_t)l * K, a.mnb + (size_t)l * K,
-                       mm[16], mm[17], mm[18], mm[19], mm[0], mm[1]);
+                           mm[16], mm[17], mm[18], mm[19], mm[0], mm[1], a.ln);
       staged = ch;
     }
     const Tile t = gate_tile<MR>(tile, F);
@@ -650,7 +700,8 @@ __device__ void stage_w2(const Args& a, const Smem& sm, int l, const float* mm,
   }
 }
 
-// final norm + dynamic per-row A8 + the W4 or W8 head (a.hbits) -> logits
+// final norm (RMS, or LayerNorm with a.ln) + dynamic per-row A8 + the W4 or
+// W8 head (a.hbits) -> logits
 template <int MR>
 __device__ void stage_head(const Args& a, const Smem& sm) {
   constexpr int TC = Cfg<MR>::TC;
@@ -664,8 +715,15 @@ __device__ void stage_head(const Args& a, const Smem& sm) {
     if (!staged) {
       const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
       auto xv = [&](int m, int k) { return __ldcg(a.x_out + (size_t)m * K + k); };
-      block_inv_rms<MR>(sm, a.M, K, eps, xv);
-      auto yv = [&](int m, int k) { return xv(m, k) * sm.rn[m] * __ldg(a.fnw + k) + __ldg(a.fnb + k); };
+      const bool ln = a.ln;
+      if (ln)
+        block_inv_std<MR>(sm, a.M, K, eps, xv);
+      else
+        block_inv_rms<MR>(sm, a.M, K, eps, xv);
+      auto yv = [&](int m, int k) {
+        const float v = ln ? xv(m, k) - sm.mu[m] : xv(m, k);
+        return v * sm.rn[m] * __ldg(a.fnw + k) + __ldg(a.fnb + k);
+      };
 #pragma unroll
       for (int m = 0; m < MR; ++m) {
         float amax = 0.0f;

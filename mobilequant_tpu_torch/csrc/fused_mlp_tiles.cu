@@ -5,7 +5,7 @@
 #include "fused_rows.cuh"
 
 int mqt_rows_mlp_raw_w2(const MqtFusedArgs& a, int mode, cudaStream_t st) {
-  const bool raw = (mode & 15) == MLP_RAW;
+  const bool raw = mode == MLP_RAW;
   if (a.w13.bits == 8)
     return raw ? launch_mlp_tiles<8, MLP_RAW>(a, st) : launch_mlp_tiles<8, MLP_W2>(a, st);
   return raw ? launch_mlp_tiles<4, MLP_RAW>(a, st) : launch_mlp_tiles<4, MLP_W2>(a, st);

@@ -1,17 +1,19 @@
 // The C entries of the row kernels (fused_rows.cuh) and the W4 editions of
 // the MLP-block, o-tail and chunk kernels; the others are instantiated in
-// fused_rows_w8.cu, fused_otail_w8.cu and fused_mlp_tiles.cu.
+// fused_rows_w8.cu, fused_otail_w8.cu, fused_mlp_tiles.cu and
+// fused_rows_ln.cu.
 #include "fused_rows.cuh"
 
 // The MLP kernels over a.M >= 1 rows of layer a.l0, in 128-row tiles (mode:
-// MLP_BLOCK, W8 MLP_BLOCK | MLP_LN, MLP_RAW or MLP_W2; see
+// MLP_BLOCK, with LayerNorm when a.ln is set, MLP_RAW or MLP_W2; see
 // fused_mlp_tiles_kernel), W4 or W8.
 MQT_EXPORT int mqt_fused_mlp_tiles(const void* args, int mode, void* stream) {
   const Args& a = *(const Args*)args;
   if (!tiles_ok(a, mode)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if ((mode & 15) != MLP_BLOCK) return mqt_rows_mlp_raw_w2(a, mode, st);
-  if (a.w13.bits == 8) return mqt_rows_w8_mlp(a, mode, st);
+  if (mode != MLP_BLOCK) return mqt_rows_mlp_raw_w2(a, mode, st);
+  if (a.ln) return mqt_rows_mlp_ln(a, st);
+  if (a.w13.bits == 8) return mqt_rows_w8_mlp(a, st);
   return launch_mlp_tiles<4, MLP_BLOCK>(a, st);
 }
 

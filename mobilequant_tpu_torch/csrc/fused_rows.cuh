@@ -2,8 +2,9 @@
 // the weight bits (WB). fused_rows.cu instantiates the W4 editions and holds
 // the C entries, fused_rows_w8.cu the W8 editions of the MLP-block and chunk
 // kernels, fused_otail_w8.cu the W8 o-tail, fused_mlp_tiles.cu the raw-sum
-// and w2-epilogue MLP kernels of both widths (four translation units, so that
-// the build compiles them at the same time).
+// and w2-epilogue MLP kernels of both widths, fused_rows_ln.cu the MLP
+// block's LayerNorm kind of both widths (five translation units, so that the
+// build compiles them at the same time).
 //
 // Replaces mobilequant_tpu/ops/pallas_chunk.py fused_model_w4_chunk
 // (_chunk_kernel, _chunk_mlp_phase: a whole staged decode step of a serving
@@ -23,7 +24,12 @@
 // grid barrier, split-K meeting in the self-cleaning workspace), with the
 // stages rebuilt for many rows:
 //   - a norm is a stage of its own, one block per row (the fp64 sums, the
-//     norm, the quantization), writing int8 rows; a grid barrier follows;
+//     norm, the quantization), writing int8 rows; a grid barrier follows.
+//     Every norm is RMSNorm, or (StableLM) LayerNorm: a mean pass first,
+//     then the sum of squares of x − mean, both fp64, then the bias; the
+//     chunk and o-tail kernels read the flag a.ln at run time (a branch once
+//     per row), so one instantiation serves both norms; the MLP tiles kernel
+//     has an instantiation for each norm, which its entry picks by a.ln;
 //   - a matvec tile is 128 columns by every row of the launch (at most 128):
 //     per K chunk of
 //     128 k values the block unpacks the tile's weights (W4: 64 packed rows;
@@ -323,57 +329,77 @@ __device__ void rows_matvec(const int8_t* x, int M, int kin, const int8_t* w, in
   }
 }
 
-// fq16(src row) -> RMS norm, or LayerNorm (LN: mean-centred), with fp64 sums
-// -> ·w + b -> quantize -> dst (M, K) int8; one block per row.
-template <bool LN = false>
-__device__ void rows_norm(const float* src, int M, int K, const float* nw, const float* nb,
-                          float fs, float fo, float fqmax, float eps, float hs, float ho,
-                          int8_t* dst, RowSmem& s) {
-  for (int r = blockIdx.x; r < M; r += gridDim.x) {
-    const float* x = src + (size_t)r * K;
-    float mu = 0.0f;
-    if constexpr (LN) {
-      double acc = 0.0;
-      for (int k = threadIdx.x; k < K; k += FT) acc += (double)fqm(__ldcg(x + k), fs, fo, fqmax);
-      mu = block_sum(acc, s.dred) / (float)K;
-    }
-    double acc = 0.0;
+// One row's norm scalars, the whole block over x[0, K) through val(k): RMS
+// (mu 0, rn = 1 / sqrt(Σ v² / K + eps)) or LayerNorm (ln: mu = Σ v / K, then
+// rn = 1 / sqrt(Σ (v − mu)² / K + eps)); the sums are fp64, rounded once. The
+// row's normed value is (v − mu) · rn either way (v − 0 is v, bit for bit).
+template <typename Val>
+__device__ __forceinline__ void row_norm_scalars(int K, float eps, bool ln, Val val,
+                                                 RowSmem& s, float& mu, float& rn) {
+  mu = 0.0f;
+  double acc = 0.0;
+  if (ln) {
+    for (int k = threadIdx.x; k < K; k += FT) acc += (double)val(k);
+    mu = block_sum(acc, s.dred) / (float)K;
+    acc = 0.0;
     for (int k = threadIdx.x; k < K; k += FT) {
-      const float v = fqm(__ldcg(x + k), fs, fo, fqmax) - (LN ? mu : 0.0f);
+      const float v = val(k) - mu;
       acc += (double)(v * v);
     }
-    const float t = block_sum(acc, s.dred);
-    const float rn = 1.0f / sqrtf(t / (float)K + eps);
+  } else {
     for (int k = threadIdx.x; k < K; k += FT) {
-      const float v = fqm(__ldcg(x + k), fs, fo, fqmax) - (LN ? mu : 0.0f);
-      const float y = v * rn * __ldg(nw + k) + __ldg(nb + k);
+      const float v = val(k);
+      acc += (double)(v * v);
+    }
+  }
+  const float t = block_sum(acc, s.dred);
+  rn = 1.0f / sqrtf(t / (float)K + eps);
+}
+
+// The norm of a row kernel: RMSNorm, LayerNorm, or (NORM_RUNTIME) the one
+// that the flag ln picks, a branch once per row. The MLP tiles kernel takes
+// the norm as a template parameter, so that its norm folds to constants; the
+// chunk and o-tail kernels read a.ln, so that one instantiation serves both
+// (on the card the runtime norm slowed the tiles kernel's W8 edition at
+// M = 32, and did not slow the chunk and o-tail kernels at 32 rows).
+constexpr int NORM_RMS = 0, NORM_LN = 1, NORM_RUNTIME = 2;
+
+// fq16(src row) -> RMS norm, or LayerNorm (mean-centred), with fp64 sums ->
+// ·w + b -> quantize -> dst (M, K) int8; one block per row.
+template <int NORM>
+__device__ void rows_norm(const float* src, int M, int K, const float* nw, const float* nb,
+                          float fs, float fo, float fqmax, float eps, float hs, float ho,
+                          bool ln, int8_t* dst, RowSmem& s) {
+  const bool use_ln = NORM == NORM_RUNTIME ? ln : NORM == NORM_LN;
+  for (int r = blockIdx.x; r < M; r += gridDim.x) {
+    const float* x = src + (size_t)r * K;
+    auto val = [&](int k) { return fqm(__ldcg(x + k), fs, fo, fqmax); };
+    float mu, rn;
+    row_norm_scalars(K, eps, use_ln, val, s, mu, rn);
+    for (int k = threadIdx.x; k < K; k += FT) {
+      const float y = (val(k) - mu) * rn * __ldg(nw + k) + __ldg(nb + k);
       dst[(size_t)r * K + k] = (int8_t)(int)quant_u8s(y, hs, ho);
     }
   }
 }
 
-// final norm -> dynamic per-row symmetric A8 (scale max|y| / 127) -> a.h8,
-// the scales to a.sx; one block per row.
+// final norm (RMS, or LayerNorm with a.ln) -> dynamic per-row symmetric A8
+// (scale max|y| / 127) -> a.h8, the scales to a.sx; one block per row.
 __device__ void rows_head_norm(const Args& a, RowSmem& s) {
   const int K = a.K;
+  const bool ln = a.ln;
   const float eps = a.meta[(size_t)(a.L - 1) * META + 3];
   for (int r = blockIdx.x; r < a.M; r += gridDim.x) {
     const float* x = a.x_out + (size_t)r * K;
-    double acc = 0.0;
-    for (int k = threadIdx.x; k < K; k += FT) {
-      const float v = __ldcg(x + k);
-      acc += (double)(v * v);
-    }
-    const float t = block_sum(acc, s.dred);
-    const float rn = 1.0f / sqrtf(t / (float)K + eps);
+    auto val = [&](int k) { return __ldcg(x + k); };
+    float mu, rn;
+    row_norm_scalars(K, eps, ln, val, s, mu, rn);
+    auto yv = [&](int k) { return (val(k) - mu) * rn * __ldg(a.fnw + k) + __ldg(a.fnb + k); };
     float amax = 0.0f;
-    for (int k = threadIdx.x; k < K; k += FT)
-      amax = fmaxf(amax, fabsf(__ldcg(x + k) * rn * __ldg(a.fnw + k) + __ldg(a.fnb + k)));
+    for (int k = threadIdx.x; k < K; k += FT) amax = fmaxf(amax, fabsf(yv(k)));
     const float scale = fmaxf(block_max(amax, s.fred), 1e-8f) / 127.0f;
-    for (int k = threadIdx.x; k < K; k += FT) {
-      const float y = __ldcg(x + k) * rn * __ldg(a.fnw + k) + __ldg(a.fnb + k);
-      a.h8[(size_t)r * K + k] = (int8_t)(int)fminf(fmaxf(rintf(y / scale), -127.0f), 127.0f);
-    }
+    for (int k = threadIdx.x; k < K; k += FT)
+      a.h8[(size_t)r * K + k] = (int8_t)(int)fminf(fmaxf(rintf(yv(k) / scale), -127.0f), 127.0f);
     if (threadIdx.x == 0) a.sx[r] = scale;
   }
 }
@@ -469,14 +495,14 @@ __device__ void rows_w2(const Args& a, RowSmem& s, int l, int M, Out out) {
 }
 
 // The MLP block of layer l over src (M, K) -> out (M, K); mm is the 32-float
-// MLP-block meta; LN: LayerNorm, else RMSNorm. Three stages, two grid
-// barriers between them.
-template <int MI, int WB, bool LN = false>
+// MLP-block meta; NORM (rows_norm): the norm, NORM_RUNTIME reading a.ln.
+// Three stages, two grid barriers between them.
+template <int MI, int WB, int NORM>
 __device__ void rows_mlp(const Args& a, RowSmem& s, int l, const float* mm, const float* src,
                          float* out, int M) {
   const int K = a.K, F = a.F;
-  rows_norm<LN>(src, M, K, a.mnw + (size_t)l * K, a.mnb + (size_t)l * K, mm[16], mm[17],
-                mm[18], mm[19], mm[0], mm[1], a.h8, s);
+  rows_norm<NORM>(src, M, K, a.mnw + (size_t)l * K, a.mnb + (size_t)l * K, mm[16], mm[17],
+                  mm[18], mm[19], mm[0], mm[1], a.ln, a.h8, s);
   grid_barrier(a.bar);
   rows_gate<MI, WB>(a, s, l, mm, a.h8, M);
   grid_barrier(a.bar);
@@ -1013,13 +1039,14 @@ __device__ __forceinline__ void copy_mlp_meta(const Args& a, RowSmem& s) {
 
 // The MLP kernels of layer a.l0 over a.M rows of any count, walked in
 // 128-row tiles (mlp_meta[0..31]), one instantiation per kind: MLP_BLOCK
-// x_in (M, K) fp32 -> x_in + MLP(norm(x_in)) in x_out (RMSNorm; with MLP_LN
-// added, LayerNorm); MLP_RAW h8 (M, K) int8 -> the raw Σ g8·w2 int32 sums as
-// fp32 in x_out (M, K) and the g8 row sums in sx (M,); MLP_W2 h8 -> the w2
-// output with its affine epilogue in x_out. The C entry's mode is the kind.
-constexpr int MLP_BLOCK = 0, MLP_RAW = 1, MLP_W2 = 2, MLP_LN = 16;
+// x_in (M, K) fp32 -> x_in + MLP(norm(x_in)) in x_out (NORM: NORM_RMS, or
+// NORM_LN, the instantiation that the entry picks when a.ln is set); MLP_RAW
+// h8 (M, K) int8 -> the raw Σ g8·w2 int32 sums as fp32 in x_out (M, K) and
+// the g8 row sums in sx (M,); MLP_W2 h8 -> the w2 output with its affine
+// epilogue in x_out. The C entry's mode is the kind.
+constexpr int MLP_BLOCK = 0, MLP_RAW = 1, MLP_W2 = 2;
 
-template <int MI, int WB, int KIND>
+template <int MI, int WB, int KIND, int NORM>
 __global__ void __launch_bounds__(FT) fused_mlp_tiles_kernel(const Args a, int) {
   RowSmem& s = row_smem();
   copy_mlp_meta(a, s);
@@ -1029,8 +1056,8 @@ __global__ void __launch_bounds__(FT) fused_mlp_tiles_kernel(const Args a, int) 
     const int M = min(MAXR, a.M - m0);
     float* out = a.x_out + (size_t)m0 * K;
     if (m0 > 0) grid_barrier(a.bar);          // the last tile's act8 and workspace are free
-    if constexpr ((KIND & 15) == MLP_BLOCK) {
-      rows_mlp<MI, WB, (KIND & MLP_LN) != 0>(a, s, l, mm, a.x_in + (size_t)m0 * K, out, M);
+    if constexpr (KIND == MLP_BLOCK) {
+      rows_mlp<MI, WB, NORM>(a, s, l, mm, a.x_in + (size_t)m0 * K, out, M);
     } else {
       rows_gate<MI, WB>(a, s, l, mm, a.h8 + (size_t)m0 * K, M);
       grid_barrier(a.bar);
@@ -1050,17 +1077,24 @@ __global__ void __launch_bounds__(FT) fused_mlp_tiles_kernel(const Args a, int) 
   }
 }
 
+// The o-tail and chunk kernels are compiled for two blocks an SM (at most
+// 128 registers a thread) at MI <= 2, and the W4 chunk kernel at MI = 4 too:
+// left to itself ptxas moves these editions between 128 registers (two blocks
+// an SM) and 146-255 (one) with small changes to the code, and the chunk
+// step's time by 25-35% with them.
 template <int MI, int WB>
-__global__ void __launch_bounds__(FT) fused_otail_kernel(const Args a, int) {
+__global__ void __launch_bounds__(FT, MI <= 2 ? 2 : 1)
+    fused_otail_kernel(const Args a, int) {
   RowSmem& s = row_smem();
   copy_mlp_meta(a, s);
   rows_o<MI, WB>(a, s, a.l0, s.meta + 32, a.x_in);
   grid_barrier(a.bar);
-  rows_mlp<MI, WB>(a, s, a.l0, s.meta, a.resid, a.x_out, a.M);
+  rows_mlp<MI, WB, NORM_RUNTIME>(a, s, a.l0, s.meta, a.resid, a.x_out, a.M);
 }
 
 template <int MI, int WB>
-__global__ void __launch_bounds__(FT) fused_chunk_kernel(const Args a, int) {
+__global__ void __launch_bounds__(FT, (MI <= 2 || (MI == 4 && WB == 4)) ? 2 : 1)
+    fused_chunk_kernel(const Args a, int) {
   RowSmem& s = row_smem();
   const int K = a.K, M = a.M, Nq = a.qkv.n;
   stamp(a, 0);
@@ -1068,8 +1102,8 @@ __global__ void __launch_bounds__(FT) fused_chunk_kernel(const Args a, int) {
   for (int l = a.l0; l < a.l1; ++l) {
     const float* m = a.meta + (size_t)l * META;
     const float* xin = l == a.l0 ? a.x_in : a.x_out;
-    rows_norm(xin, M, K, a.anw + (size_t)l * K, a.anb + (size_t)l * K, m[0], m[1], m[2], m[3],
-              m[4], m[5], a.h8, s);
+    rows_norm<NORM_RUNTIME>(xin, M, K, a.anw + (size_t)l * K, a.anb + (size_t)l * K, m[0],
+                            m[1], m[2], m[3], m[4], m[5], a.ln, a.h8, s);
     grid_barrier(a.bar);
     stamp(a, ts++);
     {
@@ -1114,7 +1148,7 @@ __global__ void __launch_bounds__(FT) fused_chunk_kernel(const Args a, int) {
     rows_o<MI, WB>(a, s, l, m + 19, xin);
     grid_barrier(a.bar);
     stamp(a, ts++);
-    rows_mlp<MI, WB>(a, s, l, m + AM, a.resid, a.x_out, M);
+    rows_mlp<MI, WB, NORM_RUNTIME>(a, s, l, m + AM, a.resid, a.x_out, M);
     if (l + 1 < a.l1 || a.logits || a.trace) grid_barrier(a.bar);
     stamp(a, ts++);
   }
@@ -1163,23 +1197,22 @@ size_t chunk_smem(const Args& a) {
   return glay.end > sm ? glay.end : sm;
 }
 
-// the MLP tiles kernel's arguments; LayerNorm comes in the W8 block only
-// (the per-layer MLP block of the JAX package takes W8 packs)
+// the MLP tiles kernel's arguments (a.ln, LayerNorm, on the MLP_BLOCK kind
+// only, W4 or W8)
 bool tiles_ok(const Args& a, int mode) {
   return a.M >= 1 && a.K % 64 == 0 && a.F % 64 == 0 && a.w2.bits == a.w13.bits
-         && (a.w13.bits == 4 || a.w13.bits == 8)
-         && (mode & 15) <= MLP_W2 && (mode & ~(15 | MLP_LN)) == 0
-         && ((mode & MLP_LN) == 0 || ((mode & 15) == MLP_BLOCK && a.w13.bits == 8));
+         && (a.w13.bits == 4 || a.w13.bits == 8) && mode >= MLP_BLOCK && mode <= MLP_W2
+         && (!a.ln || mode == MLP_BLOCK);
 }
 
-template <int WB, int KIND>
+template <int WB, int KIND, int NORM = NORM_RMS>
 int launch_mlp_tiles(const Args& a, cudaStream_t st) {
   const size_t sm = sizeof(RowSmem);
   switch (mi_of(a.M < MAXR ? a.M : MAXR)) {
-    case 1: return launch_coop(fused_mlp_tiles_kernel<1, WB, KIND>, a, 0, sm, st);
-    case 2: return launch_coop(fused_mlp_tiles_kernel<2, WB, KIND>, a, 0, sm, st);
-    case 4: return launch_coop(fused_mlp_tiles_kernel<4, WB, KIND>, a, 0, sm, st);
-    default: return launch_coop(fused_mlp_tiles_kernel<8, WB, KIND>, a, 0, sm, st);
+    case 1: return launch_coop(fused_mlp_tiles_kernel<1, WB, KIND, NORM>, a, 0, sm, st);
+    case 2: return launch_coop(fused_mlp_tiles_kernel<2, WB, KIND, NORM>, a, 0, sm, st);
+    case 4: return launch_coop(fused_mlp_tiles_kernel<4, WB, KIND, NORM>, a, 0, sm, st);
+    default: return launch_coop(fused_mlp_tiles_kernel<8, WB, KIND, NORM>, a, 0, sm, st);
   }
 }
 
@@ -1208,10 +1241,12 @@ int launch_chunk(const Args& a, cudaStream_t st) {
 }  // namespace
 
 // The launches of the other translation units: the W8 MLP block and chunk
-// kernels (fused_rows_w8.cu), the W8 o-tail (fused_otail_w8.cu) and the
-// MLP_RAW / MLP_W2 kernels, W4 and W8 (fused_mlp_tiles.cu); the arguments
-// are checked by the entries of fused_rows.cu.
-int mqt_rows_w8_mlp(const MqtFusedArgs& a, int mode, cudaStream_t st);
+// kernels (fused_rows_w8.cu), the W8 o-tail (fused_otail_w8.cu), the
+// MLP_RAW / MLP_W2 kernels, W4 and W8 (fused_mlp_tiles.cu), and the MLP
+// block's LayerNorm kind, W4 and W8 (fused_rows_ln.cu); the arguments are
+// checked by the entries of fused_rows.cu.
+int mqt_rows_w8_mlp(const MqtFusedArgs& a, cudaStream_t st);
+int mqt_rows_mlp_ln(const MqtFusedArgs& a, cudaStream_t st);
 int mqt_rows_w8_chunk(const MqtFusedArgs& a, cudaStream_t st);
 int mqt_rows_w8_otail(const MqtFusedArgs& a, cudaStream_t st);
 int mqt_rows_mlp_raw_w2(const MqtFusedArgs& a, int mode, cudaStream_t st);

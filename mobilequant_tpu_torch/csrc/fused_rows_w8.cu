@@ -3,9 +3,8 @@
 // W4 editions of fused_rows.cu. The entries there check the arguments.
 #include "fused_rows.cuh"
 
-int mqt_rows_w8_mlp(const MqtFusedArgs& a, int mode, cudaStream_t st) {
-  return (mode & MLP_LN) ? launch_mlp_tiles<8, MLP_BLOCK | MLP_LN>(a, st)
-                       : launch_mlp_tiles<8, MLP_BLOCK>(a, st);
+int mqt_rows_w8_mlp(const MqtFusedArgs& a, cudaStream_t st) {
+  return launch_mlp_tiles<8, MLP_BLOCK>(a, st);
 }
 
 int mqt_rows_w8_chunk(const MqtFusedArgs& a, cudaStream_t st) { return launch_chunk<8>(a, st); }

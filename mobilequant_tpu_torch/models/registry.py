@@ -2,11 +2,14 @@
 mobilequant_tpu/models/registry.py; the port imports nothing of the JAX
 package).
 
-  tinyllama-1.1b : n_layer=22 n_head=32 n_kv=4 head_dim=64 d=2048 ffn=5632 vocab=32000
+  tinyllama-1.1b  : n_layer=22 n_head=32 n_kv=4 head_dim=64 d=2048 ffn=5632 vocab=32000
+  stablelm-2-1.6b : n_layer=24 n_head=32 n_kv=32 head_dim=64 d=2048 ffn=5632
+                    vocab=100352, LayerNorm with a bias, rotary on a quarter of
+                    each head, a bias on q/k/v only
 
 and the small test configurations the parity tests run (test-llama,
-test-gemma, test-mixtral, test-stablelm, and test-llama-256 at the narrowest
-widths the prefill kernels take).
+test-gemma, test-mixtral, test-stablelm, and test-llama-256 /
+test-stablelm-256 at the narrowest widths the prefill kernels take).
 """
 
 from __future__ import annotations
@@ -19,6 +22,13 @@ MODEL_CONFIGS: dict[str, ModelConfig] = {
         num_layers=22, num_heads=32, num_kv_heads=4, head_dim=64,
         norm_class="rmsnorm", norm_eps=1e-5, num_linears_per_mlp=3,
         hidden_act="silu", rope_theta=10000.0, max_position_embeddings=2048,
+    ),
+    "stablelm-2-1.6b": ModelConfig(
+        vocab_size=100352, hidden_size=2048, intermediate_size=5632,
+        num_layers=24, num_heads=32, num_kv_heads=32, head_dim=64,
+        norm_class="layernorm", norm_eps=1e-5, num_linears_per_mlp=3,
+        hidden_act="silu", rope_theta=10000.0, max_position_embeddings=4096,
+        partial_rotary_factor=0.25, use_qkv_bias_only=True,
     ),
     "test-llama": ModelConfig(
         vocab_size=256, hidden_size=64, intermediate_size=128,
@@ -53,6 +63,15 @@ MODEL_CONFIGS: dict[str, ModelConfig] = {
         vocab_size=256, hidden_size=256, intermediate_size=512,
         num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
         norm_class="rmsnorm", num_linears_per_mlp=3, hidden_act="silu",
+        max_position_embeddings=128,
+    ),
+    # test-stablelm at the same widths (the JAX kernel tests'
+    # stablelm_mha64_partial: MHA, rotary on 16 of 64 head dims)
+    "test-stablelm-256": ModelConfig(
+        vocab_size=256, hidden_size=256, intermediate_size=512,
+        num_layers=2, num_heads=8, num_kv_heads=8, head_dim=64,
+        norm_class="layernorm", num_linears_per_mlp=3, hidden_act="silu",
+        partial_rotary_factor=0.25, use_qkv_bias_only=True,
         max_position_embeddings=128,
     ),
 }

@@ -4,12 +4,15 @@ fused_model_w4_chunk: every layer of a T=1 step on the chunked-staging decode
 path (runtime/engine.decode_loop at B > 8), then (optionally) the final norm
 and the quantized head:
 
-  per layer: [fq16] -> RMS norm -> quantize -> qkv -> per-column output fq
+  per layer: [fq16] -> norm -> quantize -> qkv -> per-column output fq
   -> RoPE -> joint segment quantization (the step's K/V rows) -> attention
   over [stale cache rows < pos0 | staged columns < m | self term] with one
   shared max, per-part exp and one denominator -> pv-output quantize -> o
   -> fq -> resid_add_1 -> the MLP block (ops/mlp_block)
-  head: RMS norm -> dynamic per-row A8 -> W4 or W8 head -> logits (B, Vp)
+  head: norm -> dynamic per-row A8 -> W4 or W8 head -> logits (B, Vp)
+
+Every norm is RMSNorm, or with norm_kind "layernorm" (StableLM) LayerNorm
+with its bias (the kernel's runtime flag `ln`).
 
 The layer packs are all W4 or all W8 (the JAX kernel's two editions, there
 by the packs' shapes); the head has its own width (the W8 head folded as the
@@ -60,7 +63,8 @@ from mobilequant_tpu_torch.ops.fused_layer import (
     LAYER_META_LEN, head_kernel_supported, layer_kernel_supported, layer_pack_bits,
     layer_tail_plain, qkv_rows_plain)
 from mobilequant_tpu_torch.ops.mlp_block import (
-    BARRIER, MAX_ROWS, FusedArgs, ptr, rms_norm, rows_workspace, stacked_w4, sum_f32)
+    BARRIER, MAX_ROWS, FusedArgs, check_norm_kind, layer_norm, ptr, rms_norm, rows_workspace,
+    stacked_w4, sum_f32)
 from mobilequant_tpu_torch.ops.qops import f32, int_dot, int_head_linear, rowsum_i8
 from mobilequant_tpu_torch.ops.w13_gate import _fq
 from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, weight_bits
@@ -153,8 +157,8 @@ def chunk_attention_plain(q8, kc, vc, kcs, skl, svl, pos, mst, m, Hq, Hkv, hd,
 def fused_model_w4_chunk_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2,
                                kcache, vcache, kcs, sk, sv, m_staged, meta_L, head=None,
                                final_norm=None, *, num_q_heads, num_kv_heads, head_dim,
-                               rotary_dim, act_kind="silu", qk_fq_on=False,
-                               pv_fq_on=False):
+                               rotary_dim, act_kind="silu", norm_kind="rmsnorm",
+                               qk_fq_on=False, pv_fq_on=False):
     """The chunk kernel's function in PyTorch operators."""
     L = meta_L.shape[0]
     Hq, Hkv, hd = num_q_heads, num_kv_heads, head_dim
@@ -166,16 +170,17 @@ def fused_model_w4_chunk_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w
     for l in range(L):
         m = metas[l]
         q8 = qkv_rows_plain(x, cs, ofq_L[l], attn_norm["w"][l], attn_norm["b"][l],
-                            layer_pack(qkv, l), m, Hq, Hkv, hd, rotary_dim)
+                            layer_pack(qkv, l), m, Hq, Hkv, hd, rotary_dim, norm_kind)
         att = chunk_attention_plain(q8, kcache[l], vcache[l], kcs[l], sk[l], sv[l], pos,
                                     m_staged, m, Hq, Hkv, hd, qk_fq_on, pv_fq_on)
         x = layer_tail_plain(x, att, layer_pack(o, l), mlp_norm["w"][l], mlp_norm["b"][l],
-                             layer_pack(w13, l), layer_pack(w2, l), m, act_kind)
+                             layer_pack(w13, l), layer_pack(w2, l), m, act_kind, norm_kind)
         kv.append(q8[:, Hq * hd:].reshape(B, 2 * Hkv, hd))
     kv = torch.stack(kv)
     if head is None:
         return x, kv
-    y = rms_norm(x, float(meta_L[L - 1, 3])) * final_norm["w"] + final_norm["b"]
+    norm = layer_norm if norm_kind == "layernorm" else rms_norm
+    y = norm(x, float(meta_L[L - 1, 3])) * final_norm["w"] + final_norm["b"]
     return x, kv, int_head_linear(y, head)
 
 
@@ -186,15 +191,16 @@ def fused_model_w4_chunk(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
                          sv: torch.Tensor, m_staged: int, meta_L: torch.Tensor,
                          head: Optional[dict] = None, final_norm: Optional[dict] = None,
                          *, num_q_heads: int, num_kv_heads: int, head_dim: int,
-                         rotary_dim: int, act_kind: str = "silu", qk_fq_on: bool = False,
-                         pv_fq_on: bool = False, trace: Optional[torch.Tensor] = None):
+                         rotary_dim: int, act_kind: str = "silu", norm_kind: str = "rmsnorm",
+                         qk_fq_on: bool = False, pv_fq_on: bool = False,
+                         trace: Optional[torch.Tensor] = None):
     """x (B, K) fp32 with B % 8 == 0, 8 <= B <= 128; pos (B,) chunk-start
     cache positions; cs (B, 2, hd); caches (L, B, Hkv, S, hd) int8; kcs
     (L, B, Hkv, S) or (L, B, Hkv, 1, S) fp32 K column sums of the caches;
     sk / sv (L, B, Hkv, ncs, hd) int8 staged columns, m_staged of them valid
     -> (x_out (B, K), kv_new (L, B, 2 Hkv, hd) int8 [k rows; v rows]) and,
     with a W4 or W8 head pack and final_norm {w, b}, logits (B, Vp); the
-    layer packs all W4 or all W8. qk_fq_on /
+    layer packs all W4 or all W8; norm_kind "rmsnorm" or "layernorm". qk_fq_on /
     pv_fq_on: the policy's qk_bmm output and pv_bmm input enables. trace:
     optional int64 (3 + 5 L,) device tensor that receives the global timer
     (ns) at the start and at the end of each stage (norm1, qkv, attention,
@@ -211,6 +217,7 @@ def fused_model_w4_chunk(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
         raise NotImplementedError("the chunk kernel takes all-W4 or all-W8 packs")
     if act_kind not in ("silu", "gelu_tanh"):
         raise NotImplementedError(f"chunk kernel: act {act_kind!r}")
+    check_norm_kind(norm_kind, "chunk")
     if head is not None and not head_kernel_supported(head, K):
         raise NotImplementedError("the chunk kernel folds W4 (K/2, Vp) or W8 (K, Vp) heads "
                                   "with Vp % 128 == 0")
@@ -222,7 +229,7 @@ def fused_model_w4_chunk(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
             or tuple(ofq_L.shape) != (L, 4, Nq) or tuple(cs.shape) != (B, 2, hd):
         raise ValueError("chunk kernel: operand shapes")
     kw = dict(num_q_heads=Hq, num_kv_heads=Hkv, head_dim=hd, rotary_dim=rotary_dim,
-              act_kind=act_kind, qk_fq_on=qk_fq_on, pv_fq_on=pv_fq_on)
+              act_kind=act_kind, norm_kind=norm_kind, qk_fq_on=qk_fq_on, pv_fq_on=pv_fq_on)
     if x.device.type == "cpu":
         fused_model_w4_chunk.plain_calls += 1
         return fused_model_w4_chunk_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm,
@@ -287,6 +294,7 @@ def fused_model_w4_chunk(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
     a.M, a.K, a.Hq, a.Hkv, a.hd, a.rot, a.S, a.F = B, K, Hq, Hkv, hd, rotary_dim, S, F
     a.Vp, a.L, a.l0, a.l1 = Vp, L, 0, L
     a.gelu = int(act_kind == "gelu_tanh")
+    a.ln = int(norm_kind == "layernorm")
     a.ncs, a.mst, a.qk_fq, a.pv_fq = ncs, mst, int(bool(qk_fq_on)), int(bool(pv_fq_on))
     a.inv_sqrt_hd = 1.0 / math.sqrt(hd)
     code = lib.mqt_fused_chunk(ctypes.addressof(a), _build.stream_ptr(dev))

@@ -32,8 +32,8 @@ import numpy as np
 import torch
 
 from mobilequant_tpu_torch.ops import _build
-from mobilequant_tpu_torch.ops.kv4_attention import fq_true_div
 from mobilequant_tpu_torch.ops.qops import f32, int_dot, rowsum_i8
+from mobilequant_tpu_torch.ops.w13_gate import _fq
 
 SMEM_LIMIT = 200 * 1024
 
@@ -66,7 +66,7 @@ def decode_attention_plain(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     ksum = rowsum_i8(k8).transpose(-1, -2)                        # (B, Hkv, 1, S)
     sc = (acc - k["ok"] * rowsum_i8(q8) - k["oq"] * ksum + k["c_hd"]) * k["sqk"]
     if m[8] > 0.5:
-        sc = fq_true_div(sc, m[6], m[7], m[8])
+        sc = _fq(sc, m[6], m[7], m[8])
     sc = sc * k["inv"]
     col = torch.arange(S, device=q8.device)
     valid = col[None] < valid_len.to(torch.int64)[:, None]         # (B, S)
@@ -75,7 +75,7 @@ def decode_attention_plain(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     den = e.to(torch.float64).sum(-1, keepdim=True).to(torch.float32)
     p = e / den
     if m[11] > 0.5:
-        p = fq_true_div(p, m[9], m[10], m[11])
+        p = _fq(p, m[9], m[10], m[11])
     pv = torch.matmul(p.to(torch.float64), v8.to(torch.float64)).to(torch.float32)
     psum = p.to(torch.float64).sum(-1, keepdim=True).to(torch.float32)
     return (pv - k["ov"] * psum) * m[4]

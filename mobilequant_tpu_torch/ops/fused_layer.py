@@ -3,12 +3,16 @@
 fused_model_w4: every layer of a T=1 decode step at B <= 8 sequences, then
 (optionally) the final norm and the quantized head:
 
-  per layer: [fq16] -> RMS norm -> quantize -> qkv -> per-column output fq
+  per layer: [fq16] -> norm -> quantize -> qkv -> per-column output fq
   -> RoPE -> joint segment quantization (the new K/V rows) -> decode-light
   attention over the int8 cache (stale rows < pos, plus the self term) ->
   pv-output quantize -> o -> fq -> resid_add_1 -> the MLP block
   (ops/mlp_block)
-  head: RMS norm -> dynamic per-row A8 -> W4 or W8 head -> logits (B, Vp)
+  head: norm -> dynamic per-row A8 -> W4 or W8 head -> logits (B, Vp)
+
+Every norm is RMSNorm, or with norm_kind "layernorm" (StableLM) the
+mean-centred LayerNorm with its bias (the JAX kernels' two editions; the
+kernel's runtime flag `ln`).
 
 fused_layer_w4: one layer of the same at B = 1, no head.
 
@@ -20,7 +24,7 @@ also take both editions by the packs' shapes.
 Kernel: csrc/fused_layer.cu (mqt_fused_decode), which replaces the JAX
 package's mobilequant_tpu/ops/pallas_layer.py fused_model_w4_stacked
 (_model_kernel, _layer_phase, _head_phase) and fused_layer_w4_stacked
-(_layer_kernel), W4 and W8 editions. Bound: device-memory bytes (each weight
+(_layer_kernel), W4 and W8, RMSNorm and LayerNorm editions. Bound: device-memory bytes (each weight
 byte once per step, plus the valid K/V rows). Design: one cooperative
 persistent launch; stages split by grid barriers (five per layer); split-K
 matvecs meet in an integer workspace, so results do not depend on block
@@ -55,8 +59,8 @@ import torch
 
 from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.mlp_block import (
-    BARRIER, WS_COUNTERS, FusedArgs, fused_mlp_block_w4_plain, mlp_block_supported,
-    mlp_pack_bits, ptr, rms_norm, stacked_w4, sum_f32)
+    BARRIER, WS_COUNTERS, FusedArgs, check_norm_kind, fused_mlp_block_w4_plain, layer_norm,
+    mlp_block_supported, mlp_pack_bits, ptr, rms_norm, stacked_w4, sum_f32)
 from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope_plain
 from mobilequant_tpu_torch.ops.qops import f32, int_head_linear, int_matmul_qk, quantize_act
 from mobilequant_tpu_torch.ops.w13_gate import _fq
@@ -81,7 +85,7 @@ def layer_kernel_supported(c, max_seq_len: int) -> bool:
     return (hd % 32 == 0 and hd <= 128 and rot % 2 == 0 and 0 < rot <= hd
             and K % 128 == 0 and Ko % 64 == 0 and Nq % 128 == 0
             and mlp_block_supported(K, c.intermediate_size)
-            and c.norm_class == "rmsnorm" and c.hidden_act in ("silu", "gelu_tanh")
+            and c.hidden_act in ("silu", "gelu_tanh")
             and c.neg_inf <= -1e4 and max_seq_len % 4 == 0
             and _attn_smem(hd, max_seq_len) <= SMEM_LIMIT)
 
@@ -105,17 +109,23 @@ def _outq(m: list, Hq: int, Hkv: int, hd: int, device) -> torch.Tensor:
     return rows
 
 
-def qkv_rows_plain(x, cs, ofq, anw, anb, qkv, m, Hq, Hkv, hd, rot):
+def norm_kind_of(c) -> str:
+    """The kernels' norm_kind of a model config: "layernorm" or "rmsnorm"."""
+    return "layernorm" if c.norm_class == "layernorm" else "rmsnorm"
+
+
+def qkv_rows_plain(x, cs, ofq, anw, anb, qkv, m, Hq, Hkv, hd, rot, norm_kind="rmsnorm"):
     """norm1 -> quantize -> qkv -> output fq -> RoPE -> segment quantization:
     x (B, K) -> q8 (B, Nq) int8 rows [q | k | v] of one layer."""
     B = x.shape[0]
     xx = _fq(x.to(torch.float32), m[0], m[1], m[2])
-    h8 = quantize_act(rms_norm(xx, m[3]) * anw + anb, m[4], m[5])
+    norm = layer_norm if norm_kind == "layernorm" else rms_norm
+    h8 = quantize_act(norm(xx, m[3]) * anw + anb, m[4], m[5])
     return qkv_rope_plain(h8, qkv, ofq, _outq(m, Hq, Hkv, hd, x.device),
                           cs.reshape(B, 2 * hd), m[4], m[5], hd, rot)
 
 
-def layer_tail_plain(x, attn, o, mnw, mnb, w13, w2, m, act_kind):
+def layer_tail_plain(x, attn, o, mnw, mnb, w13, w2, m, act_kind, norm_kind="rmsnorm"):
     """pv-output quantize -> o -> fq -> resid_add_1 -> the MLP block:
     attn (B, Ko) fp32 and the layer input x (B, K) -> the layer output."""
     a8 = quantize_act(attn, m[19], m[20])
@@ -125,7 +135,8 @@ def layer_tail_plain(x, attn, o, mnw, mnb, w13, w2, m, act_kind):
     xr = _fq(x.to(torch.float32), m[24], m[25], m[26])
     y = _fq(y, m[27], m[28], m[29])
     resid = _fq(xr + y, m[30], m[31], m[32])
-    return fused_mlp_block_w4_plain(resid, mnw, mnb, w13, w2, m[33:], act_kind)
+    return fused_mlp_block_w4_plain(resid, mnw, mnb, w13, w2, m[33:], act_kind,
+                                    norm_kind=norm_kind)
 
 
 def layer_attention_plain(q8, kc, vc, pos, m, Hq, Hkv, hd):
@@ -161,18 +172,18 @@ def layer_attention_plain(q8, kc, vc, pos, m, Hq, Hkv, hd):
 
 
 def _layer_plain(x, pos, cs, ofq, anw, anb, qkv, o, mnw, mnb, w13, w2, kc, vc,
-                 m, Hq, Hkv, hd, rot, act_kind):
+                 m, Hq, Hkv, hd, rot, act_kind, norm_kind):
     """One layer's function: x (B, K) -> (x_out (B, K), kv_new (B, 2Hkv, hd))
     over one layer's packs / vectors and cache slices kc / vc (B, Hkv, S, hd)."""
     B = x.shape[0]
-    q8 = qkv_rows_plain(x, cs, ofq, anw, anb, qkv, m, Hq, Hkv, hd, rot)
+    q8 = qkv_rows_plain(x, cs, ofq, anw, anb, qkv, m, Hq, Hkv, hd, rot, norm_kind)
     attn = layer_attention_plain(q8, kc, vc, pos, m, Hq, Hkv, hd)
-    out = layer_tail_plain(x, attn, o, mnw, mnb, w13, w2, m, act_kind)
+    out = layer_tail_plain(x, attn, o, mnw, mnb, w13, w2, m, act_kind, norm_kind)
     return out, q8[:, Hq * hd:].reshape(B, 2 * Hkv, hd)
 
 
 def _layers_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2, kcache,
-                  vcache, meta_L, layers, Hq, Hkv, hd, rot, act_kind):
+                  vcache, meta_L, layers, Hq, Hkv, hd, rot, act_kind, norm_kind):
     metas = meta_L.to(torch.float32).tolist()
     kv = []
     for l in layers:
@@ -180,7 +191,7 @@ def _layers_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2, kcach
             x, pos, cs, ofq_L[l], attn_norm["w"][l], attn_norm["b"][l],
             layer_pack(qkv, l), layer_pack(o, l), mlp_norm["w"][l], mlp_norm["b"][l],
             layer_pack(w13, l), layer_pack(w2, l), kcache[l], vcache[l], metas[l],
-            Hq, Hkv, hd, rot, act_kind)
+            Hq, Hkv, hd, rot, act_kind, norm_kind)
         kv.append(rows)
     return x, torch.stack(kv)
 
@@ -188,31 +199,34 @@ def _layers_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2, kcach
 def fused_model_w4_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2,
                          kcache, vcache, meta_L, head=None, final_norm=None, *,
                          num_q_heads, num_kv_heads, head_dim, rotary_dim,
-                         act_kind="silu"):
+                         act_kind="silu", norm_kind="rmsnorm"):
     """The whole-model kernel's function in PyTorch operators."""
     L = meta_L.shape[0]
     xo, kv = _layers_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2,
                            kcache, vcache, meta_L, range(L), num_q_heads,
-                           num_kv_heads, head_dim, rotary_dim, act_kind)
+                           num_kv_heads, head_dim, rotary_dim, act_kind, norm_kind)
     if head is None:
         return xo, kv
     eps = float(meta_L[L - 1, 3])
-    y = rms_norm(xo, eps) * final_norm["w"] + final_norm["b"]
+    norm = layer_norm if norm_kind == "layernorm" else rms_norm
+    y = norm(xo, eps) * final_norm["w"] + final_norm["b"]
     return xo, kv, int_head_linear(y, head)
 
 
 def fused_layer_w4_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2,
                          kcache, vcache, meta_L, layer, *, num_q_heads,
-                         num_kv_heads, head_dim, rotary_dim, act_kind="silu"):
+                         num_kv_heads, head_dim, rotary_dim, act_kind="silu",
+                         norm_kind="rmsnorm"):
     """The whole-layer kernel's function in PyTorch operators."""
     xo, kv = _layers_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2,
                            kcache, vcache, meta_L, [layer], num_q_heads,
-                           num_kv_heads, head_dim, rotary_dim, act_kind)
+                           num_kv_heads, head_dim, rotary_dim, act_kind, norm_kind)
     return xo, kv[0, 0]
 
 
 def _launch(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2, kcache, vcache,
-            meta_L, layers, head, final_norm, Hq, Hkv, hd, rot, act_kind, trace=None):
+            meta_L, layers, head, final_norm, Hq, Hkv, hd, rot, act_kind, norm_kind,
+            trace=None):
     B, K = x.shape
     L, _, Nq = qkv["wq"].shape
     F = w13["wq"].shape[2] // 2
@@ -272,6 +286,7 @@ def _launch(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2, kcache, vca
     a.M, a.K, a.Hq, a.Hkv, a.hd, a.rot, a.S, a.F = B, K, Hq, Hkv, hd, rot, S, F
     a.Vp, a.L, a.l0, a.l1 = Vp, L, layers[0], layers[-1] + 1
     a.gelu = int(act_kind == "gelu_tanh")
+    a.ln = int(norm_kind == "layernorm")
     a.inv_sqrt_hd = 1.0 / math.sqrt(hd)
     code = lib.mqt_fused_decode(ctypes.addressof(a), _build.stream_ptr(dev))
     return code, out, kv_new, logits
@@ -287,8 +302,9 @@ def layer_pack_bits(K: int, Ko: int, qkv: dict, o: dict, w13: dict, w2: dict) ->
     return 0
 
 
-def _check(x, qkv, w13, w2, o, Hq, hd, act_kind, B_max):
+def _check(x, qkv, w13, w2, o, Hq, hd, act_kind, norm_kind, B_max):
     B, K = x.shape
+    check_norm_kind(norm_kind, "fused decode")
     if B > B_max:
         raise NotImplementedError(f"fused decode kernel: B={B} > {B_max}")
     if not layer_pack_bits(K, Hq * hd, qkv, o, w13, w2):
@@ -303,21 +319,23 @@ def fused_model_w4(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
                    vcache: torch.Tensor, meta_L: torch.Tensor,
                    head: Optional[dict] = None, final_norm: Optional[dict] = None, *,
                    num_q_heads: int, num_kv_heads: int, head_dim: int,
-                   rotary_dim: int, act_kind: str = "silu",
+                   rotary_dim: int, act_kind: str = "silu", norm_kind: str = "rmsnorm",
                    trace: Optional[torch.Tensor] = None):
     """x (B<=8, K) fp32, pos (B,), cs (B, 2, hd), caches (L, B, Hkv, S, hd) int8
     -> (x_out (B, K), kv_new (L, B, 2 Hkv, hd) int8 [k rows; v rows]) and,
     with a W4 or W8 head pack (pack_head) and final_norm {w, b}, logits
-    (B, Vp). The layer packs are all W4 or all W8.
+    (B, Vp). The layer packs are all W4 or all W8; norm_kind "rmsnorm" or
+    "layernorm" for every norm.
     trace: optional int64 (2 + 5 L,) device tensor that receives the global
     timer (ns) at the start and at the end of each stage (qkv, attention, o,
     w13, w2 per layer, then the head); every stage then ends in a barrier."""
-    _check(x, qkv, w13, w2, o, num_q_heads, head_dim, act_kind, MAX_BATCH)
+    _check(x, qkv, w13, w2, o, num_q_heads, head_dim, act_kind, norm_kind, MAX_BATCH)
     if head is not None and not head_kernel_supported(head, x.shape[1]):
         raise NotImplementedError("the whole-model kernel folds W4 (K/2, Vp) or W8 (K, Vp) "
                                   "heads with Vp % 128 == 0")
     kw = dict(num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
-              head_dim=head_dim, rotary_dim=rotary_dim, act_kind=act_kind)
+              head_dim=head_dim, rotary_dim=rotary_dim, act_kind=act_kind,
+              norm_kind=norm_kind)
     if x.device.type == "cpu":
         fused_model_w4.plain_calls += 1
         return fused_model_w4_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm,
@@ -327,7 +345,7 @@ def fused_model_w4(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
     code, out, kv_new, logits = _launch(
         x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2, kcache, vcache, meta_L,
         list(range(L)), head, final_norm, num_q_heads, num_kv_heads, head_dim,
-        rotary_dim, act_kind, trace)
+        rotary_dim, act_kind, norm_kind, trace)
     _build.check(code, "fused_model_w4")
     fused_model_w4.launches += 1
     return (out, kv_new) if head is None else (out, kv_new, logits)
@@ -338,11 +356,12 @@ def fused_layer_w4(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
                    mlp_norm: dict, w13: dict, w2: dict, kcache: torch.Tensor,
                    vcache: torch.Tensor, meta_L: torch.Tensor, layer: int, *,
                    num_q_heads: int, num_kv_heads: int, head_dim: int,
-                   rotary_dim: int, act_kind: str = "silu"):
+                   rotary_dim: int, act_kind: str = "silu", norm_kind: str = "rmsnorm"):
     """Layer `layer` at B = 1: x (1, K) -> (x_out (1, K), kv_new (2 Hkv, hd))."""
-    _check(x, qkv, w13, w2, o, num_q_heads, head_dim, act_kind, 1)
+    _check(x, qkv, w13, w2, o, num_q_heads, head_dim, act_kind, norm_kind, 1)
     kw = dict(num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
-              head_dim=head_dim, rotary_dim=rotary_dim, act_kind=act_kind)
+              head_dim=head_dim, rotary_dim=rotary_dim, act_kind=act_kind,
+              norm_kind=norm_kind)
     if x.device.type == "cpu":
         fused_layer_w4.plain_calls += 1
         return fused_layer_w4_plain(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm,
@@ -350,7 +369,7 @@ def fused_layer_w4(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
     code, out, kv_new, _ = _launch(
         x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2, kcache, vcache, meta_L,
         [int(layer)], None, None, num_q_heads, num_kv_heads, head_dim, rotary_dim,
-        act_kind)
+        act_kind, norm_kind)
     _build.check(code, "fused_layer_w4")
     fused_layer_w4.launches += 1
     return out, kv_new[0, 0]

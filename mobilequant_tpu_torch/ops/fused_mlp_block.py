@@ -5,8 +5,9 @@
   ·g3 -> w2-input int8 -> W8 w2 -> requant -> output fq -> resid_add_2
   (three fq sites) -> (M, K) fp32
 
-Kernel: csrc/fused_rows.cuh (fused_mlp_tiles_kernel, mode MLP_BLOCK, with
-MLP_LN for LayerNorm; entry mqt_fused_mlp_tiles), which replaces the JAX
+Kernel: csrc/fused_rows.cuh (fused_mlp_tiles_kernel, mode MLP_BLOCK, its
+LayerNorm instantiation when the arguments' ln is set; entry
+mqt_fused_mlp_tiles), which replaces the JAX
 package's mobilequant_tpu/ops/pallas_mlp.py fused_mlp_block
 (_mlp_block_kernel) in both of its formulations: mm_kind "mxu" and "vpu" (the
 TPU's broadcast-multiply-reduce matvec at M = 1, bit-identical to "mxu") run
@@ -32,7 +33,7 @@ import torch
 from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.fused_mlp import check_w8_mlp
 from mobilequant_tpu_torch.ops.mlp_block import (
-    MLP_BLOCK, MLP_LN, fused_mlp_block_w4_plain, layer_stack, mlp_tiles)
+    MLP_BLOCK, check_norm_kind, fused_mlp_block_w4_plain, layer_stack, mlp_tiles)
 
 META_LEN = 32
 
@@ -56,8 +57,7 @@ def fused_mlp_block(x: torch.Tensor, norm_w: torch.Tensor, norm_b: torch.Tensor,
     check_w8_mlp(K, w13, w2, act_kind, "fused_mlp_block")
     if w2["wq"].shape[1] != K:
         raise ValueError("fused_mlp_block: w2 maps F back to K")
-    if norm_kind not in ("rmsnorm", "layernorm"):
-        raise NotImplementedError(f"fused_mlp_block: norm {norm_kind!r}")
+    check_norm_kind(norm_kind, "fused_mlp_block")
     if mm_kind not in ("mxu", "vpu") or (mm_kind == "vpu" and M != 1):
         raise ValueError(f"fused_mlp_block: mm_kind {mm_kind!r} at M={M}")
     if len(meta) != META_LEN:
@@ -66,9 +66,8 @@ def fused_mlp_block(x: torch.Tensor, norm_w: torch.Tensor, norm_b: torch.Tensor,
         fused_mlp_block.plain_calls += 1
         return fused_mlp_block_plain(x, norm_w, norm_b, w13, w2, meta, act_kind, norm_kind)
     _build.require_cuda(x, norm_w, norm_b, w13["wq"], w2["wq"])
-    mode = MLP_BLOCK | (MLP_LN if norm_kind == "layernorm" else 0)
-    code, out, _ = mlp_tiles(mode, x, layer_stack(w13), layer_stack(w2), meta, 0, act_kind,
-                             norm_w.reshape(1, K), norm_b.reshape(1, K))
+    code, out, _ = mlp_tiles(MLP_BLOCK, x, layer_stack(w13), layer_stack(w2), meta, 0,
+                             act_kind, norm_w.reshape(1, K), norm_b.reshape(1, K), norm_kind)
     _build.check(code, "fused_mlp_block")
     fused_mlp_block.launches += 1
     return out

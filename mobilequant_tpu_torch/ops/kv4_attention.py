@@ -52,6 +52,7 @@ import torch
 
 from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.qops import f32, int_dot, rowsum_i8
+from mobilequant_tpu_torch.ops.w13_gate import _fq
 
 SMEM_LIMIT = 200 * 1024
 
@@ -68,15 +69,6 @@ def kv4_attn_smem(G: int, S2: int, cs: int, hd: int) -> int:
     """Shared-memory bytes of the kernel: q rows as int words, the scores of
     every column of every query head, per-head row sums and statistics."""
     return G * hd + 4 * G * (2 * S2 + cs + 1) + 12 * G
-
-
-def fq_true_div(x: torch.Tensor, s: float, o: float, qmax: float) -> torch.Tensor:
-    """Asymmetric fake-quant, round(x / s) by a true division: the divisor is
-    a tensor on x's device, since PyTorch on the card divides by a host scalar
-    as a multiply by its reciprocal, which can move a rounding by one step."""
-    sd = torch.full((), s, dtype=torch.float32, device=x.device)
-    q = torch.clamp(torch.round(x / sd) + o, 0.0, qmax)
-    return (q - o) * s
 
 
 def _consts(meta, hd: int, qk_fq_on: bool) -> dict:
@@ -116,7 +108,7 @@ def kv4_decode_attention_plain(q8, kp, vp, kcs, sk, sv, k_new, v_new, meta: Sequ
     zero = torch.zeros((), device=dev)
 
     def fq_qk(sc):
-        return fq_true_div(sc, m[6], m[7], m[8]) * k["inv"] if qk_fq_on else sc
+        return _fq(sc, m[6], m[7], m[8]) * k["inv"] if qk_fq_on else sc
 
     def part(k4, ksum, valid):
         acc = int_dot(q8, k4)                                     # (BH, G, S2)
@@ -136,7 +128,7 @@ def kv4_decode_attention_plain(q8, kp, vp, kcs, sk, sv, k_new, v_new, meta: Sequ
     prod = (qf - k["oqs"]) * (kn - k["oks"])
     s_self = prod.to(torch.float64).sum(-1, keepdim=True).to(torch.float32) * k["sqk"]
     if qk_fq_on:
-        s_self = fq_true_div(s_self, m[6], m[7], m[8])
+        s_self = _fq(s_self, m[6], m[7], m[8])
     lg_self = s_self * k["inv"]                                   # (BH, G, 1)
 
     mx = torch.maximum(torch.maximum(lg_lo.amax(-1, keepdim=True), lg_hi.amax(-1, keepdim=True)),
@@ -148,7 +140,7 @@ def kv4_decode_attention_plain(q8, kp, vp, kcs, sk, sv, k_new, v_new, meta: Sequ
     den = e.to(torch.float64).sum(-1, keepdim=True).to(torch.float32)
     sv_, ov = m[4], m[5]
     if pv_fq_on:
-        p = fq_true_div(e / den, m[9], m[10], m[11])
+        p = _fq(e / den, m[9], m[10], m[11])
         A = torch.matmul(p.to(torch.float64), v_all).to(torch.float32)
         psum = p.to(torch.float64).sum(-1, keepdim=True).to(torch.float32)
         return (A - ov * psum) * sv_

@@ -1,8 +1,9 @@
 """The whole MLP block of one layer in one kernel:
 
-  x (M, K) fp32 -> [fq16] -> RMS norm -> quantize -> W4 or W8 w1|w3 -> output
-  fq -> gate chain (SiLU with its sigmoid fq, or gelu_tanh) -> fq -> ·g3
-  -> w2-input int8 -> W4 or W8 w2 -> output fq -> resid_add_2 -> (M, K) fp32
+  x (M, K) fp32 -> [fq16] -> RMSNorm or LayerNorm -> quantize -> W4 or W8
+  w1|w3 -> output fq -> gate chain (SiLU with its sigmoid fq, or gelu_tanh)
+  -> fq -> ·g3 -> w2-input int8 -> W4 or W8 w2 -> output fq -> resid_add_2
+  -> (M, K) fp32
 
 Kernel: csrc/fused_layer.cu (mqt_fused_mlp_block, dp4a, M <= DP4A_ROWS) and
 csrc/fused_rows.cu / fused_rows_w8.cu (mqt_fused_mlp_tiles through
@@ -12,12 +13,17 @@ mobilequant_tpu/ops/pallas_mlp.py fused_mlp_block_w4_stacked
 (_w4_mlp_block_kernel, phase body _w4_mlp_phase) in both of its editions: the
 JAX kernel takes the bit width from the packs' shapes (W4: w13 (L, K/2, 2F),
 w2 (L, F/2, K); W8: (L, K, 2F), (L, F, K)), the port's kernels from the packs'
-`bits` field. Bound: the bytes of the two weight matrices at decode-sized M
-(<= stacked_bt_max: 64 rows, 128 in the decode loop). Design: one cooperative
-launch. The dp4a kernel runs two stages split by a grid barrier: every block
-normalises and quantizes the rows itself, the w13 matvec runs over tiles that
-hold the w1 and w3 columns of 64 gate outputs and finishes the gate chain in
-the block that completes a tile; after the barrier the w2 matvec and its
+`bits` field. norm_kind "layernorm" (the JAX kernel's LayerNorm edition, for
+StableLM) adds a mean pass before the sum of squares, both fp64, to the norm
+stage of either kernel (both read the argument block's `ln` flag: the dp4a
+kernel at run time, the row kernel's entry to pick its LayerNorm
+instantiation). Bound: the
+bytes of the two weight matrices at decode-sized M (<= stacked_bt_max: 64
+rows, 128 in the decode loop). Design: one cooperative launch. The dp4a
+kernel runs two stages split by a grid barrier: every block normalises and
+quantizes the rows itself, the w13 matvec runs over tiles that hold the w1
+and w3 columns of 64 gate outputs and finishes the gate chain in the block
+that completes a tile; after the barrier the w2 matvec and its
 epilogue write the output. In the row kernel the norm is a stage of its own
 (one block per row) and the matvec tiles hold every row, so each weight byte
 is read once per launch whatever M. The (M, F) int8 gate output is the only
@@ -69,7 +75,7 @@ class FusedArgs(ctypes.Structure):
         "kcs", "sk", "sv", "h8", "sx")]
                 + [(n, StackedW4) for n in ("qkv", "o", "w13", "w2")]
                 + [(n, _I) for n in ("M", "K", "Hq", "Hkv", "hd", "rot", "S", "F",
-                                     "Vp", "L", "l0", "l1", "gelu", "ncs", "mst",
+                                     "Vp", "L", "l0", "l1", "gelu", "ln", "ncs", "mst",
                                      "qk_fq", "pv_fq", "hbits")]
                 + [("inv_sqrt_hd", ctypes.c_float),
                    ("mlp_meta", ctypes.c_float * MLP_META_LEN)])
@@ -172,8 +178,7 @@ def fused_mlp_block_w4_plain(x: torch.Tensor, norm_w: torch.Tensor,
     """The kernel's function in PyTorch operators, over one layer's packs and
     norm vectors (K,); the order of fp32 operations is the JAX phase body's,
     the norm's sums are order-independent (sum_f32). norm_kind "layernorm":
-    the mean-centred norm of the per-layer MLP-block kernel
-    (ops/fused_mlp_block)."""
+    the mean-centred norm."""
     m = [float(v) for v in meta]
     s_x16, s_w1, s_sig, s_act, s_w3, s_w2o, s_r1, s_r2, s_ro = site_on
 
@@ -218,8 +223,13 @@ def check_mlp_packs(M: int, K: int, w13: dict, w2: dict, act_kind: str, name: st
     return L, F
 
 
+def check_norm_kind(norm_kind: str, name: str) -> None:
+    if norm_kind not in ("rmsnorm", "layernorm"):
+        raise NotImplementedError(f"{name} kernel: norm {norm_kind!r}")
+
+
 def mlp_args(x: torch.Tensor, norm_w, norm_b, w13: dict, w2: dict, meta, layer: int,
-             act_kind: str, keep: list):
+             act_kind: str, keep: list, norm_kind: str = "rmsnorm"):
     """(FusedArgs, out) of the dp4a MLP-block launch over x (M, K) with the
     MLP section of its meta; the o-tail fills in its o-proj fields and its
     row-kernel workspace after."""
@@ -243,6 +253,7 @@ def mlp_args(x: torch.Tensor, norm_w, norm_b, w13: dict, w2: dict, meta, layer: 
     a.w2 = stacked_w4(w2, keep, F)
     a.M, a.K, a.F, a.L, a.l0, a.l1 = M, K, F, L, int(layer), int(layer) + 1
     a.gelu = int(act_kind == "gelu_tanh")
+    a.ln = int(norm_kind == "layernorm")
     vals = [float(v) for v in meta]
     if len(vals) > MLP_META_LEN:
         raise ValueError(f"a meta of {len(vals)} entries")
@@ -251,7 +262,7 @@ def mlp_args(x: torch.Tensor, norm_w, norm_b, w13: dict, w2: dict, meta, layer: 
     return a, out
 
 
-MLP_BLOCK, MLP_RAW, MLP_W2, MLP_LN = 0, 1, 2, 16   # modes of mqt_fused_mlp_tiles
+MLP_BLOCK, MLP_RAW, MLP_W2 = 0, 1, 2   # modes of mqt_fused_mlp_tiles
 
 
 def tiles_supported(K: int, F: int) -> bool:
@@ -265,18 +276,20 @@ def layer_stack(pack: dict) -> dict:
 
 
 def mlp_tiles(mode: int, x: torch.Tensor, w13: dict, w2: dict, meta: Sequence[float],
-              layer: int, act_kind: str, norm_w=None, norm_b=None):
+              layer: int, act_kind: str, norm_w=None, norm_b=None,
+              norm_kind: str = "rmsnorm"):
     """Launch the MLP tiles kernel of csrc/fused_rows.cuh over every row of x
     for layer `layer` of the stacked W4 or W8 packs: x (M, K) fp32 with the
-    stacked norm vectors (L, K) (MLP_BLOCK), or int8 (MLP_RAW, MLP_W2) ->
-    (out (M, K) fp32, the rows' g8 sums (M,) fp32, written by MLP_RAW)."""
+    stacked norm vectors (L, K) and the norm's kind (MLP_BLOCK; "layernorm"
+    sets a.ln, and the entry launches the LayerNorm instantiation), or int8 (MLP_RAW, MLP_W2)
+    -> (out (M, K) fp32, the rows' g8 sums (M,) fp32, written by MLP_RAW)."""
     M, K = x.shape
     R = min(M, MAX_ROWS)
     L, F = w13["wq"].shape[0], w13["wq"].shape[2] // 2
     dev = x.device
     keep = []
     a = FusedArgs()
-    if mode & 15 == MLP_BLOCK:
+    if mode == MLP_BLOCK:
         xin = _build.aligned(x.to(torch.float32))
         nw = norm_w.to(torch.float32).contiguous()
         nb = norm_b.to(torch.float32).contiguous()
@@ -296,6 +309,7 @@ def mlp_tiles(mode: int, x: torch.Tensor, w13: dict, w2: dict, meta: Sequence[fl
     a.w2 = stacked_w4(w2, keep, F)
     a.M, a.K, a.F, a.L, a.l0, a.l1 = M, K, F, L, int(layer), int(layer) + 1
     a.gelu = int(act_kind == "gelu_tanh")
+    a.ln = int(norm_kind == "layernorm")
     vals = [float(v) for v in meta]
     if len(vals) > 32:
         raise ValueError(f"an MLP meta of {len(vals)} entries")
@@ -307,26 +321,29 @@ def mlp_tiles(mode: int, x: torch.Tensor, w13: dict, w2: dict, meta: Sequence[fl
 
 def fused_mlp_block_w4(x: torch.Tensor, norm_w: torch.Tensor, norm_b: torch.Tensor,
                        w13: dict, w2: dict, meta: Sequence[float], layer: int,
-                       act_kind: str = "silu",
-                       site_on: tuple = (True,) * 9) -> torch.Tensor:
+                       act_kind: str = "silu", site_on: tuple = (True,) * 9,
+                       norm_kind: str = "rmsnorm") -> torch.Tensor:
     """x (M, K) fp32 residual -> x + MLP(norm(x)) for layer `layer` of the
     stacked W4 packs (w13 wq (L, K/2, 2F), w2 wq (L, F/2, K)) or W8 packs
-    ((L, K, 2F), (L, F, K)) and the stacked norm vectors (L, K). M <= 128."""
+    ((L, K, 2F), (L, F, K)) and the stacked norm vectors (L, K); norm_kind
+    "rmsnorm" or "layernorm". M <= 128."""
     M, K = x.shape
     check_mlp_packs(M, K, w13, w2, act_kind, "MLP-block")
+    check_norm_kind(norm_kind, "MLP-block")
     if x.device.type == "cpu":
         fused_mlp_block_w4.plain_calls += 1
         return fused_mlp_block_w4_plain(x, norm_w[layer], norm_b[layer],
                                         layer_pack(w13, layer), layer_pack(w2, layer),
-                                        meta, act_kind, site_on)
+                                        meta, act_kind, site_on, norm_kind)
     dev = _build.require_cuda(x, norm_w, norm_b, w13["wq"], w2["wq"])
     meta = list(meta)[:32]
     if M <= DP4A_ROWS:
         keep = []
-        a, out = mlp_args(x, norm_w, norm_b, w13, w2, meta, layer, act_kind, keep)
+        a, out = mlp_args(x, norm_w, norm_b, w13, w2, meta, layer, act_kind, keep, norm_kind)
         code = _build.lib().mqt_fused_mlp_block(ctypes.addressof(a), _build.stream_ptr(dev))
     else:
-        code, out, _ = mlp_tiles(MLP_BLOCK, x, w13, w2, meta, layer, act_kind, norm_w, norm_b)
+        code, out, _ = mlp_tiles(MLP_BLOCK, x, w13, w2, meta, layer, act_kind, norm_w, norm_b,
+                                 norm_kind)
     _build.check(code, "fused_mlp_block_w4")
     fused_mlp_block_w4.launches += 1
     return out

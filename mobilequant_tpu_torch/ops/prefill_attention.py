@@ -31,11 +31,7 @@ import torch
 
 from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.qops import f32, int_dot, rowsum_i8
-
-
-def _fq16(x: torch.Tensor, s: float, o: float, qmax: float) -> torch.Tensor:
-    q = torch.clamp(torch.round(x / s) + o, 0.0, qmax)
-    return (q - o) * s
+from mobilequant_tpu_torch.ops.w13_gate import _fq
 
 
 def prefill_attention_plain(q8: torch.Tensor, k8: torch.Tensor,
@@ -57,7 +53,7 @@ def prefill_attention_plain(q8: torch.Tensor, k8: torch.Tensor,
           + f32(np.float32(hd) * np.float32(oq) * np.float32(ok)))
     sc = sc * f32(np.float32(m[0]) * np.float32(m[2]))
     if qk_fq:
-        sc = _fq16(sc, m[6], m[7], m[8])
+        sc = _fq(sc, m[6], m[7], m[8])
     sc = sc * (1.0 / math.sqrt(hd))
     col = torch.arange(S, device=q8.device)
     vis = ((col[None, None, :] <= positions[:, :, None])
@@ -70,7 +66,7 @@ def prefill_attention_plain(q8: torch.Tensor, k8: torch.Tensor,
     linv = 1.0 / torch.clamp(l, min=1e-30)
     vf = v8.to(torch.float32)[:, :, None]                       # (B,Hkv,1,S,hd)
     if pv_fq:
-        p = _fq16(e * linv, m[9], m[10], m[11])
+        p = _fq(e * linv, m[9], m[10], m[11])
         return (torch.matmul(p, vf) - ov * p.sum(dim=-1, keepdim=True)) * m[4]
     return (torch.matmul(e, vf) - ov * l) * linv * m[4]
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from mobilequant_tpu_torch.quant.quantizer import (
-    QuantConfig, _group_reshape, scale_offset_from_min_max, weight_min_max,
+    QuantConfig, _group_reshape, scale_offset_from_min_max, true_div, weight_min_max,
 )
 
 
@@ -54,7 +54,7 @@ def quantize_act(x: torch.Tensor, scale: float, offset: float, qmax=255.0) -> to
     """fp -> shifted int8 (stored uint8 domain − 128). qmax: the clip bound,
     255 for 8-bit values, 15 for 4-bit KV-cache values; a tensor gives
     per-segment bounds (broadcast against x)."""
-    q = torch.round(x.to(torch.float32) / scale) + offset
+    q = torch.round(true_div(x.to(torch.float32), scale)) + offset
     if isinstance(qmax, torch.Tensor):
         q = torch.minimum(torch.clamp(q, min=0.0), qmax)
     else:

@@ -28,6 +28,7 @@ import torch
 from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.w4a8_matmul import (
     affine_args, check_w48, layer_pack, w4a8_matmul_plain)
+from mobilequant_tpu_torch.quant.quantizer import true_div
 
 
 def w13_gate_supported(K: int, F: int, wbits: int = 4) -> bool:
@@ -37,7 +38,7 @@ def w13_gate_supported(K: int, F: int, wbits: int = 4) -> bool:
 
 
 def _fq(x: torch.Tensor, s: float, o: float, qmax: float) -> torch.Tensor:
-    q = torch.clamp(torch.round(x / s) + o, 0.0, qmax)
+    q = torch.clamp(torch.round(true_div(x, s)) + o, 0.0, qmax)
     return (q - o) * s if qmax > 0.5 else x
 
 
@@ -67,7 +68,7 @@ def w13_gate_plain(h8: torch.Tensor, pack: dict, meta: Sequence[float],
         act = _fq(act, m[8], m[9], m[10])
     if s_w3:
         g3 = _fq(g3, m[11], m[12], m[13])
-    q = torch.clamp(torch.round((act * g3) / m[14]) + m[15], 0.0, 255.0) - 128.0
+    q = torch.clamp(torch.round(true_div(act * g3, m[14])) + m[15], 0.0, 255.0) - 128.0
     return q.to(torch.int8)
 
 

@@ -76,11 +76,32 @@ def min_max_from_scale_offset(scale, offset, qcfg: QuantConfig):
     return min_val, max_val
 
 
+_DIVISORS: dict = {}
+
+
+def true_div(x: torch.Tensor, s) -> torch.Tensor:
+    """x / s rounded as one true fp32 division on every device. PyTorch on the
+    card divides by a host scalar as a multiply by its reciprocal, one ulp off
+    the true division that the CPU and the kernels do, which moves a rounding
+    at a tie by a whole quantization step; there the divisor becomes a 0-dim
+    fp32 tensor on x's device, made once per value and device (and not kept
+    when made inside a CUDA graph capture, which fills it only at replay)."""
+    if isinstance(s, torch.Tensor) or x.device.type == "cpu":
+        return x / s
+    key = (float(s), x.device)
+    d = _DIVISORS.get(key)
+    if d is None:
+        d = torch.full((), float(s), dtype=torch.float32, device=x.device)
+        if not torch.cuda.is_current_stream_capturing():
+            _DIVISORS[key] = d
+    return x / d
+
+
 def fake_quant(x: torch.Tensor, scale, offset, qcfg: QuantConfig):
     """Static-range quant -> clip -> dequant."""
     if not qcfg.enabled:
         return x
-    q = torch.round(x.to(torch.float32) / scale) + offset
+    q = torch.round(true_div(x.to(torch.float32), scale)) + offset
     q = torch.clamp(q, qcfg.qmin, qcfg.qmax)
     return ((q - offset) * scale).to(x.dtype)
 

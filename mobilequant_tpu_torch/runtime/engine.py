@@ -64,11 +64,15 @@ chunk when staged; decode_loop stages at every B on it.
 forward and decode_loop take a KernelConfig or a legacy use_pallas value of
 the JAX package (a bool or a mode string, KernelConfig.coerce).
 
-Out of this slice (NotImplementedError): MoE, parallel residual, 2-linear
-MLPs, layernorm models, policies with the q/k/v or w1/w3 output sites off,
-attn_kernel on the int4 cache (the JAX engine refuses it too), and
-context/tensor parallelism. Weight-only mode
-(act_bits = 16) is runtime/wonly.py.
+Norms: RMSNorm (Llama, and Gemma's with its folded 1 + w) or LayerNorm with
+a bias (StableLM): the plain path's fp32 norms, and every kernel in the
+edition of the model's norm (norm_kind).
+
+Out of this slice (NotImplementedError): MoE, parallel residual, a shared
+attention norm, 2-linear MLPs (the Phi family), policies with the q/k/v or
+w1/w3 output sites off, attn_kernel on the int4 cache (the JAX engine refuses
+it too), and context/tensor parallelism. Weight-only mode (act_bits = 16) is
+runtime/wonly.py.
 """
 
 from __future__ import annotations
@@ -87,7 +91,7 @@ from mobilequant_tpu_torch.ops.chunk_model import chunk_kernel_supported, fused_
 from mobilequant_tpu_torch.ops.decode_attention import decode_attention
 from mobilequant_tpu_torch.ops.fused_layer import (
     MAX_BATCH, fused_layer_w4, fused_model_w4, head_kernel_supported,
-    layer_kernel_supported)
+    layer_kernel_supported, norm_kind_of)
 from mobilequant_tpu_torch.ops.kv4_attention import kv4_attn_supported, kv4_decode_attention
 from mobilequant_tpu_torch.ops.fused_mlp import fused_mlp
 from mobilequant_tpu_torch.ops.fused_mlp_block import fused_mlp_block
@@ -188,11 +192,10 @@ def host_ranges(ranges: dict) -> dict:
 
 def _check_config(c: ModelConfig) -> None:
     if c.is_moe or c.parallel_residual or c.shared_attention_norm \
-            or c.num_linears_per_mlp != 3 or c.hidden_act not in ("silu", "gelu_tanh") \
-            or c.norm_class == "layernorm":
+            or c.num_linears_per_mlp != 3 or c.hidden_act not in ("silu", "gelu_tanh"):
         raise NotImplementedError(
-            "the port's engine serves dense gated (silu / gelu_tanh) RMSNorm decoders "
-            "with sequential residuals")
+            "the port's engine serves dense gated (silu / gelu_tanh) decoders with "
+            "sequential residuals and a norm before each block")
 
 
 def _check_policy(policy: QPolicy) -> None:
@@ -570,9 +573,21 @@ def _rms(x, eps):
     return xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
 
 
+def _layer_norm(x, eps):
+    """The JAX engine's LayerNorm in fp32: the mean, then the variance of
+    x − mean, then rsqrt(var + eps)."""
+    xf = x.to(torch.float32)
+    d = xf - xf.mean(-1, keepdim=True)
+    return d * torch.rsqrt((d * d).mean(-1, keepdim=True) + eps)
+
+
+def _norm_fn(c: ModelConfig):
+    return _layer_norm if c.norm_class == "layernorm" else _rms
+
+
 def _norm(x, nw, l, site, lr, policy, c):
     x = _fq16(x, lr[site].get("input"), policy[site].input)
-    return _rms(x, c.norm_eps) * nw["w"][l] + nw["b"][l]
+    return _norm_fn(c)(x, c.norm_eps) * nw["w"][l] + nw["b"][l]
 
 
 def _decode_light_attention(q8, k8_new, v8_new, k_cache, v_cache, lr, policy,
@@ -762,7 +777,7 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
             ly["attn_norm"], ly["qkv_proj"], ly["o_proj"], ly["mlp_norm"],
             ly["w13_proj"], ly["w2"], cache.k, cache.v, prep["layer"]["meta"], l,
             num_q_heads=Hq, num_kv_heads=Hkv, head_dim=hd, rotary_dim=c.rotary_dim,
-            act_kind=c.hidden_act)
+            act_kind=c.hidden_act, norm_kind=norm_kind_of(c))
         return out.reshape(B, T, D), (kvn[:Hkv].reshape(1, Hkv, 1, hd),
                                       kvn[Hkv:].reshape(1, Hkv, 1, hd))
 
@@ -862,7 +877,7 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
                                    ly["mlp_norm"]["w"], ly["mlp_norm"]["b"], w13, w2,
                                    _mlp_block_meta(lr, policy, c) + _otail_meta_ext(lr, policy),
                                    l, c.hidden_act, _mlp_block_site_on(policy),
-                                   _otail_site_on(policy))
+                                   _otail_site_on(policy), norm_kind_of(c))
         return out.reshape(B, T, D), rows
     o = _int_linear(a8, ar, ly["o_proj"], l, kc)
     o = _fq16(o, lr["self_attn.o_proj"].get("output"), policy["self_attn.o_proj"].output)
@@ -876,14 +891,14 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
         out = fused_mlp_block_w4(resid.reshape(B * T, D), ly["mlp_norm"]["w"],
                                  ly["mlp_norm"]["b"], w13, w2,
                                  _mlp_block_meta(lr, policy, c), l, c.hidden_act,
-                                 _mlp_block_site_on(policy))
+                                 _mlp_block_site_on(policy), norm_kind_of(c))
         return out.reshape(B, T, D), rows
     if kc.mlp_block_kernel and wb == 8:
         # the whole MLP block on the layer's W8 packs in one launch, any B·T
         mm_kind = "vpu" if (kc.vpu_matvec and B * T == 1) else "mxu"
         out = fused_mlp_block(resid.reshape(B * T, D), ly["mlp_norm"]["w"][l],
                               ly["mlp_norm"]["b"][l], layer_pack(w13, l), layer_pack(w2, l),
-                              _mlp_block_meta(lr, policy, c), c.hidden_act, "rmsnorm",
+                              _mlp_block_meta(lr, policy, c), c.hidden_act, norm_kind_of(c),
                               mm_kind)
         return out.reshape(B, T, D), rows
     h2 = _norm(resid, ly["mlp_norm"], l, "post_attention_layernorm", lr, policy, c)
@@ -1040,7 +1055,7 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
             staging.sv, staging.m, kp["meta"],
             packed["head_q"] if fold else None, packed["norm"] if fold else None,
             num_q_heads=c.num_heads, num_kv_heads=Hkv, head_dim=hd,
-            rotary_dim=c.rotary_dim, act_kind=c.hidden_act,
+            rotary_dim=c.rotary_dim, act_kind=c.hidden_act, norm_kind=norm_kind_of(c),
             qk_fq_on=_on(policy["self_attn.qk_bmm"].output),
             pv_fq_on=_on(policy["self_attn.pv_bmm"].input))
         h = res[0].reshape(B, T, -1)
@@ -1058,7 +1073,7 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
             ly["w13_proj"], ly["w2"], kv_cache.k, kv_cache.v, kp["meta"],
             packed["head_q"] if fold else None, packed["norm"] if fold else None,
             num_q_heads=c.num_heads, num_kv_heads=Hkv, head_dim=hd,
-            rotary_dim=c.rotary_dim, act_kind=c.hidden_act)
+            rotary_dim=c.rotary_dim, act_kind=c.hidden_act, norm_kind=norm_kind_of(c))
         h = res[0].reshape(B, T, -1)
         k_rows, v_rows = res[1][:, :, :Hkv], res[1][:, :, Hkv:]
         if fold:
@@ -1108,7 +1123,7 @@ def forward(packed: dict, tokens, config: ModelConfig, policy: QPolicy,
         idx = torch.as_tensor(logits_at, device=dev).to(torch.long)
         h = h[torch.arange(B, device=dev), idx][:, None]
 
-    y = _rms(h, c.norm_eps) * packed["norm"]["w"] + packed["norm"]["b"]
+    y = _norm_fn(c)(h, c.norm_eps) * packed["norm"]["w"] + packed["norm"]["b"]
     if "head_q" in packed:
         logits = quantized_head_logits(y, packed["head_q"], c.vocab_size,
                                        use_kernel=kc.any_kernel)

@@ -59,11 +59,15 @@ def test_generator_on_cuda_refuses_without_a_card():
 
 def test_unported_configurations_raise():
     """What stays unported raises: attn_kernel on the int4 cache (the JAX
-    engine refuses it too), MoE configurations in the integer engine. W8
-    packs under the other kernel flags run (test_torch_w8), the o-tail kernel
-    among them (test_torch_w2fold_otail), on the int4 cache too: the entry
-    config's decode_loop (kc=None) and the prefill kernel set run there
-    (test_torch_w8_kv4 holds them against the JAX package)."""
+    engine refuses it too), MoE configurations and the Phi family (parallel
+    residual, a shared attention norm, 2-linear MLPs) in the integer engine.
+    W8 packs under the other kernel flags run (test_torch_w8), the o-tail
+    kernel among them (test_torch_w2fold_otail), on the int4 cache too: the
+    entry config's decode_loop (kc=None) and the prefill kernel set run there
+    (test_torch_w8_kv4 holds them against the JAX package). A LayerNorm pack
+    (StableLM) under a kernel flag runs the kernels' LayerNorm editions: on
+    the CPU their plain versions, one call a layer, not the engine's plain
+    path (test_torch_stablelm* hold them against the JAX package)."""
     from mobilequant_tpu_torch import ops
     from mobilequant_tpu_torch.convert import build_synthetic_packed
     from mobilequant_tpu_torch.quant.policy import relax_16bit
@@ -102,6 +106,28 @@ def test_unported_configurations_raise():
               cache_position=pos, kc=KernelConfig.prefill())                      # runs
     E.decode_loop(packed, tok, E.init_kv_cache(ecfg, 1, device="cpu"), pos, 2, cfg, policy,
                   kc=KernelConfig.none())                                         # runs
+    for phi in (dict(parallel_residual=True), dict(shared_attention_norm=True),
+                dict(num_linears_per_mlp=2, hidden_act="gelu_tanh")):
+        with pytest.raises(NotImplementedError):
+            E.forward(packed, prompt, cfg.replace(norm_class="layernorm", **phi), policy)
+    packed, cfg, policy, ecfg = build_synthetic_packed("test-stablelm-256", max_seq_len=32,
+                                                       device="cpu")
+    policy = relax_16bit(policy)
+    cache = E.init_kv_cache(ecfg, 1, device="cpu")
+    E.forward(packed, prompt, cfg, policy, kv_cache=cache, cache_position=pos,
+              kv_valid_len=torch.full((1,), 4, dtype=torch.int32))
+    p = torch.full((1,), 4, dtype=torch.int32)
+    ops.reset_counts()
+    logits, _ = E.forward(packed, tok, cfg, policy, positions=p[:, None], kv_cache=cache,
+                          cache_position=p, kv_valid_len=p + 1,
+                          kc=KernelConfig.decode_per_layer())                     # runs
+    plain = ops.counts("plain_calls")
+    assert plain["fused_layer_w4"] == cfg.num_layers, plain
+    assert bool(torch.isfinite(logits).all())
+    ops.reset_counts()
+    E.forward(packed, tok, cfg, policy, positions=p[:, None], kv_cache=cache,
+              cache_position=p, kv_valid_len=p + 1, kc=KernelConfig.decode())   # runs
+    assert {k: v for k, v in ops.counts("plain_calls").items() if v} == {"fused_model_w4": 1}
 
 
 def test_synthetic_pack_runs_the_plain_path_on_cpu():
