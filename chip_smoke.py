@@ -13,8 +13,10 @@
    with the chunk step's per-stage times from its %globaltimer trace, both
    MLP-block kernels (dp4a, row) at M = 1, 2, 4, 8 for the wrapper's fork,
    the kv4 decode attention over the int4 cache (B = 1, 32, 128 at pos0 192
-   and a staggered B=32 past S/2; m 0 and 16; both policies) and the int8
-   decode attention (B = 1, 32; S = 1024, 193 valid rows);
+   and a staggered B=32 past S/2; m 0 and 16; both policies), the int8
+   decode attention (B = 1, 32; S = 1024, 193 valid rows), and the prefill
+   attention also on ragged shapes (B=2, T=100, positions from 37, valid
+   137 / 120, G = 8 and 1, both policies; checked, not timed);
 3. drives the routes on a W4A8 TinyLlama-1.1B pack (seeded synthetic
    weights, W4 head, int8 KV cache, relaxed policy), counting every kernel's
    launches from 0 around each run:
@@ -69,7 +71,12 @@
    - phase 2q: the weight-only kernels against their plain versions:
      wonly_matmul_stacked at M = 1, 8 on the TinyLlama projections in W4
      g128, W4 and W8 per channel (bf16 rows), w4a16_matmul at M = 1, 8, 128,
-     each beside torch.matmul on the bf16-dequantized weight;
+     each beside torch.matmul on the bf16-dequantized weight; then every
+     edition the wrappers take, checked and not timed (W4 / W8 x per tensor
+     / per channel / g128 x fp32 / bf16 rows at M = 1, 3, 8, and one-signed
+     packs, offsets far outside the code range; row 13 per tensor / per
+     channel x fp32 / bf16 at M = 1, 8, 100, 128, at 2048 -> 512 and
+     512 -> 2048, and one-signed);
    - phase 3w: weight-only serving, Generator(ecfg.act_bits=16)
      .generate_fast at B=1 on TinyLlama-1.1B W4A16 g128 (seeded FP weights
      through convert.build_synthetic_wonly, bf16 activations, fp KV cache)
@@ -119,6 +126,13 @@
    run checks its plain-call counts;
 4. prints one JSON line of per-kernel numbers, then the result line.
 
+Bounds: bytes over 3.35 TB/s against the operations over their units'
+rates: int8 tensor cores 1,979 TOP/s, fp32 CUDA cores 67 TFLOP/s (summed, as
+the earlier rows always have), and for the kernels that run them (rows 4, 12,
+13), fp16 / bf16 tensor cores 989 TFLOP/s (every split term counted, added to
+the int8 products: the same units) and exp on the SFUs (16 a clock per SM at
+1.98 GHz), the largest of the units, which overlap.
+
 Any failure exits non-zero before the result line. Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero at once.
 Numbers go to chiprun_out/chip_smoke.json as well.
@@ -142,6 +156,11 @@ import torch
 HBM_BYTES_S = 3.35e12          # H100 SXM data sheet
 INT8_OPS_S = 1979e12           # dense int8 tensor-core rate
 FP32_OPS_S = 67e12             # fp32 outside the tensor cores
+FP16_OPS_S = 989e12            # dense fp16 / bf16 tensor-core rate
+# exp on the special-function units: 16 a clock per SM (Hopper white paper) on
+# 132 SMs at the H100 SXM's 1.98 GHz maximum boost clock (a lower bound takes
+# the highest rate the card can reach)
+SFU_OPS_S = 16 * 132 * 1.98e9
 SEED = 0
 PROMPT_LEN, NEW_TOKENS, MAX_SEQ = 128, 64, 1024
 SHORT_PROMPT, PER_LAYER_STEPS, POS0 = 32, 8, 192
@@ -194,9 +213,21 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound(nbytes: float, int8_ops: float = 0.0, fp32_ops: float = 0.0):
+def bound(nbytes: float, int8_ops: float = 0.0, fp32_ops: float = 0.0,
+          fp16_ops: float = 0.0, sfu_ops: float = 0.0):
+    """(ms, "bytes" / "operations"): the larger of the bytes over the memory
+    rate and the operations' time. A row of int8 and fp32 work only adds the
+    two units' times, as those rows always have. A row with fp16 / bf16
+    tensor-core or SFU work (rows 4, 12, 13) takes the largest of its units'
+    times, since the units overlap: the tensor cores (int8 and fp16 / bf16
+    products share them, so those two add), the fp32 CUDA cores and the SFUs.
+    fp16_ops already counts every split term of a product."""
     t_bytes = nbytes / HBM_BYTES_S
-    t_ops = int8_ops / INT8_OPS_S + fp32_ops / FP32_OPS_S
+    t_tc = int8_ops / INT8_OPS_S + fp16_ops / FP16_OPS_S
+    if fp16_ops or sfu_ops:
+        t_ops = max(t_tc, fp32_ops / FP32_OPS_S, sfu_ops / SFU_OPS_S)
+    else:
+        t_ops = t_tc + fp32_ops / FP32_OPS_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -532,6 +563,14 @@ def main() -> None:
         if not tol_ok:
             failures.append(f"{name} {shape}: error {err}")
 
+    checks = []                # shapes checked against the plain version, not timed
+
+    def attn_bound(nbytes, scores, hd):
+        """Row 4's bound: Q·Kᵀ in int8, P·V in fp16 as two split terms, one
+        exp a score."""
+        return bound(nbytes, int8_ops=2.0 * scores * hd, fp16_ops=2 * 2.0 * scores * hd,
+                     sfu_ops=scores)
+
     phase("phase 2: kernels vs plain versions")
     heads = [packed["head_q"]] + [{k: v.clone() for k, v in packed["head_q"].items()}
                                   for _ in range(2)]       # 3 copies > L2
@@ -653,8 +692,39 @@ def main() -> None:
         ok_att = err[0] <= 32 * pstep if strict else err[1] <= 1e-4
         record("prefill_attention",
                f"T={T} S={S} {'strict' if strict else 'relaxed'}", err, ok_att,
-               ms, plain_ms, lib_ms,
-               bound(nbytes, int8_ops=2.0 * Hq * vis * hd, fp32_ops=2.0 * Hq * vis * hd))
+               ms, plain_ms, lib_ms, attn_bound(nbytes, Hq * vis, hd))
+    # ragged shapes (checked, not timed; a generator of their own): B=2, T=100
+    # (not a multiple of the query tile), positions from 37, valid 137 / 120,
+    # both policies, at TinyLlama's grouping (G=8, 4 kv heads) and StableLM's
+    # (G=1, 32)
+    rgen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for Gr, Hkr in ((G, Hkv), (1, 32)):
+        for strict in (False, True):
+            meta_a = list(ameta)
+            if strict:
+                meta_a[6:9] = [80.0 / 65535, 32768.0, 65535.0]
+                meta_a[9:12] = [1.0 / 65535, 0.0, 65535.0]
+            q8 = torch.randint(-128, 128, (2, Hkr, Gr, 100, hd), generator=rgen, device=dev,
+                               dtype=torch.int8)
+            k8 = torch.randint(-128, 128, (2, Hkr, MAX_SEQ, hd), generator=rgen, device=dev,
+                               dtype=torch.int8)
+            v8 = torch.randint(-128, 128, k8.shape, generator=rgen, device=dev, dtype=torch.int8)
+            posi = (37 + torch.arange(100, device=dev, dtype=torch.int32))[None].repeat(2, 1)
+            valid = torch.tensor([137, 120], device=dev, dtype=torch.int32)
+            out = prefill_attention(q8, k8, v8, meta_a, posi, valid, strict, strict)
+            ref = prefill_attention_plain(q8, k8, v8, meta_a, posi, valid, strict, strict)
+            err = float_err(out, ref)
+            pstep = meta_a[9] * (v8.float() - (meta_a[5] - 128.0)).abs().max().item() * meta_a[4]
+            ok_att = err[0] <= 32 * pstep if strict else err[1] <= 1e-4
+            print(f"  prefill_attention B=2 T=100 pos 37.. valid 137/120 G={Gr} "
+                  f"{'strict' if strict else 'relaxed'}: err={err[0]:.3g} ({err[1]:.3g})"
+                  f"{f', {err[0] / pstep:.2f} prob steps' if strict else ''}", flush=True)
+            checks.append({"name": "prefill_attention", "shape": f"B=2 T=100 pos0 37 valid "
+                           f"137/120 G={Gr} {'strict' if strict else 'relaxed'}",
+                           "max_abs_err": err[0], "rel": err[1], "ok": bool(ok_att)})
+            if not ok_att:
+                failures.append(f"prefill_attention ragged G={Gr} strict={strict}: error {err}")
+    del q8, k8, v8
 
     # whole MLP block (no single PyTorch call computes it: library "-"), at
     # the decode-sized row counts and the 32-token prompt's M = 32
@@ -1952,7 +2022,7 @@ def main() -> None:
                 record("wonly_matmul_stacked", f"{tag_c} M={Mr} {tag_p} {K}->{N}", err,
                        err[1] <= 1e-5, ms, plain_ms, lib_ms,
                        bound(wq_layer_bytes[(tag_c, key)] + Mr * K * 2 + Mr * N * 4,
-                             fp32_ops=2.0 * Mr * K * N + 2.0 * K * N),
+                             fp16_ops=2.0 * Mr * K * N),   # bf16 rows: one term
                        note="library: torch.matmul, bf16 rows x the bf16-dequantized weight",
                        main=(tag_c, tag_p, Mr) == ("W4 g128", "w1/w3", 1))
             del w_bf, stacks
@@ -1977,10 +2047,71 @@ def main() -> None:
         record("w4a16_matmul", f"M={Mr} q {D}->{Nq} (W4 per channel)", err, err[1] <= 1e-5,
                ms, plain_ms, lib_ms,
                bound(D // 2 * Nq + 3 * Nq * 4 + Mr * D * 4 + Mr * Nq * 4,
-                     fp32_ops=2.0 * Mr * D * Nq + 2.0 * D * Nq),
+                     fp16_ops=3 * 2.0 * Mr * D * Nq),   # fp32 rows: three bf16 terms
                note="library: torch.matmul, bf16 rows x the bf16-dequantized weight",
                main=Mr == 1)
     del pk13, w13s, w13a, w_bf13
+    # every edition the wrappers take, checked against the plain versions (not
+    # timed; a generator of their own): row 12 W4 / W8 x per tensor / per
+    # channel / g128 x fp32 / bf16 rows at M = 1, 3, 8 (q, 2048 -> 2048, layer
+    # 1 of 2), and packs of one-signed weights (offsets far outside the code
+    # range, W8 about -1000) per channel / g128 at M = 1, 8; row 13 per tensor
+    # / per channel x fp32 / bf16 at M = 1, 8, 100, 128, per channel at
+    # 2048 -> 512 and 512 -> 2048 (M = 100, 128: small splits, whose 64-row
+    # sums outgrow the staged x), w2's 5632 -> 2048 (M = 100: 8-row tiles past
+    # 2048 weight rows) and one-signed at M = 1, 100, 128
+    egen = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def ed_stack(bits, kind, n_layers, K=D, N=Nq13, mean=0.0):
+        cfg_q = QuantConfig(bitwidth=bits, is_per_channel=kind != "tensor",
+                            group_size=128 if kind == "g128" else -1)
+        ps = [qops.pack_weight(torch.randn((K, N), generator=egen, device=dev) * 0.02 + mean,
+                               cfg_q) for _ in range(n_layers)]
+        out = {k: torch.stack([p[k] for p in ps]) for k in ("wq", "scale", "offset")}
+        out["bias"] = torch.randn((n_layers, N), generator=egen, device=dev) * 0.01
+        return out
+
+    def ed_check(name, shape, out, ref):
+        err = float_err(out, ref)
+        checks.append({"name": name, "shape": shape, "max_abs_err": err[0], "rel": err[1],
+                       "ok": err[1] <= 1e-5})
+        if err[1] > 1e-5:
+            failures.append(f"{name} {shape}: error {err}")
+        return err[1]
+
+    for bits, kind, mean, mrs in (
+            [(b, k, 0.0, (1, 3, 8)) for b in (4, 8) for k in ("tensor", "channel", "g128")]
+            + [(b, k, 0.5, (1, 8)) for b in (4, 8) for k in ("channel", "g128")]):
+        pk_e = ed_stack(bits, kind, 2, mean=mean)
+        args = (pk_e["wq"], pk_e["scale"], pk_e["offset"], pk_e["bias"])
+        tag = f"W{bits} {kind}{' one-signed' if mean else ''}"
+        worst = 0.0
+        for xdt in (torch.float32, torch.bfloat16):
+            for Mr in mrs:
+                x = torch.randn((Mr, D), generator=egen, device=dev).to(xdt)
+                worst = max(worst, ed_check(
+                    "wonly_matmul_stacked", f"{tag} {str(xdt)[6:]} M={Mr}",
+                    wonly_matmul_stacked(x, *args, 1), wonly_matmul_stacked_plain(x, *args, 1)))
+        print(f"  wonly_matmul_stacked {tag}, fp32 / bf16 rows, M = {mrs}: "
+              f"worst rel {worst:.3g}", flush=True)
+    for kind, K, N, mean, mrs in (("tensor", D, Nq13, 0.0, (1, 8, 100, PROMPT_LEN)),
+                                   ("channel", D, Nq13, 0.0, (1, 8, 100, PROMPT_LEN)),
+                                   ("channel", D, 512, 0.0, (100, PROMPT_LEN)),
+                                   ("channel", 512, Nq13, 0.0, (100, PROMPT_LEN)),
+                                   ("channel", F, D, 0.0, (100,)),
+                                   ("channel", D, Nq13, 0.5, (1, 100, PROMPT_LEN))):
+        pk_e = ed_stack(4, kind, 1, K, N, mean)
+        w_e = (pk_e["wq"][0], pk_e["scale"][0], pk_e["offset"][0], pk_e["bias"][0])
+        tag = f"{kind} {K}->{N}{' one-signed' if mean else ''}"
+        worst = 0.0
+        for xdt in (torch.float32, torch.bfloat16):
+            for Mr in mrs:
+                x = torch.randn((Mr, K), generator=egen, device=dev).to(xdt)
+                worst = max(worst, ed_check("w4a16_matmul", f"{tag} {str(xdt)[6:]} M={Mr}",
+                                            w4a16_matmul(x, *w_e), w4a16_matmul_plain(x, *w_e)))
+        print(f"  w4a16_matmul {tag}, fp32 / bf16 rows, M = {mrs}: worst rel {worst:.3g}",
+              flush=True)
+    del pk_e
 
     # ---- phase 3w: weight-only serving through the entry points -----------
     # Generator(ecfg.act_bits=16).generate_fast at B=1 on TinyLlama-1.1B
@@ -2459,8 +2590,8 @@ def main() -> None:
     vis = T * (T + 1) / 2
     record("prefill_attention", f"StableLM T={T} S={MAX_SEQ} G={Gs} relaxed", err,
            err[1] <= 1e-4, ms, plain_ms, lib_ms,
-           bound(Hqs * T * hds + 2 * Hkvs * T * hds + T * 4 + 4 + Hqs * T * hds * 4,
-                 int8_ops=2.0 * Hqs * vis * hds, fp32_ops=2.0 * Hqs * vis * hds))
+           attn_bound(Hqs * T * hds + 2 * Hkvs * T * hds + T * 4 + 4 + Hqs * T * hds * 4,
+                      Hqs * vis, hds))
     del q8, k8, v8, qd, kd, vd
 
     def ln_name(base, wb):
@@ -2925,6 +3056,7 @@ def main() -> None:
                         "library_ms": head["library_ms"], "shape": head["shape"]})
     report = {"card": card, "build_s": build_s, "phase_start_s": PHASE_START_S,
               "report_s": time.perf_counter() - T_START, "kernels": kernels, "kernel_rows": rows,
+              "kernel_checks": checks,
               "main_path": {"prefill_ms": stats["prefill_s"] * 1e3,
                             "decode_tok_s": stats["decode_tok_s"],
                             "prompt": PROMPT_LEN, "new_tokens": NEW_TOKENS,

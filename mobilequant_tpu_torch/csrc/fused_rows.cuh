@@ -126,20 +126,6 @@ __device__ __forceinline__ Tile row_gate_tile(int t, int F) {
   return Tile{t * H, F + t * H, H, n, n};
 }
 
-// D (16 x 8, int32) += A (16 x 32 int8, row-major) · B (32 x 8 int8, column-major)
-// on the tensor cores; the fragments are those of the PTX ISA for
-// m16n8k32 .s8: lane (g = lane / 4, t = lane % 4) holds A rows g and g + 8,
-// k bytes 4t..4t+3 (a0, a1) and 16 + 4t.. (a2, a3); B column g, k bytes 4t..
-// (b0) and 16 + 4t.. (b1); D rows g (d0, d1) and g + 8 (d2, d3), columns
-// 2t and 2t + 1.
-__device__ __forceinline__ void mma_s8(int (&d)[4], int a0, int a1, int a2, int a3, int b0,
-                                       int b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // acc[i][j] (row ty + 16 i, tile column tx + 16 j) = x · W[:, tile columns]
 // over K chunks [c0, c1) of 128 k values (64 row pairs j, j + kin/2); thread
 // tid < M adds row tid's sum to rs. x (M, kin) int8 is read through L2 (it

@@ -1,7 +1,8 @@
 // Shared pieces of the port's Hopper kernels: the C export macro, the W4A8 /
 // W8A8 dp4a tile core used by w4a8_matmul (M > 8), w8a8_matmul (M > 8),
-// qkv_rope and w13_gate, and the split-K reduction through a self-cleaning
-// int32 workspace.
+// qkv_rope and w13_gate, the split-K reduction through a self-cleaning int32
+// workspace, and the cp.async / ldmatrix / mma.sync wrappers of the
+// tensor-core kernels (prefill_attention.cu, wonly_matmul.cu).
 //
 // Weight layouts. W4 (unsigned block nibbles, as the JAX package packs it): a
 // (K/2, N) int8 matrix, N contiguous; packed row j holds k = j in its low
@@ -260,6 +261,61 @@ inline void pick_split(int tiles, int nchunks, int min_chunks, int& ks, int& cps
   if (ks < 1) ks = 1;
   cps = (nchunks + ks - 1) / ks;
   ks = (nchunks + cps - 1) / cps;
+}
+
+// ---- tensor-core and async-copy building blocks (prefill_attention.cu,
+// wonly_matmul.cu). Fragments are those of the PTX ISA: lane (g = lane / 4,
+// t = lane % 4).
+
+// 16 bytes global -> shared, bypassing L1; pred false fills them with zeros
+// (src is then not read, but must still be a mapped address)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8 x 16-byte matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i; r[i] gets row g, bytes 4t..4t+3 of matrix i
+__device__ __forceinline__ void ldsm_x4(int (&r)[4], const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// D (16 x 8 s32) += A (16 x 32 s8, row) · B (32 x 8 s8, col): a0/a1 rows g /
+// g + 8 at k 4t.., a2/a3 at k 16 + 4t..; b0 column g at k 4t.., b1 at 16 + 4t..;
+// d0, d1 row g columns 2t, 2t + 1; d2, d3 row g + 8
+__device__ __forceinline__ void mma_s8(int (&d)[4], int a0, int a1, int a2, int a3, int b0,
+                                         int b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+               "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+               : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+               : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// D (16 x 8 f32) += A (16 x 16, row) · B (16 x 8, col) in fp16 / bf16 with fp32
+// accumulation: a0/a1 rows g / g + 8 at k 2t, 2t + 1 (low half = lower k),
+// a2/a3 at k 2t + 8, 2t + 9; b0 column g at k 2t, 2t + 1, b1 at 2t + 8, 2t + 9
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
+               "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+               "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The fp32 affine bracket of the JAX W4A8 kernels, in their order:

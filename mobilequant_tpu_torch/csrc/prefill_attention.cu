@@ -1,4 +1,4 @@
-// Causal int8-KV prefill attention:
+// Causal int8-KV prefill attention on the tensor cores:
 //   scores = ((q − o'_q)·(k − o'_k))·s_q·s_k -> [fq16] -> ·1/√hd
 //            + (col <= pos && col < valid ? 0 : neg_inf)
 //   probs  = softmax over the row -> [fq16]
@@ -11,31 +11,66 @@
 // (_prefill_attn_online_kernel for pv_fq = false, _prefill_attn_kernel for
 // pv_fq = true).
 //
-// Bound: operations (QK as int8 dp4a, exp and P·V in fp32) over the causal
-// half of the score matrix; K/V bytes are read once per Q tile. Design: one
-// block per (batch, kv head, Q tile of 64 / G positions), all G query heads
-// of the kv head in the block (64 rows, two threads per row, each owning
-// alternate score columns and half of the head dims), looping over 64-column
-// K/V tiles up to the tile's causal bound only. Relaxed policy: one pass with
-// an online softmax. Strict policy: the prob fake-quant needs the normalised
-// probability, and a (64, S) score row buffer does not fit shared memory at
-// long S, so the scores are recomputed in three passes: the exact row max,
-// the denominator, then normalised, fake-quantized probabilities into P·V
-// (an online denominator, rescaled tile by tile, rounds differently enough
-// to move prob fake-quant steps at S = 1024).
+// Bound: operations over the causal half of the score matrix (Q·Kᵀ in int8
+// and P·V in fp16 on the tensor cores, one exp a score on the SFUs); K/V bytes
+// are few (a tile is read once per query tile, from L2 after the first). The
+// scalar edition this replaces ran Q·Kᵀ as dp4a and P·V as fp32 FMAs on the
+// CUDA cores, two threads a row. Design: one block per (batch, kv head, query
+// tile of 64 / G positions, the longest rows first), the G query heads of the
+// kv head packed into the tile's 64 rows: four row warps of 16 rows, twice
+// (two column groups: tile 2 i to one, 2 i + 1 to the other, their row
+// states merged at the end). K/V tiles of 64 columns stream a pair at a time
+// through a four-stage cp.async ring (rows padded to 80 bytes: conflict-free
+// ldmatrix and fragment reads), only up to the tile's causal bound; a warp
+// skips the tiles past its rows' last position, works on a tile in two
+// 32-column halves (fewer live registers), and masks element by element only
+// the tiles that reach past a row's position or `valid`.
+//   * Q·Kᵀ: int8 mma.sync m16n8k32, K fragments by ldmatrix; the int32 sum is
+//     the exact integer dp4a gave. Each key's Σk comes from the same K
+//     fragments times a fragment of ones, and the epilogue keeps the scalar
+//     kernel's fp32 operation order (the int32 sums, below 2^22, made floats
+//     exactly), so every score is the float the scalar kernel made.
+//   * P·V: fp16 mma.sync m16n8k16 with fp32 accumulation. V stays int8 in
+//     shared memory; a lane pairs the bytes of two key rows with prmt and
+//     makes them fp16 exactly (0x6400 | (v + 128), minus 1152). P (in [0, 1])
+//     is scaled by 2^15 (exact) and split into two fp16 terms, hi and
+//     lo = p − hi, each through its own MMA: 22 bits of p, so against the
+//     plain version's fp32 P·V the output differs by about 2^-22 of Σ p·|v|
+//     (relative 1e-6 and below), not by whole probability steps.
+//   * Relaxed policy: one pass, an online softmax in registers (row max and
+//     sum over the quad of lanes that holds a row), p = exp2f((s − m)·log2 e)
+//     (within a few ulp of expf; the tolerance is relative 1e-4). Strict
+//     policy: the prob fake-quant needs the normalised probability, and an
+//     online denominator, rescaled tile by tile, moves prob steps at S = 1024,
+//     so three passes recompute the scores on the tensor cores (the exact row
+//     max; the denominator, sum of expf(s − m) in fp64 without rescaling;
+//     then the fake-quantized probabilities into P·V), the first two over K
+//     tiles only. Against the plain version the strict output then moves by
+//     the probabilities that a one-ulp difference in the denominator carries
+//     across a rounding step.
 #include <math.h>
+#include <cuda_fp16.h>
 
 #include "mqt_common.cuh"
 
 namespace {
 
-constexpr int ROWS = 64;            // G · BQ query rows per block
-constexpr int THREADS = 2 * ROWS;   // two threads per row
-constexpr int BS = 64;              // K/V columns per tile
-constexpr int HD = 64;              // head dim
-constexpr int QW = HD / 4;          // int32 words per q / k row
-constexpr int KPAD = QW + 1;
-constexpr int VHALF = HD / 2 + 4;   // padded half-row of V (bank spread)
+constexpr int ROWS = 64;             // G · BQ query rows a block, 16 a row warp
+constexpr int THREADS = 256;         // 4 row warps x 2 column groups
+constexpr int BS = 64;               // K/V columns a tile
+constexpr int HD = 64;               // head dim
+constexpr int NST = 4;               // cp.async ring stages: two pairs of tiles
+constexpr int RB = HD + 16;          // bytes a K / V row in shared memory
+constexpr float PSCALE = 32768.0f;   // p · 2^15 before the fp16 split (exact)
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int ONES = 0x01010101;     // an int8 fragment of ones
+constexpr float LOG2E = 1.44269504088896341f;
+
+// an int32 of magnitude below 2^22 as the float it equals (exact; the
+// integer adder and FADD instead of the quarter-rate I2F conversion)
+__device__ __forceinline__ float i2f(int v) {
+  return __int_as_float(0x4B400000 + v) - 12582912.0f;
+}
 
 struct Meta {
   float sq, oq, sk, ok, sv, ov;     // offsets already shifted by −128
@@ -50,199 +85,371 @@ struct Strides {
 
 using mqt::fq16;
 
+// (x0, x1) · 2^15 as fp16 pairs hi and lo = x − hi (low half = x0)
+__device__ __forceinline__ void split_f16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  x0 = x0 * PSCALE;
+  x1 = x1 * PSCALE;
+  const __half2 h = __floats2half2_rn(x0, x1);
+  const float2 hf = __half22float2(h);
+  const __half2 l = __floats2half2_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// bytes 0 and 2 of w (v + 128 each) as the fp16 pair (v_a, v_b)
+__device__ __forceinline__ uint32_t byte_pair_f16(uint32_t w, unsigned sel) {
+  const uint32_t b = __byte_perm(w, 0x64646464u, sel);       // 1024 + v + 128
+  const __half2 r = __hsub2(*reinterpret_cast<const __half2*>(&b),
+                            __halves2half2(__ushort_as_half(0x6480), __ushort_as_half(0x6480)));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+template <bool QK_FQ, bool PV_FQ>
 __global__ void __launch_bounds__(THREADS)
 prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
                     const int8_t* __restrict__ k, const int8_t* __restrict__ v,
                     const int* __restrict__ positions,
                     const int* __restrict__ valid, float* __restrict__ out,
-                    Strides os, Meta mt, int Hkv, int G, int T, int S,
-                    int qk_fq, int pv_fq) {
-  __shared__ int ks_[BS][KPAD];
-  __shared__ int ksum[BS];
-  __shared__ float vs[BS][2 * VHALF];
+                    Strides os, Meta mt, int Hkv, int G, int T, int S) {
+  __shared__ __align__(128) int8_t ks_[NST][BS * RB];
+  __shared__ __align__(128) int8_t vs_[NST][BS * RB];
+  __shared__ double xch[2][4][32][2];          // the column groups' row maxima / sums
   __shared__ int pos_s[ROWS];
 
-  const int tid = threadIdx.x;
-  const int r = tid >> 1, half = tid & 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3, cg = tid >> 7;
+  const int gq = lane >> 2, tq = lane & 3;
   const int BQ = ROWS / G;
   const int bh = blockIdx.x, b = bh / Hkv, h = bh % Hkv;
-  const int t0 = blockIdx.y * BQ;
-  const int g = r / BQ, tq = r % BQ, t = t0 + tq;
-  const bool row_ok = t < T;
+  const int t0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // the longest rows first
 
   if (tid < BQ) pos_s[tid] = (t0 + tid < T) ? positions[(size_t)b * T + t0 + tid] : -1;
   __syncthreads();
   int pmax = -1;
   for (int i = 0; i < BQ; ++i) pmax = max(pmax, pos_s[i]);
-  const int pos = row_ok ? pos_s[tq] : -1;
   const int vb = valid[b];
   const int ncols = max(0, min(min(pmax + 1, vb), S));
   const int ntiles = (ncols + BS - 1) / BS;
 
-  // this row's q (both threads of the pair hold the whole row)
-  int qw[QW];
-  int qsum_i = 0;
-  {
-    const int8_t* qp = q + b * qs.b + h * qs.h + g * qs.g + (long long)(row_ok ? t : 0) * qs.t;
+  // this lane's rows 16 warp + gq (i = 0) and + 8 (i = 1): their q fragments
+  // (two k32 steps), positions and q·o'_k terms
+  int qa[2][4];
+  float okq[2];
+  int wmax = -1, wmin = 0x7fffffff;
 #pragma unroll
-    for (int i = 0; i < QW; ++i) {
-      qw[i] = row_ok ? mqt::ld_i32(qp + 4 * i) : 0;
-      qsum_i = __dp4a(qw[i], 0x01010101, qsum_i);
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * warp + gq + 8 * i, rt = t0 + r % BQ;
+    const bool ok = rt < T;
+    const int rpos = ok ? pos_s[r % BQ] : -1;
+    const int8_t* qp = q + b * qs.b + h * qs.h + (r / BQ) * qs.g + (long long)(ok ? rt : 0) * qs.t;
+    int s = 0;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int w0 = ok ? mqt::ld_i32(qp + 32 * kk + 4 * tq) : 0;
+      const int w1 = ok ? mqt::ld_i32(qp + 32 * kk + 16 + 4 * tq) : 0;
+      qa[kk][i] = w0;           // a0 / a1: k 4t..
+      qa[kk][2 + i] = w1;       // a2 / a3: k 16 + 4t..
+      s = __dp4a(w0, 0x01010101, __dp4a(w1, 0x01010101, s));
     }
+    s += __shfl_xor_sync(FULL, s, 1);
+    s += __shfl_xor_sync(FULL, s, 2);
+    okq[i] = mt.ok * (float)s;
+    wmax = max(wmax, rpos);
+    if (ok) wmin = min(wmin, rpos);
   }
-  const float qsum = (float)qsum_i;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    wmax = max(wmax, __shfl_xor_sync(FULL, wmax, o));
+    wmin = min(wmin, __shfl_xor_sync(FULL, wmin, o));
+  }
+
   const float inv_sqrt = 1.0f / sqrtf((float)HD);
   const float hdoo = (float)HD * mt.oq * mt.ok;
   const float sqk = mt.sq * mt.sk;
-  const int8_t* kb = k + ((size_t)b * Hkv + h) * (size_t)S * HD;
-  const int8_t* vbp = v + ((size_t)b * Hkv + h) * (size_t)S * HD;
 
-  float sc[BS / 2];
-  float acc[HD / 2];
+  // K (and V) tiles 2 it and 2 it + 1 into ring stages (2 it) % NST, + 1: 64
+  // rows x 4 chunks of 16 B each, rows past S zero-filled
+  auto load_pair = [&](int it, bool with_v) {
 #pragma unroll
-  for (int j = 0; j < HD / 2; ++j) acc[j] = 0.0f;
-  float m = -1e30f, l = 0.0f, psum = 0.0f;
-
-  auto load_tile = [&](int s0, bool with_v) {
-    // K: 64 rows x 16 words; V: 64 rows x 64 bytes -> fp32
-    for (int idx = tid; idx < BS * QW; idx += THREADS) {
-      const int s = idx / QW, wd = idx % QW;
-      ks_[s][wd] = (s0 + s < S) ? mqt::ld_i32(kb + (size_t)(s0 + s) * HD + 4 * wd) : 0;
-    }
-    if (with_v) {
-      for (int idx = tid; idx < BS * QW; idx += THREADS) {
-        const int s = idx / QW, wd = idx % QW;
-        const int word = (s0 + s < S) ? mqt::ld_i32(vbp + (size_t)(s0 + s) * HD + 4 * wd) : 0;
-        const int d0 = 4 * wd;
-        const int base = (d0 < HD / 2) ? d0 : VHALF + d0 - HD / 2;
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          vs[s][base + e] = (float)(int8_t)((word >> (8 * e)) & 0xFF);
-      }
-    }
-    __syncthreads();
-    if (tid < BS) {
-      int s_ = 0;
-#pragma unroll
-      for (int wd = 0; wd < QW; ++wd) s_ = __dp4a(ks_[tid][wd], 0x01010101, s_);
-      ksum[tid] = s_;
-    }
-    __syncthreads();
-  };
-
-  // scores of this thread's columns s = 2 i + half of the tile at s0
-  auto scores = [&](int s0) {
-#pragma unroll
-    for (int i = 0; i < BS / 2; ++i) {
-      const int s = 2 * i + half;
-      int a = 0;
-#pragma unroll
-      for (int wd = 0; wd < QW; ++wd) a = __dp4a(qw[wd], ks_[s][wd], a);
-      float x = ((float)a - mt.ok * qsum - mt.oq * (float)ksum[s] + hdoo) * sqk;
-      if (qk_fq) x = fq16(x, mt.qks, mt.qko, mt.qkq);
-      x = x * inv_sqrt;
-      const int col = s0 + s;
-      x = x + ((col <= pos && col < vb) ? 0.0f : mt.neg_inf);
-      sc[i] = x;
+    for (int c = tid; c < 2 * BS * 4; c += THREADS) {
+      const int ti = 2 * it + (c >> 8), r = (c >> 2) & (BS - 1), ch = c & 3;
+      if (ti >= ntiles) break;
+      const int st = ti % NST, s0 = ti * BS;
+      const bool ok = s0 + r < S;
+      const size_t off = ((size_t)bh * S + (ok ? s0 + r : 0)) * HD + 16 * ch;
+      mqt::cp_async16(&ks_[st][r * RB + 16 * ch], k + off, ok);
+      if (with_v) mqt::cp_async16(&vs_[st][r * RB + 16 * ch], v + off, ok);
     }
   };
-
-  auto pv_accum = [&](const float* p) {
-    // p[i] is this thread's column 2 i + half; the partner holds 2 i + 1 − half
-    const float* vrow_base = &vs[0][half * VHALF];
-#pragma unroll 4
-    for (int i = 0; i < BS / 2; ++i) {
-      const float mine = p[i];
-      const float other = __shfl_xor_sync(0xffffffffu, mine, 1);
-      const float p0 = half ? other : mine;    // column 2 i
-      const float p1 = half ? mine : other;    // column 2 i + 1
-      const float* v0 = vrow_base + (2 * i) * (2 * VHALF);
-      const float* v1 = v0 + 2 * VHALF;
-#pragma unroll
-      for (int j = 0; j < HD / 2; ++j) acc[j] = acc[j] + p0 * v0[j];
-#pragma unroll
-      for (int j = 0; j < HD / 2; ++j) acc[j] = acc[j] + p1 * v1[j];
-    }
-  };
-
-  if (!pv_fq) {
-    for (int ti = 0; ti < ntiles; ++ti) {
-      const int s0 = ti * BS;
-      load_tile(s0, true);
-      scores(s0);
-      float tmax = -1e30f;
-#pragma unroll
-      for (int i = 0; i < BS / 2; ++i) tmax = fmaxf(tmax, sc[i]);
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      const float m_new = fmaxf(m, tmax);
-      const float rsc = expf(m - m_new);
-      float esum = 0.0f;
-#pragma unroll
-      for (int i = 0; i < BS / 2; ++i) {
-        sc[i] = expf(sc[i] - m_new);
-        esum += sc[i];
-      }
-      esum += __shfl_xor_sync(0xffffffffu, esum, 1);
-#pragma unroll
-      for (int j = 0; j < HD / 2; ++j) acc[j] = acc[j] * rsc;
-      pv_accum(sc);
-      l = l * rsc + esum;
-      m = m_new;
+  // one pass over the tiles, a pair at a time: column group cg runs
+  // body(tile, stage) on tile 2 it + cg while the next pair's loads are in
+  // flight
+  auto pass = [&](bool with_v, auto&& body) {
+    const int npairs = (ntiles + 1) / 2;
+    if (npairs > 0) load_pair(0, with_v);
+    mqt::cp_async_commit();
+    for (int it = 0; it < npairs; ++it) {
+      mqt::cp_async_wait<0>();
       __syncthreads();
+      if (it + 1 < npairs) load_pair(it + 1, with_v);
+      mqt::cp_async_commit();
+      const int ti = 2 * it + cg;
+      if (ti < ntiles && ti * BS <= wmax) body(ti, ti % NST);
     }
-    const float linv = 1.0f / fmaxf(l, 1e-30f);
-    if (row_ok) {
-      float* op = out + b * os.b + h * os.h + g * os.g + (long long)t * os.t + half * (HD / 2);
+    mqt::cp_async_wait<0>();
+    __syncthreads();
+  };
+  // the other column group's value of this lane's row i (exchanged through xch)
+  auto other = [&](double v, int i) {
+    xch[cg][warp][lane][i] = v;
+    __syncthreads();
+    const double r = xch[1 - cg][warp][lane][i];
+    __syncthreads();
+    return r;
+  };
+
+  // the warp's scores of half hh (32 columns) of tile ti: sc[n][0..1] row gq,
+  // columns s0 + 32 hh + 8 n + 2 tq, + 1; sc[n][2..3] row gq + 8
+  float sc[4][4];
+  auto scores = [&](int ti, int st, int hh) {
+    const int s0 = ti * BS;
+    const bool full = s0 + BS - 1 <= wmin && s0 + BS <= vb;
+    const int8_t* kt = ks_[st] + 32 * hh * RB;
 #pragma unroll
-      for (int j = 0; j < HD / 2; ++j) op[j] = (acc[j] - mt.ov * l) * linv * mt.sv;
+    for (int n = 0; n < 4; ++n) {
+      int kf[4];
+      mqt::ldsm_x4(kf, kt + (8 * n + (lane & 7)) * RB + 16 * (lane >> 3));
+      int acc[4] = {0, 0, 0, 0}, ks[4] = {0, 0, 0, 0};
+      // and Σk of this lane's keys 2 tq, 2 tq + 1: the same K fragments times ones
+      mqt::mma_s8(acc, qa[0][0], qa[0][1], qa[0][2], qa[0][3], kf[0], kf[1]);
+      mqt::mma_s8(ks, ONES, ONES, ONES, ONES, kf[0], kf[1]);
+      mqt::mma_s8(acc, qa[1][0], qa[1][1], qa[1][2], qa[1][3], kf[2], kf[3]);
+      mqt::mma_s8(ks, ONES, ONES, ONES, ONES, kf[2], kf[3]);
+      const float oqk[2] = {mt.oq * i2f(ks[0]), mt.oq * i2f(ks[1])};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, c = e & 1;
+        float x = ((i2f(acc[e]) - okq[i]) - oqk[c] + hdoo) * sqk;
+        if (QK_FQ) x = fq16(x, mt.qks, mt.qko, mt.qkq);
+        x = x * inv_sqrt;
+        if (!full) {          // the row's position: from shared memory (-1 past T)
+          const int r = 16 * warp + gq + 8 * i, col = s0 + 32 * hh + 8 * n + 2 * tq + c;
+          const int rpos = t0 + r % BQ < T ? pos_s[r % BQ] : -1;
+          x = x + ((col <= rpos && col < vb) ? 0.0f : mt.neg_inf);
+        }
+        sc[n][e] = x;
+      }
     }
-    return;
+  };
+
+  // o (16 rows x 64 dims, fp32 · 2^15) += P (sc, fp16 hi + lo) · V (half hh
+  // of stage st). o[n][0] row gq, dim 16 tq + n; o[n][1] dim 16 tq + 8 + n;
+  // [2], [3] row gq + 8
+  float o[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  auto pv = [&](int st, int hh) {
+    const int8_t* vt = vs_[st] + 32 * hh * RB;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {           // keys 16 j .. 16 j + 15 of the half
+      uint32_t ah[4], al[4];
+      split_f16(sc[2 * j][0], sc[2 * j][1], ah[0], al[0]);
+      split_f16(sc[2 * j][2], sc[2 * j][3], ah[1], al[1]);
+      split_f16(sc[2 * j + 1][0], sc[2 * j + 1][1], ah[2], al[2]);
+      split_f16(sc[2 * j + 1][2], sc[2 * j + 1][3], ah[3], al[3]);
+      // V rows 16 j + 2 tq, + 1 (b0) and + 8, + 9 (b1), dims 8 gq .. 8 gq + 7
+      const int8_t* vr = vt + (16 * j + 2 * tq) * RB + 8 * gq;
+      const uint2 r0 = *reinterpret_cast<const uint2*>(vr);
+      const uint2 r1 = *reinterpret_cast<const uint2*>(vr + RB);
+      const uint2 r2 = *reinterpret_cast<const uint2*>(vr + 8 * RB);
+      const uint2 r3 = *reinterpret_cast<const uint2*>(vr + 9 * RB);
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {          // dims 8 gq + 4 w .. + 3: n-tiles 4 w + e
+        const uint32_t a = (w ? r0.y : r0.x) ^ 0x80808080u, c = (w ? r1.y : r1.x) ^ 0x80808080u;
+        const uint32_t d = (w ? r2.y : r2.x) ^ 0x80808080u, f = (w ? r3.y : r3.x) ^ 0x80808080u;
+        const uint32_t p01[2] = {__byte_perm(a, c, 0x5140), __byte_perm(a, c, 0x7362)};
+        const uint32_t p23[2] = {__byte_perm(d, f, 0x5140), __byte_perm(d, f, 0x7362)};
+        uint32_t b0[4], b1[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const unsigned sel = (e & 1) ? 0x4342 : 0x4140;
+          b0[e] = byte_pair_f16(p01[e >> 1], sel);
+          b1[e] = byte_pair_f16(p23[e >> 1], sel);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mqt::mma_f16(o[4 * w + e], ah, b0[e], b1[e]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mqt::mma_f16(o[4 * w + e], al, b0[e], b1[e]);
+      }
+    }
+  };
+
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.0f, 0.0f}, psum[2] = {0.0f, 0.0f};
+  if (!PV_FQ) {
+    pass(true, [&](int ti, int st) {
+#pragma unroll 1
+     for (int hh = 0; hh < 2; ++hh) {
+      scores(ti, st, hh);
+      float tmax[2] = {-1e30f, -1e30f};
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tmax[e >> 1] = fmaxf(tmax[e >> 1], sc[n][e]);
+      float rsc[2], esum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(FULL, tmax[i], 1));
+        tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(FULL, tmax[i], 2));
+        const float m_new = fmaxf(m[i], tmax[i]);
+        rsc[i] = exp2f((m[i] - m_new) * LOG2E);
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[n][e] = exp2f((sc[n][e] - m[e >> 1]) * LOG2E);
+          esum[e >> 1] += sc[n][e];
+        }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] = o[n][e] * rsc[e >> 1];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        esum[i] += __shfl_xor_sync(FULL, esum[i], 1);
+        esum[i] += __shfl_xor_sync(FULL, esum[i], 2);
+        l[i] = l[i] * rsc[i] + esum[i];
+      }
+      pv(st, hh);
+     }
+    });
+  } else {
+    // pass 1: the exact row max
+    pass(false, [&](int ti, int st) {
+#pragma unroll 1
+      for (int hh = 0; hh < 2; ++hh) {
+        scores(ti, st, hh);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], sc[n][e]);
+      }
+    });
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[i] = fmaxf(m[i], __shfl_xor_sync(FULL, m[i], 1));
+      m[i] = fmaxf(m[i], __shfl_xor_sync(FULL, m[i], 2));
+      m[i] = fmaxf(m[i], (float)other(m[i], i));
+    }
+    // pass 2: the denominator, sum of exp(s − m) in fp64, without rescaling
+    double ld[2] = {0.0, 0.0};
+    pass(false, [&](int ti, int st) {
+      double esum[2] = {0.0, 0.0};
+#pragma unroll 1
+      for (int hh = 0; hh < 2; ++hh) {
+        scores(ti, st, hh);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) esum[e >> 1] += (double)expf(sc[n][e] - m[e >> 1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        esum[i] += __shfl_xor_sync(FULL, esum[i], 1);
+        esum[i] += __shfl_xor_sync(FULL, esum[i], 2);
+        ld[i] += esum[i];
+      }
+    });
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const double ot = other(ld[i], i);
+      l[i] = (float)(cg == 0 ? ld[i] + ot : ot + ld[i]);   // group 0's part first
+    }
+    const float linv[2] = {1.0f / fmaxf(l[0], 1e-30f), 1.0f / fmaxf(l[1], 1e-30f)};
+    // pass 3: normalised, fake-quantized probabilities into P·V
+    pass(true, [&](int ti, int st) {
+      float ps[2] = {0.0f, 0.0f};
+#pragma unroll 1
+      for (int hh = 0; hh < 2; ++hh) {
+        scores(ti, st, hh);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = expf(sc[n][e] - m[e >> 1]) * linv[e >> 1];
+            p = fq16(p, mt.pvs, mt.pvo, mt.pvq);
+            sc[n][e] = p;
+            ps[e >> 1] += p;
+          }
+        pv(st, hh);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        ps[i] += __shfl_xor_sync(FULL, ps[i], 1);
+        ps[i] += __shfl_xor_sync(FULL, ps[i], 2);
+        psum[i] += ps[i];
+      }
+    });
   }
 
-  // strict: pass 1, the exact row max
-  for (int ti = 0; ti < ntiles; ++ti) {
-    const int s0 = ti * BS;
-    load_tile(s0, false);
-    scores(s0);
+  // column group 1 hands its rows' state to group 0 through the (idle) ring:
+  // xb[field][row warp][lane], fields o (32), m, l, psum (2 each)
+  float* xb = reinterpret_cast<float*>(&ks_[0][0]);
+  auto xat = [&](int f) -> float& { return xb[(f * 4 + warp) * 32 + lane]; };
+  if (cg == 1) {
 #pragma unroll
-    for (int i = 0; i < BS / 2; ++i) m = fmaxf(m, sc[i]);
-    __syncthreads();
-  }
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-  // pass 2: the denominator, sum of exp(s - m) as the JAX kernel forms it
-  for (int ti = 0; ti < ntiles; ++ti) {
-    const int s0 = ti * BS;
-    load_tile(s0, false);
-    scores(s0);
-    float esum = 0.0f;
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int i = 0; i < BS / 2; ++i) esum += expf(sc[i] - m);
-    l += esum + __shfl_xor_sync(0xffffffffu, esum, 1);
-    __syncthreads();
-  }
-  const float linv = 1.0f / fmaxf(l, 1e-30f);
-  // pass 3: normalised, fake-quantized probabilities into P·V
-  for (int ti = 0; ti < ntiles; ++ti) {
-    const int s0 = ti * BS;
-    load_tile(s0, true);
-    scores(s0);
-    float ps = 0.0f;
+      for (int e = 0; e < 4; ++e) xat(4 * n + e) = o[n][e];
 #pragma unroll
-    for (int i = 0; i < BS / 2; ++i) {
-      float p = expf(sc[i] - m) * linv;
-      p = fq16(p, mt.pvs, mt.pvo, mt.pvq);
-      sc[i] = p;
-      ps += p;
+    for (int i = 0; i < 2; ++i) {
+      xat(32 + i) = m[i];
+      xat(34 + i) = l[i];
+      xat(36 + i) = psum[i];
     }
-    ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-    psum += ps;
-    pv_accum(sc);
-    __syncthreads();
   }
-  if (row_ok) {
-    float* op = out + b * os.b + h * os.h + g * os.g + (long long)t * os.t + half * (HD / 2);
+  __syncthreads();
+  if (cg == 1) return;
+  float sa[2], sb[2];         // the two groups' weights (relaxed: their maxima)
 #pragma unroll
-    for (int j = 0; j < HD / 2; ++j) op[j] = (acc[j] - mt.ov * psum) * mt.sv;
+  for (int i = 0; i < 2; ++i) {
+    if (PV_FQ) {
+      sa[i] = sb[i] = 1.0f;
+      psum[i] = psum[i] + xat(36 + i);
+    } else {
+      const float m1 = xat(32 + i), mm = fmaxf(m[i], m1);
+      sa[i] = exp2f((m[i] - mm) * LOG2E);
+      sb[i] = exp2f((m1 - mm) * LOG2E);
+      l[i] = l[i] * sa[i] + xat(34 + i) * sb[i];
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o[n][e] = PV_FQ ? o[n][e] + xat(4 * n + e)
+                      : o[n][e] * sa[e >> 1] + xat(4 * n + e) * sb[e >> 1];
+
+  // rows gq and gq + 8: dims 16 tq .. 16 tq + 15
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * warp + gq + 8 * i, rt = t0 + r % BQ;
+    if (rt >= T) continue;
+    float y[16];
+    const float linv = 1.0f / fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float acc = o[n][2 * i + c] * (1.0f / PSCALE);
+        y[8 * c + n] = PV_FQ ? (acc - mt.ov * psum[i]) * mt.sv
+                             : (acc - mt.ov * l[i]) * linv * mt.sv;
+      }
+    float* op = out + b * os.b + h * os.h + (r / BQ) * os.g + (long long)rt * os.t + 16 * tq;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      reinterpret_cast<float4*>(op)[j] = make_float4(y[4 * j], y[4 * j + 1], y[4 * j + 2],
+                                                     y[4 * j + 3]);
   }
 }
 
@@ -251,7 +458,8 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
 // meta_host: the JAX engine's 13-float attention meta
 // [sq, oq, sk, ok, sv, ov, qk_out s, o, qmax, pv_in s, o, qmax, neg_inf]
 // (offsets unshifted, as there). q_strides / o_strides: 4 int64 element
-// strides each (b, kv head, group, t) of q and out.
+// strides each (b, kv head, group, t) of q and out; out's dims contiguous and
+// 16-byte aligned.
 MQT_EXPORT int mqt_prefill_attention(const void* q, const void* q_strides,
                                      const void* k, const void* v,
                                      const void* positions, const void* valid,
@@ -281,9 +489,11 @@ MQT_EXPORT int mqt_prefill_attention(const void* q, const void* q_strides,
   Strides os{osp[0], osp[1], osp[2], osp[3]};
   const int BQ = ROWS / G;
   dim3 grid(B * Hkv, (T + BQ - 1) / BQ);
-  prefill_attn_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)q, qs, (const int8_t*)k, (const int8_t*)v,
-      (const int*)positions, (const int*)valid, (float*)out, os, mt, Hkv, G, T,
-      S, qk_fq, pv_fq);
+  cudaStream_t st = (cudaStream_t)stream;
+  auto* kern = qk_fq ? (pv_fq ? prefill_attn_kernel<true, true> : prefill_attn_kernel<true, false>)
+                     : (pv_fq ? prefill_attn_kernel<false, true> : prefill_attn_kernel<false, false>);
+  kern<<<grid, THREADS, 0, st>>>((const int8_t*)q, qs, (const int8_t*)k, (const int8_t*)v,
+                                 (const int*)positions, (const int*)valid, (float*)out, os, mt,
+                                 Hkv, G, T, S);
   return (int)cudaGetLastError();
 }

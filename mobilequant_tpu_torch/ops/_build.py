@@ -54,7 +54,7 @@ SIGNATURES = {
     "mqt_kv4_decode_attention": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                                  I, I, I, P],
     "mqt_decode_attention": [P, P, P, P, P, P, I, I, I, I, I, I, P],
-    "mqt_wonly_matmul": [P, I, P, I, P, P, I, I, I, I, P, P, P, P, I, I, I, I, I, I, P],
+    "mqt_wonly_matmul": [P, I, P, I, P, P, I, I, I, I, P, P, I, I, I, I, I, I, P],
 }
 
 _lock = threading.Lock()

@@ -7,13 +7,18 @@ Kernel: csrc/prefill_attention.cu, which replaces the JAX package's
 mobilequant_tpu/ops/pallas_prefill_attention.py prefill_attention
 (_prefill_attn_online_kernel when pv_fq is off, the relaxed serving policy;
 _prefill_attn_kernel when it is on, the strict policy). Bound: operations
-over the causal half of the score matrix. Design: one block per (batch, kv
-head, Q tile), all query heads of the kv head together, K/V tiles up to the
-causal bound only; an online softmax for the relaxed policy, and for the
-strict one three passes over recomputed scores (row max, denominator, then
-normalised, fake-quantized probabilities into P·V), since the prob
-fake-quant needs the normalised probability and a whole score row does not
-fit shared memory.
+over the causal half of the score matrix: Q·Kᵀ in int8 and P·V in fp16 on
+the tensor cores, one exp a score. The scalar edition it replaces ran both
+products on the CUDA cores. Design: one block per (batch, kv head, Q tile),
+all query heads of the kv head together; K/V tiles stream through a cp.async
+ring up to the causal bound only; Q·Kᵀ is int8 mma.sync (the exact integer,
+so every score is the float the plain version makes); P·V is fp16 mma.sync
+on V made fp16 exactly and P split into two fp16 terms (22 bits, so the
+output differs from the plain version's fp32 P·V by about 2^-22 of Σ p·|v|).
+The relaxed policy runs an online softmax; the strict one three passes over
+recomputed scores (row max, denominator in fp64, then normalised,
+fake-quantized probabilities into P·V), since the prob fake-quant needs the
+normalised probability and a whole score row does not fit shared memory.
 
 meta: the JAX engine's 13-float attention meta [sq, oq, sk, ok, sv, ov,
 qk_out scale, offset, qmax, pv_in scale, offset, qmax, neg_inf].

@@ -1,5 +1,5 @@
-"""Weight-only (W4A16 / W8A16) matmul: fp activations × an integer weight
-dequantized in the kernel, + bias -> fp32.
+"""Weight-only (W4A16 / W8A16) matmul: fp activations × an integer weight,
++ bias -> fp32.
 
   out = x.float() @ ((q − offset)·scale) + bias
 
@@ -15,13 +15,25 @@ package's mobilequant_tpu/ops/pallas_matmul.py:
     one nibble-packed W4 (K/2, N) matrix with per-channel (or per-tensor)
     scales, + bias. No runtime path of the JAX package calls it; its test
     pins it.
-Bound: device-memory bytes (the packed weights, scales and offsets; at M <= 8
-the flops are far below the card's rate for them). Design: each thread reads
-16 bytes of one packed row along N and dequantizes in registers; the block
-stages its K slice of x in shared memory once; K splits over enough blocks
-to fill the card and the last block of a column tile adds the splits in
-order (no float atomics). The layer is a pointer offset from an int: no
-slice copy. x may be fp32 or bf16 (read as fp32, as the JAX kernel casts it).
+Bound: device-memory bytes at M <= 8 (the packed weights, scales and
+offsets), the products at M = 128. The scalar edition it replaces
+dequantized every weight to fp32 on the CUDA cores and read the weight once
+per 8 rows of x. Design: the weight side is the centred integer q − c (W4:
+nibble − 8, W8: the int8 byte), exact in bf16; per group the tensor cores
+(bf16 mma.sync, fp32 accumulation) form Σ x·(q − c) and, by one more MMA
+of ones, Σ x; the offset comes in as the correction
+Σ x·(q − offset) = Σ x·(q − c) − (offset − c)·Σ x, beside the scale in
+fp32. So any offset is served. fp32 x runs as three bf16 terms (24 bits),
+bf16 x as one. Operands swapped (the weight's 16 columns are the MMA's
+rows, up to 8 rows of x its columns); above 8 rows a block takes 64 rows of
+x, so the weight is read once per 64 rows (8 past 2048 weight rows, whose x
+slices 16 splits cannot stage). The weight streams through a cp.async ring. K splits over up to 16 blocks, one
+thread-block cluster, which add the splits' sums in order from each other's
+shared memory: no float atomics, no workspace. The layer is a pointer
+offset from an int: no slice copy. The products are exact, so the kernel
+differs from the plain version (fp32 (q − offset)·scale, then an fp32
+matmul) by the fp32 rounding of the sums and of the correction (small for
+the JAX packs, whose zero-point lies in the code range).
 
 The wrappers launch the kernel for CUDA tensors and run their plain versions
 (`wonly_matmul_stacked_plain`, `w4a16_matmul_plain`: qops.weight_only_linear
@@ -39,24 +51,31 @@ from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.qops import weight_only_linear
 
 MAX_ROWS = 8            # the decode gate of runtime/wonly.WeightOnlyOps
-_TN, _MAXR = 256, 256   # columns of a block; packed rows of a K split at most
+MAX_SPLITS = 16         # K splits of a tile: one thread-block cluster (Hopper: up to 16)
+_TN = 128               # columns of a block
 
 
-# per device: the split partials (fp32 bits in an int32 buffer, overwritten by
-# every launch) and the tile counters (zero, and left zero by every launch)
-_PARTIALS = _build.Workspace()
-_COUNTERS = _build.Workspace()
 _SMS = {}
 
 
-def _split(device: torch.device, Kr: int, tiles: int):
-    """(rows per split, splits): two blocks a streaming multiprocessor, at
-    least 16 packed rows (one per row slot) and at most 256 a split."""
+def _split(device: torch.device, Kr: int, tiles: int, max_rows: int):
+    """(rows per split, splits): splits a power of two up to MAX_SPLITS (one
+    thread-block cluster), the most that keep the grid within a block a
+    streaming multiprocessor (within two for clusters of up to 4: a larger
+    cluster of a fuller grid waits for room in a GPC), but enough to keep a
+    split within max_rows weight rows; at least 16 rows (one MMA step) a
+    split."""
     sms = _SMS.get(device)
     if sms is None:
         sms = _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
-    ks = max(_cdiv(Kr, _MAXR), min(_cdiv(2 * sms, tiles), _cdiv(Kr, 16)))
+    ks = 1
+    while ks < MAX_SPLITS and Kr >= 32 * ks and (
+            tiles * 2 * ks <= sms or (2 * ks <= 4 and tiles * 2 * ks <= 2 * sms)
+            or _cdiv(Kr, ks) > max_rows):
+        ks *= 2
     rps = 16 * _cdiv(_cdiv(Kr, ks), 16)
+    if rps > max_rows:
+        raise NotImplementedError(f"{Kr} weight rows need more than {MAX_SPLITS} splits")
     return rps, _cdiv(Kr, rps)
 
 
@@ -86,8 +105,8 @@ def _launch(name: str, x: torch.Tensor, wq_L: torch.Tensor, scale_L, offset_L,
     dev = _build.require_cuda(x, wq_L, scale_L, offset_L)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: x must be fp32 or bf16, got {x.dtype}")
-    if N % 16:
-        raise NotImplementedError(f"{name}: N={N} is not a multiple of 16")
+    if N % 16 or K % 16:
+        raise NotImplementedError(f"{name}: K={K}, N={N} (the kernel takes multiples of 16)")
     if not 0 <= layer < L:
         raise IndexError(f"{name}: layer {layer} of {L}")
     sc, sl, sg, sn, G = _plane(scale_L, L, N)
@@ -96,19 +115,25 @@ def _launch(name: str, x: torch.Tensor, wq_L: torch.Tensor, scale_L, offset_L,
         raise ValueError(f"{name}: scale and offset shapes differ")
     if G > 1 and (K % G or (bits == 4 and G % 2)):
         raise ValueError(f"{name}: {G} groups for K={K} (W4 needs an even count)")
+    if G > 1 and (K // G) % 16:
+        raise NotImplementedError(f"{name}: groups of {K // G} rows (the kernel takes "
+                                  "multiples of 16)")
+    if M > MAX_ROWS and (bits != 4 or G > 1):
+        raise NotImplementedError(f"{name}: M={M} rows take W4 per-channel packs only")
     b = None if bias_L is None else _build.aligned(bias_L.to(torch.float32).reshape(L, N), 4)
     xa = _build.aligned(x)
     w = _build.aligned(wq_L)
-    tiles = _cdiv(N, _TN) * _cdiv(M, 8)
-    rps, ks = _split(dev, Kr, tiles)
-    part = _PARTIALS.get(dev, ks * M * N).view(torch.float32)
-    cnt = _COUNTERS.get(dev, tiles)
+    # rows of x a block: 64 while the K splits can hold their x slices
+    mrows = 64 if M > MAX_ROWS and Kr <= MAX_SPLITS * 128 else 8
+    max_rows = 1024 if mrows == 8 else 128      # weight rows a split (x in shared memory)
+    if G > 1:
+        max_rows = min(max_rows, 16 * (K // G))   # at most 16 groups a split
+    rps, ks = _split(dev, Kr, _cdiv(N, _TN) * _cdiv(M, mrows), max_rows)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     code = _build.lib().mqt_wonly_matmul(
         xa.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(), bits, sc.data_ptr(),
         of.data_ptr(), sl, sg, sn, G, None if b is None else b.data_ptr(), out.data_ptr(),
-        part.data_ptr(), cnt.data_ptr(), M, K, N, int(layer), rps, ks,
-        _build.stream_ptr(dev))
+        M, K, N, int(layer), rps, ks, _build.stream_ptr(dev))
     _build.check(code, name)
     return out
 

@@ -1,30 +1,39 @@
-"""Time the port's fused row kernels of one checkout on the card, for an A/B of
-two checkouts in one call (run it on each, parent first and last):
+"""Time kernels of one checkout on the card, for an A/B of two checkouts in one
+call (run it on each, parent first and last):
 
-    python3 scripts/torch_ab_fused_rows.py TREE [TREE ...]
+    python3 scripts/torch_ab_fused_rows.py [--rows fused,attn,wonly] TREE [TREE ...]
 
 For each TREE (a checkout of the repository) it builds that checkout's CUDA
 kernels in a fresh process (a tree named twice reuses its first build), then
-times on TinyLlama-1.1B's full width (seeded
-synthetic W4A8/h4 and W8A8/h8 packs, relaxed policy) the RMSNorm editions of
-the whole-model kernel (B = 1, 8, with the head), the whole-layer kernel,
-the MLP block (M = 1, 8, 32, 128), the chunk kernel (B = 32, 128, pos0 192,
-16 staged columns, with the head) and the o-tail (M = 32, 128): the least of
-three means over calls replayed from one CUDA graph (chip_smoke.time_ms). It
-prints one JSON line a tree, and the card's name and power limit first; the
-build's ptxas lines (registers, spills) go to chiprun_out/ab_build_<n>.txt,
-n the tree's place in the list.
+times on TinyLlama-1.1B's full width the row groups named by --rows (all
+three by default):
+  fused  the RMSNorm editions of the whole-model kernel (B = 1, 8, with the
+         head), the whole-layer kernel, the MLP block (M = 1, 8, 32, 128),
+         the chunk kernel (B = 32, 128, pos0 192, 16 staged columns, with
+         the head) and the o-tail (M = 32, 128), on seeded synthetic W4A8/h4
+         and W8A8/h8 packs, relaxed policy (rows 6, 7, 8, 11, 18);
+  attn   the prefill attention (row 4): T=128 into S=1024 and T=S=1024
+         relaxed and strict (G=8), StableLM's T=128 into S=1024 (G=1);
+  wonly  the weight-only matmul (rows 12 / 13): wonly_matmul_stacked at
+         M = 1, 8 on the W4 g128 projections and the W8 per-channel w1 / k
+         (bf16 rows), w4a16_matmul at M = 1, 8, 128 (fp32 rows), the weights
+         rotated over copies past the 50 MB L2 as chip_smoke.py does.
+Each number is the least of three means over calls replayed from one CUDA
+graph (chip_smoke.time_ms). It prints one JSON line a tree, and the card's
+name and power limit first; the build's ptxas lines (registers, spills) go
+to chiprun_out/ab_build_<n>.txt, n the tree's place in the list.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 from pathlib import Path
 
 CHILD = r'''
 import contextlib, io, json, sys, time
-tree, log_path = sys.argv[1], sys.argv[2]
+tree, log_path, groups = sys.argv[1], sys.argv[2], sys.argv[3].split(",")
 sys.path.insert(0, tree)
 import torch
 import chip_smoke as CS
@@ -56,7 +65,7 @@ def tm(fn, n=20):
     return min(CS.time_ms(fn, n=n) for _ in range(3))
 
 
-for wb in (4, 8):
+for wb in ((4, 8) if "fused" in groups else ()):
     packed, cfg, pol, _ = build_synthetic_packed("tinyllama-1.1b", w_bits=wb, head_bits=wb,
                                                  device=dev)
     pol = relax_16bit(pol)
@@ -111,21 +120,94 @@ for wb in (4, 8):
         del kc, vc, sk, sv, cargs
     del packed
     torch.cuda.empty_cache()
+
+if "attn" in groups:
+    from mobilequant_tpu_torch.ops.prefill_attention import prefill_attention
+    packed, cfg, pol, _ = build_synthetic_packed("tinyllama-1.1b", w_bits=4, head_bits=4,
+                                                 device=dev)
+    ameta = E._attn_meta(E.layer_ranges(packed["ranges"], 0), relax_16bit(pol), cfg)
+    del packed
+    for tag, Hkv, G, T, S, strict in (("T=128 S=1024 relaxed", 4, 8, 128, 1024, False),
+                                      ("T=S=1024 relaxed", 4, 8, 1024, 1024, False),
+                                      ("T=S=1024 strict", 4, 8, 1024, 1024, True),
+                                      ("StableLM G=1 T=128 S=1024 relaxed", 32, 1, 128, 1024,
+                                       False)):
+        meta = list(ameta)
+        if strict:
+            meta[6:12] = [80.0 / 65535, 32768.0, 65535.0, 1.0 / 65535, 0.0, 65535.0]
+        q8 = torch.randint(-128, 128, (1, Hkv, G, T, 64), generator=gen, device=dev,
+                           dtype=torch.int8)
+        k8 = torch.randint(-128, 128, (1, Hkv, S, 64), generator=gen, device=dev,
+                           dtype=torch.int8)
+        v8 = torch.randint(-128, 128, k8.shape, generator=gen, device=dev, dtype=torch.int8)
+        posi = torch.arange(T, device=dev, dtype=torch.int32)[None]
+        valid = torch.full((1,), T, device=dev, dtype=torch.int32)
+        out[f"row4 {tag}"] = tm(lambda i: prefill_attention(q8, k8, v8, meta, posi, valid,
+                                                            strict, strict))
+    torch.cuda.empty_cache()
+
+if "wonly" in groups:
+    from mobilequant_tpu_torch.convert import build_synthetic_wonly
+    from mobilequant_tpu_torch.ops import qops
+    from mobilequant_tpu_torch.ops.wonly_matmul import w4a16_matmul, wonly_matmul_stacked
+    from mobilequant_tpu_torch.quant.quantizer import QuantConfig
+    pk_w, cfg, _, _ = build_synthetic_wonly("tinyllama-1.1b", w_bits=4, group_size=128,
+                                            head_bits=16, device=dev)
+    D, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    qd, kvd = cfg.num_heads * cfg.head_dim_, cfg.num_kv_heads * cfg.head_dim_
+
+    def pc_stack(bits, K, N, n):
+        ps = [qops.pack_weight(torch.randn((K, N), generator=gen, device=dev) * 0.02,
+                               QuantConfig(bitwidth=bits, is_per_channel=True))
+              for _ in range(n)]
+        st = {k: torch.stack([p[k] for p in ps]) for k in ("wq", "scale", "offset")}
+        st["bias"] = torch.zeros((n, N), device=dev)
+        return st
+
+    cases = [("W4 g128", tag, pk_w["packs"][key], K)
+             for tag, key, K in (("q", "q_proj", D), ("k/v", "k_proj", D), ("o", "o_proj", qd),
+                                 ("w1/w3", "w1", D), ("w2", "w2", F))]
+    cases += [("W8 pc", tag, pc_stack(8, K, N, L), K)
+              for tag, K, N in (("w1/w3", D, F), ("k/v", D, kvd))]
+    for tag_c, tag, pk, K in cases:
+        args = (pk["wq"], pk["scale"], pk["offset"], pk["bias"])
+        Lc = args[0].shape[0]
+        lb = args[0][0].numel() + 2 * args[1][0].numel() * 4
+        stacks = [args] + [tuple(t.clone() for t in args)
+                           for _ in range(CS.cold_count(lb * Lc, 64) - 1)]
+        for Mr in (1, 8):
+            x = torch.randn((Mr, K), generator=gen, device=dev).to(torch.bfloat16)
+            n = max(20, CS.cold_count(lb, Lc * len(stacks)))
+            out[f"row12 {tag_c} M={Mr} {tag}"] = tm(lambda i: wonly_matmul_stacked(
+                x, *stacks[(i // Lc) % len(stacks)], i % Lc), n=n)
+        del stacks
+    pk13 = pc_stack(4, D, qd, CS.cold_count(D // 2 * qd, 64))
+    w13s = [(pk13["wq"][j], pk13["scale"][j], pk13["offset"][j], pk13["bias"][j])
+            for j in range(pk13["wq"].shape[0])]
+    for Mr in (1, 8, 128):
+        x = torch.randn((Mr, D), generator=gen, device=dev)
+        out[f"row13 M={Mr} q"] = tm(lambda i: w4a16_matmul(x, *w13s[i % len(w13s)]),
+                                    n=len(w13s))
 print(json.dumps(out), flush=True)
 '''
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rows", default="fused,attn,wonly",
+                    help="comma-separated row groups: fused, attn, wonly")
+    ap.add_argument("trees", nargs="+")
+    args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
     print(f"card: {smi.stdout.strip()}", flush=True)
     out_dir = Path(__file__).resolve().parents[1] / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    for n, tree in enumerate(sys.argv[1:]):
+    for n, tree in enumerate(args.trees):
         run = subprocess.run([sys.executable, "-c", CHILD, str(Path(tree).resolve()),
-                              str(out_dir / f"ab_build_{n}.txt")], capture_output=True,
-                             text=True)
+                              str(out_dir / f"ab_build_{n}.txt"), args.rows],
+                             capture_output=True, text=True)
         if run.returncode != 0:
             sys.exit(f"{tree}: {run.stderr[-2000:]}")
         print(run.stdout.strip().splitlines()[-1], flush=True)
