@@ -13,8 +13,10 @@
    with the chunk step's per-stage times from its %globaltimer trace, both
    MLP-block kernels (dp4a, row) at M = 1, 2, 4, 8 for the wrapper's fork,
    the kv4 decode attention over the int4 cache (B = 1, 32, 128 at pos0 192
-   and a staggered B=32 past S/2; m 0 and 16; both policies), the int8
-   decode attention (B = 1, 32; S = 1024, 193 valid rows), and the prefill
+   and a staggered B=32 past S/2; m 0 and 16; both policies; B=1 at pos 3
+   with m=0 checked, not timed), the int8 decode attention (B = 1, 32; S =
+   1024, 193 valid rows; B=1 with 5 valid rows checked), each with the
+   thread-block cluster size its wrapper picked, and the prefill
    attention also on ragged shapes (B=2, T=100, positions from 37, valid
    137 / 120, G = 8 and 1, both policies; checked, not timed);
 3. drives the routes on a W4A8 TinyLlama-1.1B pack (seeded synthetic
@@ -157,6 +159,7 @@ HBM_BYTES_S = 3.35e12          # H100 SXM data sheet
 INT8_OPS_S = 1979e12           # dense int8 tensor-core rate
 FP32_OPS_S = 67e12             # fp32 outside the tensor cores
 FP16_OPS_S = 989e12            # dense fp16 / bf16 tensor-core rate
+FP64_OPS_S = 67e12             # dense fp64 tensor-core rate (the card's highest for fp64)
 # exp on the special-function units: 16 a clock per SM (Hopper white paper) on
 # 132 SMs at the H100 SXM's 1.98 GHz maximum boost clock (a lower bound takes
 # the highest rate the card can reach)
@@ -214,18 +217,19 @@ def fail(msg: str) -> None:
 
 
 def bound(nbytes: float, int8_ops: float = 0.0, fp32_ops: float = 0.0,
-          fp16_ops: float = 0.0, sfu_ops: float = 0.0):
+          fp16_ops: float = 0.0, sfu_ops: float = 0.0, fp64_ops: float = 0.0):
     """(ms, "bytes" / "operations"): the larger of the bytes over the memory
     rate and the operations' time. A row of int8 and fp32 work only adds the
     two units' times, as those rows always have. A row with fp16 / bf16
-    tensor-core or SFU work (rows 4, 12, 13) takes the largest of its units'
-    times, since the units overlap: the tensor cores (int8 and fp16 / bf16
-    products share them, so those two add), the fp32 CUDA cores and the SFUs.
-    fp16_ops already counts every split term of a product."""
+    tensor-core, fp64 or SFU work (rows 4, 10, 12, 13, 15) takes the largest
+    of its units' times, since the units overlap: the tensor cores (int8 and
+    fp16 / bf16 products share them, so those two add), the fp32 CUDA cores,
+    the fp64 units and the SFUs. fp16_ops already counts every split term of
+    a product."""
     t_bytes = nbytes / HBM_BYTES_S
     t_tc = int8_ops / INT8_OPS_S + fp16_ops / FP16_OPS_S
-    if fp16_ops or sfu_ops:
-        t_ops = max(t_tc, fp32_ops / FP32_OPS_S, sfu_ops / SFU_OPS_S)
+    if fp16_ops or sfu_ops or fp64_ops:
+        t_ops = max(t_tc, fp32_ops / FP32_OPS_S, sfu_ops / SFU_OPS_S, fp64_ops / FP64_OPS_S)
     else:
         t_ops = t_tc + fp32_ops / FP32_OPS_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -474,9 +478,9 @@ def main() -> None:
         from mobilequant_tpu_torch.ops.chunk_model import (
             fused_model_w4_chunk, fused_model_w4_chunk_plain)
         from mobilequant_tpu_torch.ops.decode_attention import (
-            decode_attention, decode_attention_plain)
+            cluster_size, decode_attention, decode_attention_plain)
         from mobilequant_tpu_torch.ops.kv4_attention import (
-            kv4_decode_attention, kv4_decode_attention_plain)
+            kv4_cluster_size, kv4_decode_attention, kv4_decode_attention_plain)
         from mobilequant_tpu_torch.ops.otail import (
             fused_otail_block_w4, fused_otail_block_w4_plain)
         from mobilequant_tpu_torch.ops.staged_append import staged_append, staged_append_plain
@@ -982,9 +986,13 @@ def main() -> None:
 
     # kv4 decode attention over the packed cache (S/2 = 512 columns a plane):
     # B = 1, 32, 128 at pos0 POS0 and B=32 at staggered chunk starts 480..573
-    # (the high plane); m staged columns valid of CHUNK_COLS; both policies
+    # (the high plane); m staged columns valid of CHUNK_COLS; both policies.
+    # Each (sequence, kv head) is one cluster of `ncl` blocks (the wrapper's
+    # choice from the shapes), printed per shape; B=1 at pos 3 with m=0
+    # (most stripes of the cluster empty) is checked, not timed
     S2 = MAX_SEQ // 2
-    for Bk, stag in ((1, False), (SERVE_B, False), (BIG_B, False), (SERVE_B, True)):
+    sms = _build.sm_count(dev)
+    for Bk, stag in ((1, False), (SERVE_B, False), (BIG_B, False), (SERVE_B, True), (1, None)):
         BH = Bk * Hkv
         kp4 = torch.randint(-128, 128, (L, BH, hd, S2), generator=kgen, device=dev,
                             dtype=torch.int8)
@@ -996,9 +1004,12 @@ def main() -> None:
                                   dtype=torch.int8) for _ in "kv")
         q84 = torch.randint(-128, 128, (BH, G, hd), generator=kgen, device=dev,
                             dtype=torch.int8)
-        pos4 = torch.tensor([480 + 3 * b if stag else POS0 for b in range(Bk)],
-                            dtype=torch.int32, device=dev)
-        for mst in (0, STAGED_M):
+        pos4 = torch.tensor([3 if stag is None else 480 + 3 * b if stag else POS0
+                             for b in range(Bk)], dtype=torch.int32, device=dev)
+        ncl = kv4_cluster_size(Bk, Hkv, S2, CHUNK_COLS, sms, G, hd)
+        print(f"  kv4_decode_attention B={Bk}: a cluster of {ncl} blocks a (sequence, kv head)",
+              flush=True)
+        for mst in ((0,) if stag is None else (0, STAGED_M)):
             # columns read: each packed column below pos holds a low and,
             # past S/2, a high position; its K column sums; the staged rows
             lo = sum(min(int(p), S2) for p in pos4.tolist())
@@ -1007,7 +1018,7 @@ def main() -> None:
                                            + 2 * Bk * mst * hd + 2 * Bk * hd)
                       + Bk * 4 + BH * G * hd * 4)
             cols = Hkv * (lo + hi + Bk * (mst + 1))
-            lib_ms = sdpa_ms(Bk, int(pos4.max()) + mst + 1)
+            lib_ms = sdpa_ms(Bk, int(pos4.max()) + mst + 1) if stag is not None else None
             for strict in (False, True):
                 meta4 = E._attn_meta(lr4, strict4 if strict else policy4, cfg)
 
@@ -1016,6 +1027,14 @@ def main() -> None:
                 out = kv4_decode_attention(*args4(1), qk_fq_on=strict, pv_fq_on=strict)
                 ref = kv4_decode_attention_plain(*args4(1), qk_fq_on=strict, pv_fq_on=strict)
                 err = float_err(out, ref)
+                if stag is None:
+                    shape = (f"B=1 pos0=3 m=0 ncl={ncl} {'strict' if strict else 'relaxed'}")
+                    checks.append({"name": "kv4_decode_attention", "shape": shape,
+                                   "max_abs_err": err[0], "rel": err[1]})
+                    print(f"  kv4_decode_attention {shape} (checked) err={err[0]:.3g}", flush=True)
+                    if err[0] != 0 or not bool(torch.isfinite(out).all()):
+                        failures.append(f"kv4_decode_attention {shape}: error {err}")
+                    continue
                 ms = time_ms(lambda i: kv4_decode_attention(*args4(i % L), qk_fq_on=strict,
                                                             pv_fq_on=strict))
                 plain_ms = time_ms(lambda i: kv4_decode_attention_plain(
@@ -1024,24 +1043,41 @@ def main() -> None:
                        f"B={Bk} pos0{'=480+3b' if stag else '=' + str(POS0)} m={mst} "
                        f"{'strict' if strict else 'relaxed'}", err, err[0] == 0, ms, plain_ms,
                        lib_ms, bound(nbytes, int8_ops=2.0 * G * hd * cols,
-                                     fp32_ops=2.0 * G * hd * cols),
+                                     fp64_ops=2.0 * G * hd * cols, sfu_ops=G * cols),
                        note="library: SDPA bf16 over the valid rows, kv heads expanded",
                        main=(Bk, stag, mst, strict) == (SERVE_B, False, STAGED_M, False))
+                rows["kv4_decode_attention"][-1]["cluster"] = ncl
         del kp4, vp4, kcs4, sk4, sv4
 
     # int8 decode attention (the attn() route's T = 1 kernel): 193 valid rows
-    # of an S = 1024 cache, layers rotated while timing
+    # of an S = 1024 cache, layers rotated while timing; a cluster of `ncl`
+    # blocks a (sequence, kv head), printed per shape; B=1 with 5 valid rows
+    # (most stripes of the cluster empty) checked, not timed
     DA_VALID = POS0 + 1
-    for Bd, strict in ((1, False), (SERVE_B, False), (SERVE_B, True)):
+    for Bd, strict, nval in ((1, False, DA_VALID), (SERVE_B, False, DA_VALID),
+                             (SERVE_B, True, DA_VALID), (1, False, 5), (1, True, 5)):
         kcd = torch.randint(-128, 128, (L, Bd, Hkv, MAX_SEQ, hd), generator=kgen, device=dev,
                             dtype=torch.int8)
         vcd = torch.randint(-128, 128, kcd.shape, generator=kgen, device=dev, dtype=torch.int8)
         q8d = torch.randint(-128, 128, (Bd, Hkv, G, hd), generator=kgen, device=dev,
                             dtype=torch.int8)
-        vld = torch.full((Bd,), DA_VALID, dtype=torch.int32, device=dev)
+        vld = torch.full((Bd,), nval, dtype=torch.int32, device=dev)
         meta_d = E._attn_meta(lr0, strict_policy if strict else policy, cfg)
+        ncl = cluster_size(Bd, Hkv, MAX_SEQ, sms, G, hd)
         out = decode_attention(q8d, kcd[1], vcd[1], meta_d, vld)
         err = float_err(out, decode_attention_plain(q8d, kcd[1], vcd[1], meta_d, vld))
+        pol = "strict" if strict else "relaxed"
+        if nval != DA_VALID:
+            shape = f"B={Bd} S={MAX_SEQ} valid={nval} ncl={ncl} {pol}"
+            checks.append({"name": "decode_attention", "shape": shape, "max_abs_err": err[0],
+                           "rel": err[1]})
+            print(f"  decode_attention {shape} (checked) err={err[0]:.3g}", flush=True)
+            if err[0] != 0 or not bool(torch.isfinite(out).all()):
+                failures.append(f"decode_attention {shape}: error {err}")
+            del kcd, vcd
+            continue
+        print(f"  decode_attention B={Bd} {pol}: a cluster of {ncl} blocks a (sequence, kv head)",
+              flush=True)
         ms = time_ms(lambda i: decode_attention(q8d, kcd[i % L], vcd[i % L], meta_d, vld))
         plain_ms = time_ms(lambda i: decode_attention_plain(q8d, kcd[1], vcd[1], meta_d, vld),
                            n=3)
@@ -1050,9 +1086,11 @@ def main() -> None:
                f"{'strict' if strict else 'relaxed'}", err, err[0] == 0, ms, plain_ms,
                sdpa_ms(Bd, DA_VALID),
                bound(Bd * Hq * hd + 2 * rows_d * hd + Bd * 4 + Bd * Hq * hd * 4,
-                     int8_ops=2.0 * G * hd * rows_d, fp32_ops=2.0 * G * hd * rows_d),
+                     int8_ops=2.0 * G * hd * rows_d, fp64_ops=2.0 * G * hd * rows_d,
+                     sfu_ops=G * rows_d),
                note="library: SDPA bf16 over the valid rows, kv heads expanded",
                main=(Bd, strict) == (1, False))
+        rows["decode_attention"][-1]["cluster"] = ncl
         del kcd, vcd
 
     # ---- phase 3: the main path --------------------------------------------

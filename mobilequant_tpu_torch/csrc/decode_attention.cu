@@ -5,23 +5,47 @@
 // the cache rows < valid_len (the step's own row already written), with the
 // 16-bit score and probability fake-quants when the meta enables them.
 //
-// Bound: device-memory bytes (the valid K and V rows). Design, for a first
-// version that is right: one block per (sequence, kv head); a thread per
-// cache row loads it with 16-byte loads, computes its G integer dots and its
-// row sum with dp4a (exact) and the JAX kernel's fp32 score epilogue in its
-// order, writing the scores to shared memory; a warp per query head takes the
-// max, the exps, the denominator and ΣP (fp64 sums, rounded once); P·V takes
-// one (query head, hd lane) output per thread and walks the rows in order with
-// an fp64 accumulator. Rows >= valid_len are not read: their exp is exactly 0
-// (the host asks for every row in the strict policy when fq16(0) would not be
-// 0). With the fp64-then-round sums the result does not depend on the
-// summation order, so the plain PyTorch version (ops/decode_attention.py)
-// computes the same fp32 values. Build with --fmad=false (see mqt_common.cuh).
-#include "mqt_common.cuh"
+// Bound: device-memory bytes (the valid K and V rows); at decode sizes far
+// less than the time the dependent steps of one (sequence, kv head) take, so
+// the design spreads each over more SMs. The valid rows of one (sequence, kv
+// head) are split into ncl contiguous stripes, one per block of a
+// thread-block cluster of ncl blocks (the wrapper picks ncl from the shapes:
+// up to 8 where B·Hkv leaves SMs idle, 1 where it fills the card). Each
+// block reads its sequence's valid length on the device (nothing is read on
+// the host, so a step stays one asynchronous launch); a block whose stripe is
+// empty still joins every cluster barrier.
+//   * scores: a thread per (row, query head), the head fixed by the thread
+//     (its q row in registers), the row's K bytes in 16-byte loads, dp4a dots
+//     (exact) and the JAX kernel's fp32 epilogue in its order, into fp64
+//     slots of shared memory (which later hold P);
+//   * softmax in two phases, no online rescaling: the block maxima meet over
+//     distributed shared memory (DSMEM) into the global max, every block
+//     takes expf(s − m) against it (the plain version's exps), the fp64
+//     partial denominators meet in DSMEM (summed in rank order, rounded once
+//     to fp32); P = e / den [then fq16] and fp64 partial ΣP;
+//   * P·V: lanes along hd (two or four values a lane, one 2- or 4-byte load
+//     a row), warps along row pairs; each thread keeps fp64 partials of its
+//     (query head, hd) outputs: V bytes become exact doubles by one fp64 add,
+//     the products p·v are exact in fp64 (fma). The first two row pairs of a
+//     warp are loaded when the kernel starts. The partials meet over the
+//     warps in shared memory, then over the cluster in DSMEM, rounded once.
+// Rows >= valid_len are not read: their exp is exactly 0 (the host asks for
+// every row in the strict policy when fq16(0) would not be 0). Every
+// non-integer sum is an fp64 sum of terms exact in fp64, rounded once to
+// fp32: its order moves it by far less than an fp32 step, so the plain
+// PyTorch version (ops/decode_attention.py), which sums in another order,
+// gives the same fp32 values. tests/test_torch_decode_attention_numerics.py
+// models the split over the blocks and the global-max softmax on the CPU;
+// the order inside a block (strided thread partials, lane shuffles, warps in
+// index order) rests on the fp64 argument and on the checks on the card
+// (chip_smoke.py, scripts/check_decode_attention.py). Build with
+// --fmad=false (see mqt_common.cuh).
+#include "decode_cluster.cuh"
 
 namespace {
 
-constexpr int DA_THREADS = 256;
+namespace dc = mqt::dc;
+using mqt::fq16;
 
 // Host-computed fp32 constants, in the plain version's order (decode_attention._consts).
 struct DaConsts {
@@ -31,137 +55,184 @@ struct DaConsts {
   float sv, neg_inf;
 };
 
-using mqt::fq16;
-using mqt::warp_max;
-using mqt::warp_sum;
-
-template <int G>
-__global__ void __launch_bounds__(DA_THREADS) decode_attn_kernel(
-    const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
-    const int8_t* __restrict__ v8, const int* __restrict__ valid, float* __restrict__ out,
-    DaConsts k, int hkv, int hd, int S, int skip) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int hw = hd >> 2;
-  int* qw = reinterpret_cast<int*>(smem);                       // [G][hw]
-  float* lg = reinterpret_cast<float*>(smem + G * hd);          // [G][S]
-  int* qsum = reinterpret_cast<int*>(lg + G * S);               // [G]
-  float* den_s = reinterpret_cast<float*>(qsum + G);            // [G]
-  float* psum_s = den_s + G;                                    // [G]
-
-  const int bh = blockIdx.x, b = bh / hkv;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int vlen = valid[b];
-  const int n = skip ? min(max(vlen, 0), S) : S;
-  const int8_t* kb = k8 + (size_t)bh * S * hd;
-  const int8_t* vb = v8 + (size_t)bh * S * hd;
-
-  for (int i = tid; i < G * hw; i += blockDim.x) qw[i] = mqt::ld_i32(q8 + (size_t)bh * G * hd + 4 * i);
-  __syncthreads();
-  if (tid < G) {
-    int s = 0;
-    for (int w = 0; w < hw; ++w) s = __dp4a(qw[tid * hw + w], 0x01010101, s);
-    qsum[tid] = s;
-  }
-  __syncthreads();
-
-  // ---- scores: a thread per cache row ----------------------------------------
-  for (int s = tid; s < n; s += blockDim.x) {
-    const int8_t* row = kb + (size_t)s * hd;
-    int acc[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] = 0;
-    int ks = 0;
-    for (int w4 = 0; w4 < hw; w4 += 4) {
-      const int4 kv = __ldg(reinterpret_cast<const int4*>(row + 4 * w4));
-      const int kw[4] = {kv.x, kv.y, kv.z, kv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ks = __dp4a(kw[i], 0x01010101, ks);
-#pragma unroll
-        for (int g = 0; g < G; ++g) acc[g] = __dp4a(qw[g * hw + w4 + i], kw[i], acc[g]);
-      }
-    }
-    const float ksf = (float)ks;
-    const float mask = s < vlen ? 0.f : k.neg_inf;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float t = (float)acc[g] - k.ok * (float)qsum[g];
-      t = t - k.oq * ksf;
-      t = t + k.c_hd;
-      float sc = t * k.sqk;
-      if (k.qm > 0.5f) sc = fq16(sc, k.qs, k.qo, k.qm);
-      sc = sc * k.inv;
-      lg[g * S + s] = sc + mask;
-    }
-  }
-  __syncthreads();
-
-  // ---- softmax: a warp per query head -------------------------------------------
-  for (int g = warp; g < G; g += nwarps) {
-    float* row = lg + g * S;
-    float mx = -3.4028235e38f;
-    for (int s = lane; s < n; s += 32) mx = fmaxf(mx, row[s]);
-    mx = warp_max(mx);
-    double den = 0.0;
-    for (int s = lane; s < n; s += 32) { const float e = expf(row[s] - mx); row[s] = e; den += e; }
-    const float denf = warp_sum(den);
-    double ps = 0.0;
-    for (int s = lane; s < n; s += 32) {
-      float p = row[s] / denf;
-      if (k.pm > 0.5f) p = fq16(p, k.ps, k.po, k.pm);
-      row[s] = p;
-      ps += p;
-    }
-    const float psf = warp_sum(ps);
-    if (lane == 0) { den_s[g] = denf; psum_s[g] = psf; }
-  }
-  __syncthreads();
-
-  // ---- P·V: one (query head, hd lane) output per thread ---------------------------
-  for (int o = tid; o < G * hd; o += blockDim.x) {
-    const int g = o / hd, d = o - g * hd;
-    const float* prow = lg + g * S;
-    double acc = 0.0;
-    for (int s = 0; s < n; ++s) acc += (double)prow[s] * (double)vb[(size_t)s * hd + d];
-    const float pv = (float)acc;
-    out[((size_t)bh * G + g) * hd + d] = (pv - k.ov * psum_s[g]) * k.sv;
-  }
+// DPT bytes of a row at hd = DPT·lane ..
+template <int DPT>
+__device__ __forceinline__ unsigned ld_lane(const int8_t* row, int lane) {
+  if constexpr (DPT == 2) return __ldg(reinterpret_cast<const unsigned short*>(row) + lane);
+  else return __ldg(reinterpret_cast<const unsigned*>(row) + lane);
 }
 
-template <int G>
-int launch(const void* q8, const void* k8, const void* v8, const void* valid, void* out,
-           const DaConsts& k, int BH, int hkv, int hd, int S, int skip, size_t smem,
-           cudaStream_t stream) {
-  static size_t opted = 48 * 1024;   // dynamic shared memory allowed so far
-  if (smem > opted) {
-    cudaError_t e = cudaFuncSetAttribute(decode_attn_kernel<G>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    opted = smem;
+// grid (ncl, B·Hkv), clusters of ncl blocks along x; W: fp64 slots of a
+// query head (the rows a stripe may hold, even)
+template <int G, int HD>
+__global__ void __launch_bounds__(dc::THREADS) decode_attn_kernel(
+    const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
+    const int8_t* __restrict__ v8, const int* __restrict__ valid, float* __restrict__ out,
+    DaConsts k, int hkv, int S, int W, int skip) {
+  using L = dc::PvLayout<G, HD>;
+  constexpr int HW = HD / 4;                    // int words of a row
+  constexpr int DPT = L::DPT, GPT = L::GPT, NCW = L::NCW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& st = *reinterpret_cast<dc::Stats<G, HD>*>(smem);
+  double* pd = reinterpret_cast<double*>(smem + dc::stats_bytes<G, HD>());  // [G][W]
+  double* red = pd;                             // [WARPS][GPT][HD], after P·V
+
+  dc::Cluster cluster = cooperative_groups::this_cluster();
+  const int ncl = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int bh = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int vlen = valid[bh / hkv];
+  const int n = skip ? min(max(vlen, 0), S) : S;
+  const int per = (n + ncl - 1) / ncl;          // rows of a stripe
+  const int r0 = min(rank * per, n), nr = min(n - r0, per);
+  const int8_t* kb = k8 + ((size_t)bh * S + r0) * HD;
+  const int8_t* vb = v8 + ((size_t)bh * S + r0) * HD;
+
+  // P·V: warp (gg, cw) takes row pairs cw, cw + NCW, ... for heads
+  // [gg·GPT, (gg + 1)·GPT); its first two pairs' V bytes load now (a zero
+  // word is V = 0 below)
+  const int cw = warp % NCW, gg = warp / NCW;
+  unsigned vpre[2][2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 2 * (cw + u * NCW) + h;
+      vpre[u][h] = r < nr ? ld_lane<DPT>(vb + (size_t)r * HD, lane) : 0u;
+    }
+
+  // ---- scores: a thread per (row, query head), head g = tid % G ---------------
+  const int g = tid % G;
+  int qw[HW];
+  const float qsf = (float)dc::load_q_row<HD>(q8 + ((size_t)bh * G + g) * HD, qw);
+  float mloc = -3.4028235e38f;
+  for (int it = tid; it < nr * G; it += dc::THREADS) {
+    const int r = it / G;
+    int ks;
+    const int acc = dc::row_dot<HD>(kb + (size_t)r * HD, qw, ks);
+    float t = (float)acc - k.ok * qsf;
+    t = t - k.oq * (float)ks;
+    t = t + k.c_hd;
+    float sc = t * k.sqk;
+    if (k.qm > 0.5f) sc = fq16(sc, k.qs, k.qo, k.qm);
+    sc = sc * k.inv;
+    sc = sc + (r0 + r < vlen ? 0.f : k.neg_inf);
+    pd[g * W + r] = sc;
+    mloc = fmaxf(mloc, sc);
   }
-  decode_attn_kernel<G><<<BH, DA_THREADS, smem, stream>>>(
-      (const int8_t*)q8, (const int8_t*)k8, (const int8_t*)v8, (const int*)valid, (float*)out,
-      k, hkv, hd, S, skip);
-  return (int)cudaGetLastError();
+
+  // ---- the global max, then exps and the denominator ------------------------
+  {
+    const float bm = dc::block_max<G>(mloc, st.wmx);
+    if (tid < G) st.mx[tid] = bm;
+  }
+  cluster.sync();
+  const float mg = dc::cluster_max(cluster, &st.mx[g], ncl);
+  double dl = 0.0;
+  for (int it = tid; it < nr * G; it += dc::THREADS) {
+    double* s = pd + g * W + it / G;
+    const float e = expf((float)*s - mg);
+    *s = e;
+    dl += e;
+  }
+  {
+    const double bd = dc::block_sum<G>(dl, st.wsum);
+    if (tid < G) st.den[tid] = bd;
+  }
+  cluster.sync();
+  const float denf = (float)dc::cluster_sum(cluster, &st.den[g], ncl);
+
+  // ---- P = e / den [fq16], partial ΣP ---------------------------------------
+  double pl = 0.0;
+  for (int it = tid; it < nr * G; it += dc::THREADS) {
+    double* s = pd + g * W + it / G;
+    float p = (float)*s / denf;
+    if (k.pm > 0.5f) p = fq16(p, k.ps, k.po, k.pm);
+    *s = p;
+    pl += p;
+  }
+  if ((nr & 1) && tid < G) pd[tid * W + nr] = 0.0;    // the odd stripe's pair partner
+  {
+    const double bp = dc::block_sum<G>(pl, st.wsum);  // (P is complete after it)
+    if (tid < G) st.ps[tid] = bp;
+  }
+
+  // ---- P·V: fp64 partials of (query head, hd = DPT·lane + j) -----------------
+  double acc[GPT][DPT];
+#pragma unroll
+  for (int gi = 0; gi < GPT; ++gi)
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) acc[gi][j] = 0.0;
+  const int npair = (nr + 1) >> 1;
+  auto pair = [&](int pi, unsigned va, unsigned vb2) {
+    double xa[DPT], xb[DPT];
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      xa[j] = dc::s8_to_f64(va >> (8 * j));
+      xb[j] = dc::s8_to_f64(vb2 >> (8 * j));
+    }
+#pragma unroll
+    for (int gi = 0; gi < GPT; ++gi) {
+      const double2 pp = *reinterpret_cast<const double2*>(pd + (gg * GPT + gi) * W + 2 * pi);
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) {
+        acc[gi][j] = fma(pp.x, xa[j], acc[gi][j]);
+        acc[gi][j] = fma(pp.y, xb[j], acc[gi][j]);
+      }
+    }
+  };
+  if (cw < npair) pair(cw, vpre[0][0], vpre[0][1]);
+  if (cw + NCW < npair) pair(cw + NCW, vpre[1][0], vpre[1][1]);
+  for (int pi = cw + 2 * NCW; pi < npair; pi += NCW) {
+    const unsigned va = ld_lane<DPT>(vb + (size_t)(2 * pi) * HD, lane);
+    const unsigned vb2 = 2 * pi + 1 < nr ? ld_lane<DPT>(vb + (size_t)(2 * pi + 1) * HD, lane) : 0u;
+    pair(pi, va, vb2);
+  }
+  dc::fold_warps<G, HD, DPT, 1>(acc, red, st.pv);
+  cluster.sync();
+
+  // ---- the outputs, spread over the cluster: (P·V − o'_v·ΣP)·s_v -------------
+  for (int o = rank + ncl * tid; o < G * HD; o += ncl * dc::THREADS) {
+    const float pv = (float)dc::cluster_sum(cluster, &st.pv[o], ncl);
+    const float ps = (float)dc::cluster_sum(cluster, &st.ps[o / HD], ncl);
+    out[(size_t)bh * G * HD + o] = (pv - k.ov * ps) * k.sv;
+  }
+  cluster.sync();                               // the others may still read this block
+}
+
+template <int G, int HD>
+int launch(const void* q8, const void* k8, const void* v8, const void* valid, void* out,
+           const DaConsts& k, int BH, int hkv, int S, int skip, int ncl, cudaStream_t st) {
+  static size_t opted = 0;
+  const int W = ((S + ncl - 1) / ncl + 1) & ~1;
+  const size_t smem = dc::stats_bytes<G, HD>()
+                      + 8 * (size_t)max(G * W, dc::WARPS * dc::PvLayout<G, HD>::GPT * HD);
+  return dc::launch_cluster(decode_attn_kernel<G, HD>, opted, ncl, BH, smem, st,
+                            (const int8_t*)q8, (const int8_t*)k8, (const int8_t*)v8,
+                            (const int*)valid, (float*)out, k, hkv, S, W, skip);
 }
 
 }  // namespace
 
 // q8 (B, hkv, G, hd); k8 / v8 (B, hkv, S, hd); valid (B,); out (B, hkv, G, hd)
-// fp32; consts: 14 host floats (DaConsts). hd % 16 == 0, G in {1, 2, 4, 8, 16}.
+// fp32; consts: 14 host floats (DaConsts). hd 64 or 128, G in {1, 2, 4, 8,
+// 16}; ncl blocks (one cluster) a (sequence, kv head), a power of two <= 8.
 MQT_EXPORT int mqt_decode_attention(const void* q8, const void* k8, const void* v8,
                                     const void* valid, void* out, const float* consts, int B,
-                                    int hkv, int G, int hd, int S, int skip, void* stream) {
-  if (hd % 16 || hd > 128 || S < 1 || hkv < 1) return (int)cudaErrorInvalidValue;
+                                    int hkv, int G, int hd, int S, int skip, int ncl,
+                                    void* stream) {
+  if ((hd != 64 && hd != 128) || S < 1 || hkv < 1 || ncl < 1 || ncl > dc::MAX_CLUSTER
+      || (ncl & (ncl - 1)))
+    return (int)cudaErrorInvalidValue;
   DaConsts k;
   float* kf = reinterpret_cast<float*>(&k);
   for (int i = 0; i < (int)(sizeof(DaConsts) / sizeof(float)); ++i) kf[i] = consts[i];
-  const size_t smem = (size_t)G * hd + 4 * (size_t)G * S + 12 * (size_t)G;
   cudaStream_t st = (cudaStream_t)stream;
-#define MQT_DA_CASE(g) \
-  case g:              \
-    return launch<g>(q8, k8, v8, valid, out, k, B * hkv, hkv, hd, S, skip, smem, st);
+  const int BH = B * hkv;
+#define MQT_DA_CASE(g)                                                                    \
+  case g:                                                                                 \
+    return hd == 64 ? launch<g, 64>(q8, k8, v8, valid, out, k, BH, hkv, S, skip, ncl, st) \
+                    : launch<g, 128>(q8, k8, v8, valid, out, k, BH, hkv, S, skip, ncl, st);
   switch (G) {
     MQT_DA_CASE(1)
     MQT_DA_CASE(2)

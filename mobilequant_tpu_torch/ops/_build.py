@@ -52,8 +52,8 @@ SIGNATURES = {
     "mqt_fused_chunk": [P, P],
     "mqt_staged_append": [P, P, P, P, I, I, I, I, LL, I, P],
     "mqt_kv4_decode_attention": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
-                                 I, I, I, P],
-    "mqt_decode_attention": [P, P, P, P, P, P, I, I, I, I, I, I, P],
+                                 I, I, I, I, P],
+    "mqt_decode_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     "mqt_wonly_matmul": [P, I, P, I, P, P, I, I, I, I, P, P, I, I, I, I, I, I, P],
 }
 
@@ -131,6 +131,17 @@ def check(code: int, name: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_SMS = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device (read once a device)."""
+    sms = _SMS.get(device)
+    if sms is None:
+        sms = _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms
 
 
 def require_cuda(*tensors: torch.Tensor) -> torch.device:

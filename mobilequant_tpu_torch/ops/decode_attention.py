@@ -10,17 +10,30 @@ step under KernelConfig.attn_kernel (KernelConfig.attn()).
 Kernel: csrc/decode_attention.cu, which replaces the JAX package's
 mobilequant_tpu/ops/pallas_attention.py decode_attention
 (_decode_attn_kernel). Bound: device-memory bytes (the valid K and V rows).
-Design: one block per (sequence, kv head) with its G query heads; a thread
-per cache row computes its G integer dots (dp4a, exact) and the score
-epilogue in the JAX kernel's fp32 order; scores stay in shared memory; a warp
-per query head runs the softmax; P·V takes one output (query head, hd lane)
-per thread, rows in order. Only rows < valid_len are read (a masked row's
-exp is exactly 0; in the strict policy while fq16(0) is 0, else every row).
+Design: the valid rows of one (sequence, kv head) are split into contiguous
+stripes over a thread-block cluster of `cluster_size` blocks (from the
+shapes only: B·Hkv, S and the SM count); each block reads its sequence's
+valid_len on the device, so nothing is read on the host. A thread per (row,
+query head) computes the integer dot (dp4a, exact) and the score epilogue in
+the JAX kernel's fp32 order; the softmax takes two phases: the blocks'
+maxima meet in distributed shared memory into the global max, every block
+takes exp(s − m) against it, and the fp64 partial denominators meet (rank
+order) and are rounded once; P·V keeps fp64 partials of (query head, hd)
+outputs a thread, summed over the warps, then over the cluster, rounded
+once. Only rows < valid_len are read (a masked row's exp is exactly 0; in the
+strict policy while fq16(0) is 0, else every row).
 
-Numerics: the denominator, ΣP and the P·V dots are summed in fp64 and rounded
-once to fp32, in the kernel and in the plain version below, so the two agree
-whatever the summation order; the rest repeats the JAX kernel's fp32
-operations. meta: the JAX engine's 13-float attention meta.
+Numerics: the max is exact; the denominator, ΣP and the P·V dots are fp64
+sums of terms exact in fp64 (p·v: 24 × 8 bits), rounded once to fp32, in the
+kernel and in the plain version below, so the two agree whatever the
+summation order (an order moves an fp64 sum by far less than an fp32 step);
+the rest repeats the JAX kernel's fp32 operations.
+tests/test_torch_decode_attention_numerics.py models the split over the
+blocks (stripes, per-stripe maxima, the global max, fp64 partials added in
+rank order) on the CPU against the plain version; the order inside a block
+rests on the fp64 argument and on the checks on the card (chip_smoke.py,
+scripts/check_decode_attention.py). meta: the JAX engine's 13-float
+attention meta.
 """
 
 from __future__ import annotations
@@ -36,12 +49,53 @@ from mobilequant_tpu_torch.ops.qops import f32, int_dot, rowsum_i8
 from mobilequant_tpu_torch.ops.w13_gate import _fq
 
 SMEM_LIMIT = 200 * 1024
+# blocks a (sequence, kv head), one thread-block cluster: at most Hopper's
+# portable limit (16 blocks, the non-portable limit, ran slower than 8 at B=1
+# on an H100: PERF.md §6)
+MAX_CLUSTER = 8
+MIN_ROWS = 16           # cache rows (kv4: packed columns) a block takes at least
+WARPS = 8               # the kernels' 256 threads
 
 
-def decode_attn_smem(G: int, S: int, hd: int) -> int:
-    """Shared-memory bytes of the kernel: q rows, the scores of every cache row
-    of every query head, per-head row sums and statistics."""
-    return G * hd + 4 * G * S + 12 * G
+def _stats_bytes(G: int, hd: int) -> int:
+    """csrc/decode_cluster.cuh Stats: fp64 P·V partials (G·hd), denominator
+    and ΣP partials (G each), warp sums (8 G); fp32 maxima (G) and warp maxima
+    (8 G); rounded up to 16 bytes."""
+    return -(-(8 * (G * hd + 10 * G) + 4 * 9 * G) // 16) * 16
+
+
+def _pv_heads(G: int, hd: int) -> int:
+    """Query heads of a thread in P·V (decode_cluster.cuh PvLayout::GPT)."""
+    return G if G * (hd // 32) <= 32 else 32 // (hd // 32)
+
+
+def decode_attn_smem(G: int, S: int, hd: int, ncl: int) -> int:
+    """Shared-memory bytes of the kernel with ncl blocks a (sequence, kv head):
+    the statistics, and fp64 slots for the scores of a stripe's rows (then P;
+    after P·V the warps' partials)."""
+    W = (-(-S // ncl) + 1) // 2 * 2
+    return _stats_bytes(G, hd) + 8 * max(G * W, WARPS * _pv_heads(G, hd) * hd)
+
+
+def pick_cluster(BH: int, units: int, sms: int, smem) -> int:
+    """Blocks a (sequence, kv head), from shapes only: the largest power of
+    two up to MAX_CLUSTER with BH·ncl <= 2·sms and at least MIN_ROWS of the
+    `units` (cache rows, or packed columns) a block, so 1 where BH already
+    fills the card; then larger while smem(ncl) is above SMEM_LIMIT and
+    MAX_CLUSTER allows (smaller stripes need less)."""
+    ncl = 1
+    while 2 * ncl <= MAX_CLUSTER and BH * 2 * ncl <= 2 * sms \
+            and units >= MIN_ROWS * 2 * ncl:
+        ncl *= 2
+    while smem(ncl) > SMEM_LIMIT and 2 * ncl <= MAX_CLUSTER:
+        ncl *= 2
+    return ncl
+
+
+def cluster_size(B: int, Hkv: int, S: int, sms: int, G: int, hd: int) -> int:
+    """The kernel's blocks a (sequence, kv head) for B sequences of Hkv kv
+    heads over an S-row cache on a card of `sms` SMs."""
+    return pick_cluster(B * Hkv, S, sms, lambda n: decode_attn_smem(G, S, hd, n))
 
 
 def _consts(meta, hd: int) -> dict:
@@ -97,7 +151,8 @@ def decode_attention(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     if hd not in (64, 128) or G not in (1, 2, 4, 8, 16) or q8.dtype != torch.int8 \
             or k8.dtype != torch.int8:
         raise NotImplementedError(f"decode_attention kernel: hd {hd}, G {G}")
-    if decode_attn_smem(G, S, hd) > SMEM_LIMIT:
+    ncl = cluster_size(B, Hkv, S, _build.sm_count(dev), G, hd)
+    if decode_attn_smem(G, S, hd, ncl) > SMEM_LIMIT:
         raise NotImplementedError(f"decode_attention kernel: S={S} needs too much shared memory")
     k = _consts(meta, hd)
     m = k["m"]
@@ -112,7 +167,7 @@ def decode_attention(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     mh = _build.host_floats(consts)
     code = _build.lib().mqt_decode_attention(
         q.data_ptr(), kk.data_ptr(), vv.data_ptr(), vl.data_ptr(), out.data_ptr(),
-        _build.addr(mh), B, Hkv, G, hd, S, int(skip), _build.stream_ptr(dev))
+        _build.addr(mh), B, Hkv, G, hd, S, int(skip), ncl, _build.stream_ptr(dev))
     _build.check(code, "decode_attention")
     decode_attention.launches += 1
     return out

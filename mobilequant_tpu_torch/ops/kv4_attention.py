@@ -25,21 +25,32 @@ fake-quant on), p = fq16(e / den) and att = (Σ p·v − o_v·Σp)·s_v.
 Kernel: csrc/kv4_attention.cu, which replaces the JAX package's
 mobilequant_tpu/ops/pallas_kv4.py kv4_decode_attention (_kv4_attn_kernel).
 Bound: device-memory bytes (the valid packed K and V columns, their K column
-sums, the staged rows). Design: one block per (sequence, kv head) with its G
-query heads; each thread takes four packed columns at a time, turns four
-hd-rows of their bytes into dp4a operands for both nibble planes (exact
-integer dots), and the scores of all parts sit in shared memory for the
-softmax; P·V walks the packed V rows along S, a warp per hd row. Only valid
-columns are read: a masked column's exp is exactly 0 (the mask adds
-neg_inf = −40000), so skipping it changes nothing, in the strict policy as
-long as fq16(0) is 0 (the pv_bmm input offset within [0, qmax]); where it is
-not, every column is read, masked.
+sums, the staged rows). Design: the valid packed columns of one (sequence,
+kv head) are split, in words of four columns, into contiguous stripes over a
+thread-block cluster of `kv4_cluster_size` blocks (from the shapes only:
+B·Hkv, S and the SM count); the last block also takes the staged columns and
+the self row. Each block reads its sequence's position on the device, so
+nothing is read on the host. A thread per (word, query head) turns four
+hd-rows of the word's bytes into dp4a operands of both nibble planes (exact
+integer dots); the softmax takes two phases: the blocks' maxima meet in
+distributed shared memory into the global max, every block takes
+exp(s − m) against it, and the fp64 partial denominators (and ΣP) meet in
+rank order, rounded once; P·V keeps fp64 partials of (query head, hd)
+outputs a thread, summed over the warps, then over the cluster, rounded
+once. Only valid columns are read: a masked column's exp is exactly 0 (the
+mask adds neg_inf = −40000), so skipping it changes nothing, in the strict
+policy as long as fq16(0) is 0 (the pv_bmm input offset within [0, qmax]);
+where it is not, every column is read, masked.
 
-Numerics: the sums that feed an int8 rounding downstream (the denominator,
-ΣP, the P·V dots and the self score) are taken in fp64 and rounded once to
-fp32, in the kernel and in the plain version below, so the two agree whatever
-the summation order; every other step repeats the JAX kernel's fp32
-operations in its order.
+Numerics: the max is exact; the sums that feed an int8 rounding downstream
+(the denominator, ΣP, the P·V dots and the self score) are fp64 sums of
+terms exact in fp64, rounded once to fp32, in the kernel and in the plain
+version below, so the two agree whatever the summation order (an order moves
+an fp64 sum by far less than an fp32 step); every other step repeats the JAX
+kernel's fp32 operations in its order.
+tests/test_torch_decode_attention_numerics.py repeats the kernel's order
+(stripes, per-stripe maxima and partial sums) on the CPU against the plain
+version.
 """
 
 from __future__ import annotations
@@ -51,10 +62,10 @@ import numpy as np
 import torch
 
 from mobilequant_tpu_torch.ops import _build
+from mobilequant_tpu_torch.ops.decode_attention import (
+    SMEM_LIMIT, WARPS, _pv_heads, _stats_bytes, pick_cluster)
 from mobilequant_tpu_torch.ops.qops import f32, int_dot, rowsum_i8
 from mobilequant_tpu_torch.ops.w13_gate import _fq
-
-SMEM_LIMIT = 200 * 1024
 
 
 def kv4_attn_supported(num_kv_heads: int, max_seq_len: int, head_dim: int,
@@ -65,10 +76,21 @@ def kv4_attn_supported(num_kv_heads: int, max_seq_len: int, head_dim: int,
             and B >= 1 and num_kv_heads * (max_seq_len // 2) * head_dim <= 4 * 1024 * 1024)
 
 
-def kv4_attn_smem(G: int, S2: int, cs: int, hd: int) -> int:
-    """Shared-memory bytes of the kernel: q rows as int words, the scores of
-    every column of every query head, per-head row sums and statistics."""
-    return G * hd + 4 * G * (2 * S2 + cs + 1) + 12 * G
+def kv4_attn_smem(G: int, S2: int, cs: int, hd: int, ncl: int) -> int:
+    """Shared-memory bytes of the kernel with ncl blocks a (sequence, kv head)
+    and cs staged columns: the statistics, and fp64 slots for the scores of a
+    stripe's columns in both planes, the staged and the self column (then e
+    or P; after P·V the warps' partials)."""
+    ww = -(-(S2 // 4) // ncl)
+    ldc = (8 * ww + cs + 2) // 2 * 2
+    return _stats_bytes(G, hd) + 8 * max(G * ldc, WARPS * _pv_heads(G, hd) * hd)
+
+
+def kv4_cluster_size(B: int, Hkv: int, S2: int, cs: int, sms: int, G: int, hd: int) -> int:
+    """The kernel's blocks a (sequence, kv head) for B sequences of Hkv kv
+    heads over S2 packed columns a plane and cs staged columns, on a card of
+    `sms` SMs."""
+    return pick_cluster(B * Hkv, S2, sms, lambda n: kv4_attn_smem(G, S2, cs, hd, n))
 
 
 def _consts(meta, hd: int, qk_fq_on: bool) -> dict:
@@ -184,7 +206,8 @@ def kv4_decode_attention(q8: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     if hd not in (64, 128) or S2 % 4 or G not in (1, 2, 4, 8, 16) or q8.dtype != torch.int8 \
             or kp.dtype != torch.int8 or kcs.dtype != torch.float32:
         raise NotImplementedError(f"kv4_decode_attention kernel: hd {hd}, S/2 {S2}, G {G}")
-    if kv4_attn_smem(G, S2, cs, hd) > SMEM_LIMIT:
+    ncl = kv4_cluster_size(B, BH // B, S2, cs, _build.sm_count(dev), G, hd)
+    if kv4_attn_smem(G, S2, cs, hd, ncl) > SMEM_LIMIT:
         raise NotImplementedError(f"kv4_decode_attention kernel: S/2 {S2}, {cs} staged "
                                   f"columns need too much shared memory")
     k = _consts(meta, hd, qk_fq_on)
@@ -195,7 +218,7 @@ def kv4_decode_attention(q8: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     consts += [m[6], m[7], m[8], m[9], m[10], m[11], m[4], m[5], m[12]]
     q = _build.aligned(q8)
     kp_, vp_ = _build.aligned(kp), _build.aligned(vp)
-    kcs_ = kcs.contiguous()
+    kcs_ = _build.aligned(kcs)
     sk_, sv_ = _build.aligned(sk), _build.aligned(sv)
     kn, vn = _build.aligned(k_new.reshape(BH, hd)), _build.aligned(v_new.reshape(BH, hd))
     pos_ = pos.to(torch.int32).contiguous()
@@ -205,7 +228,7 @@ def kv4_decode_attention(q8: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
         q.data_ptr(), kp_.data_ptr(), vp_.data_ptr(), kcs_.data_ptr(), sk_.data_ptr(),
         sv_.data_ptr(), kn.data_ptr(), vn.data_ptr(), pos_.data_ptr(), out.data_ptr(),
         _build.addr(mh), BH, BH // B, G, hd, S2, cs, mst, layer, int(bool(qk_fq_on)),
-        int(bool(pv_fq_on)), int(skip), _build.stream_ptr(dev))
+        int(bool(pv_fq_on)), int(skip), ncl, _build.stream_ptr(dev))
     _build.check(code, "kv4_decode_attention")
     kv4_decode_attention.launches += 1
     return out

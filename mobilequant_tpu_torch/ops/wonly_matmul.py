@@ -55,9 +55,6 @@ MAX_SPLITS = 16         # K splits of a tile: one thread-block cluster (Hopper: 
 _TN = 128               # columns of a block
 
 
-_SMS = {}
-
-
 def _split(device: torch.device, Kr: int, tiles: int, max_rows: int):
     """(rows per split, splits): splits a power of two up to MAX_SPLITS (one
     thread-block cluster), the most that keep the grid within a block a
@@ -65,9 +62,7 @@ def _split(device: torch.device, Kr: int, tiles: int, max_rows: int):
     cluster of a fuller grid waits for room in a GPC), but enough to keep a
     split within max_rows weight rows; at least 16 rows (one MMA step) a
     split."""
-    sms = _SMS.get(device)
-    if sms is None:
-        sms = _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _build.sm_count(device)
     ks = 1
     while ks < MAX_SPLITS and Kr >= 32 * ks and (
             tiles * 2 * ks <= sms or (2 * ks <= 4 and tiles * 2 * ks <= 2 * sms)

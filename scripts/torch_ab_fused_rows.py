@@ -1,12 +1,12 @@
 """Time kernels of one checkout on the card, for an A/B of two checkouts in one
 call (run it on each, parent first and last):
 
-    python3 scripts/torch_ab_fused_rows.py [--rows fused,attn,wonly] TREE [TREE ...]
+    python3 scripts/torch_ab_fused_rows.py [--rows fused,attn,wonly,dattn] TREE [TREE ...]
 
 For each TREE (a checkout of the repository) it builds that checkout's CUDA
 kernels in a fresh process (a tree named twice reuses its first build), then
-times on TinyLlama-1.1B's full width the row groups named by --rows (all
-three by default):
+times on TinyLlama-1.1B's full width the row groups named by --rows (fused,
+attn and wonly by default):
   fused  the RMSNorm editions of the whole-model kernel (B = 1, 8, with the
          head), the whole-layer kernel, the MLP block (M = 1, 8, 32, 128),
          the chunk kernel (B = 32, 128, pos0 192, 16 staged columns, with
@@ -17,7 +17,19 @@ three by default):
   wonly  the weight-only matmul (rows 12 / 13): wonly_matmul_stacked at
          M = 1, 8 on the W4 g128 projections and the W8 per-channel w1 / k
          (bf16 rows), w4a16_matmul at M = 1, 8, 128 (fp32 rows), the weights
-         rotated over copies past the 50 MB L2 as chip_smoke.py does.
+         rotated over copies past the 50 MB L2 as chip_smoke.py does;
+  dattn  the two decode attention kernels at chip_smoke.py's shapes (22
+         layers rotated, S = 1024): the int8 one (row 15) at B = 1, 32 with
+         193 valid rows, relaxed, and B = 32 strict; the int4 one (row 10) at
+         B = 1, 32, 128 from pos0 192 and at B = 32 from 480 + 3b (the high
+         plane), 16 of 32 staged columns, relaxed (and strict at 480 + 3b);
+         each beside SDPA on bf16 over the same valid rows (kv heads
+         expanded), the library yardstick of chip_smoke.py; in a tree whose
+         wrappers pick a cluster size, the B = 1 shapes also at clusters of
+         4 and 8 blocks a (sequence, kv head); then the device time of
+         a B=1 decode step on the int4-cache route and on the attn() route
+         (128-token prompt, torch.profiler over 4 steps) and the attention
+         kernel's part of it.
 Each number is the least of three means over calls replayed from one CUDA
 graph (chip_smoke.time_ms). It prints one JSON line a tree, and the card's
 name and power limit first; the build's ptxas lines (registers, spills) go
@@ -188,6 +200,104 @@ if "wonly" in groups:
         x = torch.randn((Mr, D), generator=gen, device=dev)
         out[f"row13 M={Mr} q"] = tm(lambda i: w4a16_matmul(x, *w13s[i % len(w13s)]),
                                     n=len(w13s))
+if "dattn" in groups:
+    from mobilequant_tpu_torch.ops import qops
+    from mobilequant_tpu_torch.ops.decode_attention import decode_attention
+    from mobilequant_tpu_torch.ops.kv4_attention import kv4_decode_attention
+    metas = {}
+    for kvb in (8, 4):
+        packed, cfg, pol, _ = build_synthetic_packed("tinyllama-1.1b", w_bits=4, head_bits=4,
+                                                     max_seq_len=1024, device=dev, kv_bits=kvb)
+        lr0 = E.layer_ranges(packed["ranges"], 0)
+        metas[kvb] = {False: E._attn_meta(lr0, relax_16bit(pol), cfg),
+                      True: E._attn_meta(lr0, pol, cfg)}
+        del packed
+    L, Hkv, G, hd, S, cst = cfg.num_layers, cfg.num_kv_heads, 8, 64, 1024, 32
+
+    def sdpa(Bq, valid):
+        qd = torch.randn((Bq, Hkv * G, 1, hd), generator=gen, device=dev).to(torch.bfloat16)
+        kd = torch.randn((Bq, Hkv, 1, valid, hd), generator=gen, device=dev).to(torch.bfloat16)
+        kd = kd.expand(Bq, Hkv, G, valid, hd).reshape(Bq, Hkv * G, valid, hd)
+        vd = kd.clone()
+        return tm(lambda i: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd))
+
+    from mobilequant_tpu_torch.ops import decode_attention as DA, kv4_attention as KV
+    sizes = (4, 8) if hasattr(DA, "cluster_size") else ()
+
+    def forced(tag, fn, B):
+        """fn at B = 1 timed at each forced cluster size too"""
+        if B != 1 or not sizes:
+            return
+        pick = DA.cluster_size, KV.kv4_cluster_size
+        for n in sizes:
+            DA.cluster_size = KV.kv4_cluster_size = lambda *a, n=n, **k: n
+            out[f"{tag} ncl={n}"] = tm(fn)
+        DA.cluster_size, KV.kv4_cluster_size = pick
+
+    for Bd, strict in ((1, False), (32, False), (32, True)):
+        kc = torch.randint(-128, 128, (L, Bd, Hkv, S, hd), generator=gen, device=dev,
+                           dtype=torch.int8)
+        vc = torch.randint(-128, 128, kc.shape, generator=gen, device=dev, dtype=torch.int8)
+        q8 = torch.randint(-128, 128, (Bd, Hkv, G, hd), generator=gen, device=dev,
+                           dtype=torch.int8)
+        vl = torch.full((Bd,), 193, dtype=torch.int32, device=dev)
+        meta = metas[8][strict]
+        tag = f"row15 B={Bd} valid=193 {'strict' if strict else 'relaxed'}"
+
+        def call(i):
+            return decode_attention(q8, kc[i % L], vc[i % L], meta, vl)
+        out[tag] = tm(call)
+        out[tag + " SDPA"] = sdpa(Bd, 193)
+        forced(tag, call, Bd)
+        del kc, vc
+    for Bk, stag, strict in ((1, False, False), (32, False, False), (128, False, False),
+                             (32, True, False), (32, True, True)):
+        BH = Bk * Hkv
+        kp = torch.randint(-128, 128, (L, BH, hd, S // 2), generator=gen, device=dev,
+                           dtype=torch.int8)
+        vp = torch.randint(-128, 128, kp.shape, generator=gen, device=dev, dtype=torch.int8)
+        kcs = qops.kv_colsums_packed(kp)
+        sk, sv = (torch.randint(-128, -112, (L, BH, cst, hd), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in "kv")
+        kn, vn = (torch.randint(-128, -112, (BH, hd), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in "kv")
+        q8 = torch.randint(-128, 128, (BH, G, hd), generator=gen, device=dev, dtype=torch.int8)
+        pos = torch.tensor([480 + 3 * b if stag else 192 for b in range(Bk)],
+                           dtype=torch.int32, device=dev)
+        meta = metas[4][strict]
+        tag = (f"row10 B={Bk} pos0={'480+3b' if stag else 192} m=16 "
+               f"{'strict' if strict else 'relaxed'}")
+        def call(i):
+            return kv4_decode_attention(q8, kp, vp, kcs, sk, sv, kn, vn, meta, pos, 16, i % L,
+                                        qk_fq_on=strict, pv_fq_on=strict)
+        out[tag] = tm(call)
+        out[tag + " SDPA"] = sdpa(Bk, int(pos.max()) + 17)
+        forced(tag, call, Bk)
+        del kp, vp, kcs, sk, sv
+    torch.cuda.empty_cache()
+    # the routes these kernels serve, B=1 after a 128-token prompt: device ms
+    # of a decode step and the attention kernel's share (torch.profiler over
+    # 4 steps, chip_smoke.loop_numbers' way)
+    import dataclasses
+    from mobilequant_tpu_torch.runtime.generate import Generator
+    from mobilequant_tpu_torch.runtime.kernel_config import KernelConfig
+    for kvb, route, key in ((4, "int4-cache route", "kv4_attn"),
+                            (8, "attn() route", "decode_attn")):
+        packed, cfg, pol, ecfg = build_synthetic_packed("tinyllama-1.1b", w_bits=4, head_bits=4,
+                                                        max_seq_len=1024, device=dev, kv_bits=kvb)
+        if kvb == 8:
+            ecfg = dataclasses.replace(ecfg, use_pallas=KernelConfig.attn())
+        g = Generator(packed, cfg, relax_16bit(pol), ecfg, device=dev)
+        pr = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen, device=dev)
+        last, cache = g.prefill(pr, g.init_cache(1))
+        tok = torch.argmax(last, -1)[:, None]
+        start = torch.full((1,), 128, dtype=torch.int32, device=dev)
+        g.decode(tok, cache, start, 4)
+        d_ms, top, _ = CS.device_profile(lambda: g.decode(tok, cache, start, 4), top=200)
+        out[f"{route} B=1 step device ms"] = d_ms / 4
+        out[f"{route} B=1 step attention kernel ms"] = sum(ms for k, ms, _ in top if key in k) / 4
+        del g, packed, cache
+        torch.cuda.empty_cache()
 print(json.dumps(out), flush=True)
 '''
 
@@ -195,7 +305,7 @@ print(json.dumps(out), flush=True)
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", default="fused,attn,wonly",
-                    help="comma-separated row groups: fused, attn, wonly")
+                    help="comma-separated row groups: fused, attn, wonly, dattn")
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
