@@ -121,8 +121,25 @@
      and the o-tail, the B=1 step and a 32-step B=32 chunk against the plain
      path with their engine-numerics witnesses (the chunk's equal bit for
      bit);
+   - phase 2g: Gemma-2B at full width (18 layers, 8 q heads over one kv
+     head of head_dim 256, full rotary, F 16384, vocab 256000, the head tied
+     to the embedding; seeded W4A8/h4 and W8A8/h8 packs): the head-dim-256
+     editions of the qkv epilogue kernel (W4, M=128), the prefill attention
+     (T=128 into S=1024, T=S=1024 relaxed and strict; and its head-dim-128
+     edition at one shape), the decode attention (B = 1, 32), the whole-model
+     (B = 1, 8, the head folded) and whole-layer (B = 1) kernels (W4 and
+     W8), and the other kernels of the Gemma routes at its widths (w13_gate
+     at M=128 with gelu_tanh, the MLP block at M = 1, 32, W4 and W8; the W4
+     projections at M = 1, 32, 128 and the W4 head at Vp 258048), each
+     against its plain version with times and bounds;
+   - phase 3g: Gemma serving on both packs through the entry points: B=1
+     generate_fast (one whole-model launch a token), decode_per_layer(),
+     attn() at B = 1 and 32, B=32 on the entry config (the staged MLP-block
+     route: the chunk gate refuses head_dim 256), the B=1 step with its
+     engine-numerics witnesses, and a 32-step B=32 staged chunk against the
+     plain path;
    the decode-attention rows of phase 2, the int4-cache phase, the attn()
-   phase and phases 2q, 3w, 3f, 2m, 3m, 2s and 3s draw their inputs from
+   phase and phases 2q, 3w, 3f, 2m, 3m, 2s, 3s, 2g and 3g draw their inputs from
    generators of their own, so what they draw moves no input of the other
    checks. No wrapper may run its plain version on the card: every counted
    run checks its plain-call counts;
@@ -198,6 +215,18 @@ MLPBLOCK_W8_VS_PLAIN = (8e-3, 63, 6e-3)
 STABLELM_PREFILL_VS_PLAIN = {4: (8e-2, 15, 0.16), 8: (9e-2, 15, 0.15)}
 STABLELM_STEP_VS_PLAIN = {4: 0.1, 8: 8e-2}
 STABLELM_CHUNK_VS_PLAIN = {4: (0.1, 16, 0.55), 8: (9e-2, 16, 0.65)}
+# Gemma-2B (W4/h4, W8/h8) against the plain path, as StableLM's: the T=128
+# prefill (logits rel, max int8 step, share of differing K / V bytes), the
+# decode step after it (logits rel) and the 32-step B=32 chunk on the staged
+# MLP-block route (logits rel, max step, share of differing flushed bytes),
+# about twice the first readings on the card, the port's 2e-3 at least (the
+# engine-numerics witnesses equal the plain path bit for bit). Read: W4
+# prefill 5.66e-8, 1 step on 7.4e-6 of the bytes, the step 0, the chunk
+# 8.11e-4 with 2 steps on 4.3e-5; W8 prefill 1.37e-3, 2 steps on 0.31%, the
+# step 1.24e-3, the chunk 1.25e-2 with 4 steps on 0.19%
+GEMMA_PREFILL_VS_PLAIN = {4: (2e-3, 2, 2e-5), 8: (3e-3, 4, 7e-3)}
+GEMMA_STEP_VS_PLAIN = {4: 2e-3, 8: 3e-3}
+GEMMA_STAGED_VS_PLAIN = {4: (2e-3, 4, 1e-4), 8: (2.5e-2, 8, 4e-3)}
 
 
 T_START = time.perf_counter()
@@ -476,7 +505,7 @@ def main() -> None:
         from mobilequant_tpu_torch.ops import _build
         from mobilequant_tpu_torch.ops import qops
         from mobilequant_tpu_torch.ops.chunk_model import (
-            fused_model_w4_chunk, fused_model_w4_chunk_plain)
+            chunk_kernel_supported, fused_model_w4_chunk, fused_model_w4_chunk_plain)
         from mobilequant_tpu_torch.ops.decode_attention import (
             cluster_size, decode_attention, decode_attention_plain)
         from mobilequant_tpu_torch.ops.kv4_attention import (
@@ -533,8 +562,11 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     (out_dir / "build_log.txt").write_text(log.getvalue())
     spills = [n for n in re.findall(r"(\d+) bytes spill stores", log.getvalue()) if int(n)]
+    src_s = sorted(((float(t), src) for src, t in re.findall(r"\[nvcc (\S+)\] ([\d.]+) s",
+                                                              log.getvalue())), reverse=True)
     print(f"kernel build: {build_s:.1f} s ({len(spills)} functions spill registers; "
-          f"ptxas lines in chiprun_out/build_log.txt)", flush=True)
+          f"ptxas lines in chiprun_out/build_log.txt); slowest sources: "
+          + ", ".join(f"{src} {t:.0f} s" for t, src in src_s[:5]), flush=True)
 
     # ---- the full-width model --------------------------------------------
     t0 = time.perf_counter()
@@ -2993,6 +3025,451 @@ def main() -> None:
     del spk
     torch.cuda.empty_cache()
 
+    # ---- phase 2g: Gemma-2B's head-dim-256 editions against their plain versions
+    # Gemma-2B at full width (18 layers, hidden 2048, 8 q heads over one kv
+    # head of head_dim 256, full rotary, F 16384, vocab 256000, gelu_tanh,
+    # RMSNorm on (1 + w), the head tied to the embedding; seeded synthetic
+    # W4A8/h4 and W8A8/h8 packs, inputs from a generator of their own): row 3
+    # at the W4 T=128 prefill, row 4 (T=128 into S=1024, T=S=1024 relaxed and
+    # strict, and the head-dim-128 edition at one shape), row 15 (B = 1, 32),
+    # rows 6 (B = 1, 8, the head folded) and 7 (B = 1), W4 and W8, and the
+    # other kernels that the Gemma routes launch, at its widths
+    phase("phase 2g: Gemma-2B head-dim-256 editions vs plain versions")
+    ggen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    gpk = {}
+    for wb in (4, 8):
+        pk_g, cfg_g, strict_g, ecfg_g = build_synthetic_packed(
+            "gemma-2b", w_bits=wb, head_bits=wb, max_seq_len=MAX_SEQ, seed=SEED, device=dev)
+        gpk[wb] = (pk_g, strict_g, relax_16bit(strict_g), ecfg_g)
+    Lg, Dg, Fg = cfg_g.num_layers, cfg_g.hidden_size, cfg_g.intermediate_size
+    hdg, Hqg, Hkvg, rotg = cfg_g.head_dim_, cfg_g.num_heads, cfg_g.num_kv_heads, cfg_g.rotary_dim
+    Nqg, Kog, Gg = (Hqg + 2 * Hkvg) * hdg, Hqg * hdg, Hqg // Hkvg
+    Vpg = gpk[4][0]["head_q"]["wq"].shape[1]
+    gkw = dict(num_q_heads=Hqg, num_kv_heads=Hkvg, head_dim=hdg, rotary_dim=rotg,
+               act_kind=cfg_g.hidden_act, norm_kind="rmsnorm")
+    vec_g = (Nqg * 4 + Dg * 4 + 2 * Fg * 4 + Dg * 4) * 4 + 4 * Dg * 4 + Nqg * 16 + 65 * 4
+    print(f"  Gemma-2B: {Hqg} q heads over {Hkvg} kv head of {hdg}, rotary {rotg}, F {Fg}, "
+          f"vocab {cfg_g.vocab_size} (Vp {Vpg}), tied head, {cfg_g.hidden_act}", flush=True)
+
+    def hd_name(base, wb=4):
+        return f"{base}[hd256]" if wb == 4 else f"{base}[w8,hd256]"
+
+    # row 3 at the W4 T=128 prefill: 10 heads of 256 in 128-column tiles of
+    # two 64-column runs (each column beside its RoPE partner)
+    pk_g, _, pol_g, _ = gpk[4]
+    lyg = pk_g["layers"]
+    lr0g = E.layer_ranges(pk_g["ranges"], 0)
+    cos_g, sin_g = MM.rope_cos_sin(torch.arange(PROMPT_LEN, device=dev)[None], cfg_g)
+    cs_g = E._rope_cs_rows(cos_g, sin_g, hdg, rotg)
+    ofq_g = E._qkv_ofq_rows(pk_g, pol_g)
+    outq_g = E._qkv_outq_rows(pk_g["ranges"], cfg_g, Lg, dev)
+    h8g = torch.randint(-128, 128, (PROMPT_LEN, Dg), generator=ggen, device=dev, dtype=torch.int8)
+    qkv_g = lyg["qkv_proj"]
+    out = qkv_rope(h8g, qkv_g, ofq_g[0], outq_g[0], cs_g, 0.02, 121.0, 0, hdg, rotg)
+    ref = qkv_rope_plain(h8g, layer_pack(qkv_g, 0), ofq_g[0], outq_g[0], cs_g, 0.02, 121.0,
+                         hdg, rotg)
+    err = int8_err(out, ref)
+    ms = time_ms(lambda i: qkv_rope(h8g, qkv_g, ofq_g[i % Lg], outq_g[i % Lg], cs_g, 0.02,
+                                    121.0, i % Lg, hdg, rotg))
+    plain_ms = time_ms(lambda i: qkv_rope_plain(h8g, layer_pack(qkv_g, 0), ofq_g[0], outq_g[0],
+                                                cs_g, 0.02, 121.0, hdg, rotg), n=5)
+    record(hd_name("qkv_rope"), f"Gemma M={PROMPT_LEN} {Dg}->{Nqg} hd {hdg} rot {rotg}", err,
+           err[0] == 0, ms, plain_ms, None,
+           bound(PROMPT_LEN * Dg + Dg // 2 * Nqg + 11 * Nqg * 4 + PROMPT_LEN * 2 * hdg * 4
+                 + PROMPT_LEN * Nqg, int8_ops=2.0 * PROMPT_LEN * Dg * Nqg))
+    # row 4: the hd-256 edition (G 8 in a block's 64 rows) at the main path's
+    # T=128 and at T=S=1024 in both policies, the hd-128 edition at a
+    # llama-3-8b-like shape (8 kv heads, G 4; no model of the port's registry
+    # has head_dim 128 yet, so it is a checked shape of row 4's kernel, with
+    # no launches of its own); SDPA on bf16 the yardstick
+    ameta_g = E._attn_meta(lr0g, pol_g, cfg_g)
+    for hda, Hkva, Ga, T, S, strict in ((hdg, Hkvg, Gg, PROMPT_LEN, MAX_SEQ, False),
+                                        (hdg, Hkvg, Gg, MAX_SEQ, MAX_SEQ, False),
+                                        (hdg, Hkvg, Gg, MAX_SEQ, MAX_SEQ, True),
+                                        (128, 8, 4, PROMPT_LEN, MAX_SEQ, False)):
+        meta_a = list(ameta_g)
+        if strict:   # the strict policy's 16-bit score and prob sites
+            meta_a[6:9] = [80.0 / 65535, 32768.0, 65535.0]
+            meta_a[9:12] = [1.0 / 65535, 0.0, 65535.0]
+        q8 = torch.randint(-128, 128, (1, Hkva, Ga, T, hda), generator=ggen, device=dev,
+                           dtype=torch.int8)
+        k8 = torch.randint(-128, 128, (1, Hkva, S, hda), generator=ggen, device=dev,
+                           dtype=torch.int8)
+        v8 = torch.randint(-128, 128, k8.shape, generator=ggen, device=dev, dtype=torch.int8)
+        posi = torch.arange(T, device=dev, dtype=torch.int32)[None]
+        valid = torch.full((1,), T, device=dev, dtype=torch.int32)
+        out = prefill_attention(q8, k8, v8, meta_a, posi, valid, strict, strict)
+        err = float_err(out, prefill_attention_plain(q8, k8, v8, meta_a, posi, valid, strict,
+                                                     strict))
+        ms = time_ms(lambda i: prefill_attention(q8, k8, v8, meta_a, posi, valid, strict,
+                                                 strict))
+        plain_ms = time_ms(lambda i: prefill_attention_plain(q8, k8, v8, meta_a, posi, valid,
+                                                             strict, strict), n=3)
+        Hqa = Hkva * Ga
+        qd = q8.float().reshape(1, Hqa, T, hda).to(torch.bfloat16)
+        kd = k8[:, :, :T].float().repeat_interleave(Ga, 1).to(torch.bfloat16)
+        vd = v8[:, :, :T].float().repeat_interleave(Ga, 1).to(torch.bfloat16)
+        lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+            qd, kd, vd, is_causal=True))
+        vis = T * (T + 1) / 2
+        pstep = meta_a[9] * (v8.float() - (meta_a[5] - 128.0)).abs().max().item() * meta_a[4]
+        ok_att = err[0] <= 32 * pstep if strict else err[1] <= 1e-4
+        record("prefill_attention[hd256]" if hda == hdg else "prefill_attention",
+               f"Gemma T={T} S={S} G={Ga} {'strict' if strict else 'relaxed'}" if hda == hdg
+               else f"hd {hda} T={T} S={S} Hkv={Hkva} G={Ga} relaxed", err, ok_att, ms,
+               plain_ms, lib_ms,
+               attn_bound(Hqa * T * hda + 2 * Hkva * T * hda + T * 4 + 4 + Hqa * T * hda * 4,
+                          Hqa * vis, hda),
+               note=f"{err[0] / pstep:.2f} prob steps" if strict else None,
+               main=T == PROMPT_LEN and hda == hdg)
+        del q8, k8, v8, qd, kd, vd
+    # row 15: B = 1, 32 at 193 valid rows of an S = 1024 cache, both policies
+    # (the wrapper's cluster size printed), layers rotated while timing
+    for Bd, strict in ((1, False), (1, True), (SERVE_B, False), (SERVE_B, True)):
+        nval = POS0 + 1
+        kcd = torch.randint(-128, 128, (Lg, Bd, Hkvg, MAX_SEQ, hdg), generator=ggen, device=dev,
+                            dtype=torch.int8)
+        vcd = torch.randint(-128, 128, kcd.shape, generator=ggen, device=dev, dtype=torch.int8)
+        q8d = torch.randint(-128, 128, (Bd, Hkvg, Gg, hdg), generator=ggen, device=dev,
+                            dtype=torch.int8)
+        vld = torch.full((Bd,), nval, dtype=torch.int32, device=dev)
+        meta_d = E._attn_meta(lr0g, gpk[4][1] if strict else pol_g, cfg_g)
+        ncl = cluster_size(Bd, Hkvg, MAX_SEQ, sms, Gg, hdg)
+        out = decode_attention(q8d, kcd[1], vcd[1], meta_d, vld)
+        err = float_err(out, decode_attention_plain(q8d, kcd[1], vcd[1], meta_d, vld))
+        ms = time_ms(lambda i: decode_attention(q8d, kcd[i % Lg], vcd[i % Lg], meta_d, vld))
+        plain_ms = time_ms(lambda i: decode_attention_plain(q8d, kcd[1], vcd[1], meta_d, vld),
+                           n=3)
+        qd = torch.randn((Bd, Hqg, 1, hdg), generator=ggen, device=dev).to(torch.bfloat16)
+        kd = torch.randn((Bd, Hkvg, 1, nval, hdg), generator=ggen, device=dev).to(torch.bfloat16)
+        kd = kd.expand(Bd, Hkvg, Gg, nval, hdg).reshape(Bd, Hqg, nval, hdg)
+        vd = kd.clone()
+        lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd))
+        rows_d = Bd * Hkvg * nval
+        record(hd_name("decode_attention"), f"Gemma B={Bd} S={MAX_SEQ} valid={nval} ncl={ncl} "
+               f"{'strict' if strict else 'relaxed'}", err,
+               err[0] == 0 and bool(torch.isfinite(out).all()), ms, plain_ms, lib_ms,
+               bound(Bd * Hqg * hdg + 2 * rows_d * hdg + Bd * 4 + Bd * Hqg * hdg * 4,
+                     int8_ops=2.0 * Gg * hdg * rows_d, fp64_ops=2.0 * Gg * hdg * rows_d,
+                     sfu_ops=Gg * rows_d),
+               note="library: SDPA bf16 over the valid rows, the kv head expanded",
+               main=(Bd, strict) == (1, False))
+        rows[hd_name("decode_attention")][-1]["cluster"] = ncl
+        del kcd, vcd, kd, vd
+    # the other kernels of the Gemma routes at its widths (F 16384, gelu_tanh,
+    # Vp 258048), layers rotated while timing: w13_gate at the T=128 prefill
+    # and the MLP block's dp4a (M=1, the attn() route) and row (M=32, the
+    # staged route) kernels, W4 and W8; the W4 projections (w4a8_matmul_stacked)
+    # at the attn() route's M=1 and the staged route's M=32 qkv / o and at
+    # the prefill's o / w2, and the W4 head (w4a8_matmul) at M = 1 and 32 (a
+    # generator of their own: the later checks' inputs stay as they were)
+    xgen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    for wb in (4, 8):
+        pk_g, _, pol_g, _ = gpk[wb]
+        lyg = pk_g["layers"]
+        sfx, div = ("", 2) if wb == 4 else ("[w8]", 1)
+        bmeta_g = E._mlp_block_meta(E.layer_ranges(pk_g["ranges"], 1), pol_g, cfg_g)
+        bso_g = E._mlp_block_site_on(pol_g)
+        w13g, w2g, mng = lyg["w13_proj"], lyg["w2"], lyg["mlp_norm"]
+        actg = cfg_g.hidden_act
+        out = w13_gate(h8g, w13g, bmeta_g, 1, actg, bso_g[1:5])
+        ref = w13_gate_plain(h8g, layer_pack(w13g, 1), bmeta_g, actg, bso_g[1:5])
+        err = int8_err(out, ref)
+        ms = time_ms(lambda i, w13g=w13g, bmeta_g=bmeta_g, bso_g=bso_g: w13_gate(
+            h8g, w13g, bmeta_g, i % Lg, actg, bso_g[1:5]))
+        plain_ms = time_ms(lambda i, w13g=w13g, bmeta_g=bmeta_g, bso_g=bso_g: w13_gate_plain(
+            h8g, layer_pack(w13g, 1), bmeta_g, actg, bso_g[1:5]), n=3)
+        record(f"w13_gate{sfx}", f"Gemma M={PROMPT_LEN} {Dg}->2x{Fg} {actg}", err, err[0] == 0,
+               ms, plain_ms, None,
+               bound(PROMPT_LEN * Dg + Dg // div * 2 * Fg + 2 * Fg * 16 + PROMPT_LEN * Fg,
+                     int8_ops=2.0 * PROMPT_LEN * Dg * 2 * Fg))
+
+        def mplain_g(x, w13g=w13g, w2g=w2g, mng=mng, bmeta_g=bmeta_g, bso_g=bso_g):
+            return fused_mlp_block_w4_plain(x, mng["w"][1], mng["b"][1], layer_pack(w13g, 1),
+                                            layer_pack(w2g, 1), bmeta_g, actg, bso_g)
+
+        for Mr in (1, SERVE_B):
+            x = torch.randn((Mr, Dg), generator=xgen, device=dev)
+            out = fused_mlp_block_w4(x, mng["w"], mng["b"], w13g, w2g, bmeta_g, 1, actg, bso_g)
+            err = float_err(out, mplain_g(x))
+            ms = time_ms(lambda i, x=x, w13g=w13g, w2g=w2g, mng=mng, bmeta_g=bmeta_g,
+                         bso_g=bso_g: fused_mlp_block_w4(x, mng["w"], mng["b"], w13g, w2g,
+                                                         bmeta_g, i % Lg, actg, bso_g))
+            plain_ms = time_ms(lambda i, x=x, mplain_g=mplain_g: mplain_g(x), n=3)
+            record(f"fused_mlp_block_w4{sfx}",
+                   f"Gemma M={Mr} {'dp4a' if Mr <= DP4A_ROWS else 'row'} kernel "
+                   f"{Dg}->2x{Fg}->{Dg} {actg}", err, err[1] <= 1e-5, ms, plain_ms, None,
+                   bound(2 * Mr * Dg * 4 + (Dg * 2 * Fg + Fg * Dg) // div
+                         + (2 * Fg + Dg) * 4 * 4 + 2 * Dg * 4 + 32 * 4,
+                         int8_ops=2.0 * Mr * (Dg * 2 * Fg + Fg * Dg)))
+    lyg, hq_g = gpk[4][0]["layers"], gpk[4][0]["head_q"]
+    for tag, Mr, pk in (("qkv", 1, lyg["qkv_proj"]), ("o", 1, lyg["o_proj"]),
+                        ("qkv", SERVE_B, lyg["qkv_proj"]), ("o", SERVE_B, lyg["o_proj"]),
+                        ("o", PROMPT_LEN, lyg["o_proj"]), ("w2", PROMPT_LEN, lyg["w2"]),
+                        ("head", 1, None), ("head", SERVE_B, None)):
+        if pk is None:              # the tied head: one copy is 264 MB, past the L2
+            K, N = Dg, Vpg
+            name, xs, xo, lp = "w4a8_matmul", 1.0, 128.0, hq_g
+            call = lambda x, i: w4a8_matmul(x, hq_g, xs, xo)       # noqa: E731
+        else:
+            K, N = pk["wq"].shape[1] * 2, pk["wq"].shape[2]
+            name, xs, xo, lp = "w4a8_matmul_stacked", 0.02, 121.0, layer_pack(pk, 0)
+            call = lambda x, i, pk=pk: w4a8_matmul_stacked(x, pk, xs, xo, i % Lg)  # noqa: E731
+        x = torch.randint(-128, 128, (Mr, K), generator=xgen, device=dev, dtype=torch.int8)
+        err = float_err(call(x, 0), w4a8_matmul_plain(x, lp["wq"], lp["scale"], lp["offset"],
+                                                      lp["colsum"], lp.get("bias"), xs, xo))
+        ms = time_ms(lambda i, x=x, call=call: call(x, i))
+        plain_ms = time_ms(lambda i, x=x, lp=lp, xs=xs, xo=xo: w4a8_matmul_plain(
+            x, lp["wq"], lp["scale"], lp["offset"], lp["colsum"], lp.get("bias"), xs, xo), n=3)
+        wus = [qops.unpack_nibbles(hq_g["wq"] if pk is None else pk["wq"][j]).contiguous()
+               for j in range(cold_count(K * N, 1 if pk is None else Lg))]
+        xp = x if Mr > 16 else torch.cat(
+            [x, torch.zeros((32 - Mr, K), dtype=torch.int8, device=dev)])
+        lib_ms = time_ms(lambda i, xp=xp, wus=wus: torch._int_mm(xp, wus[i % len(wus)]))
+        del wus
+        record(name, f"Gemma M={Mr} {tag} {K}->{N}", err, err[1] <= 1e-5, ms, plain_ms, lib_ms,
+               bound(Mr * K + K // 2 * N + 4 * N * 4 + Mr * N * 4, int8_ops=2.0 * Mr * K * N),
+               note=None if Mr > 16 else "library: torch._int_mm on rows padded to 32")
+    torch.cuda.empty_cache()
+
+    # rows 6 (B = 1, 8, with the head) and 7 (B = 1), W4 and W8, over random
+    # full-length caches, positions near POS0
+    stage_us_g = {}
+    for wb in (4, 8):
+        pk_g, _, pol_g, _ = gpk[wb]
+        lyg = pk_g["layers"]
+        div = 2 if wb == 4 else 1
+        layer_wg = (Dg * Nqg + Kog * Dg + Dg * 2 * Fg + Fg * Dg) // div
+        head_g = Dg // div * Vpg + 2 * Vpg * 4 + 2 * Dg * 4
+        kpg = E._kernel_prep(pk_g, pol_g, cfg_g)
+        hargs_g = (pk_g["head_q"], pk_g["norm"])
+        for Bm in (1, 8):
+            kc = torch.randint(-128, 128, (Lg, Bm, Hkvg, MAX_SEQ, hdg), generator=ggen,
+                               device=dev, dtype=torch.int8)
+            vc = torch.randint(-128, 128, kc.shape, generator=ggen, device=dev, dtype=torch.int8)
+            posb = torch.tensor([POS0 - 3 * b for b in range(Bm)], dtype=torch.int32, device=dev)
+            cos, sin = MM.rope_cos_sin(posb[:, None], cfg_g)
+            csb = E._rope_cs_rows(cos, sin, hdg, rotg).reshape(Bm, 2, hdg)
+            x = torch.randn((Bm, Dg), generator=ggen, device=dev)
+            fargs = (x, posb, csb, kpg["ofq"], lyg["attn_norm"], lyg["qkv_proj"],
+                     lyg["o_proj"], lyg["mlp_norm"], lyg["w13_proj"], lyg["w2"], kc, vc,
+                     kpg["meta"])
+            valid = int(posb.sum())
+            att_ops = 2.0 * Hqg * hdg * valid
+            step_io = 2 * Bm * Dg * 4 + Bm * 2 * hdg * 4 + Bm * 4
+            out = fused_model_w4(*fargs, *hargs_g, **gkw)
+            ref = fused_model_w4_plain(*fargs, *hargs_g, **gkw)
+            e_x, e_lg, e_kv = float_err(out[0], ref[0]), float_err(out[2], ref[2]), \
+                int8_err(out[1], ref[1])
+            ok = e_x[1] <= 2e-3 and e_lg[1] <= 2e-3 and e_kv[0] == 0
+            ms = time_ms(lambda i: fused_model_w4(*fargs, *hargs_g, **gkw), n=10)
+            plain_ms = event_ms(lambda: fused_model_w4_plain(*fargs, *hargs_g, **gkw), n=2)
+            nbytes = (Lg * (layer_wg + vec_g + valid * Hkvg * hdg * 2 + Bm * 2 * Hkvg * hdg)
+                      + step_io + head_g + Bm * Vpg * 4)
+            ops_i8 = Lg * (2.0 * Bm * (Dg * Nqg + Kog * Dg + Dg * 2 * Fg + Fg * Dg) + att_ops) \
+                + 2.0 * Bm * Dg * Vpg
+            record(hd_name("fused_model_w4", wb),
+                   f"Gemma B={Bm} L={Lg} S={MAX_SEQ} pos<={POS0} +W{wb} head",
+                   (max(e_x[0], e_lg[0]), max(e_x[1], e_lg[1])), ok, ms, plain_ms, None,
+                   bound(nbytes, int8_ops=ops_i8, fp32_ops=Lg * att_ops),
+                   note=f"kv_new max diff {e_kv[0]} on {e_kv[1]:.3g} of bytes; "
+                        f"plain timed with events", main=Bm == 1)
+            if Bm == 1:
+                tr = torch.zeros(2 + 5 * Lg, dtype=torch.int64, device=dev)
+                for _ in range(2):
+                    fused_model_w4(*fargs, *hargs_g, trace=tr, **gkw)
+                torch.cuda.synchronize()
+                dt = (tr[1:] - tr[:-1]).double().cpu() / 1e3
+                per = dt[:5 * Lg].reshape(Lg, 5).mean(0).tolist()
+                st_us = dict(zip(("qkv", "attention", "o_proj", "w13_gate", "w2"), per))
+                st_us["head"], st_us["step_traced"] = float(dt[5 * Lg]), float(dt.sum())
+                stage_us_g[f"w{wb}"] = st_us
+                print(f"  {hd_name('fused_model_w4', wb)} B=1 stage us (mean per layer): "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in st_us.items()), flush=True)
+                # row 7 is a B=1 kernel (the JAX whole-layer kernel asserts
+                # M == 1); B=8 runs row 6's attention stage above
+                out = fused_layer_w4(*fargs, 1, **gkw)
+                ref = fused_layer_w4_plain(*fargs, 1, **gkw)
+                e_x, e_kv = float_err(out[0], ref[0]), int8_err(out[1], ref[1])
+                ms = time_ms(lambda i: fused_layer_w4(*fargs, i % Lg, **gkw))
+                plain_ms = event_ms(lambda: fused_layer_w4_plain(*fargs, 1, **gkw), n=3)
+                record(hd_name("fused_layer_w4", wb), f"Gemma B=1 S={MAX_SEQ} pos={POS0}",
+                       e_x, e_x[1] <= 2e-3 and e_kv[0] == 0, ms, plain_ms, None,
+                       bound(layer_wg + vec_g + valid * Hkvg * hdg * 2 + 2 * Hkvg * hdg
+                             + step_io,
+                             int8_ops=2.0 * (Dg * Nqg + Kog * Dg + Dg * 2 * Fg + Fg * Dg)
+                             + att_ops, fp32_ops=att_ops),
+                       note=f"kv_new max diff {e_kv[0]} on {e_kv[1]:.3g} of bytes; "
+                            f"plain timed with events")
+            del kc, vc
+        torch.cuda.empty_cache()
+
+    # ---- phase 3g: Gemma-2B serving through the entry points ----------------
+    # W4A8/h4 and W8A8/h8 on the int8 cache, relaxed policy: B=1 generate_fast
+    # (128-token prompt, 64 new tokens; the prefill kernels, with row 3's
+    # hd-256 edition on W4, then one whole-model launch a token),
+    # decode_per_layer(), KernelConfig.attn() at B = 1 and 32 (row 15), B=32
+    # on the entry config (the staged MLP-block route: the chunk kernel has no
+    # hd-256 edition, so its gate refuses Gemma); the B=1 step with its
+    # engine-numerics witnesses, and one 32-step B=32 staged chunk against the
+    # plain path
+    phase("phase 3g: Gemma-2B serving, W4A8/h4 and W8A8/h8, int8 KV, relaxed")
+    serve_g, chain_g, b1_g = {}, {}, {}
+    for wb in (4, 8):
+        pk_g, _, pol_g, ecfg_g = gpk[wb]
+        t = f"g{wb}"
+        g_g = Generator(pk_g, cfg_g, pol_g, ecfg_g, device=dev)
+        pr1 = torch.randint(0, cfg_g.vocab_size, (1, PROMPT_LEN), generator=ggen,
+                            device=dev).cpu().numpy()
+        want = {"fused_model_w4": steps, "prefill_attention": Lg, "w13_gate": Lg,
+                "fused_mlp_block_w4": 0, "fused_layer_w4": 0, "fused_model_w4_chunk": 0}
+        want.update({"qkv_rope": Lg, "w4a8_matmul_stacked": 2 * Lg, "w4a8_matmul": 1}
+                    if wb == 4 else {"qkv_rope": 0, "w4a8_matmul_stacked": 0, "w4a8_matmul": 0})
+        w8_route(f"{t}_main", g_g, pr1, NEW_TOKENS, CHUNK_COLS, want, store=serve_g)
+        tp_g = torch.as_tensor(pr1, device=dev)
+        pre_d, pre_t, pre_l = device_profile(lambda: g_g.prefill(tp_g, g_g.init_cache(1)))
+        serve_g[f"{t}_main"].update(prefill_device_ms=pre_d, prefill_kernel_launches=pre_l,
+                                    prefill_idle_share=1.0 - pre_d / serve_g[f"{t}_main"][
+                                        "prefill_ms"], prefill_top_kernels=pre_t)
+        print(f"  {t} prefill: wall {serve_g[f'{t}_main']['prefill_ms']:.3f} ms, device "
+              f"{pre_d:.3f} ms, {pre_l} launches", flush=True)
+        for k, ms_, c in pre_t:
+            print(f"    {t}/prefill {ms_:8.4f} ms  x{c:4d}  {k}", flush=True)
+        gpl_g = Generator(pk_g, cfg_g, pol_g, dataclasses.replace(
+            ecfg_g, use_pallas=KernelConfig.decode_per_layer()), device=dev)
+        w8_route(f"{t}_per_layer", gpl_g, pr1, PER_LAYER_STEPS + 1, PER_LAYER_STEPS,
+                 {"fused_layer_w4": PER_LAYER_STEPS * Lg, "fused_model_w4": 0}, store=serve_g)
+        del gpl_g
+        p32g = torch.randint(0, cfg_g.vocab_size, (SERVE_B, PROMPT_LEN), generator=ggen,
+                             device=dev).cpu().numpy()
+        ga_g = Generator(pk_g, cfg_g, pol_g, dataclasses.replace(
+            ecfg_g, use_pallas=KernelConfig.attn()), device=dev)
+        for rname, pr, n_new in (("attn_b1", pr1, PER_LAYER_STEPS + 1),
+                                 ("attn_b32", p32g, BIG_STEPS + 1)):
+            w8_route(f"{t}_{rname}", ga_g, pr, n_new, n_new - 1,
+                     {"decode_attention": (n_new - 1) * Lg, "fused_model_w4": 0,
+                      "staged_append": 0, "fused_model_w4_chunk": 0}, store=serve_g)
+        del ga_g
+        gs_g = Generator(pk_g, cfg_g, pol_g, ecfg_g, device=dev)
+        if chunk_kernel_supported(cfg_g, MAX_SEQ, SERVE_B):
+            failures.append("the chunk gate takes Gemma-2B's head_dim 256")
+        w8_route(f"{t}_b32_staged", gs_g, p32g, BIG_STEPS + 1, BIG_STEPS,
+                 {"fused_mlp_block_w4": Lg * BIG_STEPS, "staged_append": BIG_STEPS,
+                  "fused_model_w4_chunk": 0, "fused_model_w4": 0}, store=serve_g)
+
+        # B=1 against the plain path: prefill logits, one decode() step (both
+        # fed the plain path's greedy token), and the witnesses: the prefill
+        # route on the plain engine's numerics, and the plain prefill, then the
+        # decode() step with the whole-model kernel's plain version on the
+        # plain engine's numerics; each must equal the plain path bit for bit
+        res_g = {}
+        wit_g = {(E, "fused_model_w4"): fused_model_w4_plain,
+                 **engine_numerics(E, cfg_g, pol_g)}
+        nxt = None
+        for tag, kc_p, kc_d in (("plain", KernelConfig.none(), KernelConfig.none()),
+                                ("kernel", KernelConfig.prefill(), KernelConfig.decode()),
+                                ("witness", KernelConfig.none(), KernelConfig.decode()),
+                                ("prefill_witness", KernelConfig.prefill(), None)):
+            cache = E.init_kv_cache(ecfg_g, 1, device=dev)
+            with patched(prefill_engine_numerics(E, cfg_g) if tag == "prefill_witness" else {}):
+                lg, cache = counted(f"{t}_b1_prefill_{tag}", lambda: E.forward(
+                    pk_g, tp_g, cfg_g, pol_g, kv_cache=cache,
+                    cache_position=torch.zeros(1, dtype=torch.int32, device=dev),
+                    kv_valid_len=torch.full((1,), PROMPT_LEN, dtype=torch.int32, device=dev),
+                    kc=kc_p, logits_at=torch.full((1,), PROMPT_LEN - 1, device=dev)))
+            pre = E.EngineKVCache(cache.k.clone(), cache.v.clone())
+            if kc_d is None:
+                res_g[tag] = (lg, None, cache, pre)
+                continue
+            if nxt is None:
+                nxt = torch.argmax(lg[:, -1], -1)[:, None]
+            p = torch.full((1,), PROMPT_LEN, dtype=torch.int32, device=dev)
+            with patched(wit_g if tag == "witness" else {}):
+                lg2, cache = counted(f"{t}_b1_step_{tag}", lambda: E.forward(
+                    pk_g, nxt, cfg_g, pol_g, positions=p[:, None], kv_cache=cache,
+                    cache_position=p, kv_valid_len=p + 1, kc=kc_d))
+            res_g[tag] = (lg, lg2, cache, pre)
+        same_g = bool(torch.equal(torch.argmax(res_g["kernel"][0][:, -1], -1)[:, None], nxt))
+        e_pre = float_err(res_g["kernel"][0], res_g["plain"][0])
+        e_dec = float_err(res_g["kernel"][1], res_g["plain"][1])
+        e_cache = [int8_err(res_g["kernel"][2].k, res_g["plain"][2].k),
+                   int8_err(res_g["kernel"][2].v, res_g["plain"][2].v)]
+        e_wit = float_err(res_g["witness"][1], res_g["plain"][1])
+        wit_eq = all(bool(torch.equal(getattr(res_g["witness"][2], kv),
+                                      getattr(res_g["plain"][2], kv))) for kv in ("k", "v"))
+        e_pwit = float_err(res_g["prefill_witness"][0], res_g["plain"][0])
+        pwit_eq = all(bool(torch.equal(getattr(res_g["prefill_witness"][3], kv),
+                                       getattr(res_g["plain"][3], kv))) for kv in ("k", "v"))
+        fin = all(bool(torch.isfinite(r[0]).all()) and (r[1] is None or bool(
+            torch.isfinite(r[1]).all())) for r in res_g.values())
+        b1_g[t] = {"prefill_logits_rel_kernel_vs_plain": e_pre[1],
+                   "decode_logits_rel_kernel_vs_plain": e_dec[1],
+                   "kernel_prefill_greedy_token_is_plain": same_g,
+                   "k_cache_kernel_vs_plain": e_cache[0], "v_cache_kernel_vs_plain": e_cache[1],
+                   "prefill_witness_logits_rel_vs_plain": e_pwit[1],
+                   "prefill_witness_caches_equal": pwit_eq,
+                   "witness_logits_rel_vs_plain": e_wit[1], "witness_caches_equal": wit_eq}
+        print(f"  {t} prefill logits kernel vs plain: rel {e_pre[1]:.3g}; decode step on the "
+              f"plain path's token rel {e_dec[1]:.3g} (the kernel prefill's greedy token is the "
+              f"same: {same_g}); K / V cache max diff, share of bytes {e_cache[0]} / "
+              f"{e_cache[1]}; finite {fin}; prefill witness vs plain: logits rel "
+              f"{e_pwit[1]:.3g}, caches equal {pwit_eq}; step witness vs plain: logits rel "
+              f"{e_wit[1]:.3g}, caches equal {wit_eq}", flush=True)
+        lim = GEMMA_PREFILL_VS_PLAIN[wb]
+        if not fin or res_g["kernel"][0].shape != (1, 1, cfg_g.vocab_size) or e_pre[1] > lim[0]:
+            failures.append(f"{t} prefill logits kernel vs plain rel {e_pre[1]}, finite {fin}")
+        if e_dec[1] > GEMMA_STEP_VS_PLAIN[wb]:
+            failures.append(f"{t} decode logits kernel vs plain rel {e_dec[1]}")
+        if max(e[0] for e in e_cache) > lim[1] or max(e[1] for e in e_cache) > lim[2]:
+            failures.append(f"{t} K / V caches kernel vs plain {e_cache}")
+        pruns = runs[f"{t}_b1_prefill_prefill_witness"]
+        if e_pwit[1] > 1e-6 or not pwit_eq or pruns["prefill_attention"] or pruns["w13_gate"]:
+            failures.append(f"{t} prefill witness vs plain: logits rel {e_pwit[1]}, caches "
+                            f"equal {pwit_eq}, launches {pruns}")
+        if runs[f"{t}_b1_step_witness"]["fused_model_w4"] \
+                or runs[f"{t}_b1_step_kernel"]["fused_model_w4"] != 1 \
+                or e_wit[1] > 1e-6 or not wit_eq:
+            failures.append(f"{t} B=1 witness vs plain: logits rel {e_wit[1]}, caches equal "
+                            f"{wit_eq}, launches {runs[f'{t}_b1_step_kernel']}")
+
+        # one CHUNK_COLS-step B=32 chunk fed the same tokens on the entry
+        # config's staged route and on the plain path
+        c32g = E.init_kv_cache(ecfg_g, SERVE_B, device=dev)
+        _, c32g = gs_g.prefill(torch.as_tensor(p32g, device=dev), c32g)
+        ftok_g = torch.randint(0, cfg_g.vocab_size, (SERVE_B, CHUNK_COLS), generator=ggen,
+                               device=dev)
+        kc_entry = KernelConfig.serving(cfg_g, pk_g, SERVE_B)
+        chn = {}
+        for tag, kc_c in ((f"{t}_staged", kc_entry), (f"{t}_plain", KernelConfig.none())):
+            cc = E.EngineKVCache(c32g.k.clone(), c32g.v.clone())
+            chn[tag] = counted(f"chain_{tag}", lambda: staged_chunk(
+                kc_c, cc, ftok_g, fpos, pk_g, pol_g, cfg_c=cfg_g))
+        if runs[f"chain_{t}_staged"]["fused_mlp_block_w4"] != CHUNK_COLS * Lg \
+                or runs[f"chain_{t}_staged"]["fused_model_w4_chunk"] \
+                or any(runs[f"chain_{t}_plain"].values()):
+            failures.append(f"{t} chain launches {runs[f'chain_{t}_staged']} / "
+                            f"{runs[f'chain_{t}_plain']}")
+        tag, ref = f"{t}_staged", f"{t}_plain"
+        e_l = float_err(chn[tag][0], chn[ref][0])
+        stp = [float_err(chn[tag][0][:, i], chn[ref][0][:, i])[1] for i in range(CHUNK_COLS)]
+        e_k = int8_err(chn[tag][1].k[:, :, :, window], chn[ref][1].k[:, :, :, window])
+        e_v = int8_err(chn[tag][1].v[:, :, :, window], chn[ref][1].v[:, :, :, window])
+        fin = bool(torch.isfinite(chn[tag][0]).all())
+        chain_g[f"{tag}_vs_{ref}"] = {"logits_rel": e_l[1], "logits_rel_first_step": stp[0],
+                                      "logits_rel_per_step": stp, "k_rows": e_k, "v_rows": e_v,
+                                      "finite": fin}
+        print(f"  {t} B={SERVE_B} {CHUNK_COLS}-step staged chunk vs plain: logits rel "
+              f"{e_l[1]:.3g} (step 0: {stp[0]:.3g}); flushed K rows {e_k}, V rows {e_v}",
+              flush=True)
+        lim = GEMMA_STAGED_VS_PLAIN[wb]
+        if not fin or e_l[1] > lim[0]:
+            failures.append(f"{tag} chunk vs {ref}: logits rel {e_l[1]}, finite {fin}")
+        if max(e_k[0], e_v[0]) > lim[1] or max(e_k[1], e_v[1]) > lim[2]:
+            failures.append(f"{tag} chunk vs {ref}: flushed rows {e_k} {e_v}")
+        del g_g, gs_g, c32g, chn
+    del gpk
+    torch.cuda.empty_cache()
+
     # ---- phase 4: report ---------------------------------------------------
     sources = {"w4a8_matmul": ("csrc/w4a8_matmul.cu",
                                "mobilequant_tpu/ops/pallas_matmul.py:59"),
@@ -3042,6 +3519,15 @@ def main() -> None:
                "w13_gate_w2": ("csrc/fused_mlp_tiles.cu", "mobilequant_tpu/ops/pallas_mlp.py:1194"),
                "w13_gate_w2[w8]": ("csrc/fused_mlp_tiles.cu",
                                    "mobilequant_tpu/ops/pallas_mlp.py:1194")}
+    # the head-dim-256 editions (Gemma-2B)
+    for base, src, rep in (
+            ("qkv_rope", "qkv_rope.cu", "pallas_qkv.py:126"),
+            ("prefill_attention", "prefill_attention.cu", "pallas_prefill_attention.py:201"),
+            ("decode_attention", "decode_attention.cu", "pallas_attention.py:79"),
+            ("fused_model_w4", "fused_layer_hd256.cu", "pallas_layer.py:773"),
+            ("fused_layer_w4", "fused_layer_hd256.cu", "pallas_layer.py:607")):
+        sources[f"{base}[hd256]"] = ("csrc/" + src, "mobilequant_tpu/ops/" + rep)
+        sources[f"{base}[w8,hd256]"] = ("csrc/" + src, "mobilequant_tpu/ops/" + rep)
     # the LayerNorm editions (StableLM): the JAX kernels' layernorm branches
     for base, w4src, w8src, rep in (
             ("fused_model_w4", "fused_layer.cu", "fused_layer.cu", "pallas_layer.py:109"),
@@ -3065,6 +3551,11 @@ def main() -> None:
                 "qkv_rope[w8]": "w8_main", "fused_mlp": "w8_mlp",
                 "fused_mlp_block": "w8_mlpblock", "fused_otail_block_w4[w8]": "w8_otail_b32",
                 "w13_gate_w2": "w4_prefill_w2fold", "w13_gate_w2[w8]": "w8_prefill_w2fold"}
+    route_of.update({"qkv_rope[hd256]": "g4_main", "prefill_attention[hd256]": "g4_main",
+                     "decode_attention[hd256]": "g4_attn_b1",
+                     "fused_model_w4[hd256]": "g4_main", "fused_model_w4[w8,hd256]": "g8_main",
+                     "fused_layer_w4[hd256]": "g4_per_layer",
+                     "fused_layer_w4[w8,hd256]": "g8_per_layer"})
     for wb, tag in ((4, "[ln]"), (8, "[w8,ln]")):
         route_of.update({f"fused_model_w4{tag}": f"s{wb}_main",
                          f"fused_layer_w4{tag}": f"s{wb}_per_layer",
@@ -3132,7 +3623,9 @@ def main() -> None:
               "mlp_routes": mlp_routes,
               "stablelm": {"serving": serve_s, "fused_model_stage_us": stage_us_s,
                            "chunk_stage_us": chunk_stage_us_s, "b1_step": b1_s,
-                           "chunk_vs_plain": chain_s}}
+                           "chunk_vs_plain": chain_s},
+              "gemma": {"serving": serve_g, "fused_model_stage_us": stage_us_g, "b1_step": b1_g,
+                        "staged_vs_plain": chain_g}}
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     if failures:
         fail("; ".join(failures))

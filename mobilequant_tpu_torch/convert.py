@@ -76,8 +76,9 @@ def build_synthetic_packed(model_name: str = "tinyllama-1.1b", w_bits: int = 4,
     (L,) for o / w2 and per column (L, 1, N) for the fused qkv / w13 packs, as
     engine.pack lays them out. Either way every projection keeps O(1)
     outputs. Static ranges span ±4 at each site's bitwidth; the head is a
-    seeded N(0, 0.02²) matrix through pack_head (head_bits 4 or 8), or the fp
-    head (16). Norm weights are 1 and every bias 0, except that a LayerNorm
+    seeded N(0, 0.02²) matrix, or for a tied model (Gemma) the embedding's
+    transpose, through pack_head (head_bits 4 or 8), or the fp head (16; a
+    tied model reads the embedding). Norm weights are 1 and every bias 0, except that a LayerNorm
     model (StableLM) gets norm weights 1 + N(0, 0.05²) and biases N(0,
     0.02²) (every layer's two norms and the final norm) and a model with a
     q/k/v bias one of N(0, 0.1²), drawn after the weights from a second
@@ -155,7 +156,10 @@ def build_synthetic_packed(model_name: str = "tinyllama-1.1b", w_bits: int = 4,
         "ranges": ranges,
         "norm": {"w": torch.ones((D,), device=dev), "b": torch.zeros((D,), device=dev)},
     }
-    head_w = torch.randn((D, cfg.vocab_size), generator=gen, device=dev) * 0.02
+    # a tied head is the embedding, as the JAX pack makes it; an untied one
+    # is drawn after it (the draw order that keeps the untied packs' bits)
+    head_w = (packed["embed"].T if cfg.tie_word_embeddings
+              else torch.randn((D, cfg.vocab_size), generator=gen, device=dev) * 0.02)
     gen2 = torch.Generator(device=dev).manual_seed(seed + 1)
     if cfg.norm_class == "layernorm":
         for norm in (packed["layers"]["attn_norm"], packed["layers"]["mlp_norm"],
@@ -168,7 +172,7 @@ def build_synthetic_packed(model_name: str = "tinyllama-1.1b", w_bits: int = 4,
     if head_bits in (4, 8):
         packed["head_q"] = E.pack_head(head_w, QuantConfig(
             bitwidth=head_bits, is_symmetric=True, is_per_channel=True))
-    else:
+    elif not cfg.tie_word_embeddings:
         packed["lm_head"] = {"w": head_w}
     return packed, cfg, policy, ecfg
 

@@ -23,8 +23,8 @@
 //     takes expf(s − m) against it (the plain version's exps), the fp64
 //     partial denominators meet in DSMEM (summed in rank order, rounded once
 //     to fp32); P = e / den [then fq16] and fp64 partial ΣP;
-//   * P·V: lanes along hd (two or four values a lane, one 2- or 4-byte load
-//     a row), warps along row pairs; each thread keeps fp64 partials of its
+//   * P·V: lanes along hd (two, four or eight values a lane, one 2-, 4- or
+//     8-byte load a row), warps along row pairs; each thread keeps fp64 partials of its
 //     (query head, hd) outputs: V bytes become exact doubles by one fp64 add,
 //     the products p·v are exact in fp64 (fma). The first two row pairs of a
 //     warp are loaded when the kernel starts. The partials meet over the
@@ -40,6 +40,8 @@
 // index order) rests on the fp64 argument and on the checks on the card
 // (chip_smoke.py, scripts/check_decode_attention.py). Build with
 // --fmad=false (see mqt_common.cuh).
+#include <type_traits>
+
 #include "decode_cluster.cuh"
 
 namespace {
@@ -55,11 +57,27 @@ struct DaConsts {
   float sv, neg_inf;
 };
 
-// DPT bytes of a row at hd = DPT·lane ..
+// DPT bytes of a row at hd = DPT·lane .. (a zero value is V = 0 below)
 template <int DPT>
-__device__ __forceinline__ unsigned ld_lane(const int8_t* row, int lane) {
+struct Lane {
+  using T = std::conditional_t<DPT == 8, uint2, unsigned>;
+};
+template <int DPT>
+__device__ __forceinline__ typename Lane<DPT>::T ld_lane(const int8_t* row, int lane) {
   if constexpr (DPT == 2) return __ldg(reinterpret_cast<const unsigned short*>(row) + lane);
-  else return __ldg(reinterpret_cast<const unsigned*>(row) + lane);
+  else if constexpr (DPT == 4) return __ldg(reinterpret_cast<const unsigned*>(row) + lane);
+  else return __ldg(reinterpret_cast<const uint2*>(row) + lane);
+}
+template <int DPT>
+__device__ __forceinline__ typename Lane<DPT>::T lane_zero() {
+  if constexpr (DPT == 8) return make_uint2(0u, 0u);
+  else return 0u;
+}
+// byte j of a lane's DPT bytes
+template <int DPT>
+__device__ __forceinline__ unsigned lane_byte(typename Lane<DPT>::T v, int j) {
+  if constexpr (DPT == 8) return (j < 4 ? v.x : v.y) >> (8 * (j & 3));
+  else return v >> (8 * j);
 }
 
 // grid (ncl, B·Hkv), clusters of ncl blocks along x; W: fp64 slots of a
@@ -92,13 +110,14 @@ __global__ void __launch_bounds__(dc::THREADS) decode_attn_kernel(
   // [gg·GPT, (gg + 1)·GPT); its first two pairs' V bytes load now (a zero
   // word is V = 0 below)
   const int cw = warp % NCW, gg = warp / NCW;
-  unsigned vpre[2][2];
+  using VL = typename Lane<DPT>::T;
+  VL vpre[2][2];
 #pragma unroll
   for (int u = 0; u < 2; ++u)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = 2 * (cw + u * NCW) + h;
-      vpre[u][h] = r < nr ? ld_lane<DPT>(vb + (size_t)r * HD, lane) : 0u;
+      vpre[u][h] = r < nr ? ld_lane<DPT>(vb + (size_t)r * HD, lane) : lane_zero<DPT>();
     }
 
   // ---- scores: a thread per (row, query head), head g = tid % G ---------------
@@ -164,12 +183,12 @@ __global__ void __launch_bounds__(dc::THREADS) decode_attn_kernel(
 #pragma unroll
     for (int j = 0; j < DPT; ++j) acc[gi][j] = 0.0;
   const int npair = (nr + 1) >> 1;
-  auto pair = [&](int pi, unsigned va, unsigned vb2) {
+  auto pair = [&](int pi, VL va, VL vb2) {
     double xa[DPT], xb[DPT];
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
-      xa[j] = dc::s8_to_f64(va >> (8 * j));
-      xb[j] = dc::s8_to_f64(vb2 >> (8 * j));
+      xa[j] = dc::s8_to_f64(lane_byte<DPT>(va, j));
+      xb[j] = dc::s8_to_f64(lane_byte<DPT>(vb2, j));
     }
 #pragma unroll
     for (int gi = 0; gi < GPT; ++gi) {
@@ -184,8 +203,9 @@ __global__ void __launch_bounds__(dc::THREADS) decode_attn_kernel(
   if (cw < npair) pair(cw, vpre[0][0], vpre[0][1]);
   if (cw + NCW < npair) pair(cw + NCW, vpre[1][0], vpre[1][1]);
   for (int pi = cw + 2 * NCW; pi < npair; pi += NCW) {
-    const unsigned va = ld_lane<DPT>(vb + (size_t)(2 * pi) * HD, lane);
-    const unsigned vb2 = 2 * pi + 1 < nr ? ld_lane<DPT>(vb + (size_t)(2 * pi + 1) * HD, lane) : 0u;
+    const VL va = ld_lane<DPT>(vb + (size_t)(2 * pi) * HD, lane);
+    const VL vb2 = 2 * pi + 1 < nr ? ld_lane<DPT>(vb + (size_t)(2 * pi + 1) * HD, lane)
+                                   : lane_zero<DPT>();
     pair(pi, va, vb2);
   }
   dc::fold_warps<G, HD, DPT, 1>(acc, red, st.pv);
@@ -215,13 +235,13 @@ int launch(const void* q8, const void* k8, const void* v8, const void* valid, vo
 }  // namespace
 
 // q8 (B, hkv, G, hd); k8 / v8 (B, hkv, S, hd); valid (B,); out (B, hkv, G, hd)
-// fp32; consts: 14 host floats (DaConsts). hd 64 or 128, G in {1, 2, 4, 8,
-// 16}; ncl blocks (one cluster) a (sequence, kv head), a power of two <= 8.
+// fp32; consts: 14 host floats (DaConsts). hd 64, 128 or 256, G in {1, 2, 4,
+// 8, 16}; ncl blocks (one cluster) a (sequence, kv head), a power of two <= 8.
 MQT_EXPORT int mqt_decode_attention(const void* q8, const void* k8, const void* v8,
                                     const void* valid, void* out, const float* consts, int B,
                                     int hkv, int G, int hd, int S, int skip, int ncl,
                                     void* stream) {
-  if ((hd != 64 && hd != 128) || S < 1 || hkv < 1 || ncl < 1 || ncl > dc::MAX_CLUSTER
+  if ((hd != 64 && hd != 128 && hd != 256) || S < 1 || hkv < 1 || ncl < 1 || ncl > dc::MAX_CLUSTER
       || (ncl & (ncl - 1)))
     return (int)cudaErrorInvalidValue;
   DaConsts k;
@@ -229,10 +249,11 @@ MQT_EXPORT int mqt_decode_attention(const void* q8, const void* k8, const void* 
   for (int i = 0; i < (int)(sizeof(DaConsts) / sizeof(float)); ++i) kf[i] = consts[i];
   cudaStream_t st = (cudaStream_t)stream;
   const int BH = B * hkv;
-#define MQT_DA_CASE(g)                                                                    \
-  case g:                                                                                 \
-    return hd == 64 ? launch<g, 64>(q8, k8, v8, valid, out, k, BH, hkv, S, skip, ncl, st) \
-                    : launch<g, 128>(q8, k8, v8, valid, out, k, BH, hkv, S, skip, ncl, st);
+#define MQT_DA_CASE(g)                                                                     \
+  case g:                                                                                  \
+    return hd == 64    ? launch<g, 64>(q8, k8, v8, valid, out, k, BH, hkv, S, skip, ncl, st) \
+           : hd == 128 ? launch<g, 128>(q8, k8, v8, valid, out, k, BH, hkv, S, skip, ncl, st) \
+                       : launch<g, 256>(q8, k8, v8, valid, out, k, BH, hkv, S, skip, ncl, st);
   switch (G) {
     MQT_DA_CASE(1)
     MQT_DA_CASE(2)

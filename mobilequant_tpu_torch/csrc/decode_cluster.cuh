@@ -32,7 +32,7 @@ using Cluster = cooperative_groups::cluster_group;
 // warp groups where G·DPT would pass 32 partials; NCW warps a group.
 template <int G, int HD>
 struct PvLayout {
-  static_assert(HD == 64 || HD == 128, "hd 64 or 128");
+  static_assert(HD == 64 || HD == 128 || HD == 256, "hd 64, 128 or 256");
   static_assert(G >= 1 && G <= 16 && (G & (G - 1)) == 0, "G a power of two <= 16");
   static constexpr int DPT = HD / 32;
   static constexpr int GPT = G * DPT <= 32 ? G : 32 / DPT;

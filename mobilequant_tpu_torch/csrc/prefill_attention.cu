@@ -48,6 +48,17 @@
 //     tiles only. Against the plain version the strict output then moves by
 //     the probabilities that a one-ulp difference in the denominator carries
 //     across a rounding step.
+//   * Head dims: the kernel is a template on HD (64, 128, 256; RB = HD + 16
+//     keeps the ldmatrix rows conflict-free). A warp holds its 16 rows' q
+//     fragments (HD / 32 k-steps) and P·V accumulators for DCG dims (HD / 8
+//     fp32 fragments of 4). Up to HD 128 the two column groups split the K/V
+//     tiles as above. At HD 256 the accumulators of 256 dims would not fit
+//     beside the q fragments, so the column groups split the head dim
+//     instead: both walk every tile and compute the same scores and softmax
+//     statistics (Q·Kᵀ twice, the same arithmetic in the same order, so the
+//     same values), each runs P·V for its 128 dims and writes them, and no
+//     merge is needed. The K/V ring lives in dynamic shared memory (45 /
+//     78 / 144 KB at HD 64 / 128 / 256, one block an SM at 256).
 #include <math.h>
 #include <cuda_fp16.h>
 
@@ -58,9 +69,7 @@ namespace {
 constexpr int ROWS = 64;             // G · BQ query rows a block, 16 a row warp
 constexpr int THREADS = 256;         // 4 row warps x 2 column groups
 constexpr int BS = 64;               // K/V columns a tile
-constexpr int HD = 64;               // head dim
 constexpr int NST = 4;               // cp.async ring stages: two pairs of tiles
-constexpr int RB = HD + 16;          // bytes a K / V row in shared memory
 constexpr float PSCALE = 32768.0f;   // p · 2^15 before the fp16 split (exact)
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int ONES = 0x01010101;     // an int8 fragment of ones
@@ -77,7 +86,41 @@ struct Meta {
   float qks, qko, qkq;              // qk_bmm output fq (scale, offset, qmax)
   float pvs, pvo, pvq;              // pv_bmm input fq
   float neg_inf;
+  float inv_sqrt;                   // fp32 of 1 / √hd (the plain version's constant)
 };
+
+// The edition of head dim HD: rows of RB bytes in the ring; DSPLIT column
+// groups share a row's dims (2 at HD 256) or split the tiles (1); a warp's
+// P·V covers DCG dims in NT fragments of 8 columns; KST k32 steps of Q·Kᵀ.
+template <int HD>
+struct Ed {
+  static_assert(HD == 64 || HD == 128 || HD == 256, "head dim 64, 128 or 256");
+  static constexpr int RB = HD + 16;
+  static constexpr int DSPLIT = HD > 128 ? 2 : 1;
+  static constexpr int DCG = HD / DSPLIT;
+  static constexpr int NT = DCG / 8;
+  static constexpr int KST = HD / 32;
+  static constexpr int CPR = HD / 16;          // 16-byte chunks a row
+  static constexpr size_t RING = (size_t)NST * BS * RB;
+  // K ring, V ring, the column groups' exchange (xch), the rows' positions
+  static constexpr size_t SMEM = 2 * RING + 2 * 4 * 32 * 2 * sizeof(double) + ROWS * 4;
+};
+
+// NT bytes of a V row (8 or 16) as NT / 4 words
+template <int NT>
+__device__ __forceinline__ void ld_words(const int8_t* p, uint32_t (&w)[NT / 4]) {
+  if constexpr (NT == 8) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    w[0] = r.x;
+    w[1] = r.y;
+  } else {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    w[0] = r.x;
+    w[1] = r.y;
+    w[2] = r.z;
+    w[3] = r.w;
+  }
+}
 
 struct Strides {
   long long b, h, g, t;             // elements
@@ -104,17 +147,21 @@ __device__ __forceinline__ uint32_t byte_pair_f16(uint32_t w, unsigned sel) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-template <bool QK_FQ, bool PV_FQ>
+template <int HD, bool QK_FQ, bool PV_FQ>
 __global__ void __launch_bounds__(THREADS)
 prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
                     const int8_t* __restrict__ k, const int8_t* __restrict__ v,
                     const int* __restrict__ positions,
                     const int* __restrict__ valid, float* __restrict__ out,
                     Strides os, Meta mt, int Hkv, int G, int T, int S) {
-  __shared__ __align__(128) int8_t ks_[NST][BS * RB];
-  __shared__ __align__(128) int8_t vs_[NST][BS * RB];
-  __shared__ double xch[2][4][32][2];          // the column groups' row maxima / sums
-  __shared__ int pos_s[ROWS];
+  using E = Ed<HD>;
+  constexpr int RB = E::RB, DSPLIT = E::DSPLIT, NT = E::NT, KST = E::KST, CPR = E::CPR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  int8_t (*ks_)[BS * RB] = reinterpret_cast<int8_t (*)[BS * RB]>(smem);
+  int8_t (*vs_)[BS * RB] = reinterpret_cast<int8_t (*)[BS * RB]>(smem + E::RING);
+  // the column groups' row maxima / sums
+  double (*xch)[4][32][2] = reinterpret_cast<double (*)[4][32][2]>(smem + 2 * E::RING);
+  int* pos_s = reinterpret_cast<int*>(smem + 2 * E::RING + 2 * 4 * 32 * 2 * sizeof(double));
 
   const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3, cg = tid >> 7;
   const int gq = lane >> 2, tq = lane & 3;
@@ -131,8 +178,8 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
   const int ntiles = (ncols + BS - 1) / BS;
 
   // this lane's rows 16 warp + gq (i = 0) and + 8 (i = 1): their q fragments
-  // (two k32 steps), positions and q·o'_k terms
-  int qa[2][4];
+  // (KST k32 steps), positions and q·o'_k terms
+  int qa[KST][4];
   float okq[2];
   int wmax = -1, wmin = 0x7fffffff;
 #pragma unroll
@@ -143,7 +190,7 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
     const int8_t* qp = q + b * qs.b + h * qs.h + (r / BQ) * qs.g + (long long)(ok ? rt : 0) * qs.t;
     int s = 0;
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
+    for (int kk = 0; kk < KST; ++kk) {
       const int w0 = ok ? mqt::ld_i32(qp + 32 * kk + 4 * tq) : 0;
       const int w1 = ok ? mqt::ld_i32(qp + 32 * kk + 16 + 4 * tq) : 0;
       qa[kk][i] = w0;           // a0 / a1: k 4t..
@@ -162,16 +209,16 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
     wmin = min(wmin, __shfl_xor_sync(FULL, wmin, o));
   }
 
-  const float inv_sqrt = 1.0f / sqrtf((float)HD);
+  const float inv_sqrt = mt.inv_sqrt;
   const float hdoo = (float)HD * mt.oq * mt.ok;
   const float sqk = mt.sq * mt.sk;
 
   // K (and V) tiles 2 it and 2 it + 1 into ring stages (2 it) % NST, + 1: 64
-  // rows x 4 chunks of 16 B each, rows past S zero-filled
+  // rows x CPR chunks of 16 B each, rows past S zero-filled
   auto load_pair = [&](int it, bool with_v) {
 #pragma unroll
-    for (int c = tid; c < 2 * BS * 4; c += THREADS) {
-      const int ti = 2 * it + (c >> 8), r = (c >> 2) & (BS - 1), ch = c & 3;
+    for (int c = tid; c < 2 * BS * CPR; c += THREADS) {
+      const int ti = 2 * it + c / (BS * CPR), r = (c / CPR) % BS, ch = c % CPR;
       if (ti >= ntiles) break;
       const int st = ti % NST, s0 = ti * BS;
       const bool ok = s0 + r < S;
@@ -181,8 +228,8 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
     }
   };
   // one pass over the tiles, a pair at a time: column group cg runs
-  // body(tile, stage) on tile 2 it + cg while the next pair's loads are in
-  // flight
+  // body(tile, stage) on tile 2 it + cg (at HD 256 on both tiles, in order)
+  // while the next pair's loads are in flight
   auto pass = [&](bool with_v, auto&& body) {
     const int npairs = (ntiles + 1) / 2;
     if (npairs > 0) load_pair(0, with_v);
@@ -192,8 +239,16 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
       __syncthreads();
       if (it + 1 < npairs) load_pair(it + 1, with_v);
       mqt::cp_async_commit();
-      const int ti = 2 * it + cg;
-      if (ti < ntiles && ti * BS <= wmax) body(ti, ti % NST);
+      if constexpr (DSPLIT == 1) {
+        const int ti = 2 * it + cg;
+        if (ti < ntiles && ti * BS <= wmax) body(ti, ti % NST);
+      } else {
+#pragma unroll 1
+        for (int u = 0; u < 2; ++u) {
+          const int ti = 2 * it + u;
+          if (ti < ntiles && ti * BS <= wmax) body(ti, ti % NST);
+        }
+      }
     }
     mqt::cp_async_wait<0>();
     __syncthreads();
@@ -216,14 +271,19 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
     const int8_t* kt = ks_[st] + 32 * hh * RB;
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
-      int kf[4];
-      mqt::ldsm_x4(kf, kt + (8 * n + (lane & 7)) * RB + 16 * (lane >> 3));
       int acc[4] = {0, 0, 0, 0}, ks[4] = {0, 0, 0, 0};
-      // and Σk of this lane's keys 2 tq, 2 tq + 1: the same K fragments times ones
-      mqt::mma_s8(acc, qa[0][0], qa[0][1], qa[0][2], qa[0][3], kf[0], kf[1]);
-      mqt::mma_s8(ks, ONES, ONES, ONES, ONES, kf[0], kf[1]);
-      mqt::mma_s8(acc, qa[1][0], qa[1][1], qa[1][2], qa[1][3], kf[2], kf[3]);
-      mqt::mma_s8(ks, ONES, ONES, ONES, ONES, kf[2], kf[3]);
+#pragma unroll
+      for (int kq = 0; kq < KST / 2; ++kq) {   // 64 dims a K fragment load
+        int kf[4];
+        mqt::ldsm_x4(kf, kt + (8 * n + (lane & 7)) * RB + 64 * kq + 16 * (lane >> 3));
+        // and Σk of this lane's keys 2 tq, 2 tq + 1: the same K fragments times ones
+        mqt::mma_s8(acc, qa[2 * kq][0], qa[2 * kq][1], qa[2 * kq][2], qa[2 * kq][3], kf[0],
+                    kf[1]);
+        mqt::mma_s8(ks, ONES, ONES, ONES, ONES, kf[0], kf[1]);
+        mqt::mma_s8(acc, qa[2 * kq + 1][0], qa[2 * kq + 1][1], qa[2 * kq + 1][2],
+                    qa[2 * kq + 1][3], kf[2], kf[3]);
+        mqt::mma_s8(ks, ONES, ONES, ONES, ONES, kf[2], kf[3]);
+      }
       const float oqk[2] = {mt.oq * i2f(ks[0]), mt.oq * i2f(ks[1])};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -241,12 +301,13 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
     }
   };
 
-  // o (16 rows x 64 dims, fp32 · 2^15) += P (sc, fp16 hi + lo) · V (half hh
-  // of stage st). o[n][0] row gq, dim 16 tq + n; o[n][1] dim 16 tq + 8 + n;
-  // [2], [3] row gq + 8
-  float o[8][4];
+  // o (16 rows x DCG dims from dbase, fp32 · 2^15) += P (sc, fp16 hi + lo) ·
+  // V (half hh of stage st). o[n][0] row gq, dim dbase + 2 NT tq + n; o[n][1]
+  // dim dbase + 2 NT tq + NT + n; [2], [3] row gq + 8
+  const int dbase = DSPLIT == 2 ? cg * E::DCG : 0;
+  float o[NT][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
   auto pv = [&](int st, int hh) {
     const int8_t* vt = vs_[st] + 32 * hh * RB;
 #pragma unroll
@@ -256,16 +317,18 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
       split_f16(sc[2 * j][2], sc[2 * j][3], ah[1], al[1]);
       split_f16(sc[2 * j + 1][0], sc[2 * j + 1][1], ah[2], al[2]);
       split_f16(sc[2 * j + 1][2], sc[2 * j + 1][3], ah[3], al[3]);
-      // V rows 16 j + 2 tq, + 1 (b0) and + 8, + 9 (b1), dims 8 gq .. 8 gq + 7
-      const int8_t* vr = vt + (16 * j + 2 * tq) * RB + 8 * gq;
-      const uint2 r0 = *reinterpret_cast<const uint2*>(vr);
-      const uint2 r1 = *reinterpret_cast<const uint2*>(vr + RB);
-      const uint2 r2 = *reinterpret_cast<const uint2*>(vr + 8 * RB);
-      const uint2 r3 = *reinterpret_cast<const uint2*>(vr + 9 * RB);
+      // V rows 16 j + 2 tq, + 1 (b0) and + 8, + 9 (b1), dims dbase + NT gq ..
+      // + NT − 1
+      const int8_t* vr = vt + (16 * j + 2 * tq) * RB + dbase + NT * gq;
+      uint32_t r0[NT / 4], r1[NT / 4], r2[NT / 4], r3[NT / 4];
+      ld_words<NT>(vr, r0);
+      ld_words<NT>(vr + RB, r1);
+      ld_words<NT>(vr + 8 * RB, r2);
+      ld_words<NT>(vr + 9 * RB, r3);
 #pragma unroll
-      for (int w = 0; w < 2; ++w) {          // dims 8 gq + 4 w .. + 3: n-tiles 4 w + e
-        const uint32_t a = (w ? r0.y : r0.x) ^ 0x80808080u, c = (w ? r1.y : r1.x) ^ 0x80808080u;
-        const uint32_t d = (w ? r2.y : r2.x) ^ 0x80808080u, f = (w ? r3.y : r3.x) ^ 0x80808080u;
+      for (int w = 0; w < NT / 4; ++w) {     // dims NT gq + 4 w .. + 3: n-tiles 4 w + e
+        const uint32_t a = r0[w] ^ 0x80808080u, c = r1[w] ^ 0x80808080u;
+        const uint32_t d = r2[w] ^ 0x80808080u, f = r3[w] ^ 0x80808080u;
         const uint32_t p01[2] = {__byte_perm(a, c, 0x5140), __byte_perm(a, c, 0x7362)};
         const uint32_t p23[2] = {__byte_perm(d, f, 0x5140), __byte_perm(d, f, 0x7362)};
         uint32_t b0[4], b1[4];
@@ -311,7 +374,7 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
           esum[e >> 1] += sc[n][e];
         }
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[n][e] = o[n][e] * rsc[e >> 1];
 #pragma unroll
@@ -339,7 +402,7 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
     for (int i = 0; i < 2; ++i) {
       m[i] = fmaxf(m[i], __shfl_xor_sync(FULL, m[i], 1));
       m[i] = fmaxf(m[i], __shfl_xor_sync(FULL, m[i], 2));
-      m[i] = fmaxf(m[i], (float)other(m[i], i));
+      if constexpr (DSPLIT == 1) m[i] = fmaxf(m[i], (float)other(m[i], i));
     }
     // pass 2: the denominator, sum of exp(s − m) in fp64, without rescaling
     double ld[2] = {0.0, 0.0};
@@ -362,8 +425,12 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
     });
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const double ot = other(ld[i], i);
-      l[i] = (float)(cg == 0 ? ld[i] + ot : ot + ld[i]);   // group 0's part first
+      if constexpr (DSPLIT == 1) {
+        const double ot = other(ld[i], i);
+        l[i] = (float)(cg == 0 ? ld[i] + ot : ot + ld[i]);   // group 0's part first
+      } else {
+        l[i] = (float)ld[i];                                  // every tile in each group
+      }
     }
     const float linv[2] = {1.0f / fmaxf(l[0], 1e-30f), 1.0f / fmaxf(l[1], 1e-30f)};
     // pass 3: normalised, fake-quantized probabilities into P·V
@@ -392,74 +459,108 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
     });
   }
 
-  // column group 1 hands its rows' state to group 0 through the (idle) ring:
-  // xb[field][row warp][lane], fields o (32), m, l, psum (2 each)
-  float* xb = reinterpret_cast<float*>(&ks_[0][0]);
-  auto xat = [&](int f) -> float& { return xb[(f * 4 + warp) * 32 + lane]; };
-  if (cg == 1) {
+  if constexpr (DSPLIT == 1) {
+    // column group 1 hands its rows' state to group 0 through the (idle)
+    // ring: xb[field][row warp][lane], fields o (4 NT), m, l, psum (2 each)
+    constexpr int FM = 4 * NT;
+    float* xb = reinterpret_cast<float*>(&ks_[0][0]);
+    auto xat = [&](int f) -> float& { return xb[(f * 4 + warp) * 32 + lane]; };
+    if (cg == 1) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) xat(4 * n + e) = o[n][e];
+        for (int e = 0; e < 4; ++e) xat(4 * n + e) = o[n][e];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        xat(FM + i) = m[i];
+        xat(FM + 2 + i) = l[i];
+        xat(FM + 4 + i) = psum[i];
+      }
+    }
+    __syncthreads();
+    if (cg == 1) return;
+    float sa[2], sb[2];         // the two groups' weights (relaxed: their maxima)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      xat(32 + i) = m[i];
-      xat(34 + i) = l[i];
-      xat(36 + i) = psum[i];
+      if (PV_FQ) {
+        sa[i] = sb[i] = 1.0f;
+        psum[i] = psum[i] + xat(FM + 4 + i);
+      } else {
+        const float m1 = xat(FM + i), mm = fmaxf(m[i], m1);
+        sa[i] = exp2f((m[i] - mm) * LOG2E);
+        sb[i] = exp2f((m1 - mm) * LOG2E);
+        l[i] = l[i] * sa[i] + xat(FM + 2 + i) * sb[i];
+      }
     }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[n][e] = PV_FQ ? o[n][e] + xat(4 * n + e)
+                        : o[n][e] * sa[e >> 1] + xat(4 * n + e) * sb[e >> 1];
   }
-  __syncthreads();
-  if (cg == 1) return;
-  float sa[2], sb[2];         // the two groups' weights (relaxed: their maxima)
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (PV_FQ) {
-      sa[i] = sb[i] = 1.0f;
-      psum[i] = psum[i] + xat(36 + i);
-    } else {
-      const float m1 = xat(32 + i), mm = fmaxf(m[i], m1);
-      sa[i] = exp2f((m[i] - mm) * LOG2E);
-      sb[i] = exp2f((m1 - mm) * LOG2E);
-      l[i] = l[i] * sa[i] + xat(34 + i) * sb[i];
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      o[n][e] = PV_FQ ? o[n][e] + xat(4 * n + e)
-                      : o[n][e] * sa[e >> 1] + xat(4 * n + e) * sb[e >> 1];
 
-  // rows gq and gq + 8: dims 16 tq .. 16 tq + 15
+  // rows gq and gq + 8: dims dbase + 2 NT tq .. + 2 NT − 1
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = 16 * warp + gq + 8 * i, rt = t0 + r % BQ;
     if (rt >= T) continue;
-    float y[16];
+    float y[2 * NT];
     const float linv = 1.0f / fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const float acc = o[n][2 * i + c] * (1.0f / PSCALE);
-        y[8 * c + n] = PV_FQ ? (acc - mt.ov * psum[i]) * mt.sv
-                             : (acc - mt.ov * l[i]) * linv * mt.sv;
+        y[NT * c + n] = PV_FQ ? (acc - mt.ov * psum[i]) * mt.sv
+                              : (acc - mt.ov * l[i]) * linv * mt.sv;
       }
-    float* op = out + b * os.b + h * os.h + (r / BQ) * os.g + (long long)rt * os.t + 16 * tq;
+    float* op = out + b * os.b + h * os.h + (r / BQ) * os.g + (long long)rt * os.t + dbase
+                + 2 * NT * tq;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < NT / 2; ++j)
       reinterpret_cast<float4*>(op)[j] = make_float4(y[4 * j], y[4 * j + 1], y[4 * j + 2],
                                                      y[4 * j + 3]);
   }
+}
+
+template <int HD, bool QK_FQ, bool PV_FQ>
+int launch(dim3 grid, cudaStream_t st, const int8_t* q, Strides qs, const int8_t* k,
+           const int8_t* v, const int* positions, const int* valid, float* out, Strides os,
+           const Meta& mt, int Hkv, int G, int T, int S) {
+  auto* kern = prefill_attn_kernel<HD, QK_FQ, PV_FQ>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Ed<HD>::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, THREADS, Ed<HD>::SMEM, st>>>(q, qs, k, v, positions, valid, out, os, mt, Hkv,
+                                            G, T, S);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_hd(bool qk_fq, bool pv_fq, dim3 grid, cudaStream_t st, const int8_t* q,
+              Strides qs, const int8_t* k, const int8_t* v, const int* positions,
+              const int* valid, float* out, Strides os, const Meta& mt, int Hkv, int G,
+              int T, int S) {
+  if (qk_fq)
+    return pv_fq ? launch<HD, true, true>(grid, st, q, qs, k, v, positions, valid, out, os,
+                                          mt, Hkv, G, T, S)
+                 : launch<HD, true, false>(grid, st, q, qs, k, v, positions, valid, out, os,
+                                           mt, Hkv, G, T, S);
+  return pv_fq ? launch<HD, false, true>(grid, st, q, qs, k, v, positions, valid, out, os, mt,
+                                         Hkv, G, T, S)
+               : launch<HD, false, false>(grid, st, q, qs, k, v, positions, valid, out, os,
+                                          mt, Hkv, G, T, S);
 }
 
 }  // namespace
 
 // meta_host: the JAX engine's 13-float attention meta
 // [sq, oq, sk, ok, sv, ov, qk_out s, o, qmax, pv_in s, o, qmax, neg_inf]
-// (offsets unshifted, as there). q_strides / o_strides: 4 int64 element
-// strides each (b, kv head, group, t) of q and out; out's dims contiguous and
-// 16-byte aligned.
+// (offsets unshifted, as there), then the fp32 of 1 / √hd. q_strides /
+// o_strides: 4 int64 element strides each (b, kv head, group, t) of q and
+// out; out's dims contiguous and 16-byte aligned. hd 64, 128 or 256; G
+// divides 64.
 MQT_EXPORT int mqt_prefill_attention(const void* q, const void* q_strides,
                                      const void* k, const void* v,
                                      const void* positions, const void* valid,
@@ -467,7 +568,8 @@ MQT_EXPORT int mqt_prefill_attention(const void* q, const void* q_strides,
                                      const void* meta_host, int B, int Hkv,
                                      int G, int T, int S, int hd, int qk_fq,
                                      int pv_fq, void* stream) {
-  if (hd != HD || G < 1 || ROWS % G != 0) return (int)cudaErrorInvalidValue;
+  if ((hd != 64 && hd != 128 && hd != 256) || G < 1 || ROWS % G != 0)
+    return (int)cudaErrorInvalidValue;
   const float* mh = (const float*)meta_host;
   const long long* qsp = (const long long*)q_strides;
   const long long* osp = (const long long*)o_strides;
@@ -485,15 +587,19 @@ MQT_EXPORT int mqt_prefill_attention(const void* q, const void* q_strides,
   mt.pvo = mh[10];
   mt.pvq = mh[11];
   mt.neg_inf = mh[12];
+  mt.inv_sqrt = mh[13];
   Strides qs{qsp[0], qsp[1], qsp[2], qsp[3]};
   Strides os{osp[0], osp[1], osp[2], osp[3]};
   const int BQ = ROWS / G;
   dim3 grid(B * Hkv, (T + BQ - 1) / BQ);
   cudaStream_t st = (cudaStream_t)stream;
-  auto* kern = qk_fq ? (pv_fq ? prefill_attn_kernel<true, true> : prefill_attn_kernel<true, false>)
-                     : (pv_fq ? prefill_attn_kernel<false, true> : prefill_attn_kernel<false, false>);
-  kern<<<grid, THREADS, 0, st>>>((const int8_t*)q, qs, (const int8_t*)k, (const int8_t*)v,
-                                 (const int*)positions, (const int*)valid, (float*)out, os, mt,
-                                 Hkv, G, T, S);
-  return (int)cudaGetLastError();
+  const int8_t *qp = (const int8_t*)q, *kp = (const int8_t*)k, *vp = (const int8_t*)v;
+  const int *pp = (const int*)positions, *vl = (const int*)valid;
+  float* o = (float*)out;
+  if (hd == 64)
+    return launch_hd<64>(qk_fq, pv_fq, grid, st, qp, qs, kp, vp, pp, vl, o, os, mt, Hkv, G, T, S);
+  if (hd == 128)
+    return launch_hd<128>(qk_fq, pv_fq, grid, st, qp, qs, kp, vp, pp, vl, o, os, mt, Hkv, G, T,
+                          S);
+  return launch_hd<256>(qk_fq, pv_fq, grid, st, qp, qs, kp, vp, pp, vl, o, os, mt, Hkv, G, T, S);
 }

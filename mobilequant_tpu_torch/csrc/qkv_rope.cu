@@ -15,7 +15,11 @@
 // tile core (mqt_common.cuh, templated on the weight bits) with split-K so that a 128-row prompt still fills the
 // card; the epilogue stages the 64 x 128 tile in shared memory so that each
 // output can read its RoPE partner column, which is why a tile must hold
-// whole heads (128 % head_dim == 0). The written rows are the int8 KV cache:
+// whole heads (128 % head_dim == 0). At head_dim 256 with full rotary (Gemma:
+// the partner is 128 columns away) a tile is two 64-column runs of one head,
+// [64 p, 64 p + 64) and [128 + 64 p, 192 + 64 p) (p = 0, 1), so every column
+// and its partner still meet in the tile (the PAIRED edition; the tile core's
+// column map reads the two runs). The written rows are the int8 KV cache:
 // rintf (half to even), true division and no fused multiply-add keep them
 // equal to the plain version's.
 #include "mqt_common.cuh"
@@ -31,7 +35,9 @@ struct QkvArgs {
   int hd, shift;       // head_dim, rotary_dim / 2
 };
 
-template <int WB>
+// PAIRED: tile x of a head_dim-256 head h = x / 2 holds its columns
+// 256 h + 64 p + [0, 64) and 256 h + 128 + 64 p + [0, 64), p = x % 2
+template <int WB, bool PAIRED>
 __global__ void __launch_bounds__(TTHREADS)
 qkv_rope_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                 Affine aff, QkvArgs qa, int8_t* __restrict__ out, int* ws,
@@ -44,7 +50,10 @@ qkv_rope_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int n0 = blockIdx.x * TBN, m0 = blockIdx.y * TBM;
   const int nchunks = (K >> 1) / TBKP;
   const int c0 = blockIdx.z * cps, c1 = min(nchunks, c0 + cps);
-  ColMap cm{n0, 0, TBN, TBN, 0};   // N % 128 == 0 (checked by the caller)
+  constexpr int RUN = TBN / 2;     // PAIRED: columns of a run
+  const int pa = (blockIdx.x >> 1) * 2 * TBN + (blockIdx.x & 1) * RUN;
+  // N % 128 == 0 (checked by the caller); PAIRED: N % 256 == 0
+  const ColMap cm = PAIRED ? ColMap{pa, pa + TBN, RUN, RUN, RUN} : ColMap{n0, 0, TBN, TBN, 0};
   int acc[4][8] = {};
   int rs = 0;
   tile_mma<WB>(x, w, M, K, N, m0, cm, c0, c1, sm, acc, rs);
@@ -56,7 +65,7 @@ qkv_rope_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const int m = ty + 16 * i;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int nl = tx + 16 * j, col = n0 + nl;
+      const int nl = tx + 16 * j, col = cm.gcol(nl);
       float y = aff(acc[i][j], col, (float)sm.rsum[m]);
       const float fs = qa.ofq[col], fo = qa.ofq[N + col];
       const float fc = qa.ofq[2 * N + col], fe = qa.ofq[3 * N + col];
@@ -72,12 +81,14 @@ qkv_rope_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   for (int idx = tid; idx < TBM * TBN; idx += TTHREADS) {
     const int m = idx / TBN, nl = idx % TBN, gm = m0 + m;
     if (gm >= M) continue;
-    const int col = n0 + nl;
-    const int d = nl % qa.hd;
+    const int col = cm.gcol(nl);
+    // the head dim, and the partner's local column (PAIRED: the other run)
+    const int d = PAIRED ? col % qa.hd : nl % qa.hd;
     float y = sm.u.y[m][nl];
     if (qa.outq[2 * N + col] > 0.5f) {
-      const float partner = d < qa.shift ? sm.u.y[m][nl + qa.shift]
-                                         : sm.u.y[m][nl - qa.shift];
+      const int pl = PAIRED ? (nl < RUN ? nl + RUN : nl - RUN)
+                            : (d < qa.shift ? nl + qa.shift : nl - qa.shift);
+      const float partner = sm.u.y[m][pl];
       const float cv = qa.cs[(size_t)gm * 2 * qa.hd + d];
       const float sv = qa.cs[(size_t)gm * 2 * qa.hd + qa.hd + d];
       y = y * cv + partner * sv;
@@ -116,13 +127,26 @@ MQT_EXPORT int mqt_qkv_rope(const void* x, const void* w, const void* scale,
   const int8_t* xp = (const int8_t*)x;
   const int8_t* wp = (const int8_t*)w;
   cudaStream_t st = (cudaStream_t)stream;
-  if (wbits == 8)
-    qkv_rope_kernel<8><<<grid, TTHREADS, 0, st>>>(xp, wp, aff, qa, (int8_t*)out, (int*)ws,
-                                                   M, K, N, ks, cps);
-  else if (wbits == 4)
-    qkv_rope_kernel<4><<<grid, TTHREADS, 0, st>>>(xp, wp, aff, qa, (int8_t*)out, (int*)ws,
-                                                   M, K, N, ks, cps);
-  else
+  int8_t* op = (int8_t*)out;
+  int* wsp = (int*)ws;
+  const bool paired = head_dim == 256;
+  if ((wbits != 4 && wbits != 8) || N % TBN
+      || !(128 % head_dim == 0 || (paired && rotary_dim == 256 && N % 256 == 0)))
     return (int)cudaErrorInvalidValue;
+  if (wbits == 8) {
+    if (paired)
+      qkv_rope_kernel<8, true><<<grid, TTHREADS, 0, st>>>(xp, wp, aff, qa, op, wsp, M, K, N, ks,
+                                                          cps);
+    else
+      qkv_rope_kernel<8, false><<<grid, TTHREADS, 0, st>>>(xp, wp, aff, qa, op, wsp, M, K, N,
+                                                           ks, cps);
+  } else {
+    if (paired)
+      qkv_rope_kernel<4, true><<<grid, TTHREADS, 0, st>>>(xp, wp, aff, qa, op, wsp, M, K, N, ks,
+                                                          cps);
+    else
+      qkv_rope_kernel<4, false><<<grid, TTHREADS, 0, st>>>(xp, wp, aff, qa, op, wsp, M, K, N,
+                                                           ks, cps);
+  }
   return (int)cudaGetLastError();
 }

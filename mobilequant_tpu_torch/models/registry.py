@@ -3,6 +3,9 @@ mobilequant_tpu/models/registry.py; the port imports nothing of the JAX
 package).
 
   tinyllama-1.1b  : n_layer=22 n_head=32 n_kv=4 head_dim=64 d=2048 ffn=5632 vocab=32000
+  gemma-2b        : n_layer=18 n_head=8 n_kv=1 head_dim=256 d=2048 ffn=16384
+                    vocab=256000, RMSNorm on (1 + w), gelu_tanh, the embedding
+                    scaled by sqrt(d), the head tied to the embedding
   stablelm-2-1.6b : n_layer=24 n_head=32 n_kv=32 head_dim=64 d=2048 ffn=5632
                     vocab=100352, LayerNorm with a bias, rotary on a quarter of
                     each head, a bias on q/k/v only
@@ -22,6 +25,13 @@ MODEL_CONFIGS: dict[str, ModelConfig] = {
         num_layers=22, num_heads=32, num_kv_heads=4, head_dim=64,
         norm_class="rmsnorm", norm_eps=1e-5, num_linears_per_mlp=3,
         hidden_act="silu", rope_theta=10000.0, max_position_embeddings=2048,
+    ),
+    "gemma-2b": ModelConfig(
+        vocab_size=256000, hidden_size=2048, intermediate_size=16384,
+        num_layers=18, num_heads=8, num_kv_heads=1, head_dim=256,
+        norm_class="skiprms", norm_eps=1e-6, num_linears_per_mlp=3,
+        hidden_act="gelu_tanh", rope_theta=10000.0, max_position_embeddings=8192,
+        normalize_embed=True, tie_word_embeddings=True,
     ),
     "stablelm-2-1.6b": ModelConfig(
         vocab_size=100352, hidden_size=2048, intermediate_size=5632,

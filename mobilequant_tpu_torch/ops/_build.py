@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -27,9 +28,9 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "mqt_kernels"
 LIB_PATH = BUILD_DIR / "libmqt_kernels.so"
 SOURCES = ("w4a8_matmul.cu", "w8a8_matmul.cu", "qkv_rope.cu", "prefill_attention.cu",
-           "w13_gate.cu", "fused_layer.cu", "fused_rows.cu", "fused_rows_w8.cu",
-           "fused_otail_w8.cu", "fused_mlp_tiles.cu", "fused_rows_ln.cu", "staged_append.cu",
-           "kv4_attention.cu", "decode_attention.cu", "wonly_matmul.cu")
+           "w13_gate.cu", "fused_layer.cu", "fused_layer_hd256.cu", "fused_rows.cu",
+           "fused_rows_w8.cu", "fused_otail_w8.cu", "fused_mlp_tiles.cu", "fused_rows_ln.cu",
+           "staged_append.cu", "kv4_attention.cu", "decode_attention.cu", "wonly_matmul.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 
@@ -78,23 +79,32 @@ def _stale() -> bool:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile every source in parallel and link the shared library."""
+    """Compile every source in parallel and link the shared library (verbose:
+    print each source's ptxas lines and its compile seconds)."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     extra = ["-Xptxas", "-v"] if verbose else []
-    procs = []
-    for src in SOURCES:
-        obj = BUILD_DIR / (Path(src).stem + ".o")
+    done = {}
+
+    def compile_one(src, obj):
+        t0 = time.perf_counter()
         cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(SRC_DIR / src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        done[src] = (proc, time.perf_counter() - t0)
+
+    jobs = [(src, BUILD_DIR / (Path(src).stem + ".o")) for src in SOURCES]
+    threads = [threading.Thread(target=compile_one, args=job) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     objs, errors = [], []
-    for src, obj, proc in procs:
-        out, _ = proc.communicate()
-        if verbose and out:
-            print(f"[nvcc {src}]\n{out}")
+    for src, obj in jobs:
+        proc, secs = done[src]
+        if verbose:
+            print(f"[nvcc {src}] {secs:.1f} s\n{proc.stdout}")
         if proc.returncode != 0:
-            errors.append(f"{src}:\n{out}")
+            errors.append(f"{src}:\n{proc.stdout}")
         objs.append(str(obj))
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))

@@ -70,6 +70,7 @@ from mobilequant_tpu_torch.ops.w13_gate import _fq
 from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, weight_bits
 
 SMEM_LIMIT = 200 * 1024
+MAX_HEAD_DIM = 128      # the attention stage holds at most 4 dims a lane
 
 
 def chunk_attn_smem(hd: int, S: int, ncs: int, G: int) -> int:
@@ -87,10 +88,12 @@ def chunk_attn_smem(hd: int, S: int, ncs: int, G: int) -> int:
 def chunk_kernel_supported(c, max_seq_len: int, B: int) -> bool:
     """Static shape gate of the chunk kernel (the JAX package's
     chunk_kernel_supported): 8 < B <= 128, B % 8 == 0, a sequence's K slab
-    at most 4 MiB, and the whole-layer kernels' gate."""
+    at most 4 MiB, and the whole-layer kernels' gate; and head_dim <= 128,
+    the dims a lane of the kernel's attention stage (the JAX kernel takes
+    Gemma-2B's 256 too, so there the port runs the staged route)."""
     per_seq = c.num_kv_heads * max_seq_len * c.head_dim_
     return (8 < B <= MAX_ROWS and B % 8 == 0 and per_seq <= 4 * 1024 * 1024
-            and layer_kernel_supported(c, max_seq_len))
+            and c.head_dim_ <= MAX_HEAD_DIM and layer_kernel_supported(c, max_seq_len))
 
 
 def chunk_attention_plain(q8, kc, vc, kcs, skl, svl, pos, mst, m, Hq, Hkv, hd,
@@ -237,6 +240,8 @@ def fused_model_w4_chunk(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
                                           meta_L, head, final_norm, **kw)
     dev = _build.require_cuda(x, pos, cs, ofq_L, meta_L, kcache, vcache, kcs, sk, sv,
                               qkv["wq"])
+    if hd > MAX_HEAD_DIM:
+        raise NotImplementedError(f"chunk kernel: head_dim {hd} > {MAX_HEAD_DIM}")
     if chunk_attn_smem(hd, S, ncs, Hq // Hkv) > SMEM_LIMIT:
         raise NotImplementedError(f"chunk kernel: S={S}, {ncs} staged columns need too "
                                   f"much shared memory")

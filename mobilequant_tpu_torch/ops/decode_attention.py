@@ -148,7 +148,7 @@ def decode_attention(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         decode_attention.plain_calls += 1
         return decode_attention_plain(q8, k8, v8, meta, valid_len)
     dev = _build.require_cuda(q8, k8, v8, valid_len)
-    if hd not in (64, 128) or G not in (1, 2, 4, 8, 16) or q8.dtype != torch.int8 \
+    if hd not in (64, 128, 256) or G not in (1, 2, 4, 8, 16) or q8.dtype != torch.int8 \
             or k8.dtype != torch.int8:
         raise NotImplementedError(f"decode_attention kernel: hd {hd}, G {G}")
     ncl = cluster_size(B, Hkv, S, _build.sm_count(dev), G, hd)

@@ -21,7 +21,8 @@ kin, n), per-tensor or per-channel scales); the head, W4 (K/2, Vp) or W8
 (K, Vp), has its own width. The names keep the JAX package's, whose kernels
 also take both editions by the packs' shapes.
 
-Kernel: csrc/fused_layer.cu (mqt_fused_decode), which replaces the JAX
+Kernel: csrc/fused_layer.cuh (entry mqt_fused_decode in fused_layer.cu; the
+head-dim-256 editions instantiated in fused_layer_hd256.cu), which replaces the JAX
 package's mobilequant_tpu/ops/pallas_layer.py fused_model_w4_stacked
 (_model_kernel, _layer_phase, _head_phase) and fused_layer_w4_stacked
 (_layer_kernel), W4 and W8, RMSNorm and LayerNorm editions. Bound: device-memory bytes (each weight
@@ -72,17 +73,24 @@ SMEM_LIMIT = 200 * 1024
 
 
 def _attn_smem(hd: int, S: int) -> int:
-    return 1280 + hd * 24 + 8 * hd * 8 + 128 + S * 4 + 256 * hd
+    """csrc/fused_layer.cuh smem_bytes of the attention stage: the small
+    arrays, the q / k / v rows (fp32 and shifted ints), the warps' fp64 P·V
+    partials, the q words (32 in the 4-dims-a-lane edition, hd <= 128; 64 in
+    the 8-dims one), the scores and a 256-row K / V chunk."""
+    return 1280 + hd * 24 + 8 * hd * 8 + 4 * (32 if hd <= 128 else 64) + S * 4 + 256 * hd
 
 
 def layer_kernel_supported(c, max_seq_len: int) -> bool:
-    """Static shape gate of the whole-layer and whole-model kernels."""
+    """Static shape gate of the whole-layer and whole-model kernels: head_dim
+    a multiple of 32 up to 256 (the attention stage's 4- and 8-dims-a-lane
+    editions; the JAX gate takes hd % 128 == 0, but its Ko % 512 term is not
+    copied: it would move test-llama-256 off the kernel routes)."""
     hd, Hq, Hkv = c.head_dim_, c.num_heads, c.num_kv_heads
     if Hkv < 1 or Hq % Hkv:
         return False
     K, Ko, Nq = c.hidden_size, Hq * hd, (Hq + 2 * Hkv) * hd
     rot = c.rotary_dim
-    return (hd % 32 == 0 and hd <= 128 and rot % 2 == 0 and 0 < rot <= hd
+    return (hd % 32 == 0 and hd <= 256 and rot % 2 == 0 and 0 < rot <= hd
             and K % 128 == 0 and Ko % 64 == 0 and Nq % 128 == 0
             and mlp_block_supported(K, c.intermediate_size)
             and c.hidden_act in ("silu", "gelu_tanh")

@@ -15,6 +15,8 @@ ring up to the causal bound only; Q·Kᵀ is int8 mma.sync (the exact integer,
 so every score is the float the plain version makes); P·V is fp16 mma.sync
 on V made fp16 exactly and P split into two fp16 terms (22 bits, so the
 output differs from the plain version's fp32 P·V by about 2^-22 of Σ p·|v|).
+Head dims 64, 128 and 256 (a template on the head dim; at 256 the block's two
+column groups split the head dim rather than the K/V tiles).
 The relaxed policy runs an online softmax; the strict one three passes over
 recomputed scores (row max, denominator in fp64, then normalised,
 fake-quantized probabilities into P·V), since the prob fake-quant needs the
@@ -37,6 +39,10 @@ import torch
 from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.qops import f32, int_dot, rowsum_i8
 from mobilequant_tpu_torch.ops.w13_gate import _fq
+
+# the kernel's head-dim editions; the G query heads of a kv head share a
+# block's 64 rows, so G divides 64
+HEAD_DIMS = (64, 128, 256)
 
 
 def prefill_attention_plain(q8: torch.Tensor, k8: torch.Tensor,
@@ -93,7 +99,7 @@ def prefill_attention(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         return prefill_attention_plain(q8, k8, v8, meta, positions, valid,
                                        qk_fq, pv_fq)
     dev = _build.require_cuda(q8, k8, v8, positions, valid)
-    if hd != 64 or 64 % G:
+    if hd not in HEAD_DIMS or 64 % G:
         raise NotImplementedError(f"prefill_attention kernel: head_dim {hd}, "
                                   f"group {G}")
     if q8.stride(-1) != 1 or q8.data_ptr() % 4 or any(s % 4 for s in q8.stride()[:4]):
@@ -107,7 +113,7 @@ def prefill_attention(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     out = buf.permute(0, 2, 3, 1, 4)
     qs = _build.host_int64s(q8.stride()[:4])
     os_ = _build.host_int64s(out.stride()[:4])
-    mh = _build.host_floats(list(meta)[:13])
+    mh = _build.host_floats(list(meta)[:13] + [f32(1.0 / math.sqrt(hd))])
     code = lib.mqt_prefill_attention(
         q8.data_ptr(), _build.addr(qs), k.data_ptr(), v.data_ptr(),
         pos.data_ptr(), vl.data_ptr(), buf.data_ptr(), _build.addr(os_),

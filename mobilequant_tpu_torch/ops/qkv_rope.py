@@ -8,8 +8,11 @@ of its editions: the weight bits come from the pack's shape (W4 (K/2, Nq)
 nibble-packed, W8 (K, Nq)), as in the JAX kernel. Bound: integer operations
 of the matmul at prefill M. Design: the int8 tile core (templated on the
 weight bits) with split-K, the tile staged in shared memory so each output reads its RoPE
-partner column (tiles hold whole heads); the int8 rows it writes are the KV
-cache, so the epilogue rounds exactly as the plain version does.
+partner column: a 128-column tile holds whole heads up to head_dim 128, and
+at head_dim 256 (full rotary, partner 128 columns away) the columns
+[64 p, 64 p + 64) and [128 + 64 p, 192 + 64 p) of a head; the int8 rows it
+writes are the KV cache, so the epilogue rounds exactly as the plain version
+does.
 
 Operands (as the JAX engine builds them): ofq (4, Nq) = [scale, offset, clip
 max, enabled] of the output fake-quant; outq (3, Nq) = [quant scale, quant
@@ -27,9 +30,32 @@ from mobilequant_tpu_torch.ops.w4a8_matmul import (
     affine_args, check_w48, layer_pack, w4a8_matmul_plain)
 
 
-def qkv_rope_supported(Nq: int, head_dim: int, rotary_dim: int) -> bool:
-    return (head_dim % 2 == 0 and rotary_dim % 2 == 0 and Nq % 128 == 0
-            and 128 % head_dim == 0)
+def pick_block_tn(K2w: int, Nq: int, hd: int) -> int:
+    """The JAX package's column-block width of its qkv kernel
+    (pallas_qkv._pick_block_tn): a multiple of max(128, hd) dividing Nq with
+    a K2w x TN weight block of at most ~3 MB; 0: no aligned tiling."""
+    step = max(128, hd)
+    cap = (3 * 1024 * 1024) // max(K2w, 1)
+    for t in range(min(cap, Nq) // step * step, step - 1, -step):
+        if Nq % t == 0:
+            return t
+    return 0
+
+
+def qkv_rope_supported(Nq: int, head_dim: int, rotary_dim: int, K2w: int) -> bool:
+    """The JAX engine's gate of its qkv epilogue kernel
+    (pallas_qkv.qkv_kernel_supported); K2w: the pack's weight rows (K/2 for
+    W4)."""
+    return (head_dim % 2 == 0 and rotary_dim % 2 == 0
+            and Nq % max(128, head_dim) == 0
+            and pick_block_tn(K2w, Nq, head_dim) > 0)
+
+
+def qkv_rope_kernel_takes(head_dim: int, rotary_dim: int) -> bool:
+    """Head shapes the card's kernel takes: 128-column tiles of whole heads
+    (head_dim dividing 128), or at head_dim 256 with full rotary tiles of two
+    64-column runs 128 apart, each column beside its RoPE partner."""
+    return 128 % head_dim == 0 or (head_dim == 256 and rotary_dim == 256)
 
 
 def qkv_rope_plain(h8: torch.Tensor, pack: dict, ofq: torch.Tensor,
@@ -64,15 +90,16 @@ def qkv_rope(h8: torch.Tensor, pack: dict, ofq: torch.Tensor,
     layer `layer` of the stacked W4 or W8 qkv pack."""
     p = layer_pack(pack, layer)
     M, K, Nq, bits = check_w48(h8, p["wq"])
-    if not qkv_rope_supported(Nq, head_dim, rotary_dim):
+    if not qkv_rope_supported(Nq, head_dim, rotary_dim, p["wq"].shape[0]):
         raise NotImplementedError(f"qkv_rope: Nq={Nq}, head_dim={head_dim}")
     if h8.device.type == "cpu":
         qkv_rope.plain_calls += 1
         return qkv_rope_plain(h8, p, ofq, outq, cs, h_scale, h_offset,
                               head_dim, rotary_dim)
     dev = _build.require_cuda(h8, p["wq"], ofq, outq, cs)
-    if head_dim != 64 and head_dim != 128:
-        raise NotImplementedError(f"qkv_rope kernel: head_dim {head_dim}")
+    if not qkv_rope_kernel_takes(head_dim, rotary_dim):
+        raise NotImplementedError(f"qkv_rope kernel: head_dim {head_dim}, "
+                                  f"rotary_dim {rotary_dim}")
     lib = _build.lib()
     x = _build.aligned(h8)
     w = _build.aligned(p["wq"], 4)

@@ -785,10 +785,13 @@ def _layer_forward(packed, l, lr, x, cos, sin, mask, cache, cache_position,
     h = _norm(x, ly["attn_norm"], l, "input_layernorm", lr, policy, c)
     h8, hr = out_q8(h, "input_layernorm")
     qkvp = ly["qkv_proj"]
-    if kc.gate_kernel and T > 1 and kv_bits == 8 and _is_w4(qkvp, D):
+    if (kc.gate_kernel and T > 1 and kv_bits == 8 and _is_w4(qkvp, D)
+            and qkv_rope_supported(qkvp["wq"].shape[-1], hd, c.rotary_dim,
+                                   qkvp["wq"].shape[-2])):
         # (the epilogue kernel clips every row at 255: on the int4 cache the
         # K / V rows take the per-segment 15 of the plain path below; W4 packs
-        # only, as in the JAX engine, which measured its W8 edition negative)
+        # only, as in the JAX engine, which measured its W8 edition negative;
+        # elsewhere the JAX gate's shapes fall back to the plain path, as there)
         # stacked W4 qkv matmul + output fq + RoPE + segment quantization
         q8kv = qkv_rope(h8.reshape(B * T, D), qkvp, prep["ofq"][l], prep["outq"][l],
                         prep["cs"], hr["scale"], hr["offset"], l, hd, c.rotary_dim)

@@ -2,6 +2,7 @@
 kernel on import, and never runs on the CPU when asked for the card."""
 
 import ast
+import hashlib
 import importlib
 import pkgutil
 from pathlib import Path
@@ -141,3 +142,63 @@ def test_synthetic_pack_runs_the_plain_path_on_cpu():
     out = gen.generate_fast(prompt, 6)
     assert out.shape == (1, 6) and (out >= 0).all() and (out < cfg.vocab_size).all()
     np.testing.assert_array_equal(out, gen.generate(prompt, 6))
+
+
+def _digest(packed: dict) -> str:
+    """sha256 (16 hex digits) of every tensor of a packed model, keys sorted."""
+    h = hashlib.sha256()
+
+    def walk(v):
+        if isinstance(v, dict):
+            for k in sorted(v):
+                if k != "ranges":
+                    walk(v[k])
+        elif isinstance(v, torch.Tensor):
+            h.update(v.contiguous().numpy().tobytes())
+    walk(packed)
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.parametrize("head_bits", [4, 8, 16])
+@pytest.mark.parametrize("name", ["test-gemma", "gemma-2b"])
+def test_synthetic_tied_pack_heads_from_the_embedding(name, head_bits, monkeypatch):
+    """A tied config's synthetic pack takes its head from the embedding it
+    draws, as the JAX pack does: the quantized head is pack_head of the
+    embedding's transpose, and the fp head is the embedding itself (no
+    lm_head). gemma-2b keeps its widths, cut to 1 layer and a 1,024-token
+    vocabulary so that it builds on the CPU."""
+    from mobilequant_tpu_torch import convert
+    from mobilequant_tpu_torch.models import get_config
+    from mobilequant_tpu_torch.quant.quantizer import QuantConfig
+    from mobilequant_tpu_torch.runtime import engine as E
+    if name == "gemma-2b":
+        monkeypatch.setattr(convert, "get_config", lambda n: get_config(n).replace(
+            num_layers=1, vocab_size=1024))
+    packed, cfg, policy, ecfg = convert.build_synthetic_packed(
+        name, head_bits=head_bits, max_seq_len=32, device="cpu")
+    assert cfg.tie_word_embeddings and "lm_head" not in packed
+    if name == "gemma-2b":
+        assert (cfg.hidden_size, cfg.head_dim_, cfg.num_kv_heads) == (2048, 256, 1)
+    if head_bits == 16:
+        assert "head_q" not in packed
+        return
+    want = E.pack_head(packed["embed"].T, QuantConfig(bitwidth=head_bits, is_symmetric=True,
+                                                      is_per_channel=True))
+    assert set(want) == set(packed["head_q"])
+    for k, v in want.items():
+        assert torch.equal(packed["head_q"][k], v), k
+
+
+@pytest.mark.parametrize("name,w_bits,head_bits,want", [
+    ("test-llama-256", 4, 16, "1e234356676318ac"),
+    ("test-stablelm-256", 4, 4, "73c6924e01ff0690"),
+    ("test-stablelm-256", 8, 8, "b932e376a0cf7799"),
+    ("test-stablelm-256", 4, 16, "c81b2aa47947847f"),
+    ("test-llama", 8, 8, "f0551b11c564dc5e")])
+def test_synthetic_untied_packs_keep_their_bits(name, w_bits, head_bits, want):
+    """Untied packs keep the bits they had before tied configs took their head
+    from the embedding (the head is still drawn after the embedding)."""
+    from mobilequant_tpu_torch.convert import build_synthetic_packed
+    packed, _, _, _ = build_synthetic_packed(name, w_bits=w_bits, head_bits=head_bits,
+                                             max_seq_len=32, device="cpu")
+    assert _digest(packed) == want
