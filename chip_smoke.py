@@ -128,16 +128,23 @@
      (T=128 into S=1024, T=S=1024 relaxed and strict; and its head-dim-128
      edition at one shape), the decode attention (B = 1, 32), the whole-model
      (B = 1, 8, the head folded) and whole-layer (B = 1) kernels (W4 and
-     W8), and the other kernels of the Gemma routes at its widths (w13_gate
-     at M=128 with gelu_tanh, the MLP block at M = 1, 32, W4 and W8; the W4
-     projections at M = 1, 32, 128 and the W4 head at Vp 258048), each
-     against its plain version with times and bounds;
+     W8), the chunk kernel's hd-256 edition (B = 16, 32, 64, 128 relaxed and
+     B=32 strict, pos0 192, 16 staged columns, the tied head folded; W4 and
+     W8, with its per-stage times at B=32), and the other kernels of the
+     Gemma routes at its widths (w13_gate at M=128 with gelu_tanh, the MLP
+     block at M = 1, 32, W4 and W8; the W4 projections at M = 1, 32, 128 and
+     the W4 head at Vp 258048), each against its plain version with times
+     and bounds;
    - phase 3g: Gemma serving on both packs through the entry points: B=1
      generate_fast (one whole-model launch a token), decode_per_layer(),
-     attn() at B = 1 and 32, B=32 on the entry config (the staged MLP-block
-     route: the chunk gate refuses head_dim 256), the B=1 step with its
-     engine-numerics witnesses, and a 32-step B=32 staged chunk against the
-     plain path;
+     attn() at B = 1 and 32, the chunk gate against a copy of the JAX gate's
+     terms at B = 8..136, B=32 on the entry config (W4: the staged MLP-block
+     route; W8: one chunk launch a step), W4 on KernelConfig.chunk() at B=32
+     and at B=128 (32-token prompt, 8 steps), the B=1 step with its
+     engine-numerics witnesses, and a 32-step B=32 chunk on the chunk route
+     (W4 KernelConfig.chunk(), W8 the entry config) against the chunk
+     kernel's plain version, that plain version on the plain engine's
+     numerics, and the plain path;
    the decode-attention rows of phase 2, the int4-cache phase, the attn()
    phase and phases 2q, 3w, 3f, 2m, 3m, 2s, 3s, 2g and 3g draw their inputs from
    generators of their own, so what they draw moves no input of the other
@@ -216,17 +223,23 @@ STABLELM_PREFILL_VS_PLAIN = {4: (8e-2, 15, 0.16), 8: (9e-2, 15, 0.15)}
 STABLELM_STEP_VS_PLAIN = {4: 0.1, 8: 8e-2}
 STABLELM_CHUNK_VS_PLAIN = {4: (0.1, 16, 0.55), 8: (9e-2, 16, 0.65)}
 # Gemma-2B (W4/h4, W8/h8) against the plain path, as StableLM's: the T=128
-# prefill (logits rel, max int8 step, share of differing K / V bytes), the
-# decode step after it (logits rel) and the 32-step B=32 chunk on the staged
-# MLP-block route (logits rel, max step, share of differing flushed bytes),
-# about twice the first readings on the card, the port's 2e-3 at least (the
-# engine-numerics witnesses equal the plain path bit for bit). Read: W4
-# prefill 5.66e-8, 1 step on 7.4e-6 of the bytes, the step 0, the chunk
-# 8.11e-4 with 2 steps on 4.3e-5; W8 prefill 1.37e-3, 2 steps on 0.31%, the
-# step 1.24e-3, the chunk 1.25e-2 with 4 steps on 0.19%
+# prefill (logits rel, max int8 step, share of differing K / V bytes) and the
+# decode step after it (logits rel), about twice the first readings on the
+# card, the port's 2e-3 at least (the engine-numerics witnesses equal the
+# plain path bit for bit). Read: W4 prefill 5.66e-8, 1 step on 7.4e-6 of the
+# bytes, the step 0; W8 prefill 1.37e-3, 2 steps on 0.31%, the step 1.24e-3
 GEMMA_PREFILL_VS_PLAIN = {4: (2e-3, 2, 2e-5), 8: (3e-3, 4, 7e-3)}
 GEMMA_STEP_VS_PLAIN = {4: 2e-3, 8: 3e-3}
-GEMMA_STAGED_VS_PLAIN = {4: (2e-3, 4, 1e-4), 8: (2.5e-2, 8, 4e-3)}
+# the 32-step B=32 chunk on the chunk route (W4 KernelConfig.chunk(), W8 the
+# entry config) against the plain path: (logits rel, max int8 step, share of
+# differing flushed bytes), about twice the first readings on the card (the
+# kernel equals its plain version there, and that plain version on the plain
+# engine's numerics equals the plain path bit for bit). Read: W4 4.69e-3
+# (one step; the others <= 1.13e-3), 12 steps on 0.052% of the K / V bytes;
+# W8 0.237 (one step; 26 of 32 steps <= 4.3e-3), 48 steps on 0.69%: the
+# chunk kernel's attention arithmetic (the JAX chunk kernel's) rounds
+# otherwise than the engine's, and the random W8 model grows a moved byte
+GEMMA_CHUNK_VS_PLAIN = {4: (1e-2, 24, 1.1e-3), 8: (0.5, 96, 1.4e-2)}
 
 
 T_START = time.perf_counter()
@@ -334,6 +347,24 @@ def device_profile(fn, top: int = 8):
         kern.append((e.key[:60], t / 1e3, e.count))
     kern.sort(key=lambda k: -k[1])
     return sum(k[1] for k in kern), kern[:top], sum(k[2] for k in kern)
+
+
+def jax_chunk_gate(c, max_seq_len: int, B: int) -> bool:
+    """The JAX package's chunk_kernel_supported, term for term (with its
+    layer_kernel_supported and w4_mlp_block_supported: mobilequant_tpu/ops/
+    pallas_chunk.py, pallas_layer.py, pallas_mlp.py), copied here so that
+    the port's gate is held against it on the card without importing the
+    JAX package."""
+    hd, Hq, Hkv = c.head_dim_, c.num_heads, c.num_kv_heads
+    R, K, Ko, half_f = Hq + 2 * Hkv, c.hidden_size, Hq * hd, c.intermediate_size // 2
+    if hd % 128 != 0 and not (hd == 64 and R % 2 == 0 and Hq % 2 == 0):
+        return False
+    cap = max(128, min(1024, (4 * 1024 * 1024) // (3 * K), half_f // 2))
+    tfh = next((t for t in (1024, 512, 256, 128) if t <= cap and half_f % t == 0), 0)
+    return (8 < B <= 128 and B % 8 == 0 and Hkv * max_seq_len * hd <= 4 * 1024 * 1024
+            and K % 256 == 0 and Ko % 512 == 0 and (R * hd) % 128 == 0
+            and max_seq_len % 128 == 0 and c.rotary_dim % 2 == 0 and Hq % Hkv == 0
+            and K % 256 == 0 and c.intermediate_size % 256 == 0 and tfh != 0)
 
 
 def float_err(out, ref):
@@ -3032,8 +3063,9 @@ def main() -> None:
     # W4A8/h4 and W8A8/h8 packs, inputs from a generator of their own): row 3
     # at the W4 T=128 prefill, row 4 (T=128 into S=1024, T=S=1024 relaxed and
     # strict, and the head-dim-128 edition at one shape), row 15 (B = 1, 32),
-    # rows 6 (B = 1, 8, the head folded) and 7 (B = 1), W4 and W8, and the
-    # other kernels that the Gemma routes launch, at its widths
+    # rows 6 (B = 1, 8, the head folded) and 7 (B = 1) and row 11 (B = 16,
+    # 32, 64, 128 relaxed, B = 32 strict), W4 and W8, and the other kernels
+    # that the Gemma routes launch, at its widths
     phase("phase 2g: Gemma-2B head-dim-256 editions vs plain versions")
     ggen = torch.Generator(device=dev).manual_seed(SEED + 13)
     gpk = {}
@@ -3233,8 +3265,9 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # rows 6 (B = 1, 8, with the head) and 7 (B = 1), W4 and W8, over random
-    # full-length caches, positions near POS0
-    stage_us_g = {}
+    # full-length caches, positions near POS0; then row 11
+    stage_us_g, chunk_stage_us_g = {}, {}
+    cgen = torch.Generator(device=dev).manual_seed(SEED + 15)
     for wb in (4, 8):
         pk_g, _, pol_g, _ = gpk[wb]
         lyg = pk_g["layers"]
@@ -3302,6 +3335,70 @@ def main() -> None:
                        note=f"kv_new max diff {e_kv[0]} on {e_kv[1]:.3g} of bytes; "
                             f"plain timed with events")
             del kc, vc
+        # row 11's hd-256 edition at B = 16, 32, 64, 128 (the MI 1, 2, 4, 8
+        # instantiations) relaxed, and strict at B = 32: pos0 POS0 (staggered
+        # by b % 8 below it), STAGED_M of CHUNK_COLS staged columns valid, the
+        # tied head folded (inputs from a generator of their own: the later
+        # checks' inputs stay as they were)
+        for Bc, strict in ((16, False), (SERVE_B, False), (SERVE_B, True), (64, False),
+                           (BIG_B, False)):
+            pol_c = gpk[wb][1] if strict else pol_g
+            kpc = E._kernel_prep(pk_g, pol_c, cfg_g) if strict else kpg
+            ckw = dict(gkw, qk_fq_on=bool(pol_c["self_attn.qk_bmm"].output.enabled),
+                       pv_fq_on=bool(pol_c["self_attn.pv_bmm"].input.enabled))
+            kc = torch.randint(-128, 128, (Lg, Bc, Hkvg, MAX_SEQ, hdg), generator=cgen,
+                               device=dev, dtype=torch.int8)
+            vc = torch.randint(-128, 128, kc.shape, generator=cgen, device=dev, dtype=torch.int8)
+            skc = torch.randint(-128, 128, (Lg, Bc, Hkvg, CHUNK_COLS, hdg), generator=cgen,
+                                device=dev, dtype=torch.int8)
+            svc = torch.randint(-128, 128, skc.shape, generator=cgen, device=dev,
+                                dtype=torch.int8)
+            kcs = E.kv_colsums(kc)
+            pos0 = torch.tensor([POS0 - b % 8 for b in range(Bc)], dtype=torch.int32,
+                                device=dev)
+            cos, sin = MM.rope_cos_sin((pos0 + STAGED_M)[:, None], cfg_g)
+            csb = E._rope_cs_rows(cos, sin, hdg, rotg).reshape(Bc, 2, hdg)
+            x = torch.randn((Bc, Dg), generator=cgen, device=dev)
+            valid = int(pos0.sum())
+            rows_kv = valid + Bc * STAGED_M
+            att_ops = 2.0 * Hqg * hdg * (rows_kv + Bc)
+            nbytes = (Lg * (layer_wg + vec_g + rows_kv * Hkvg * hdg * 2 + valid * Hkvg * 4
+                            + Bc * 2 * Hkvg * hdg)
+                      + 2 * Bc * Dg * 4 + Bc * 2 * hdg * 4 + Bc * 4 + head_g + Bc * Vpg * 4)
+            ops_i8 = Lg * (2.0 * Bc * (Dg * Nqg + Kog * Dg + Dg * 2 * Fg + Fg * Dg) + att_ops) \
+                + 2.0 * Bc * Dg * Vpg
+            cargs = (x, pos0, csb, kpc["ofq"], lyg["attn_norm"], lyg["qkv_proj"], lyg["o_proj"],
+                     lyg["mlp_norm"], lyg["w13_proj"], lyg["w2"], kc, vc, kcs, skc, svc,
+                     STAGED_M, kpc["meta"], *hargs_g)
+            out = fused_model_w4_chunk(*cargs, **ckw)
+            ref = fused_model_w4_chunk_plain(*cargs, **ckw)
+            e_x, e_lg = float_err(out[0], ref[0]), float_err(out[2], ref[2])
+            e_kv = int8_err(out[1], ref[1])
+            ms = time_ms(lambda i: fused_model_w4_chunk(*cargs, **ckw), n=5)
+            plain_ms = event_ms(lambda: fused_model_w4_chunk_plain(*cargs, **ckw), n=2)
+            record(hd_name("fused_model_w4_chunk", wb),
+                   f"Gemma B={Bc} pos0<={POS0} m={STAGED_M} "
+                   f"{'strict' if strict else 'relaxed'} +W{wb} head",
+                   (max(e_x[0], e_lg[0]), max(e_x[1], e_lg[1])),
+                   e_x[1] <= 2e-3 and e_lg[1] <= 2e-3 and e_kv[0] == 0, ms, plain_ms, None,
+                   bound(nbytes, int8_ops=ops_i8, fp32_ops=Lg * att_ops),
+                   note=f"kv_new max diff {e_kv[0]} on {e_kv[1]:.3g} of bytes; "
+                        f"plain timed with events", main=(Bc, strict) == (SERVE_B, False))
+            if (Bc, strict) == (SERVE_B, False):
+                tr = torch.zeros(3 + 5 * Lg, dtype=torch.int64, device=dev)
+                for _ in range(2):
+                    fused_model_w4_chunk(*cargs, trace=tr, **ckw)
+                torch.cuda.synchronize()
+                dt = (tr[1:] - tr[:-1]).double().cpu() / 1e3
+                per = dt[:5 * Lg].reshape(Lg, 5).mean(0).tolist()
+                st_us = dict(zip(("norm1", "qkv", "attention", "o_proj", "mlp_block"), per))
+                st_us["head_norm"], st_us["head"] = float(dt[5 * Lg]), float(dt[5 * Lg + 1])
+                st_us["step_traced"] = float(dt.sum())
+                chunk_stage_us_g[f"w{wb} B={Bc}"] = st_us
+                print(f"  {hd_name('fused_model_w4_chunk', wb)} B={Bc} m={STAGED_M} stage us "
+                      f"(mean per layer): " + ", ".join(f"{k} {v:.2f}" for k, v in st_us.items()),
+                      flush=True)
+            del kc, vc, skc, svc, kcs, cargs
         torch.cuda.empty_cache()
 
     # ---- phase 3g: Gemma-2B serving through the entry points ----------------
@@ -3309,12 +3406,24 @@ def main() -> None:
     # (128-token prompt, 64 new tokens; the prefill kernels, with row 3's
     # hd-256 edition on W4, then one whole-model launch a token),
     # decode_per_layer(), KernelConfig.attn() at B = 1 and 32 (row 15), B=32
-    # on the entry config (the staged MLP-block route: the chunk kernel has no
-    # hd-256 edition, so its gate refuses Gemma); the B=1 step with its
-    # engine-numerics witnesses, and one 32-step B=32 staged chunk against the
+    # on the entry config (W4: the staged MLP-block route; W8: the chunk
+    # kernel, which KernelConfig.serving turns on for W8 at 8 < B <= 48), W4
+    # on KernelConfig.chunk() at B = 32 and 128 (the 32-token prompt, 8
+    # steps); the B=1 step with its engine-numerics witnesses, and one
+    # 32-step B=32 chunk on the chunk route against the chunk kernel's plain
+    # version, that plain version on the plain engine's numerics, and the
     # plain path
     phase("phase 3g: Gemma-2B serving, W4A8/h4 and W8A8/h8, int8 KV, relaxed")
     serve_g, chain_g, b1_g = {}, {}, {}
+    # the chunk gate takes Gemma-2B (head_dim 256) where the JAX engine takes
+    # its chunk kernel: the JAX gate's terms, copied (jax_chunk_gate)
+    gate_g = {Bq: (chunk_kernel_supported(cfg_g, MAX_SEQ, Bq), jax_chunk_gate(cfg_g, MAX_SEQ, Bq))
+              for Bq in (8, 16, 32, 48, 64, 128, 136)}
+    if any(a != j for a, j in gate_g.values()) \
+            or not all(gate_g[Bq][0] for Bq in (16, 32, 64, 128)):
+        failures.append(f"the chunk gate on Gemma-2B (port, JAX terms) by B: {gate_g}")
+    p128g = torch.randint(0, cfg_g.vocab_size, (BIG_B, SHORT_PROMPT), generator=cgen,
+                          device=dev).cpu().numpy()
     for wb in (4, 8):
         pk_g, _, pol_g, ecfg_g = gpk[wb]
         t = f"g{wb}"
@@ -3350,12 +3459,30 @@ def main() -> None:
                      {"decode_attention": (n_new - 1) * Lg, "fused_model_w4": 0,
                       "staged_append": 0, "fused_model_w4_chunk": 0}, store=serve_g)
         del ga_g
-        gs_g = Generator(pk_g, cfg_g, pol_g, ecfg_g, device=dev)
-        if chunk_kernel_supported(cfg_g, MAX_SEQ, SERVE_B):
-            failures.append("the chunk gate takes Gemma-2B's head_dim 256")
-        w8_route(f"{t}_b32_staged", gs_g, p32g, BIG_STEPS + 1, BIG_STEPS,
-                 {"fused_mlp_block_w4": Lg * BIG_STEPS, "staged_append": BIG_STEPS,
-                  "fused_model_w4_chunk": 0, "fused_model_w4": 0}, store=serve_g)
+        gs_g = Generator(pk_g, cfg_g, pol_g, ecfg_g, device=dev)     # the entry config
+        kc_chunk = KernelConfig.chunk() if wb == 4 else KernelConfig.serving(cfg_g, pk_g,
+                                                                              SERVE_B)
+        if not kc_chunk.chunk_kernel:
+            failures.append(f"{t}: the entry config takes no chunk kernel at B={SERVE_B}")
+        chunk_want = {"staged_append": steps, "fused_model_w4_chunk": steps,
+                      "fused_mlp_block_w4": 0, "fused_model_w4": 0}
+        if wb == 4:
+            # the entry config's staged route (W4 packs never take the chunk
+            # kernel there), then KernelConfig.chunk() at B = 32 and 128
+            w8_route(f"{t}_b32_staged", gs_g, p32g, BIG_STEPS + 1, BIG_STEPS,
+                     {"fused_mlp_block_w4": Lg * BIG_STEPS, "staged_append": BIG_STEPS,
+                      "fused_model_w4_chunk": 0, "fused_model_w4": 0}, store=serve_g)
+            gc_g = Generator(pk_g, cfg_g, pol_g, dataclasses.replace(ecfg_g, use_pallas=kc_chunk),
+                             device=dev)
+            w8_route(f"{t}_b32_chunk", gc_g, p32g, NEW_TOKENS, CHUNK_COLS, chunk_want,
+                     store=serve_g)
+            w8_route(f"{t}_b128_chunk", gc_g, p128g, BIG_STEPS + 1, BIG_STEPS,
+                     {**chunk_want, "staged_append": BIG_STEPS,
+                      "fused_model_w4_chunk": BIG_STEPS}, store=serve_g)
+            del gc_g
+        else:
+            w8_route(f"{t}_b32_chunk", gs_g, p32g, NEW_TOKENS, CHUNK_COLS, chunk_want,
+                     store=serve_g)
 
         # B=1 against the plain path: prefill logits, one decode() step (both
         # fed the plain path's greedy token), and the witnesses: the prefill
@@ -3432,40 +3559,49 @@ def main() -> None:
             failures.append(f"{t} B=1 witness vs plain: logits rel {e_wit[1]}, caches equal "
                             f"{wit_eq}, launches {runs[f'{t}_b1_step_kernel']}")
 
-        # one CHUNK_COLS-step B=32 chunk fed the same tokens on the entry
-        # config's staged route and on the plain path
+        # one CHUNK_COLS-step B=32 chunk fed the same tokens on the chunk
+        # route, on that route with the kernel's plain version, on that route
+        # with the plain version on the plain engine's numerics (the witness
+        # that the route's wiring is the engine's), and on the plain path
         c32g = E.init_kv_cache(ecfg_g, SERVE_B, device=dev)
         _, c32g = gs_g.prefill(torch.as_tensor(p32g, device=dev), c32g)
         ftok_g = torch.randint(0, cfg_g.vocab_size, (SERVE_B, CHUNK_COLS), generator=ggen,
                                device=dev)
-        kc_entry = KernelConfig.serving(cfg_g, pk_g, SERVE_B)
+        plain_chunk = {(E, "fused_model_w4_chunk"): fused_model_w4_chunk_plain}
+        stand_g = {f"{t}_chunk_plain_fn": plain_chunk,
+                   f"{t}_chunk_engine_numerics": {**plain_chunk,
+                                                  **engine_numerics(E, cfg_g, pol_g)}}
         chn = {}
-        for tag, kc_c in ((f"{t}_staged", kc_entry), (f"{t}_plain", KernelConfig.none())):
+        for tag, kc_c in ((f"{t}_chunk", kc_chunk), *((w, kc_chunk) for w in stand_g),
+                          (f"{t}_plain", KernelConfig.none())):
             cc = E.EngineKVCache(c32g.k.clone(), c32g.v.clone())
-            chn[tag] = counted(f"chain_{tag}", lambda: staged_chunk(
-                kc_c, cc, ftok_g, fpos, pk_g, pol_g, cfg_c=cfg_g))
-        if runs[f"chain_{t}_staged"]["fused_mlp_block_w4"] != CHUNK_COLS * Lg \
-                or runs[f"chain_{t}_staged"]["fused_model_w4_chunk"] \
+            with patched(stand_g.get(tag, {})):
+                chn[tag] = counted(f"chain_{tag}", lambda: staged_chunk(
+                    kc_c, cc, ftok_g, fpos, pk_g, pol_g, cfg_c=cfg_g))
+        if runs[f"chain_{t}_chunk"]["fused_model_w4_chunk"] != CHUNK_COLS \
+                or runs[f"chain_{t}_chunk"]["fused_mlp_block_w4"] \
+                or runs[f"chain_{t}_chunk_engine_numerics"]["fused_model_w4_chunk"] \
                 or any(runs[f"chain_{t}_plain"].values()):
-            failures.append(f"{t} chain launches {runs[f'chain_{t}_staged']} / "
+            failures.append(f"{t} chain launches {runs[f'chain_{t}_chunk']} / "
                             f"{runs[f'chain_{t}_plain']}")
-        tag, ref = f"{t}_staged", f"{t}_plain"
-        e_l = float_err(chn[tag][0], chn[ref][0])
-        stp = [float_err(chn[tag][0][:, i], chn[ref][0][:, i])[1] for i in range(CHUNK_COLS)]
-        e_k = int8_err(chn[tag][1].k[:, :, :, window], chn[ref][1].k[:, :, :, window])
-        e_v = int8_err(chn[tag][1].v[:, :, :, window], chn[ref][1].v[:, :, :, window])
-        fin = bool(torch.isfinite(chn[tag][0]).all())
-        chain_g[f"{tag}_vs_{ref}"] = {"logits_rel": e_l[1], "logits_rel_first_step": stp[0],
-                                      "logits_rel_per_step": stp, "k_rows": e_k, "v_rows": e_v,
-                                      "finite": fin}
-        print(f"  {t} B={SERVE_B} {CHUNK_COLS}-step staged chunk vs plain: logits rel "
-              f"{e_l[1]:.3g} (step 0: {stp[0]:.3g}); flushed K rows {e_k}, V rows {e_v}",
-              flush=True)
-        lim = GEMMA_STAGED_VS_PLAIN[wb]
-        if not fin or e_l[1] > lim[0]:
-            failures.append(f"{tag} chunk vs {ref}: logits rel {e_l[1]}, finite {fin}")
-        if max(e_k[0], e_v[0]) > lim[1] or max(e_k[1], e_v[1]) > lim[2]:
-            failures.append(f"{tag} chunk vs {ref}: flushed rows {e_k} {e_v}")
+        for tag, ref, lim in ((f"{t}_chunk", f"{t}_chunk_plain_fn", (2e-3, 0, 0.0)),
+                              (f"{t}_chunk_engine_numerics", f"{t}_plain", (1e-6, 0, 0.0)),
+                              (f"{t}_chunk", f"{t}_plain", GEMMA_CHUNK_VS_PLAIN[wb])):
+            e_l = float_err(chn[tag][0], chn[ref][0])
+            stp = [float_err(chn[tag][0][:, i], chn[ref][0][:, i])[1] for i in range(CHUNK_COLS)]
+            e_k = int8_err(chn[tag][1].k[:, :, :, window], chn[ref][1].k[:, :, :, window])
+            e_v = int8_err(chn[tag][1].v[:, :, :, window], chn[ref][1].v[:, :, :, window])
+            fin = bool(torch.isfinite(chn[tag][0]).all())
+            chain_g[f"{tag}_vs_{ref}"] = {"logits_rel": e_l[1], "logits_rel_first_step": stp[0],
+                                          "logits_rel_per_step": stp, "k_rows": e_k,
+                                          "v_rows": e_v, "finite": fin}
+            print(f"  {t} B={SERVE_B} {CHUNK_COLS}-step chunk, {tag} vs {ref}: logits rel "
+                  f"{e_l[1]:.3g} (step 0: {stp[0]:.3g}); flushed K rows {e_k}, V rows {e_v}",
+                  flush=True)
+            if not fin or e_l[1] > lim[0]:
+                failures.append(f"{tag} chunk vs {ref}: logits rel {e_l[1]}, finite {fin}")
+            if max(e_k[0], e_v[0]) > lim[1] or max(e_k[1], e_v[1]) > lim[2]:
+                failures.append(f"{tag} chunk vs {ref}: flushed rows {e_k} {e_v}")
         del g_g, gs_g, c32g, chn
     del gpk
     torch.cuda.empty_cache()
@@ -3520,6 +3656,10 @@ def main() -> None:
                "w13_gate_w2[w8]": ("csrc/fused_mlp_tiles.cu",
                                    "mobilequant_tpu/ops/pallas_mlp.py:1194")}
     # the head-dim-256 editions (Gemma-2B)
+    sources["fused_model_w4_chunk[hd256]"] = ("csrc/fused_rows_hd256.cu",
+                                              "mobilequant_tpu/ops/pallas_chunk.py:841")
+    sources["fused_model_w4_chunk[w8,hd256]"] = ("csrc/fused_rows_hd256_w8.cu",
+                                                 "mobilequant_tpu/ops/pallas_chunk.py:841")
     for base, src, rep in (
             ("qkv_rope", "qkv_rope.cu", "pallas_qkv.py:126"),
             ("prefill_attention", "prefill_attention.cu", "pallas_prefill_attention.py:201"),
@@ -3555,7 +3695,9 @@ def main() -> None:
                      "decode_attention[hd256]": "g4_attn_b1",
                      "fused_model_w4[hd256]": "g4_main", "fused_model_w4[w8,hd256]": "g8_main",
                      "fused_layer_w4[hd256]": "g4_per_layer",
-                     "fused_layer_w4[w8,hd256]": "g8_per_layer"})
+                     "fused_layer_w4[w8,hd256]": "g8_per_layer",
+                     "fused_model_w4_chunk[hd256]": "g4_b32_chunk",
+                     "fused_model_w4_chunk[w8,hd256]": "g8_b32_chunk"})
     for wb, tag in ((4, "[ln]"), (8, "[w8,ln]")):
         route_of.update({f"fused_model_w4{tag}": f"s{wb}_main",
                          f"fused_layer_w4{tag}": f"s{wb}_per_layer",
@@ -3624,8 +3766,10 @@ def main() -> None:
               "stablelm": {"serving": serve_s, "fused_model_stage_us": stage_us_s,
                            "chunk_stage_us": chunk_stage_us_s, "b1_step": b1_s,
                            "chunk_vs_plain": chain_s},
-              "gemma": {"serving": serve_g, "fused_model_stage_us": stage_us_g, "b1_step": b1_g,
-                        "staged_vs_plain": chain_g}}
+              "gemma": {"serving": serve_g, "fused_model_stage_us": stage_us_g,
+                        "chunk_stage_us": chunk_stage_us_g, "b1_step": b1_g,
+                        "chunk_gate": {str(k): v for k, v in gate_g.items()},
+                        "chunk_vs_plain": chain_g}}
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     if failures:
         fail("; ".join(failures))

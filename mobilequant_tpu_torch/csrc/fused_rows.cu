@@ -32,17 +32,20 @@ MQT_EXPORT int mqt_fused_otail(const void* args, void* stream) {
 
 // A whole staged decode step, layers [a.l0, a.l1) over a.M <= 128 sequences,
 // with the head when a.logits is set; the four packs share one bit width (4
-// or 8), the head has its own (a.hbits).
+// or 8), the head has its own (a.hbits). The attention stage's editions: 4
+// head dims a lane up to hd 128 (the TinyLlama / StableLM kernels as they
+// were), 8 at hd 256 (Gemma-2B; fused_rows_hd256.cu, fused_rows_hd256_w8.cu);
+// no other head_dim.
 MQT_EXPORT int mqt_fused_chunk(const void* args, void* stream) {
   const Args& a = *(const Args*)args;
   const int wb = a.qkv.bits;
-  if (!rows_ok(a) || a.hd % 32 || a.hd > 128 || a.mst < 0 || a.mst > a.ncs
+  if (!rows_ok(a) || a.hd % 32 || (a.hd > 128 && a.hd != 256) || a.mst < 0 || a.mst > a.ncs
       || (a.Hq * a.hd) % 64 || a.qkv.n % 4 || a.Hkv < 1 || a.Hq % a.Hkv
       || a.o.bits != wb || a.w13.bits != wb || a.w2.bits != wb
       || (a.logits && a.hbits != 4 && a.hbits != 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (wb == 8) return mqt_rows_w8_chunk(a, st);
-  if (wb == 4) return launch_chunk<4>(a, st);
+  if (wb == 8) return a.hd == 256 ? mqt_rows_w8_chunk_hd256(a, st) : mqt_rows_w8_chunk(a, st);
+  if (wb == 4) return a.hd == 256 ? mqt_rows_chunk_hd256(a, st) : launch_chunk<4>(a, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,8 +3,10 @@
 // the C entries, fused_rows_w8.cu the W8 editions of the MLP-block and chunk
 // kernels, fused_otail_w8.cu the W8 o-tail, fused_mlp_tiles.cu the raw-sum
 // and w2-epilogue MLP kernels of both widths, fused_rows_ln.cu the MLP
-// block's LayerNorm kind of both widths (five translation units, so that the
-// build compiles them at the same time).
+// block's LayerNorm kind of both widths, fused_rows_hd256.cu and
+// fused_rows_hd256_w8.cu the chunk kernel's head-dim-256 editions, W4 and W8
+// (seven translation units, so that the build compiles them at the same
+// time).
 //
 // Replaces mobilequant_tpu/ops/pallas_chunk.py fused_model_w4_chunk
 // (_chunk_kernel, _chunk_mlp_phase: a whole staged decode step of a serving
@@ -56,6 +58,8 @@
 //     add exactly 0 (neg_inf <= -1e4), so only valid rows are read. Above
 //     64 rows (whose tiles leave one block an SM) an item is a (sequence, kv
 //     head) with its q heads, so each valid K/V row is read once for them.
+//     The per-head stage comes in two editions (DPL, head dims a lane): 4 up
+//     to hd 128, 8 at hd 256 (Gemma-2B, which the grouped stage does not take).
 //
 // Per layer of the chunk kernel: norm1 | qkv | attention | o | norm2 | w13 +
 // gate | w2 (a grid barrier after each); then the final norm and the head.
@@ -506,26 +510,31 @@ __device__ void rows_mlp(const Args& a, RowSmem& s, int l, const float* mm, cons
 
 __host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
 
-// byte offsets of the attention stage's arrays in shared memory
+// byte offsets of the attention stage's arrays in shared memory (dpl: the
+// edition's DPL, 4 up to hd 128, 8 at hd 256)
 struct AttnLayout {
   size_t ys, part, qi, sc, kvs, end;
-  __host__ __device__ AttnLayout(int hd, int S, int ncs) {
+  __host__ __device__ AttnLayout(int hd, int S, int ncs, int dpl) {
     ys = 128;                                           // dred (NW doubles), fred (NW floats)
     part = align16(ys + (size_t)6 * hd * 4);            // ys, q8: 3 x hd floats each
     qi = part + (size_t)2 * NW * hd * 8;                // cache | staged P·V partials
-    sc = qi + 128;                                      // hd / 4 q words
+    sc = qi + (size_t)32 * dpl;                         // 8·DPL >= hd / 4 q words
     kvs = align16(sc + (size_t)(S + ncs) * 4);          // scores: S cache, ncs staged
     end = kvs + (size_t)KV_CHUNK * hd;                  // staged cache rows
   }
 };
 
+// DPL: the edition's most head dims a lane (4: hd <= 128; 8: hd 256,
+// Gemma-2B), so a K row is at most 2·DPL 16-byte words and the q row 8·DPL
+// int words, and a lane holds DPL fp64 P·V sums a part.
+template <int DPL>
 __device__ void stage_chunk_attention(const Args& a, int l) {
   const float* m = a.meta + (size_t)l * META;
   const int hd = a.hd, Hq = a.Hq, Hkv = a.Hkv, G = Hq / Hkv, S = a.S, ncs = a.ncs;
   const int Nq = a.qkv.n, Ko = Hq * hd, B = a.M, mst = a.mst;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   char* base = smem_base();
-  const AttnLayout lay(hd, S, ncs);
+  const AttnLayout lay(hd, S, ncs, DPL);
   double* dred = reinterpret_cast<double*>(base);
   float* fred = reinterpret_cast<float*>(base + 64);
   float* ys = reinterpret_cast<float*>(base + lay.ys);     // q, k, v rows
@@ -542,8 +551,8 @@ __device__ void stage_chunk_attention(const Args& a, int l) {
   const float cf = a.qk_fq ? sqk : sqk * inv;
   const int half = a.rot >> 1;
   const int li = l - a.l0;
-  const int hw = hd >> 2;                      // int words per row (<= 32)
-  const int dpl = hd >> 5;                     // head dims per lane (<= 4)
+  const int hw = hd >> 2;                      // int words per row (<= 8 DPL)
+  const int dpl = hd >> 5;                     // head dims per lane (<= DPL)
   for (int it = blockIdx.x; it < B * Hq; it += gridDim.x) {
     const int b = it / Hq, qh = it % Hq, h = qh / G;
     int P = a.pos[b];
@@ -606,7 +615,7 @@ __device__ void stage_chunk_attention(const Args& a, int l) {
         const int4* kr = reinterpret_cast<const int4*>(kvs + (size_t)r * hd);
         int acc = 0;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < 2 * DPL; ++i) {
           if (i < (hd >> 4)) {
             const int4 t = kr[i];
             acc = __dp4a(qi[4 * i], t.x, acc);
@@ -624,7 +633,7 @@ __device__ void stage_chunk_attention(const Args& a, int l) {
       const int4* kr = reinterpret_cast<const int4*>(skp + (size_t)r * hd);
       int ks = 0, acc = 0;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < 2 * DPL; ++i) {
         if (i < (hd >> 4)) {
           const int4 t = __ldg(kr + i);
           ks = __dp4a(t.w, 0x01010101, __dp4a(t.z, 0x01010101,
@@ -679,7 +688,9 @@ __device__ void stage_chunk_attention(const Args& a, int l) {
     __syncthreads();
     // Σ p·v over the cache rows and the staged rows (warp w takes rows w,
     // w + NW, ...; lanes over head_dim); fp64 partials meet in shared memory
-    double accC[4] = {0.0, 0.0, 0.0, 0.0}, accS[4] = {0.0, 0.0, 0.0, 0.0};
+    double accC[DPL], accS[DPL];
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) accC[j] = accS[j] = 0.0;
     const int8_t* vc = a.vcache + seq * (size_t)S * hd;
     for (int c0 = 0; c0 < P; c0 += KV_CHUNK) {
       const int nr = min(KV_CHUNK, P - c0);
@@ -689,22 +700,29 @@ __device__ void stage_chunk_attention(const Args& a, int l) {
         const double p = (double)sc[c0 + r];
         const int8_t* vr = kvs + (size_t)r * hd + lane;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < DPL; ++j)
           if (j < dpl) accC[j] += p * (double)vr[32 * j];
       }
+    }
+    if constexpr (DPL > 4) {
+      // 8 dims a lane: the cache part's sums leave the registers before the
+      // staged pass, so a lane never holds more than DPL of them
+#pragma unroll
+      for (int j = 0; j < DPL; ++j)
+        if (j < dpl) part[warp * hd + lane + 32 * j] = accC[j];
     }
     const int8_t* svp = a.sv + seq * (size_t)ncs * hd;
     for (int r = warp; r < mst; r += NW) {
       const double p = (double)sc[S + r];
       const int8_t* vr = svp + (size_t)r * hd + lane;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < DPL; ++j)
         if (j < dpl) accS[j] += p * (double)__ldg(vr + 32 * j);
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < DPL; ++j)
       if (j < dpl) {
-        part[warp * hd + lane + 32 * j] = accC[j];
+        if constexpr (DPL <= 4) part[warp * hd + lane + 32 * j] = accC[j];
         part[(NW + warp) * hd + lane + 32 * j] = accS[j];
       }
     __syncthreads();
@@ -1078,7 +1096,9 @@ __global__ void __launch_bounds__(FT, MI <= 2 ? 2 : 1)
   rows_mlp<MI, WB, NORM_RUNTIME>(a, s, a.l0, s.meta, a.resid, a.x_out, a.M);
 }
 
-template <int MI, int WB>
+// DPL: the attention stage's edition (stage_chunk_attention), 4 up to hd
+// 128, 8 at hd 256 (fused_rows_hd256.cu, fused_rows_hd256_w8.cu).
+template <int MI, int WB, int DPL>
 __global__ void __launch_bounds__(FT, (MI <= 2 || (MI == 4 && WB == 4)) ? 2 : 1)
     fused_chunk_kernel(const Args a, int) {
   RowSmem& s = row_smem();
@@ -1120,14 +1140,18 @@ __global__ void __launch_bounds__(FT, (MI <= 2 || (MI == 4 && WB == 4)) ? 2 : 1)
     }
     grid_barrier(a.bar);
     stamp(a, ts++);
-    // above 64 rows (one block an SM): one item per (sequence, kv head)
-    if constexpr (MI == 8) {
+    // above 64 rows (one block an SM): one item per (sequence, kv head). The
+    // grouped stage holds at most 4 dims a lane (8 int4 words a K row, 4
+    // outputs a thread), so the hd-256 edition takes the per-head stage at
+    // every B (Gemma-2B has one kv head: B·Hkv <= 128 items never fill the
+    // grid of 132 SMs anyway).
+    if constexpr (MI == 8 && DPL == 4) {
       if (a.M * a.Hkv >= (int)gridDim.x && GMAX % (a.Hq / a.Hkv) == 0)
         stage_chunk_attention_grouped(a, l);
       else
-        stage_chunk_attention(a, l);
+        stage_chunk_attention<DPL>(a, l);
     } else {
-      stage_chunk_attention(a, l);
+      stage_chunk_attention<DPL>(a, l);
     }
     grid_barrier(a.bar);
     stamp(a, ts++);
@@ -1176,10 +1200,13 @@ bool rows_ok(const Args& a) {
 }
 
 
+// the chunk kernel's shared memory: the row stages', the per-head attention
+// stage's and, up to hd 128 (the editions that may take it), the grouped one's
 size_t chunk_smem(const Args& a) {
-  const AttnLayout lay(a.hd, a.S, a.ncs);
-  const GroupLayout glay(a.hd, a.S, a.ncs, a.Hq / a.Hkv <= GMAX ? a.Hq / a.Hkv : 1);
+  const AttnLayout lay(a.hd, a.S, a.ncs, a.hd <= 128 ? 4 : 8);
   size_t sm = lay.end > sizeof(RowSmem) ? lay.end : sizeof(RowSmem);
+  if (a.hd > 128) return sm;
+  const GroupLayout glay(a.hd, a.S, a.ncs, a.Hq / a.Hkv <= GMAX ? a.Hq / a.Hkv : 1);
   return glay.end > sm ? glay.end : sm;
 }
 
@@ -1213,14 +1240,14 @@ int launch_otail(const Args& a, cudaStream_t st) {
   }
 }
 
-template <int WB>
+template <int WB, int DPL = 4>
 int launch_chunk(const Args& a, cudaStream_t st) {
   const size_t sm = chunk_smem(a);
   switch (mi_of(a.M)) {
-    case 1: return launch_coop(fused_chunk_kernel<1, WB>, a, 0, sm, st);
-    case 2: return launch_coop(fused_chunk_kernel<2, WB>, a, 0, sm, st);
-    case 4: return launch_coop(fused_chunk_kernel<4, WB>, a, 0, sm, st);
-    default: return launch_coop(fused_chunk_kernel<8, WB>, a, 0, sm, st);
+    case 1: return launch_coop(fused_chunk_kernel<1, WB, DPL>, a, 0, sm, st);
+    case 2: return launch_coop(fused_chunk_kernel<2, WB, DPL>, a, 0, sm, st);
+    case 4: return launch_coop(fused_chunk_kernel<4, WB, DPL>, a, 0, sm, st);
+    default: return launch_coop(fused_chunk_kernel<8, WB, DPL>, a, 0, sm, st);
   }
 }
 
@@ -1228,11 +1255,15 @@ int launch_chunk(const Args& a, cudaStream_t st) {
 
 // The launches of the other translation units: the W8 MLP block and chunk
 // kernels (fused_rows_w8.cu), the W8 o-tail (fused_otail_w8.cu), the
-// MLP_RAW / MLP_W2 kernels, W4 and W8 (fused_mlp_tiles.cu), and the MLP
-// block's LayerNorm kind, W4 and W8 (fused_rows_ln.cu); the arguments are
-// checked by the entries of fused_rows.cu.
+// MLP_RAW / MLP_W2 kernels, W4 and W8 (fused_mlp_tiles.cu), the MLP
+// block's LayerNorm kind, W4 and W8 (fused_rows_ln.cu), and the chunk
+// kernel's hd-256 editions, W4 (fused_rows_hd256.cu) and W8
+// (fused_rows_hd256_w8.cu); the arguments are checked by the entries of
+// fused_rows.cu.
 int mqt_rows_w8_mlp(const MqtFusedArgs& a, cudaStream_t st);
 int mqt_rows_mlp_ln(const MqtFusedArgs& a, cudaStream_t st);
 int mqt_rows_w8_chunk(const MqtFusedArgs& a, cudaStream_t st);
+int mqt_rows_chunk_hd256(const MqtFusedArgs& a, cudaStream_t st);
+int mqt_rows_w8_chunk_hd256(const MqtFusedArgs& a, cudaStream_t st);
 int mqt_rows_w8_otail(const MqtFusedArgs& a, cudaStream_t st);
 int mqt_rows_mlp_raw_w2(const MqtFusedArgs& a, int mode, cudaStream_t st);

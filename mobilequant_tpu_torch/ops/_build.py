@@ -29,8 +29,9 @@ BUILD_DIR = PKG_DIR.parent / "build" / "mqt_kernels"
 LIB_PATH = BUILD_DIR / "libmqt_kernels.so"
 SOURCES = ("w4a8_matmul.cu", "w8a8_matmul.cu", "qkv_rope.cu", "prefill_attention.cu",
            "w13_gate.cu", "fused_layer.cu", "fused_layer_hd256.cu", "fused_rows.cu",
-           "fused_rows_w8.cu", "fused_otail_w8.cu", "fused_mlp_tiles.cu", "fused_rows_ln.cu",
-           "staged_append.cu", "kv4_attention.cu", "decode_attention.cu", "wonly_matmul.cu")
+           "fused_rows_w8.cu", "fused_rows_hd256.cu", "fused_rows_hd256_w8.cu",
+           "fused_otail_w8.cu", "fused_mlp_tiles.cu", "fused_rows_ln.cu", "staged_append.cu",
+           "kv4_attention.cu", "decode_attention.cu", "wonly_matmul.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 

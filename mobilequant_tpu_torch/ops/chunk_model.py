@@ -18,7 +18,8 @@ The layer packs are all W4 or all W8 (the JAX kernel's two editions, there
 by the packs' shapes); the head has its own width (the W8 head folded as the
 JAX chunk kernel folds it).
 
-Kernel: csrc/fused_rows.cu / fused_rows_w8.cu (mqt_fused_chunk), which replace
+Kernel: csrc/fused_rows.cu / fused_rows_w8.cu (mqt_fused_chunk; the head-dim-256
+editions in fused_rows_hd256.cu / fused_rows_hd256_w8.cu), which replace
 the JAX package's mobilequant_tpu/ops/pallas_chunk.py fused_model_w4_chunk
 (_chunk_kernel, _chunk_mlp_phase). Bound: device-memory bytes: each weight
 byte once per step (518 MB for TinyLlama-1.1B with its W4 head, 1,036 MB with
@@ -70,15 +71,28 @@ from mobilequant_tpu_torch.ops.w13_gate import _fq
 from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, weight_bits
 
 SMEM_LIMIT = 200 * 1024
-MAX_HEAD_DIM = 128      # the attention stage holds at most 4 dims a lane
+
+
+def chunk_head_dim_ok(hd: int) -> bool:
+    """The kernel's attention editions (csrc/fused_rows.cu mqt_fused_chunk):
+    4 head dims a lane up to 128, 8 at 256 (Gemma-2B)."""
+    return hd % 32 == 0 and (hd <= 128 or hd == 256)
+
+
+def chunk_qwords(hd: int) -> int:
+    """The packed q words the per-head attention stage reserves (8·DPL)."""
+    return 32 if hd <= 128 else 64
 
 
 def chunk_attn_smem(hd: int, S: int, ncs: int, G: int) -> int:
     """Shared-memory bytes of the chunk kernel's attention stages (per q head,
-    and per kv head with its G <= 8 q heads: csrc/fused_rows.cu)."""
+    and up to hd 128 per kv head with its G <= 8 q heads: csrc/fused_rows.cuh
+    AttnLayout, GroupLayout)."""
     def a16(n):
         return (n + 15) & ~15
-    per_head = 1280 + hd * 24 + 2 * 8 * hd * 8 + 128 + (S + ncs) * 4 + 256 * hd
+    per_head = 1280 + hd * 24 + 2 * 8 * hd * 8 + 4 * chunk_qwords(hd) + (S + ncs) * 4 + 256 * hd
+    if hd > 128:            # the hd-256 edition never takes the grouped stage
+        return per_head
     g = G if G <= 8 else 1
     part = a16(a16(128 + 2 * (g + 2) * hd * 4) + 8 * 8 * 4 + g * hd)
     grouped = a16(part + 2 * 256 * 8 + g * (S + ncs) * 4) + 256 * hd
@@ -88,12 +102,12 @@ def chunk_attn_smem(hd: int, S: int, ncs: int, G: int) -> int:
 def chunk_kernel_supported(c, max_seq_len: int, B: int) -> bool:
     """Static shape gate of the chunk kernel (the JAX package's
     chunk_kernel_supported): 8 < B <= 128, B % 8 == 0, a sequence's K slab
-    at most 4 MiB, and the whole-layer kernels' gate; and head_dim <= 128,
-    the dims a lane of the kernel's attention stage (the JAX kernel takes
-    Gemma-2B's 256 too, so there the port runs the staged route)."""
+    at most 4 MiB, and the whole-layer kernels' gate (head_dim a multiple of
+    32 up to 256; the registry's models have 64 or 256, which the kernel's
+    two attention editions take)."""
     per_seq = c.num_kv_heads * max_seq_len * c.head_dim_
     return (8 < B <= MAX_ROWS and B % 8 == 0 and per_seq <= 4 * 1024 * 1024
-            and c.head_dim_ <= MAX_HEAD_DIM and layer_kernel_supported(c, max_seq_len))
+            and layer_kernel_supported(c, max_seq_len))
 
 
 def chunk_attention_plain(q8, kc, vc, kcs, skl, svl, pos, mst, m, Hq, Hkv, hd,
@@ -240,8 +254,9 @@ def fused_model_w4_chunk(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
                                           meta_L, head, final_norm, **kw)
     dev = _build.require_cuda(x, pos, cs, ofq_L, meta_L, kcache, vcache, kcs, sk, sv,
                               qkv["wq"])
-    if hd > MAX_HEAD_DIM:
-        raise NotImplementedError(f"chunk kernel: head_dim {hd} > {MAX_HEAD_DIM}")
+    if not chunk_head_dim_ok(hd):
+        raise NotImplementedError(f"chunk kernel: head_dim {hd} (a multiple of 32 up to "
+                                  f"128, or 256)")
     if chunk_attn_smem(hd, S, ncs, Hq // Hkv) > SMEM_LIMIT:
         raise NotImplementedError(f"chunk kernel: S={S}, {ncs} staged columns need too "
                                   f"much shared memory")

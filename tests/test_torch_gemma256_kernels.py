@@ -121,8 +121,8 @@ def jmeta_L(b, jpol):
 def test_gates_take_the_shape_as_the_jax_engine(wb):
     """Fault 1: the qkv epilogue gate is the JAX one (hd 256 passes, where
     the port's old 128 % hd rule refused it); the whole-layer gate takes hd
-    256 as the JAX one does; the chunk gate refuses it (no hd-256 edition of
-    the chunk kernel yet) where the JAX one takes it."""
+    256 as the JAX one does, and so does the chunk gate (the chunk kernel's
+    hd-256 edition)."""
     b = built(wb)
     c, jc = b["cfg"], b["jcfg"]
     wq = b["packed"]["layers"]["qkv_proj"]["wq"]
@@ -134,7 +134,7 @@ def test_gates_take_the_shape_as_the_jax_engine(wb):
         assert pick_block_tn(k2w, nq, hd) == PQ._pick_block_tn(k2w, nq, hd)
     assert qkv_rope_kernel_takes(256, 256) and not qkv_rope_kernel_takes(256, 128)
     assert layer_kernel_supported(c, S_MAX) and PL.layer_kernel_supported(jc, S_MAX)
-    assert PC.chunk_kernel_supported(jc, S_MAX, 16) and not chunk_kernel_supported(c, S_MAX, 16)
+    assert PC.chunk_kernel_supported(jc, S_MAX, 16) and chunk_kernel_supported(c, S_MAX, 16)
 
 
 @pytest.mark.parametrize("wb", [4, 8], ids=["w4", "w8"])

@@ -2,8 +2,9 @@
 (plain versions on the CPU) held against the JAX engine, whose kernels run in
 interpret mode: the repair of the W4 prefill's qkv gate (ROADMAP §3, fault 1),
 the entry point `Generator.generate_fast`, the B <= 8 decode routes of the
-whole-model and whole-layer kernels, and a B = 16 staged chain, where the
-chunk kernel, which has no head-dim-256 edition yet, must not run.
+whole-model and whole-layer kernels, and a B = 16 staged chain on the W4
+entry config, where neither engine takes its chunk kernel (the chains on
+the chunk kernel's hd-256 edition are in tests/test_torch_gemma256_chunk.py).
 
 Model: the gemma_mqa256 pack of tests/test_torch_gemma256_kernels.py (W4A8/h4
 and W8A8/h8, calibrated and packed by the JAX package). Tolerances as
@@ -33,7 +34,6 @@ from mobilequant_tpu.ops import pallas_prefill_attention as PPA
 from mobilequant_tpu.ops import pallas_qkv as PQ
 from mobilequant_tpu.runtime import engine as JE
 from mobilequant_tpu.runtime.generate import Generator as JGenerator
-from mobilequant_tpu.runtime.kernel_config import KernelConfig as JKC
 from mobilequant_tpu.runtime.sampling import SamplerConfig
 
 from mobilequant_tpu_torch import ops as T_ops
@@ -168,19 +168,18 @@ def test_gemma256_b8_decode_loop_matches_jax_route(route):
     assert rel(tl.numpy(), jl) < (2e-3 if equal else 2e-2)
 
 
-@pytest.mark.parametrize("wb", [4, 8], ids=["w4h4_chunk", "w8h8_entry"])
-def test_gemma256_b16_staged_chain_runs_no_chunk_kernel(wb):
-    """A B = 16 staged chain (staging_chunk 2, 4 steps) where the JAX engine
-    takes its chunk kernel: on W8 the entry config (decode_loop kc=None, whose
-    W8 chunk gate covers 8 < B <= 48), on W4 KernelConfig.chunk(). The port's
-    chunk gate refuses head_dim 256, so both run the staged MLP-block route:
-    no chunk call, the same greedy tokens and caches as the JAX chunk kernel
-    (interpreted)."""
+def test_gemma256_b16_staged_chain_runs_no_chunk_kernel():
+    """A B = 16 staged chain (staging_chunk 2, 4 steps) on the W4 entry
+    config (decode_loop kc=None against use_pallas=True): the chunk kernel's
+    W8 auto-enable does not cover W4 packs, so both engines run the staged
+    MLP-block route: no chunk call, the same greedy tokens and caches as the
+    JAX engine (its MLP-block kernel interpreted)."""
+    wb = 4
     b = built(wb)
     jpol, pol = policies(b, False)
     c, L = b["cfg"], b["cfg"].num_layers
     B, Tp, n = 16, 5, 4
-    jmode, kc = (True, None) if wb == 8 else (JKC(chunk_kernel=True), KernelConfig.chunk())
+    jmode, kc = True, None
     toks = np.random.default_rng(80 + wb).integers(0, c.vocab_size, (2, Tp)).astype(np.int32)
     prompt = np.tile(toks, (B // 2, 1))
     orig = _interpreted([(PM, "int_linear_pallas_stacked"), (PM, "w4a8_matmul"),
