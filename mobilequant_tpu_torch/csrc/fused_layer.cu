@@ -13,7 +13,8 @@ MQT_EXPORT int mqt_fused_decode(const void* args, void* stream) {
   const int kmax = kmax_of(a);
   const int wb = a.qkv.bits;
   if ((wb != 4 && wb != 8) || a.o.bits != wb || a.w13.bits != wb || a.w2.bits != wb
-      || (a.logits && a.hbits != 4 && a.hbits != 8) || a.hd % 32 || a.hd > 256)
+      || (a.logits && a.hbits != 4 && a.hbits != 8) || a.hd % 32 || a.hd > 256
+      || a.qkv.n % RW || a.K % RW || a.F % RW || (a.logits && a.Vp % RW))
     return (int)cudaErrorInvalidValue;
   // the attention stage's edition: 4 head dims a lane up to hd 128 (the
   // TinyLlama / StableLM kernels as they were), 8 up to 256 (Gemma-2B)

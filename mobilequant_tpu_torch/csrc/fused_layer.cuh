@@ -12,12 +12,12 @@
 // JAX kernels' LayerNorm edition (StableLM): the mean first, then the sum of
 // squares of x − mean, both in fp64, then the bias.
 //
-// One cooperative, persistent launch (cudaLaunchCooperativeKernel, one or two
-// blocks per SM, all resident) runs every stage; a grid-wide barrier separates
-// dependent stages. Per layer (mqt_fused_decode):
-//   1. norm1 + quantize (each block, redundantly: a (B, K) norm costs less
-//      than a barrier) -> qkv W4 matvec over 128-column tiles -> affine
-//      bracket -> per-column output fake-quant -> yq (B, Nq) fp32   | barrier
+// One cooperative, persistent launch (cudaLaunchCooperativeKernel) runs every
+// stage; a grid-wide barrier separates dependent stages. Per layer
+// (mqt_fused_decode, one block an SM):
+//   1. norm1 + quantize (each block with qkv work, redundantly: every block
+//      needs the whole row) -> qkv matvec -> affine bracket -> per-column
+//      output fake-quant -> yq (B, Nq) fp32                          | barrier
 //   2. attention, one work item per (sequence, q head): RoPE with the partner
 //      column, joint segment quantization (the group's first q head writes
 //      the new K/V rows to kv_new), int scores over the stale cache rows
@@ -25,33 +25,43 @@
 //      with its fake-quant sites across the block, P·V plus the self term,
 //      pv-output quantize -> a8 (B, Ko) int8                         | barrier
 //   3. o-proj matvec -> output fq -> resid_add_1 -> resid (B, K)     | barrier
-//   4. norm2 + quantize (redundant) -> w13 matvec, one tile holding the w1
-//      and the w3 columns of 64 gate outputs (they sit F apart) -> gate chain
-//      -> act8 (B, F) int8                                           | barrier
+//   4. norm2 + quantize -> w13 matvec, the w1 and the w3 columns of the same
+//      32 gate outputs in one block -> gate chain -> act8 (B, F) int8 | barrier
 //   5. w2 matvec -> output fq -> resid_add_2 -> x (B, K)             | barrier
-// then, with a head, the final norm, dynamic per-row A8 and the W4 head over
-// 128-column vocab tiles -> logits (B, Vp). mqt_fused_mlp_block runs stages
-// 4-5 for M <= 8 rows, with one barrier (the MLP-block wrapper takes it up to
-// ops/mlp_block.DP4A_ROWS rows, fused_rows.cu above).
+// then, with a head, the final norm, dynamic per-row A8 and the W4 or W8 head
+// -> logits (B, Vp). Each barrier waits for every block (stage 2 needs all of
+// yq, stage 3 all of a8, stages 1 and 4 the whole rows of their norms, stage
+// 5 all of act8, the head all of x).
 //
-// Split-K: a matvec tile's K range is split over blocks so that every stage
-// fills the card; each block adds its int32 partials into a workspace with
-// integer atomics (exact, so the result does not depend on arrival order);
-// the last block of a tile to arrive reads the totals back, zeroes them and
-// runs the epilogue, so the workspace is all zero again after every launch.
-// Buffers written inside the launch are read with __ldcg (L2), never through
-// the non-coherent read-only path.
+// The matvec stages (the ring kernel): a block's share of every stage is
+// fixed in advance, whole-K items of 32 columns (32-byte row segments, one
+// DRAM sector), so no partial sum leaves the block: no split-K workspace, no
+// meeting, no last-block epilogue. A producer warp streams the block's items,
+// stage after stage and layer after layer (the head's during the last layer),
+// through a ring of 16 KB shared-memory chunks (16-byte cp.async, mbarriers
+// "full" / "empty" a slot) and refills a slot as soon as the consumers
+// release it, so the loads of the next stages run across the grid barriers
+// and a stage finds its chunks on chip when its barrier opens (8-12 slots at
+// TinyLlama's widths, 5-8 at Gemma-2B's, S = 1024). The consumer warps never
+// issue a copy, since a fence of theirs (the grid barrier) would wait for
+// every copy in flight. The matvec is dp4a (B <= 8: a few GOP against
+// ~0.5-1 GB): a lane transposes 4 rows of CPL columns (4x4 byte transposes;
+// W4: then the nibble masks) into dp4a operands; the per-column epilogue
+// vectors are loaded when an item begins. A norm stages x, w and b in shared
+// memory first, and every rintf(x / s) of the norms and epilogues takes x·(1 /
+// s) unless that product lies within its error of a half-integer (rint_div:
+// the same integer, without a true division's call). The grid barrier counts
+// arrivals over the whole launch (no reset between barriers, one arrival an
+// SM). mqt_fused_mlp_block (stages 4-5 for M <= 8 rows, one barrier; the
+// MLP-block wrapper takes it up to ops/mlp_block.DP4A_ROWS rows, fused_rows.cu
+// above) keeps the earlier split-K stages: a tile's K range split over
+// blocks, int32 partials added into a self-cleaning workspace, the tile's
+// last block running the epilogue. Buffers written inside a launch are read
+// with __ldcg (L2), never through the non-coherent read-only path.
 //
 // Bound: device-memory bytes. At B <= 8 one decode step streams every packed
-// weight byte once (518 MB for TinyLlama-1.1B with its W4 head, 1,036 MB
-// with W8 layers and a W8 head) plus the valid KV rows; the integer work is
-// a few GOP. This is the simple SIMT + dp4a edition: a warp streams 32·CPL
-// contiguous bytes of each weight row (CPL = 16 columns per lane at B <= 2);
-// 4x4 byte transposes put 4 consecutive k of a column in one dp4a operand
-// (W4: then the nibble masks; W8 reads twice the rows, low rows j and high
-// rows j + kin/2 of a group, so the activation words are those of W4), and
-// scores live in shared memory. Tensor cores, TMA, cp.async pipelining and
-// fewer grid barriers are later work.
+// weight byte once (518 MB for TinyLlama-1.1B with its W4 head, 1,036 MB with
+// W8 layers and a W8 head) plus the valid KV rows.
 //
 // Numerics repeat the plain versions' fp32 operation order (built with
 // --fmad=false; rintf is round-half-even, divisions are true divisions). The
@@ -64,6 +74,44 @@
 #include "fused_common.cuh"
 
 namespace {
+
+// The consumer threads' barrier: named barrier 1 over the FT consumer threads.
+// The ring kernel's producer warp (threads FT.. FT + 31) never joins it; in
+// the MLP-block kernel it is every thread.
+__device__ __forceinline__ void csync() { asm volatile("bar.sync 1, %0;" ::"n"(FT) : "memory"); }
+
+// fused_common.cuh's stage_rows, block_sum and block_max on csync
+__device__ __forceinline__ void cstage_rows(int8_t* dst, const int8_t* src, int nbytes) {
+  csync();
+  const int4* s4 = reinterpret_cast<const int4*>(src);
+  int4* d4 = reinterpret_cast<int4*>(dst);
+  for (int i = threadIdx.x; i < (nbytes >> 4); i += FT) d4[i] = __ldg(s4 + i);
+  csync();
+}
+
+__device__ __forceinline__ float cblock_sum(double v, double* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  csync();
+  if (lane == 0) scratch[warp] = v;
+  csync();
+  double t = 0.0;
+  for (int w = 0; w < NW; ++w) t += scratch[w];
+  return (float)t;
+}
+
+__device__ __forceinline__ float cblock_max(float v, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  csync();
+  if (lane == 0) scratch[warp] = v;
+  csync();
+  float t = scratch[0];
+  for (int w = 1; w < NW; ++w) t = fmaxf(t, scratch[w]);
+  return t;
+}
 
 // Matvec tiles: each lane owns CPL adjacent columns (CPL bytes of a packed
 // row in one load), so a warp reads 32·CPL contiguous bytes of each row; wider
@@ -220,7 +268,7 @@ __device__ __forceinline__ void gemv_partial(const Smem& sm, int rows, int kin,
 template <int TC>
 __device__ __forceinline__ bool finish_tile(const Smem& sm, int* ws, int tid_, int ks,
                                             int rows, int row0, int N, const Tile& t) {
-  __syncthreads();
+  csync();
   if (ks == 1) return true;
   int* acc = ws + CNT;
   for (int i = threadIdx.x; i < rows * TC; i += FT) {
@@ -228,9 +276,9 @@ __device__ __forceinline__ bool finish_tile(const Smem& sm, int* ws, int tid_, i
     if (t.valid(n)) atomicAdd(&acc[(size_t)(row0 + m) * N + t.gcol(n)], sm.red[i]);
   }
   __threadfence();
-  __syncthreads();
+  csync();
   if (threadIdx.x == 0) sm.flags[0] = (atomicAdd(&ws[tid_], 1) == ks - 1);
-  __syncthreads();
+  csync();
   if (!sm.flags[0]) return false;
   __threadfence();
   for (int i = threadIdx.x; i < rows * TC; i += FT) {
@@ -238,7 +286,7 @@ __device__ __forceinline__ bool finish_tile(const Smem& sm, int* ws, int tid_, i
     if (t.valid(n)) sm.red[i] = atomicExch(&acc[(size_t)(row0 + m) * N + t.gcol(n)], 0);
   }
   if (threadIdx.x == 0) ws[tid_] = 0;
-  __syncthreads();
+  csync();
   return true;
 }
 
@@ -261,9 +309,9 @@ __device__ void stage_copy(const Smem& sm, const int8_t* src, int row0, int rows
   const int4* s4 = reinterpret_cast<const int4*>(src + (size_t)row0 * kin);
   int4* d4 = reinterpret_cast<int4*>(sm.act);
   for (int i = threadIdx.x; i < rows * kin / 16; i += FT) d4[i] = __ldcg(s4 + i);
-  __syncthreads();
+  csync();
   stage_rowsums(sm, rows, kin);
-  __syncthreads();
+  csync();
 }
 
 // sm.rn[m] = 1 / sqrt(Σ_k val(m, k)² / K + eps) for rows [0, rows), the whole
@@ -290,13 +338,13 @@ __device__ void block_inv_rms(const Smem& sm, int rows, int K, float eps, Val va
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     if (lane == 0) sm.dred[warp * 8 + m] = v;
   }
-  __syncthreads();
+  csync();
   if (threadIdx.x < rows) {
     double t = 0.0;
     for (int w = 0; w < NW; ++w) t += sm.dred[w * 8 + threadIdx.x];
     sm.rn[threadIdx.x] = 1.0f / sqrtf((float)t / (float)K + eps);
   }
-  __syncthreads();
+  csync();
 }
 
 // LayerNorm's row scalars for rows [0, rows): sm.mu[m] = Σ_k val(m, k) / K
@@ -320,13 +368,13 @@ __device__ void block_inv_std(const Smem& sm, int rows, int K, float eps, Val va
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     if (lane == 0) sm.dred[warp * 8 + m] = v;
   }
-  __syncthreads();
+  csync();
   if (threadIdx.x < rows) {
     double t = 0.0;
     for (int w = 0; w < NW; ++w) t += sm.dred[w * 8 + threadIdx.x];
     sm.mu[threadIdx.x] = (float)t / (float)K;
   }
-  __syncthreads();
+  csync();
   block_inv_rms<MR>(sm, rows, K, eps, [&](int m, int k) { return val(m, k) - sm.mu[m]; });
 }
 
@@ -364,9 +412,9 @@ __device__ void stage_norm_quant(const Smem& sm, const float* src, int row0, int
       }
     }
   }
-  __syncthreads();
+  csync();
   stage_rowsums(sm, rows, K);
-  __syncthreads();
+  csync();
 }
 
 // Split and item counts of a matvec stage: ks splits of the K range over
@@ -383,48 +431,6 @@ __device__ __forceinline__ void pick_ks(int tiles, int kin, int& ks, int& gpb) {
 }
 
 // ---- the stages ----------------------------------------------------------
-
-// 1. norm1 + quantize + qkv matvec + affine + per-column output fq -> yq
-template <int MR, int WB>
-__device__ void stage_qkv(const Args& a, const Smem& sm, int l) {
-  constexpr int TC = Cfg<MR>::TC;
-  const float* m = a.meta + (size_t)l * META;
-  const int N = a.qkv.n, K = a.K;
-  const int tiles = (N + TC - 1) / TC;
-  int ks, gpb;
-  pick_ks(tiles, K, ks, gpb);
-  const float* xin = l == a.l0 ? a.x_in : a.x_out;
-  bool staged = false;
-  const float xs = m[4], ox = m[5] - 128.0f, kox = (float)K * ox;
-  const int8_t* w = layer_w<WB>(a.qkv, l);
-  const float* ofq = a.ofq + (size_t)l * 4 * N;
-  for (int it = blockIdx.x; it < tiles * ks; it += gridDim.x) {
-    if (!staged) {
-      stage_norm_quant<MR>(sm, xin, 0, a.M, K, a.anw + (size_t)l * K, a.anb + (size_t)l * K,
-                           m[0], m[1], m[2], m[3], m[4], m[5], a.ln);
-      staged = true;
-    }
-    const int tile = it / ks, sp = it % ks;
-    const Tile t = plain_tile<MR>(tile, N);
-    for (int i = threadIdx.x; i < MR * TC; i += FT) sm.red[i] = 0;
-    __syncthreads();
-    gemv_partial<MR, WB>(sm, a.M, K, w, N, t, sp * gpb, min((K >> 3), (sp + 1) * gpb));
-    if (!finish_tile<TC>(sm, a.ws, tile, ks, a.M, 0, N, t)) continue;
-    for (int i = threadIdx.x; i < a.M * TC; i += FT) {
-      if (!t.valid(i % TC)) continue;
-      const int r = i / TC, col = t.colA + i % TC;
-      float y = affine(a.qkv, l, sm.red[i], col, (float)sm.rsum[r], xs, ox, kox);
-      const float fs = ofq[col], fo = ofq[N + col];
-      const float fc = ofq[2 * N + col], fe = ofq[3 * N + col];
-      float q = rintf(y / fs) + fo;
-      q = fminf(fmaxf(q, 0.0f), fc);
-      if (fe > 0.5f) y = (q - fo) * fs;
-      a.yq[(size_t)r * N + col] = y;
-    }
-    __syncthreads();
-  }
-}
-
 
 // 2. attention, one work item per (sequence, q head): RoPE + quantization of
 // the q head's row and its kv head's new k / v rows (the group's first q head
@@ -463,7 +469,7 @@ __device__ void stage_attention(const Args& a, const Smem& sm, int l) {
       const int head = r == 0 ? qh : (r == 1 ? Hq + h : Hq + Hkv + h);
       ys[i] = __ldcg(a.yq + (size_t)b * Nq + head * hd + d);
     }
-    __syncthreads();
+    csync();
     // RoPE (q and k rows) and joint segment quantization
     const float* csb = a.cs + (size_t)b * 2 * hd;
     for (int i = threadIdx.x; i < 3 * hd; i += FT) {
@@ -480,7 +486,7 @@ __device__ void stage_attention(const Args& a, const Smem& sm, int l) {
         a.kv_new[(((size_t)li * B + b) * 2 * Hkv + kvrow) * hd + d] = (int8_t)(int)qv;
       }
     }
-    __syncthreads();
+    csync();
     if (threadIdx.x < hw) {
       const float* src = q8 + 4 * threadIdx.x;
       qi[threadIdx.x] = (int)((unsigned)(uint8_t)(int8_t)(int)src[0]
@@ -498,13 +504,13 @@ __device__ void stage_attention(const Args& a, const Smem& sm, int l) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) qsum += __shfl_xor_sync(0xffffffffu, qsum, o);
     const float sself = fqm(warp_sum(e) * sqk, m[12], m[13], m[14]) * inv;
-    __syncthreads();
+    csync();
     // int scores over the stale cache rows [0, P); rows >= P are masked by
     // neg_inf (-40000 or lower) and their exp is exactly 0, so they are skipped
     const int8_t* kc = a.kcache + (((size_t)l * B + b) * Hkv + h) * (size_t)S * hd;
     for (int c0 = 0; c0 < P; c0 += KV_CHUNK) {
       const int nr = min(KV_CHUNK, P - c0);
-      stage_rows(kvs, kc + (size_t)c0 * hd, nr * hd);
+      cstage_rows(kvs, kc + (size_t)c0 * hd, nr * hd);
       for (int r = threadIdx.x; r < nr; r += FT) {
         const int4* kr = reinterpret_cast<const int4*>(kvs + (size_t)r * hd);
         int ks = 0, acc = 0;
@@ -525,11 +531,11 @@ __device__ void stage_attention(const Args& a, const Smem& sm, int l) {
         sc[c0 + r] = v * inv;
       }
     }
-    __syncthreads();
+    csync();
     // softmax over [cache rows, self term] across the block
     float mx = __int_as_float(0xff800000);     // -inf
     for (int s = threadIdx.x; s < P; s += FT) mx = fmaxf(mx, sc[s]);
-    mx = fmaxf(block_max(mx, sm.fred), sself);
+    mx = fmaxf(cblock_max(mx, sm.fred), sself);
     double dsum = 0.0;
     for (int s = threadIdx.x; s < P; s += FT) {
       const float ev = expf(sc[s] - mx);
@@ -537,14 +543,14 @@ __device__ void stage_attention(const Args& a, const Smem& sm, int l) {
       dsum += (double)ev;
     }
     const float es = expf(sself - mx);
-    const float den = block_sum(dsum, sm.dred) + es;
+    const float den = cblock_sum(dsum, sm.dred) + es;
     double psd = 0.0;
     for (int s = threadIdx.x; s < P; s += FT) {
       const float p = fqm(sc[s] / den, m[15], m[16], m[17]);
       sc[s] = p;
       psd += (double)p;
     }
-    const float psum = block_sum(psd, sm.dred);
+    const float psum = cblock_sum(psd, sm.dred);
     const float ps = fqm(es / den, m[15], m[16], m[17]);
     // P·V over the cache rows (warp w takes rows w, w + NW, ...; lanes over
     // head_dim), then the fp64 partials meet in shared memory
@@ -554,7 +560,7 @@ __device__ void stage_attention(const Args& a, const Smem& sm, int l) {
     for (int j = 0; j < DPL; ++j) acc[j] = 0.0;
     for (int c0 = 0; c0 < P; c0 += KV_CHUNK) {
       const int nr = min(KV_CHUNK, P - c0);
-      stage_rows(kvs, vc + (size_t)c0 * hd, nr * hd);
+      cstage_rows(kvs, vc + (size_t)c0 * hd, nr * hd);
 #pragma unroll 2
       for (int r = warp; r < nr; r += NW) {
         const double p = (double)sc[c0 + r];
@@ -567,7 +573,7 @@ __device__ void stage_attention(const Args& a, const Smem& sm, int l) {
 #pragma unroll
     for (int j = 0; j < DPL; ++j)
       if (j < dpl) part[warp * hd + lane + 32 * j] = acc[j];
-    __syncthreads();
+    csync();
     for (int d = threadIdx.x; d < hd; d += FT) {
       double t = 0.0;
       for (int w = 0; w < NW; ++w) t += part[w * hd + d];
@@ -575,44 +581,7 @@ __device__ void stage_attention(const Args& a, const Smem& sm, int l) {
       const float at = ((float)t - ov * psum) * sv + ps * vnf;
       a.a8[(size_t)b * Ko + qh * hd + d] = (int8_t)(int)quant_u8s(at, m[19], m[20]);
     }
-    __syncthreads();
-  }
-}
-
-// 3. o-proj + output fq + resid_add_1 -> resid
-template <int MR, int WB>
-__device__ void stage_o(const Args& a, const Smem& sm, int l) {
-  constexpr int TC = Cfg<MR>::TC;
-  const float* m = a.meta + (size_t)l * META;
-  const int K = a.K, Ko = a.o.kin, N = a.o.n;
-  const int tiles = (N + TC - 1) / TC;
-  int ks, gpb;
-  pick_ks(tiles, Ko, ks, gpb);
-  const float* xin = l == a.l0 ? a.x_in : a.x_out;
-  const float xs = m[19], ox = m[20] - 128.0f, kox = (float)Ko * ox;
-  const int8_t* w = layer_w<WB>(a.o, l);
-  bool staged = false;
-  for (int it = blockIdx.x; it < tiles * ks; it += gridDim.x) {
-    if (!staged) {
-      stage_copy(sm, a.a8, 0, a.M, Ko);
-      staged = true;
-    }
-    const int tile = it / ks, sp = it % ks;
-    const Tile t = plain_tile<MR>(tile, N);
-    for (int i = threadIdx.x; i < MR * TC; i += FT) sm.red[i] = 0;
-    __syncthreads();
-    gemv_partial<MR, WB>(sm, a.M, Ko, w, N, t, sp * gpb, min((Ko >> 3), (sp + 1) * gpb));
-    if (!finish_tile<TC>(sm, a.ws, tile, ks, a.M, 0, N, t)) continue;
-    for (int i = threadIdx.x; i < a.M * TC; i += FT) {
-      if (!t.valid(i % TC)) continue;
-      const int r = i / TC, col = t.colA + i % TC;
-      float y = affine(a.o, l, sm.red[i], col, (float)sm.rsum[r], xs, ox, kox);
-      y = fqm(y, m[21], m[22], m[23]);
-      const float xr = fqm(__ldcg(xin + (size_t)r * K + col), m[24], m[25], m[26]);
-      y = fqm(y, m[27], m[28], m[29]);
-      a.resid[(size_t)r * K + col] = fqm(xr + y, m[30], m[31], m[32]);
-    }
-    __syncthreads();
+    csync();
   }
 }
 
@@ -640,7 +609,7 @@ __device__ void stage_w13(const Args& a, const Smem& sm, int l, const float* mm,
     }
     const Tile t = gate_tile<MR>(tile, F);
     for (int i = threadIdx.x; i < MR * TC; i += FT) sm.red[i] = 0;
-    __syncthreads();
+    csync();
     gemv_partial<MR, WB>(sm, rows, K, w, N, t, sp * gpb, min((K >> 3), (sp + 1) * gpb));
     if (!finish_tile<TC>(sm, a.ws, ch * tiles + tile, ks, rows, row0, N, t)) continue;
     for (int i = threadIdx.x; i < rows * H; i += FT) {
@@ -664,7 +633,7 @@ __device__ void stage_w13(const Args& a, const Smem& sm, int l, const float* mm,
       a.act8[(size_t)(row0 + r) * F + t.colA + j] =
           (int8_t)(int)quant_u8s(act * g3, mm[14], mm[15]);
     }
-    __syncthreads();
+    csync();
   }
 }
 
@@ -691,7 +660,7 @@ __device__ void stage_w2(const Args& a, const Smem& sm, int l, const float* mm,
     }
     const Tile t = plain_tile<MR>(tile, N);
     for (int i = threadIdx.x; i < MR * TC; i += FT) sm.red[i] = 0;
-    __syncthreads();
+    csync();
     gemv_partial<MR, WB>(sm, rows, F, w, N, t, sp * gpb, min((F >> 3), (sp + 1) * gpb));
     if (!finish_tile<TC>(sm, a.ws, ch * tiles + tile, ks, rows, row0, N, t)) continue;
     for (int i = threadIdx.x; i < rows * TC; i += FT) {
@@ -703,115 +672,793 @@ __device__ void stage_w2(const Args& a, const Smem& sm, int l, const float* mm,
       y = fqm(y, mm[26], mm[27], mm[28]);
       out[(size_t)(row0 + r) * K + col] = fqm(xr + y, mm[29], mm[30], mm[31]);
     }
-    __syncthreads();
+    csync();
   }
 }
 
-// final norm (RMS, or LayerNorm with a.ln) + dynamic per-row A8 + the W4 or
-// W8 head (a.hbits) -> logits
+// ---- the whole-model ring kernel (mqt_fused_decode) ------------------------
+
+// rintf(x / s), exactly, with r = 1 / s: x·r lies within |x·r|·2^-22 of x / s,
+// so it rounds to the same integer unless a half-integer lies that close;
+// only then (and for |x·r| >= 2^20, inf or nan) the true division decides.
+// (A true division is a call with a slow path, ~10x the multiply.)
+__device__ __forceinline__ float rint_div(float x, float s, float r) {
+  const float t = x * r;
+  const float h = floorf(t) + 0.5f;
+  if (!(fabsf(t) < 1048576.0f) || fabsf(t - h) <= fabsf(t) * 1e-6f) return rintf(x / s);
+  return rintf(t);
+}
+
+// fqm and quant_u8s with r = 1 / s: the same values, in their fp32 order
+__device__ __forceinline__ float fqm_r(float x, float s, float r, float o, float qmax) {
+  float q = rint_div(x, s, r) + o;
+  q = fminf(fmaxf(q, 0.0f), qmax);
+  return qmax > 0.5f ? (q - o) * s : x;
+}
+__device__ __forceinline__ float quant_u8s_r(float x, float s, float r, float o) {
+  const float q = rint_div(x, s, r) + o;
+  return fminf(fmaxf(q, 0.0f), 255.0f) - 128.0f;
+}
+
+// q[j] = rintf(x[j] / s) for N values: rint_div's test on all of them, and
+// the true divisions only when one of the products lies near a half-integer
+// (no call in the common path, so the N values overlap)
+template <int N>
+__device__ __forceinline__ void rint_div_n(float (&q)[N], const float (&x)[N], float s, float r) {
+  bool near = false;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float t = x[j] * r;
+    const float h = floorf(t) + 0.5f;
+    near |= !(fabsf(t) < 1048576.0f) || fabsf(t - h) <= fabsf(t) * 1e-6f;
+    q[j] = rintf(t);
+  }
+  if (near) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) q[j] = rintf(x[j] / s);
+  }
+}
+
+// pull n floats into L2 ahead of their use (one prefetch a 128-byte line)
+__device__ __forceinline__ void prefetch_l2(const float* p, int n) {
+  for (int i = threadIdx.x * 32; i < n; i += FT * 32)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + i));
+}
+
+// the per-warp int sums v of rows [0, rows) (v[m] in every lane) -> sm.rsum
 template <int MR>
-__device__ void stage_head(const Args& a, const Smem& sm) {
-  constexpr int TC = Cfg<MR>::TC;
-  const int K = a.K, N = a.Vp;
-  const int tiles = (N + TC - 1) / TC;
-  int ks, gpb;
-  pick_ks(tiles, K, ks, gpb);
+__device__ __forceinline__ void block_rowsums(const Smem& sm, int rows, int (&v)[MR]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* part = reinterpret_cast<int*>(sm.fred);   // NW x 8
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+    if (m >= rows) break;
+    int s = v[m];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) part[warp * 8 + m] = s;
+  }
+  csync();
+  if (threadIdx.x < rows) {
+    int s = 0;
+    for (int w = 0; w < NW; ++w) s += part[w * 8 + threadIdx.x];
+    sm.rsum[threadIdx.x] = s;
+  }
+  csync();
+}
+
+// dst[0, n) = the rows of a (·, K) fp32 buffer written in this launch, then
+// nw (K) and nb (K): rows·K + 2K floats into shared memory, 32 loads a thread
+// in flight before any store (one round trip at B = 1, K = 2048).
+__device__ __forceinline__ void stage_norm_inputs(float* dst, const float* x, int rows, int K,
+                                                  const float* nw, const float* nb) {
+  constexpr int NB = 32;
+  const int nx = rows * K, n = nx + 2 * K;
+  for (int i0 = threadIdx.x; i0 < n; i0 += NB * FT) {
+    float v[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int i = i0 + j * FT;
+      const float* src = i < nx ? x + i : i < nx + K ? nw + (i - nx) : nb + (i - nx - K);
+      v[j] = i < n ? __ldcg(src) : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      if (i0 + j * FT < n) dst[i0 + j * FT] = v[j];
+  }
+  csync();
+}
+
+// stage_norm_quant over rows [0, rows) of src with its inputs staged in
+// shared memory first (xs: rows·K + 2K floats), fq16(x) kept there: the same
+// fp32 operations in the same order, so the same bytes. Each thread takes 8
+// values at a time (rint_div_n); the row sums come with the quantization.
+template <int MR>
+__device__ void stage_norm_ring(const Smem& sm, float* xs, const float* src, int rows, int K,
+                                const float* nw, const float* nb, float fs, float fo,
+                                float fqmax, float eps, float hs, float ho, bool ln) {
+  constexpr int U = 8;
+  stage_norm_inputs(xs, src, rows, K, nw, nb);
+  const float fr = 1.0f / fs, hr = 1.0f / hs;
+  const int n = rows * K;
+  for (int i0 = threadIdx.x; i0 < n; i0 += U * FT) {
+    float v[U], q[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) v[j] = i0 + j * FT < n ? xs[i0 + j * FT] : 0.0f;
+    rint_div_n<U>(q, v, fs, fr);
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const float qq = fminf(fmaxf(q[j] + fo, 0.0f), fqmax);
+      if (i0 + j * FT < n) xs[i0 + j * FT] = fqmax > 0.5f ? (qq - fo) * fs : v[j];
+    }
+  }
+  csync();
+  const float* ws = xs + n;
+  const float* bs = ws + K;
+  auto val = [&](int m, int k) { return xs[m * K + k]; };
+  if (ln)
+    block_inv_std<MR>(sm, rows, K, eps, val);
+  else
+    block_inv_rms<MR>(sm, rows, K, eps, val);
+  int rsum[MR];
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+    rsum[m] = 0;
+    if (m >= rows) break;
+    const float r = sm.rn[m], mu = sm.mu[m];
+    for (int k0 = threadIdx.x; k0 < K; k0 += U * FT) {
+      float y[U], q[U];
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        const int k = k0 + j * FT;
+        y[j] = k >= K ? 0.0f : ln ? (val(m, k) - mu) * r * ws[k] + bs[k]
+                                  : val(m, k) * r * ws[k] + bs[k];
+      }
+      rint_div_n<U>(q, y, hs, hr);
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        const int k = k0 + j * FT;
+        const int v8 = (int)(fminf(fmaxf(q[j] + ho, 0.0f), 255.0f) - 128.0f);
+        if (k < K) {
+          sm.act[m * K + k] = (int8_t)v8;
+          rsum[m] += v8;
+        }
+      }
+    }
+  }
+  block_rowsums<MR>(sm, rows, rsum);
+}
+
+// final norm (RMS, or LayerNorm with a.ln) + dynamic per-row A8 -> the head's
+// int8 rows in sm.act, their row sums and scales (sm.sx)
+template <int MR>
+__device__ void stage_head_act(const Args& a, const Smem& sm, float* xs) {
+  const int K = a.K;
   const float eps = a.meta[(size_t)(a.L - 1) * META + 3];
-  bool staged = false;
-  for (int it = blockIdx.x; it < tiles * ks; it += gridDim.x) {
-    if (!staged) {
-      const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-      auto xv = [&](int m, int k) { return __ldcg(a.x_out + (size_t)m * K + k); };
-      const bool ln = a.ln;
-      if (ln)
-        block_inv_std<MR>(sm, a.M, K, eps, xv);
-      else
-        block_inv_rms<MR>(sm, a.M, K, eps, xv);
-      auto yv = [&](int m, int k) {
-        const float v = ln ? xv(m, k) - sm.mu[m] : xv(m, k);
-        return v * sm.rn[m] * __ldg(a.fnw + k) + __ldg(a.fnb + k);
-      };
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  stage_norm_inputs(xs, a.x_out, a.M, K, a.fnw, a.fnb);
+  const float* ws = xs + a.M * K;
+  const float* bs = ws + K;
+  auto xv = [&](int m, int k) { return xs[m * K + k]; };
+  const bool ln = a.ln;
+  if (ln)
+    block_inv_std<MR>(sm, a.M, K, eps, xv);
+  else
+    block_inv_rms<MR>(sm, a.M, K, eps, xv);
+  auto yv = [&](int m, int k) {
+    const float v = ln ? xv(m, k) - sm.mu[m] : xv(m, k);
+    return v * sm.rn[m] * ws[k] + bs[k];
+  };
 #pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        float amax = 0.0f;
-        if (m < a.M)
-          for (int k = threadIdx.x; k < K; k += FT) amax = fmaxf(amax, fabsf(yv(m, k)));
+  for (int m = 0; m < MR; ++m) {
+    float amax = 0.0f;
+    if (m < a.M)
+      for (int k = threadIdx.x; k < K; k += FT) amax = fmaxf(amax, fabsf(yv(m, k)));
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-        if (lane == 0) sm.fred[warp * 8 + m] = amax;
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    if (lane == 0) sm.fred[warp * 8 + m] = amax;
+  }
+  csync();
+  if (threadIdx.x < a.M) {
+    float amax = 0.0f;
+    for (int w = 0; w < NW; ++w) amax = fmaxf(amax, sm.fred[w * 8 + threadIdx.x]);
+    sm.sx[threadIdx.x] = fmaxf(amax, 1e-8f) / 127.0f;
+  }
+  csync();
+  constexpr int U = 8;
+  int rsum[MR];
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+    rsum[m] = 0;
+    if (m >= a.M) break;
+    const float scale = sm.sx[m], sr = 1.0f / scale;
+    for (int k0 = threadIdx.x; k0 < K; k0 += U * FT) {
+      float y[U], q[U];
+#pragma unroll
+      for (int j = 0; j < U; ++j) y[j] = k0 + j * FT < K ? yv(m, k0 + j * FT) : 0.0f;
+      rint_div_n<U>(q, y, scale, sr);
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        const int v8 = (int)fminf(fmaxf(q[j], -127.0f), 127.0f);
+        if (k0 + j * FT < K) {
+          sm.act[m * K + k0 + j * FT] = (int8_t)v8;
+          rsum[m] += v8;
+        }
       }
-      __syncthreads();
-      if (threadIdx.x < a.M) {
-        float amax = 0.0f;
-        for (int w = 0; w < NW; ++w) amax = fmaxf(amax, sm.fred[w * 8 + threadIdx.x]);
-        sm.sx[threadIdx.x] = fmaxf(amax, 1e-8f) / 127.0f;
+    }
+  }
+  block_rowsums<MR>(sm, a.M, rsum);
+}
+
+// One block an SM walks a fixed share of every matvec stage: an item is 32
+// columns (32 bytes of each weight row: one DRAM sector) of one stage over the
+// whole K range, so no partial sum leaves the block (no split-K meeting); a
+// w13 item is its 32 w1 columns and then the w3 columns of the same gate
+// outputs (two sub-items). Item i of a stage goes to block (i + off) mod G,
+// off counting the items of every earlier stage of the launch, so the
+// per-block bytes even out over a layer. A sub-item streams through a ring
+// of shared-memory slots in chunks of RROWS weight rows (16 KB). A producer
+// warp (threads FT.. FT + 31) walks the block's chunk stream and, for each
+// slot the consumers release (an mbarrier a slot, "empty"), issues the next
+// chunk's 16-byte cp.async copies, whose completion arrives on the slot's
+// "full" mbarrier (cp.async.mbarrier.arrive.noinc): loads of the next stages
+// and layers (the head's during the last layer) are in flight across the grid
+// barriers, and a stage finds its chunks on chip when its barrier opens. The
+// consumers (FT threads) never issue a copy: a fence of theirs would wait for
+// every copy still in flight.
+constexpr int RW = 32;                 // bytes (columns) of an item's row segment
+constexpr int RROWS = 512;             // weight rows a chunk
+constexpr int RCH = RW * RROWS;        // bytes a chunk (a ring slot)
+constexpr int RING_MAX_SLOTS = 13;
+constexpr int SMEM_MAX = 232448 - 1024;   // dynamic shared memory of a block (static beside)
+enum { ST_QKV = 0, ST_O, ST_W13, ST_W2, ST_HEAD, ST_END };
+
+// a place in the block's chunk stream: layer, stage, the block's it-th item
+// of the stage, sub-item, chunk
+struct RingPos {
+  int l, st, it, sub, ch;
+};
+
+// The stages' shapes, computed once a launch (ring_plan_init): weight rows,
+// row stride, items, sub-items, and the items of the layer's earlier stages
+// (the head: 0); the items of a layer mod G.
+struct RingPlan {
+  int rows[5], N[5], nitems[5], nsub[5], pre[5], perG;
+};
+__shared__ RingPlan ring_plan;
+
+// the stage's pack, by value (st is known only at run time; no address of the
+// argument block is taken)
+__device__ __forceinline__ W4 ring_pack(const Args& a, int st) {
+  switch (st) {
+    case ST_QKV: return a.qkv;
+    case ST_O: return a.o;
+    case ST_W13: return a.w13;
+    default: return a.w2;
+  }
+}
+
+__device__ void ring_plan_init(const Args& a) {
+  if (threadIdx.x == 0) {
+    RingPlan& P = ring_plan;
+    int per = 0;
+    for (int s = ST_QKV; s <= ST_W2; ++s) {
+      const W4 p = ring_pack(a, s);
+      P.rows[s] = p.bits == 4 ? p.kin >> 1 : p.kin;
+      P.N[s] = p.n;
+      P.nitems[s] = (s == ST_W13 ? a.F : p.n) / RW;
+      P.nsub[s] = s == ST_W13 ? 2 : 1;
+      P.pre[s] = per;
+      per += P.nitems[s];
+    }
+    P.rows[ST_HEAD] = a.hbits == 4 ? a.K >> 1 : a.K;
+    P.N[ST_HEAD] = a.Vp;
+    P.nitems[ST_HEAD] = a.Vp / RW;
+    P.nsub[ST_HEAD] = 1;
+    P.pre[ST_HEAD] = 0;
+    P.perG = per % gridDim.x;
+  }
+  __syncthreads();
+}
+
+// the block's first item of stage st, layer l (the head's layer is a.l1)
+__device__ __forceinline__ int ring_first(const Args& a, int st, int l) {
+  const int G = gridDim.x;
+  const int before = ((l - a.l0) * ring_plan.perG + ring_plan.pre[st]) % G;
+  return ((int)blockIdx.x + G - before) % G;
+}
+
+__device__ __forceinline__ int ring_nch(int st) {
+  return (ring_plan.rows[st] + RROWS - 1) / RROWS;
+}
+
+// move p forward to a place that holds a chunk of this block (or ST_END)
+__device__ __forceinline__ void ring_settle(const Args& a, RingPos& p) {
+  while (p.st != ST_END) {
+    if (ring_first(a, p.st, p.l) + p.it * (int)gridDim.x < ring_plan.nitems[p.st]) return;
+    p.it = p.sub = p.ch = 0;
+    if (p.st == ST_HEAD)
+      p.st = ST_END;
+    else if (++p.st == ST_HEAD && ++p.l < a.l1)
+      p.st = ST_QKV;
+    else if (p.st == ST_HEAD && !a.logits)
+      p.st = ST_END;
+  }
+}
+
+__device__ __forceinline__ void ring_advance(const Args& a, RingPos& p) {
+  if (p.st == ST_END) return;
+  if (++p.ch < ring_nch(p.st)) return;
+  p.ch = 0;
+  if (++p.sub < ring_plan.nsub[p.st]) return;
+  p.sub = 0;
+  ++p.it;
+  ring_settle(a, p);
+}
+
+// row r of a chunk in its slot: 32-byte rows, each group of four rows (one
+// 128-byte line) rotated by the group index, so that the matvec's lanes (the
+// same row of four consecutive groups) hit distinct banks
+__device__ __forceinline__ int ring_swz(int r) {
+  return ((r >> 2) << 7) | ((((r & 3) ^ ((r >> 2) & 3))) << 5);
+}
+
+// mbarriers (shared::cta): init, arrive, the parity wait, and the arrive that
+// fires when this thread's earlier cp.async copies have landed
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* b, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_u32(b)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void cp_async_mbar_arrive(unsigned long long* b) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(b))
+               : "memory");
+}
+
+// the matrix of stage st, layer l, and the first column of item `item`,
+// sub-item `sub` (w13: its w3 columns sit F after the w1 columns)
+__device__ __forceinline__ const int8_t* ring_matrix(const Args& a, int st, int l) {
+  switch (st) {
+    case ST_QKV: return a.qkv.wq + (size_t)l * ring_plan.rows[st] * ring_plan.N[st];
+    case ST_O: return a.o.wq + (size_t)l * ring_plan.rows[st] * ring_plan.N[st];
+    case ST_W13: return a.w13.wq + (size_t)l * ring_plan.rows[st] * ring_plan.N[st];
+    case ST_W2: return a.w2.wq + (size_t)l * ring_plan.rows[st] * ring_plan.N[st];
+    default: return a.hwq;
+  }
+}
+
+// The producer warp: the block's chunk stream into the ring, slot after
+// slot, each once the consumers have released it; lane-strided 16-byte
+// copies of the chunk's RROWS rows of 32 bytes.
+__device__ void ring_produce(const Args& a, int8_t* ring, int nslot, unsigned long long* full,
+                             unsigned long long* empty) {
+  const int lane = threadIdx.x & 31;
+  RingPos p = RingPos{a.l0, ST_QKV, 0, 0, 0};
+  ring_settle(a, p);
+  for (int s = 0, k = 0; p.st != ST_END;) {
+    mbar_wait(empty + s, (k & 1) ^ 1);
+    const int item = ring_first(a, p.st, p.l) + p.it * (int)gridDim.x;
+    const int col = (p.st == ST_W13 && p.sub ? a.F : 0) + RW * item;
+    const int r0 = p.ch * RROWS, nr = min(RROWS, ring_plan.rows[p.st] - r0);
+    const int N = ring_plan.N[p.st];
+    const int8_t* src = ring_matrix(a, p.st, p.l) + (size_t)r0 * N + col;
+    int8_t* slot = ring + (size_t)s * RCH;
+    for (int i = lane; i < 2 * nr; i += 32) {
+      const int r = i >> 1, h = (i & 1) << 4;
+      cp_async16(slot + ring_swz(r) + h, src + (size_t)r * N + h, true);
+    }
+    cp_async_mbar_arrive(full + s);
+    ring_advance(a, p);
+    if (++s == nslot) {
+      s = 0;
+      ++k;
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// acc[m][c] += act[m] · W[rows r0 .., column cg·CPL + c] over the nr rows of
+// the chunk in slot: lane (qq, cg) takes rows 4q..4q+3 (q the quad), CPL
+// columns; W4 packed row j is k = j (low nibble) and kin/2 + j (high), W8
+// row j is k = j.
+template <int MR, int WB>
+__device__ __forceinline__ void ring_gemv(const Smem& sm, const int8_t* slot, int rows, int kin,
+                                          int r0, int nr, int (&acc)[MR][Cfg<MR>::CPL]) {
+  constexpr int CPL = Cfg<MR>::CPL, NWD = CPL / 4, NCG = RW / CPL;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cg = lane % NCG, qq = lane / NCG;
+  const int k2 = kin >> 1;
+  for (int q = warp * CPL + qq; 4 * q < nr; q += NW * CPL) {
+    int r[4][NWD];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int8_t* pr = slot + (q << 7) + ((i ^ (q & 3)) << 5) + cg * CPL;
+      if constexpr (NWD == 4) {
+        const int4 v = *reinterpret_cast<const int4*>(pr);
+        r[i][0] = v.x;
+        r[i][1] = v.y;
+        r[i][2] = v.z;
+        r[i][3] = v.w;
+      } else if constexpr (NWD == 2) {
+        const int2 v = *reinterpret_cast<const int2*>(pr);
+        r[i][0] = v.x;
+        r[i][1] = v.y;
+      } else {
+        r[i][0] = *reinterpret_cast<const int*>(pr);
       }
-      __syncthreads();
+    }
+    int cw[NWD][4], chi[NWD][4];
+#pragma unroll
+    for (int wd = 0; wd < NWD; ++wd) {
+      const int rr[4] = {r[0][wd], r[1][wd], r[2][wd], r[3][wd]};
+      transpose4x4(rr, cw[wd]);
+      if constexpr (WB == 4) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          chi[wd][c] = (int)(((unsigned)cw[wd][c] >> 4) & NIB);
+          cw[wd][c] &= (int)NIB;
+        }
+      }
+    }
+    const int k = r0 + 4 * q;
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      if (m >= rows) break;
+      const int xl = *reinterpret_cast<const int*>(sm.act + m * kin + k);
+      if constexpr (WB == 4) {
+        const int xh = *reinterpret_cast<const int*>(sm.act + m * kin + k2 + k);
+#pragma unroll
+        for (int wd = 0; wd < NWD; ++wd)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            int& s = acc[m][wd * 4 + c];
+            s = __dp4a(cw[wd][c], xl, s);
+            s = __dp4a(chi[wd][c], xh, s);
+          }
+      } else {
+#pragma unroll
+        for (int wd = 0; wd < NWD; ++wd)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            int& s = acc[m][wd * 4 + c];
+            s = __dp4a(cw[wd][c], xl, s);
+          }
+      }
+    }
+  }
+}
+
+struct RingSmem {
+  Smem s;
+  int* sred;     // NW x MR x RW per-warp column sums
+  float* gbuf;   // MR x RW: a w13 item's w1 outputs until its w3 half
+  float* xs;     // a norm's staged inputs: MR x K rows, then its w and b (K each)
+  int8_t* ring;  // nslot x RCH
+  unsigned long long *full, *empty;   // a slot's mbarriers
+};
+
+struct RingState {
+  RingPos pc;       // the consume place
+  int nslot, cons;  // slots, the slot of the next chunk to consume
+  int round;        // how often the consumers have wrapped around the ring
+};
+
+// the per-column epilogue values a thread loads when a sub-item begins
+struct RingVec {
+  float v[8];
+};
+
+// Consume this block's chunks of stage st, layer l (the head: l = a.l1): the
+// matvec over the activation rows staged in sm.act (kin wide); at a
+// sub-item's first chunk vload(item, sub, c, vec) in thread (m, c) = (tid /
+// RW, tid % RW) (loads whose latency the chunks hide); after its last chunk
+// the block's column sums, then epi(m, c, sum, item, sub, vec) for rows m <
+// a.M. A slot goes back to the producer as soon as its matvec has read it.
+template <int MR, int WB, typename VLoad, typename Epi>
+__device__ __forceinline__ void ring_stage(const Args& a, const RingSmem& rs, RingState& S,
+                                           int st, int l, int kin, VLoad vload, Epi epi) {
+  constexpr int CPL = Cfg<MR>::CPL, NCG = RW / CPL;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int em = tid / RW, ec = tid % RW;
+  int acc[MR][CPL];
+  RingVec vec;
+  while (S.pc.st == st && S.pc.l == l) {
+    const int item = ring_first(a, st, l) + S.pc.it * (int)gridDim.x;
+    const int r0 = S.pc.ch * RROWS, nr = min(RROWS, ring_plan.rows[st] - r0);
+    const int8_t* slot = rs.ring + (size_t)S.cons * RCH;
+    if (S.pc.ch == 0) {
+#pragma unroll
+      for (int m = 0; m < MR; ++m)
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) acc[m][c] = 0;
+      if (em < a.M) vload(item, S.pc.sub, ec, vec);
+    }
+    mbar_wait(rs.full + S.cons, S.round & 1);
+    ring_gemv<MR, WB>(rs.s, slot, a.M, kin, r0, nr, acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(rs.empty + S.cons);
+    if (r0 + nr == ring_plan.rows[st]) {
 #pragma unroll
       for (int m = 0; m < MR; ++m) {
         if (m >= a.M) break;
-        const float scale = sm.sx[m];
-#pragma unroll 4
-        for (int k = threadIdx.x; k < K; k += FT) {
-          const float q = fminf(fmaxf(rintf(yv(m, k) / scale), -127.0f), 127.0f);
-          sm.act[m * K + k] = (int8_t)(int)q;
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          int v = acc[m][c];
+#pragma unroll
+          for (int o = NCG; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+          if (lane < NCG) rs.sred[(warp * MR + m) * RW + lane * CPL + c] = v;
         }
       }
-      __syncthreads();
-      stage_rowsums(sm, a.M, K);
-      __syncthreads();
-      staged = true;
+      csync();
+      if (em < a.M) {
+        int sum = 0;
+        for (int w = 0; w < NW; ++w) sum += rs.sred[(w * MR + em) * RW + ec];
+        epi(em, ec, sum, item, S.pc.sub, vec);
+      }
+      csync();
     }
-    const int tile = it / ks, sp = it % ks;
-    const Tile t = plain_tile<MR>(tile, N);
-    for (int i = threadIdx.x; i < MR * TC; i += FT) sm.red[i] = 0;
-    __syncthreads();
-    if (a.hbits == 8)
-      gemv_partial<MR, 8>(sm, a.M, K, a.hwq, N, t, sp * gpb, min((K >> 3), (sp + 1) * gpb));
-    else
-      gemv_partial<MR, 4>(sm, a.M, K, a.hwq, N, t, sp * gpb, min((K >> 3), (sp + 1) * gpb));
-    if (!finish_tile<TC>(sm, a.ws, tile, ks, a.M, 0, N, t)) continue;
-    for (int i = threadIdx.x; i < a.M * TC; i += FT) {
-      if (!t.valid(i % TC)) continue;
-      const int r = i / TC, col = t.colA + i % TC;
-      const float ow = __ldg(a.hoffset + col), sw = __ldg(a.hscale + col);
-      a.logits[(size_t)r * N + col] =
-          ((float)sm.red[i] - ow * (float)sm.rsum[r]) * (sm.sx[r] * sw);
+    ring_advance(a, S.pc);
+    if (++S.cons == S.nslot) {
+      S.cons = 0;
+      ++S.round;
     }
-    __syncthreads();
   }
 }
 
+__device__ __forceinline__ bool ring_has(const RingState& S, int st, int l) {
+  return S.pc.st == st && S.pc.l == l;
+}
+
+// the affine bracket's vectors of column col of a pack, layer l: v[0..3] =
+// scale, offset, colsum, bias (0 without one)
+__device__ __forceinline__ void ring_vload(const W4& p, int l, int col, float* v) {
+  const size_t si = (size_t)l * p.s_l + (size_t)col * p.s_c;
+  v[0] = __ldg(p.scale + si);
+  v[1] = __ldg(p.offset + si);
+  v[2] = __ldg(p.colsum + (size_t)l * p.n + col);
+  v[3] = p.bias ? __ldg(p.bias + (size_t)l * p.n + col) : 0.0f;
+}
+
+// affine() on the loaded vectors, in its fp32 order
+__device__ __forceinline__ float ring_affine(bool bias, const float* v, int acc, float rowsum,
+                                             float xs, float ox, float kox) {
+  float y = (float)acc - ox * v[2] - v[1] * rowsum + kox * v[1];
+  y = y * (xs * v[0]);
+  if (bias) y = y + v[3];
+  return y;
+}
+
+// Generation-free grid barrier: bar[2] counts arrivals over the whole launch
+// (the n-th barrier waits for n·G of them), so nothing is reset between
+// barriers; ring_exit zeroes it once every block has passed its last one.
+// Needs every block resident (cooperative launch).
+__device__ __forceinline__ void ring_barrier(unsigned* bar, unsigned n) {
+  csync();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar + 2, 1u);
+    const unsigned target = n * gridDim.x;
+    volatile unsigned* c = bar + 2;
+    while (*c < target) __nanosleep(20);
+    __threadfence();
+  }
+  csync();
+}
+
+__device__ __forceinline__ void ring_exit(unsigned* bar) {
+  if (threadIdx.x == 0 && atomicAdd(bar + 3, 1u) == gridDim.x - 1) {
+    atomicExch(bar + 2, 0u);
+    atomicExch(bar + 3, 0u);
+  }
+}
+
+__shared__ unsigned long long ring_bars[2 * RING_MAX_SLOTS];
 
 template <int MR, int WB, int DPL>
-__global__ void __launch_bounds__(FT)
-fused_decode_kernel(const Args a, int kmax) {
-  const Smem sm = carve(MR, kmax);
+__global__ void __launch_bounds__(FT + 32, 1)
+fused_decode_kernel(const Args a, int kmax, int nslot, int ring_off) {
+  RingSmem rs;
+  rs.s = carve(MR, kmax);
+  rs.sred = rs.s.red;
+  rs.gbuf = reinterpret_cast<float*>(rs.s.red + NW * MR * RW);
+  rs.xs = reinterpret_cast<float*>(rs.s.act + MR * a.K);
+  rs.ring = reinterpret_cast<int8_t*>(rs.s.meta) + ring_off;
+  rs.full = ring_bars;
+  rs.empty = ring_bars + RING_MAX_SLOTS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < nslot; ++s) {
+      mbar_init(rs.full + s, 32);        // the producer lanes' cp.async arrivals
+      mbar_init(rs.empty + s, NW);       // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  ring_plan_init(a);                     // ends in __syncthreads (every thread)
+  if (threadIdx.x >= FT) {
+    ring_produce(a, rs.ring, nslot, rs.full, rs.empty);
+    return;
+  }
+  const Smem& sm = rs.s;
+  RingState S;
+  S.nslot = nslot;
+  S.cons = 0;
+  S.round = 0;
+  S.pc = RingPos{a.l0, ST_QKV, 0, 0, 0};
+  ring_settle(a, S.pc);
   stamp(a, 0);
   int ts = 1;
+  unsigned nb = 0;
+  const int K = a.K, F = a.F, Nq = a.qkv.n, Ko = a.o.kin;
   for (int l = a.l0; l < a.l1; ++l) {
-    const float* mm = a.meta + (size_t)l * META + AM;
-    stage_qkv<MR, WB>(a, sm, l);
-    grid_barrier(a.bar);
+    const float* m = a.meta + (size_t)l * META;
+    const float* mm = m + AM;
+    const float* xin = l == a.l0 ? a.x_in : a.x_out;
+    // 1. norm1 + quantize + qkv + affine + per-column output fq -> yq
+    if (ring_has(S, ST_QKV, l))
+      stage_norm_ring<MR>(sm, rs.xs, xin, a.M, K, a.anw + (size_t)l * K, a.anb + (size_t)l * K,
+                          m[0], m[1], m[2], m[3], m[4], m[5], a.ln);
+    // the next norm's vectors into L2 (read after the attention and o stages)
+    prefetch_l2(a.mnw + (size_t)l * K, K);
+    prefetch_l2(a.mnb + (size_t)l * K, K);
+    {
+      const float xs = m[4], ox = m[5] - 128.0f, kox = (float)K * ox;
+      const bool bias = a.qkv.bias;
+      ring_stage<MR, WB>(
+          a, rs, S, ST_QKV, l, K,
+          [&](int item, int, int c, RingVec& v) {
+            const int col = RW * item + c;
+            ring_vload(a.qkv, l, col, v.v);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) v.v[4 + j] = __ldg(a.ofq + ((size_t)l * 4 + j) * Nq + col);
+          },
+          [&](int r, int c, int acc, int item, int, const RingVec& v) {
+            float y = ring_affine(bias, v.v, acc, (float)sm.rsum[r], xs, ox, kox);
+            const float fs = v.v[4], fo = v.v[5], fc = v.v[6], fe = v.v[7];
+            float q = rintf(y / fs) + fo;
+            q = fminf(fmaxf(q, 0.0f), fc);
+            if (fe > 0.5f) y = (q - fo) * fs;
+            a.yq[(size_t)r * Nq + RW * item + c] = y;
+          });
+    }
+    ring_barrier(a.bar, ++nb);
     stamp(a, ts++);
+    // 2. attention -> a8
     stage_attention<DPL>(a, sm, l);
-    grid_barrier(a.bar);
+    ring_barrier(a.bar, ++nb);
     stamp(a, ts++);
-    stage_o<MR, WB>(a, sm, l);
-    grid_barrier(a.bar);
+    // 3. o-proj + output fq + resid_add_1 -> resid
+    if (ring_has(S, ST_O, l)) stage_copy(sm, a.a8, 0, a.M, Ko);
+    {
+      const float xs = m[19], ox = m[20] - 128.0f, kox = (float)Ko * ox;
+      const float r21 = 1.0f / m[21], r24 = 1.0f / m[24], r27 = 1.0f / m[27],
+                  r30 = 1.0f / m[30];
+      const bool bias = a.o.bias;
+      ring_stage<MR, WB>(
+          a, rs, S, ST_O, l, Ko,
+          [&](int item, int, int c, RingVec& v) {
+            ring_vload(a.o, l, RW * item + c, v.v);
+            v.v[4] = __ldcg(xin + (size_t)(threadIdx.x / RW) * K + RW * item + c);   // x[r, col]
+          },
+          [&](int r, int c, int acc, int item, int, const RingVec& v) {
+            const int col = RW * item + c;
+            float y = ring_affine(bias, v.v, acc, (float)sm.rsum[r], xs, ox, kox);
+            y = fqm_r(y, m[21], r21, m[22], m[23]);
+            const float xr = fqm_r(v.v[4], m[24], r24, m[25], m[26]);
+            y = fqm_r(y, m[27], r27, m[28], m[29]);
+            a.resid[(size_t)r * K + col] = fqm_r(xr + y, m[30], r30, m[31], m[32]);
+          });
+    }
+    ring_barrier(a.bar, ++nb);
     stamp(a, ts++);
-    stage_w13<MR, WB>(a, sm, l, mm, a.resid);
-    grid_barrier(a.bar);
+    // 4. norm2 + quantize + w13 with the gate chain -> act8
+    if (ring_has(S, ST_W13, l))
+      stage_norm_ring<MR>(sm, rs.xs, a.resid, a.M, K, a.mnw + (size_t)l * K,
+                          a.mnb + (size_t)l * K, mm[16], mm[17], mm[18], mm[19], mm[0], mm[1],
+                          a.ln);
+    {
+      const float xs = mm[0], ox = mm[1] - 128.0f, kox = (float)K * ox;
+      const float r2 = 1.0f / mm[2], r5 = 1.0f / mm[5], r8 = 1.0f / mm[8], r11 = 1.0f / mm[11],
+                  r14 = 1.0f / mm[14];
+      const bool bias = a.w13.bias;
+      ring_stage<MR, WB>(
+          a, rs, S, ST_W13, l, K,
+          [&](int item, int sub, int c, RingVec& v) {
+            ring_vload(a.w13, l, (sub ? F : 0) + RW * item + c, v.v);
+          },
+          [&](int r, int c, int acc, int item, int sub, const RingVec& v) {
+            const float rsum = (float)sm.rsum[r];
+            float* g1p = rs.gbuf + r * RW + c;
+            if (!sub) {
+              *g1p = fqm_r(ring_affine(bias, v.v, acc, rsum, xs, ox, kox), mm[2], r2, mm[3],
+                           mm[4]);
+              return;
+            }
+            const float g1 = *g1p;
+            float act;
+            if (!a.gelu) {
+              float sig = 1.0f / (1.0f + expf(-g1));
+              sig = fqm_r(sig, mm[5], r5, mm[6], mm[7]);
+              act = g1 * sig;
+            } else {
+              const float u = 0.7978845608028654f * (g1 + 0.044715f * g1 * g1 * g1);
+              act = 0.5f * g1 * (1.0f + tanhf(u));
+            }
+            act = fqm_r(act, mm[8], r8, mm[9], mm[10]);
+            float g3 = ring_affine(bias, v.v, acc, rsum, xs, ox, kox);
+            g3 = fqm_r(g3, mm[11], r11, mm[12], mm[13]);
+            a.act8[(size_t)r * F + RW * item + c] =
+                (int8_t)(int)quant_u8s_r(act * g3, mm[14], r14, mm[15]);
+          });
+    }
+    ring_barrier(a.bar, ++nb);
     stamp(a, ts++);
-    stage_w2<MR, WB>(a, sm, l, mm, a.resid, a.x_out);
-    if (l + 1 < a.l1 || a.logits || a.trace) grid_barrier(a.bar);
+    // 5. w2 + output fq + resid_add_2 -> x
+    if (ring_has(S, ST_W2, l)) stage_copy(sm, a.act8, 0, a.M, F);
+    {
+      // the next norm's vectors into L2 (the next layer's norm1, or the head's)
+      const bool more = l + 1 < a.l1;
+      const int nv = more || a.logits ? K : 0;
+      prefetch_l2(more ? a.anw + (size_t)(l + 1) * K : a.fnw, nv);
+      prefetch_l2(more ? a.anb + (size_t)(l + 1) * K : a.fnb, nv);
+    }
+    {
+      const float xs = mm[14], ox = mm[15] - 128.0f, kox = (float)F * ox;
+      const float r20 = 1.0f / mm[20], r23 = 1.0f / mm[23], r26 = 1.0f / mm[26],
+                  r29 = 1.0f / mm[29];
+      const bool bias = a.w2.bias;
+      ring_stage<MR, WB>(
+          a, rs, S, ST_W2, l, F,
+          [&](int item, int, int c, RingVec& v) {
+            ring_vload(a.w2, l, RW * item + c, v.v);
+            v.v[4] = __ldcg(a.resid + (size_t)(threadIdx.x / RW) * K + RW * item + c);
+          },
+          [&](int r, int c, int acc, int item, int, const RingVec& v) {
+            const int col = RW * item + c;
+            float y = ring_affine(bias, v.v, acc, (float)sm.rsum[r], xs, ox, kox);
+            y = fqm_r(y, mm[20], r20, mm[21], mm[22]);
+            const float xr = fqm_r(v.v[4], mm[23], r23, mm[24], mm[25]);
+            y = fqm_r(y, mm[26], r26, mm[27], mm[28]);
+            a.x_out[(size_t)r * K + col] = fqm_r(xr + y, mm[29], r29, mm[30], mm[31]);
+          });
+    }
+    if (l + 1 < a.l1 || a.logits || a.trace) ring_barrier(a.bar, ++nb);
     stamp(a, ts++);
   }
   if (a.logits) {
-    stage_head<MR>(a, sm);
-    if (a.trace) grid_barrier(a.bar);
+    // the head: logits = (acc − o_w·rowsum)·(s_x·s_w)
+    if (ring_has(S, ST_HEAD, a.l1)) stage_head_act<MR>(a, sm, rs.xs);
+    const int Vp = a.Vp;
+    auto vload = [&](int item, int, int c, RingVec& v) {
+      v.v[0] = __ldg(a.hscale + RW * item + c);
+      v.v[1] = __ldg(a.hoffset + RW * item + c);
+    };
+    auto epi = [&](int r, int c, int acc, int item, int, const RingVec& v) {
+      a.logits[(size_t)r * Vp + RW * item + c] =
+          ((float)acc - v.v[1] * (float)sm.rsum[r]) * (sm.sx[r] * v.v[0]);
+    };
+    if (a.hbits == 8)
+      ring_stage<MR, 8>(a, rs, S, ST_HEAD, a.l1, K, vload, epi);
+    else
+      ring_stage<MR, 4>(a, rs, S, ST_HEAD, a.l1, K, vload, epi);
+    if (a.trace) ring_barrier(a.bar, ++nb);
     stamp(a, ts);
   }
+  ring_exit(a.bar);
 }
 
 template <int MR, int WB>
@@ -819,22 +1466,35 @@ __global__ void __launch_bounds__(FT)
 fused_mlp_block_kernel(const Args a, int kmax) {
   const Smem sm = carve(MR, kmax);
   if (threadIdx.x < 32) sm.meta[threadIdx.x] = a.mlp_meta[threadIdx.x];
-  __syncthreads();
+  csync();
   stage_w13<MR, WB>(a, sm, a.l0, sm.meta, a.x_in);
   grid_barrier(a.bar);
   stage_w2<MR, WB>(a, sm, a.l0, sm.meta, a.x_in, a.x_out);
 }
 
-size_t smem_bytes(const Args& a, int MR, int kmax, bool attention) {
+// the MLP-block kernel's shared memory: the small arrays, MR activation rows
+// and the MR x TC tile sums
+size_t smem_bytes(int MR, int kmax) {
   const int tc = 32 * (MR <= 2 ? 16 : (MR <= 4 ? 8 : 4));   // Cfg<MR>::TC
-  size_t mv = SMALL + (size_t)MR * kmax + (size_t)MR * tc * 4;
-  if (!attention) return mv;
-  const size_t qwords = a.hd <= 128 ? 32 : 64;   // stage_attention's q words (8 DPL)
-  size_t at = SMALL + (size_t)a.hd * 24 + (size_t)NW * a.hd * 8 + 4 * qwords
-              + (size_t)a.S * 4 + (size_t)KV_CHUNK * a.hd;
-  return mv > at ? mv : at;
+  return SMALL + (size_t)MR * kmax + (size_t)MR * tc * 4;
 }
 
+// The ring kernel's shared memory below its ring (the offset of the ring):
+// the small arrays, then one region that is the matvec stages' MR activation
+// rows, per-warp column sums and w13 buffer, or a norm's MR int8 output rows
+// and its staged inputs (MR + 2 fp32 rows of K), or the attention stage's
+// rows, partials, q words, scores and K / V chunk; rounded up to 128 bytes.
+// ops/fused_layer.ring_smem mirrors it.
+size_t ring_base(const Args& a, int MR, int kmax) {
+  const size_t mm = (size_t)MR * kmax + (size_t)NW * MR * RW * 4 + (size_t)MR * RW * 4;
+  const size_t nm = (size_t)MR * a.K + (size_t)(MR + 2) * a.K * 4;
+  const size_t mv = mm > nm ? mm : nm;
+  const size_t qwords = a.hd <= 128 ? 32 : 64;   // stage_attention's q words (8 DPL)
+  const size_t at = (size_t)a.hd * 24 + (size_t)NW * a.hd * 8 + 4 * qwords
+                    + (size_t)a.S * 4 + (size_t)KV_CHUNK * a.hd;
+  const size_t big = mv > at ? mv : at;
+  return SMALL + (big + 127) / 128 * 128;
+}
 
 int kmax_of(const Args& a) {
   int k = a.K;
@@ -843,33 +1503,59 @@ int kmax_of(const Args& a) {
   return (k + 15) / 16 * 16;
 }
 
+// One block an SM, every block resident (cooperative launch), the ring as
+// many slots as the rest of the SM's shared memory holds (so that no second
+// block fits beside it).
+template <typename KernelT>
+int launch_ring(KernelT kern, const Args& a, int kmax, size_t base, cudaStream_t st) {
+  if (base + 2 * (size_t)RCH > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  int nslot = (int)((SMEM_MAX - base) / RCH);
+  if (nslot > RING_MAX_SLOTS) nslot = RING_MAX_SLOTS;
+  const size_t smem = base + (size_t)nslot * RCH;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int coop = 0, sms = 0;
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return (int)cudaErrorNotSupported;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int occ = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, FT + 32, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  Args acopy = a;
+  int ring_off = (int)base;
+  void* params[] = {(void*)&acopy, (void*)&kmax, (void*)&nslot, (void*)&ring_off};
+  e = cudaLaunchCooperativeKernel((void*)kern, dim3(sms), dim3(FT + 32), params, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <int WB, int DPL>
 int launch_decode(const Args& a, int kmax, cudaStream_t st) {
   if (a.M <= 1)
-    return launch_coop(fused_decode_kernel<1, WB, DPL>, a, kmax, smem_bytes(a, 1, kmax, true),
-                       st);
+    return launch_ring(fused_decode_kernel<1, WB, DPL>, a, kmax, ring_base(a, 1, kmax), st);
   if (a.M <= 2)
-    return launch_coop(fused_decode_kernel<2, WB, DPL>, a, kmax, smem_bytes(a, 2, kmax, true),
-                       st);
+    return launch_ring(fused_decode_kernel<2, WB, DPL>, a, kmax, ring_base(a, 2, kmax), st);
   if (a.M <= 4)
-    return launch_coop(fused_decode_kernel<4, WB, DPL>, a, kmax, smem_bytes(a, 4, kmax, true),
-                       st);
+    return launch_ring(fused_decode_kernel<4, WB, DPL>, a, kmax, ring_base(a, 4, kmax), st);
   if (a.M <= 8)
-    return launch_coop(fused_decode_kernel<8, WB, DPL>, a, kmax, smem_bytes(a, 8, kmax, true),
-                       st);
+    return launch_ring(fused_decode_kernel<8, WB, DPL>, a, kmax, ring_base(a, 8, kmax), st);
   return (int)cudaErrorInvalidValue;
 }
 
 template <int WB>
 int launch_mlp_block(const Args& a, int kmax, cudaStream_t st) {
   if (a.M <= 1)
-    return launch_coop(fused_mlp_block_kernel<1, WB>, a, kmax, smem_bytes(a, 1, kmax, false), st);
+    return launch_coop(fused_mlp_block_kernel<1, WB>, a, kmax, smem_bytes(1, kmax), st);
   if (a.M <= 2)
-    return launch_coop(fused_mlp_block_kernel<2, WB>, a, kmax, smem_bytes(a, 2, kmax, false), st);
+    return launch_coop(fused_mlp_block_kernel<2, WB>, a, kmax, smem_bytes(2, kmax), st);
   if (a.M <= 4)
-    return launch_coop(fused_mlp_block_kernel<4, WB>, a, kmax, smem_bytes(a, 4, kmax, false), st);
+    return launch_coop(fused_mlp_block_kernel<4, WB>, a, kmax, smem_bytes(4, kmax), st);
   if (a.M <= 8)
-    return launch_coop(fused_mlp_block_kernel<8, WB>, a, kmax, smem_bytes(a, 8, kmax, false), st);
+    return launch_coop(fused_mlp_block_kernel<8, WB>, a, kmax, smem_bytes(8, kmax), st);
   return (int)cudaErrorInvalidValue;
 }
 

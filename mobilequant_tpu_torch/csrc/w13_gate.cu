@@ -9,18 +9,23 @@
 // is the JAX engine's _mlp_block_meta (indices 0..15 used); site_on switches
 // the four optional fake-quant sites.
 //
-// Bound: at prefill M the integer operations of the 2F-wide matmul. Design:
-// the shared W4A8 / W8A8 tile core (templated on the weight bits) with a
-// split column map (tile columns 0..63 read w1 columns j0.., columns 64..127
-// read w3 columns F + j0..), so one block holds both operands of its 64 gate
-// outputs; the (M, 2F) fp32 intermediate never leaves shared memory.
-#include "mqt_common.cuh"
+// Bound: at prefill M the weight bytes and the integer operations of the
+// 2F-wide matmul (TinyLlama at M = 128: 11.5 MB, 3.4 us; 5.9 G int8
+// operations, 3.0 us on the tensor cores). Design: the int8 tensor-core tile
+// core (tc_tile.cuh: mma.sync m16n8k32 over a four-stage cp.async ring of
+// activation and weight chunks, the W4 nibbles unpacked in registers once per
+// chunk) over 64-row x 128-column tiles whose column map is split (columns
+// 0..63 read w1 columns j0.., 64..127 read w3 columns F + j0..), so one block
+// holds both operands of its 64 gate outputs and the (M, 2F) fp32
+// intermediate never leaves shared memory. Split-K only where the tiles
+// alone leave SMs idle (M <= 64), through the self-cleaning workspace.
+#include "tc_tile.cuh"
 
 namespace {
 
 using namespace mqt;
 
-constexpr int HALF = TBN / 2;
+constexpr int HALF = TC_BN / 2;
 
 struct GateArgs {
   float m[16];
@@ -35,47 +40,52 @@ __device__ __forceinline__ float fq(float x, float s, float o, float qmax) {
 }
 
 template <int WB>
-__global__ void __launch_bounds__(TTHREADS)
+__global__ void __launch_bounds__(TC_THREADS, 2)
 w13_gate_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                 Affine aff, GateArgs ga, int8_t* __restrict__ out, int* ws,
                 int M, int K, int F, int ks, int cps) {
-  __shared__ TileSmem sm;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int ntn = gridDim.x;
-  const int tile = blockIdx.y * ntn + blockIdx.x;
-  const int ntiles = ntn * gridDim.y;
-  const int j0 = blockIdx.x * HALF, m0 = blockIdx.y * TBM;
+  extern __shared__ int4 ring_raw[];
+  int8_t* ring = reinterpret_cast<int8_t*>(ring_raw);
+  __shared__ int rsum[TC_BM];
+  __shared__ int last;
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int ntiles = gridDim.x * gridDim.y;
+  const int j0 = blockIdx.x * HALF, m0 = blockIdx.y * TC_BM;
   const int N2 = 2 * F;
-  const int nchunks = (K >> 1) / TBKP;
+  const int nchunks = ((K >> 1) + TC_KP - 1) / TC_KP;
   const int c0 = blockIdx.z * cps, c1 = min(nchunks, c0 + cps);
   ColMap cm{j0, F + j0, HALF, HALF, HALF};   // F % 64 == 0 (checked by the caller)
-  int acc[4][8] = {};
-  int rs = 0;
-  tile_mma<WB>(x, w, M, K, N2, m0, cm, c0, c1, sm, acc, rs);
-  if (!splitk_reduce(ws, ntiles, tile, ks, M, N2, m0, cm, sm, acc, rs)) return;
+  TcAcc acc;
+  tc_tile<WB>(x, w, M, K, N2, m0, cm, c0, c1, ring, rsum, acc);
+  if (ks > 1 && !tc_splitk_reduce(ws, ntiles, tile, M, N2, m0, cm, acc, rsum, &last, ks))
+    return;
 
+  // the affine bracket and the w1 / w3 output sites on the accumulators,
+  // staged as fp32 in the (now free) ring
+  float(*y)[TC_BN + 1] = reinterpret_cast<float(*)[TC_BN + 1]>(ring);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = ty + 16 * i;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int nl = tx + 16 * j;
-      float y = aff(acc[i][j], cm.gcol(nl), (float)sm.rsum[m]);
-      if (nl < HALF) {
-        if (ga.s_w1) y = fq(y, ga.m[2], ga.m[3], ga.m[4]);
-      } else {
-        if (ga.s_w3) y = fq(y, ga.m[11], ga.m[12], ga.m[13]);
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = tc_row(mt, e), nl = tc_col(c, e);
+        float v = aff(acc.d[mt][c][e], cm.gcol(nl), (float)rsum[m]);
+        if (nl < HALF) {
+          if (ga.s_w1) v = fq(v, ga.m[2], ga.m[3], ga.m[4]);
+        } else {
+          if (ga.s_w3) v = fq(v, ga.m[11], ga.m[12], ga.m[13]);
+        }
+        y[m][nl] = v;
       }
-      sm.u.y[m][nl] = y;
-    }
-  }
   __syncthreads();
 
-  for (int idx = tid; idx < TBM * HALF; idx += TTHREADS) {
+  for (int idx = tid; idx < TC_BM * HALF; idx += TC_THREADS) {
     const int m = idx / HALF, n = idx % HALF, gm = m0 + m;
     if (gm >= M) continue;
-    const float g1 = sm.u.y[m][n];
-    const float g3 = sm.u.y[m][HALF + n];
+    const float g1 = y[m][n];
+    const float g3 = y[m][HALF + n];
     float act;
     if (!ga.gelu) {
       float sig = 1.0f / (1.0f + expf(-g1));
@@ -91,6 +101,18 @@ w13_gate_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     q = fminf(fmaxf(q, 0.0f), 255.0f) - 128.0f;
     out[(size_t)gm * F + j0 + n] = (int8_t)(int)q;
   }
+}
+
+template <int WB>
+int launch_w13_gate(dim3 grid, const int8_t* x, const int8_t* w, const Affine& aff,
+                    const GateArgs& ga, int8_t* out, int* ws, int M, int K, int F, int ks,
+                    int cps, cudaStream_t st) {
+  constexpr int smem = tc_smem_bytes<WB>();
+  cudaError_t e = cudaFuncSetAttribute(w13_gate_kernel<WB>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  w13_gate_kernel<WB><<<grid, TC_THREADS, smem, st>>>(x, w, aff, ga, out, ws, M, K, F, ks, cps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -118,21 +140,19 @@ MQT_EXPORT int mqt_w13_gate(const void* x, const void* w, const void* scale,
   ga.s_act = s_act;
   ga.s_w3 = s_w3;
   ga.gelu = gelu;
-  const int tn = F / HALF, tm = (M + TBM - 1) / TBM;
-  const int nchunks = (K >> 1) / TBKP;
+  const int tn = F / HALF, tm = (M + TC_BM - 1) / TC_BM;
+  const int nchunks = ((K >> 1) + TC_KP - 1) / TC_KP;
   int ks, cps;
-  pick_split(tn * tm, nchunks, 4, ks, cps);
+  tc_pick_split(tn * tm, nchunks, ks, cps);
   dim3 grid(tn, tm, ks);
   const int8_t* xp = (const int8_t*)x;
   const int8_t* wp = (const int8_t*)w;
   cudaStream_t st = (cudaStream_t)stream;
   if (wbits == 8)
-    w13_gate_kernel<8><<<grid, TTHREADS, 0, st>>>(xp, wp, aff, ga, (int8_t*)out, (int*)ws,
-                                                   M, K, F, ks, cps);
-  else if (wbits == 4)
-    w13_gate_kernel<4><<<grid, TTHREADS, 0, st>>>(xp, wp, aff, ga, (int8_t*)out, (int*)ws,
-                                                   M, K, F, ks, cps);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_w13_gate<8>(grid, xp, wp, aff, ga, (int8_t*)out, (int*)ws, M, K, F, ks, cps,
+                              st);
+  if (wbits == 4)
+    return launch_w13_gate<4>(grid, xp, wp, aff, ga, (int8_t*)out, (int*)ws, M, K, F, ks, cps,
+                              st);
+  return (int)cudaErrorInvalidValue;
 }

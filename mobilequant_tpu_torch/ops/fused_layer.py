@@ -27,10 +27,13 @@ package's mobilequant_tpu/ops/pallas_layer.py fused_model_w4_stacked
 (_model_kernel, _layer_phase, _head_phase) and fused_layer_w4_stacked
 (_layer_kernel), W4 and W8, RMSNorm and LayerNorm editions. Bound: device-memory bytes (each weight
 byte once per step, plus the valid K/V rows). Design: one cooperative
-persistent launch; stages split by grid barriers (five per layer); split-K
-matvecs meet in an integer workspace, so results do not depend on block
-arrival order; the attention runs one block per (sequence, q head), its scores
-and the cache rows in shared memory. The TPU column / row permutations of the
+persistent launch, one block an SM; stages split by grid barriers (five per
+layer); each block owns fixed whole-K 32-column items of every matvec stage,
+so no partial sum leaves it, and a producer warp streams their weights
+through a shared-memory ring of 16 KB chunks that runs ahead across the
+barriers and layers (ring_stream walks it, ring_smem lays out its shared
+memory); the attention runs one block per (sequence, q head), its scores and
+the cache rows in shared memory. The TPU column / row permutations of the
 JAX kernels' qkv and o packs (a Mosaic layout workaround) are not ported: the
 kernels read the canonical qkv_proj / o_proj packs.
 
@@ -60,7 +63,7 @@ import torch
 
 from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.mlp_block import (
-    BARRIER, WS_COUNTERS, FusedArgs, check_norm_kind, fused_mlp_block_w4_plain, layer_norm,
+    BARRIER, FusedArgs, check_norm_kind, fused_mlp_block_w4_plain, layer_norm,
     mlp_block_supported, mlp_pack_bits, ptr, rms_norm, stacked_w4, sum_f32)
 from mobilequant_tpu_torch.ops.qkv_rope import qkv_rope_plain
 from mobilequant_tpu_torch.ops.qops import f32, int_head_linear, int_matmul_qk, quantize_act
@@ -69,33 +72,106 @@ from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, w4a8_matmul_plain,
 
 LAYER_META_LEN = 65
 MAX_BATCH = 8
-SMEM_LIMIT = 200 * 1024
+SMEM_MAX = 232448 - 1024   # the ring kernel's dynamic shared memory (H100: 227 KB a
+                           # block, its static arrays beside)
+RING_W = 32                # bytes (columns) of a ring item's row segment
+RING_ROWS = 512            # weight rows a ring chunk (16 KB)
+RING_MAX_SLOTS = 13
 
 
-def _attn_smem(hd: int, S: int) -> int:
-    """csrc/fused_layer.cuh smem_bytes of the attention stage: the small
-    arrays, the q / k / v rows (fp32 and shifted ints), the warps' fp64 P·V
-    partials, the q words (32 in the 4-dims-a-lane edition, hd <= 128; 64 in
-    the 8-dims one), the scores and a 256-row K / V chunk."""
-    return 1280 + hd * 24 + 8 * hd * 8 + 4 * (32 if hd <= 128 else 64) + S * 4 + 256 * hd
+def ring_smem(hd: int, S: int, K: int, kmax: int, MR: int):
+    """(ring offset, slots, bytes) of csrc/fused_layer.cuh's ring kernel for
+    MR rows (ring_base and launch_ring): the small arrays; one region that is
+    the matvec stages' MR activation rows (kmax wide), per-warp column sums
+    and w13 buffer, or a norm's MR int8 output rows of K and its staged
+    inputs (MR + 2 fp32 rows of K), or the attention stage's rows, fp64 P·V
+    partials, q words (32 up to hd 128, else 64), scores and 256-row K / V
+    chunk, rounded up to 128 bytes; then as many 16 KB ring slots as the rest
+    holds (at most 13; slots 0 when fewer than 2 fit: the launch is
+    refused)."""
+    mv = max(MR * kmax + 8 * MR * RING_W * 4 + MR * RING_W * 4, MR * K + (MR + 2) * K * 4)
+    at = hd * 24 + 8 * hd * 8 + 4 * (32 if hd <= 128 else 64) + S * 4 + 256 * hd
+    base = 1280 + -(-max(mv, at) // 128) * 128
+    slot = RING_W * RING_ROWS
+    nslot = min(RING_MAX_SLOTS, (SMEM_MAX - base) // slot) if base <= SMEM_MAX else 0
+    nslot = nslot if nslot >= 2 else 0
+    return base, nslot, base + nslot * slot
+
+
+def kmax_of(K: int, Ko: int, F: int) -> int:
+    """The widest activation row a matvec stage stages (csrc kmax_of)."""
+    return -(-max(K, Ko, F) // 16) * 16
+
+
+_QKV, _O, _W13, _W2, _HEAD, _END = range(6)
+
+
+def ring_plan_dims(K: int, Ko: int, Nq: int, F: int, wbits: int, Vp: int = 0,
+                   hbits: int = 4):
+    """(items, weight rows) of the ring kernel's qkv, o, w13, w2 and head
+    stages (csrc ring_plan_init): an item is 32 columns over the whole K (a
+    w13 item: 32 gate outputs, their w1 then their w3 columns)."""
+    div = 2 if wbits == 4 else 1
+    items = (Nq // RING_W, K // RING_W, F // RING_W, K // RING_W, Vp // RING_W)
+    rows = (K // div, Ko // div, K // div, F // div, K // (2 if hbits == 4 else 1))
+    return items, rows
+
+
+def ring_stream(dims: tuple, nlayers: int, G: int, block: int, head: bool):
+    """The chunk stream of one block of the ring kernel, as its ring_settle /
+    ring_advance walk it: (stage, layer, item, sub-item, chunk) in order.
+    dims: ring_plan_dims; item i of a stage goes to block (i + off) mod G, off
+    counting the items of every earlier stage of the launch."""
+    items, rows = dims
+    per = sum(items[:4])
+    nch = [-(-r // RING_ROWS) for r in rows]
+
+    def first(st, l):
+        before = (l * (per % G) + (0 if st == _HEAD else sum(items[:st]))) % G
+        return (block + G - before) % G
+
+    out = []
+    l, st, it = 0, _QKV, 0
+    while st != _END:
+        f = first(st, l)
+        if f + it * G >= items[st]:
+            it = 0
+            if st == _HEAD:
+                st = _END
+            else:
+                st += 1
+                if st == _HEAD:
+                    l += 1
+                    if l < nlayers:
+                        st = _QKV
+                    elif not head:
+                        st = _END
+            continue
+        for sub in range(2 if st == _W13 else 1):
+            for ch in range(nch[st]):
+                out.append((st, l, f + it * G, sub, ch))
+        it += 1
+    return out
 
 
 def layer_kernel_supported(c, max_seq_len: int) -> bool:
     """Static shape gate of the whole-layer and whole-model kernels: head_dim
     a multiple of 32 up to 256 (the attention stage's 4- and 8-dims-a-lane
     editions; the JAX gate takes hd % 128 == 0, but its Ko % 512 term is not
-    copied: it would move test-llama-256 off the kernel routes)."""
+    copied: it would move test-llama-256 off the kernel routes), and at
+    B = 8 two ring slots beside the attention stage's shared memory."""
     hd, Hq, Hkv = c.head_dim_, c.num_heads, c.num_kv_heads
     if Hkv < 1 or Hq % Hkv:
         return False
     K, Ko, Nq = c.hidden_size, Hq * hd, (Hq + 2 * Hkv) * hd
+    F = c.intermediate_size
     rot = c.rotary_dim
     return (hd % 32 == 0 and hd <= 256 and rot % 2 == 0 and 0 < rot <= hd
             and K % 128 == 0 and Ko % 64 == 0 and Nq % 128 == 0
-            and mlp_block_supported(K, c.intermediate_size)
+            and mlp_block_supported(K, F)
             and c.hidden_act in ("silu", "gelu_tanh")
             and c.neg_inf <= -1e4 and max_seq_len % 4 == 0
-            and _attn_smem(hd, max_seq_len) <= SMEM_LIMIT)
+            and ring_smem(hd, max_seq_len, K, kmax_of(K, Ko, F), MAX_BATCH)[1] >= 2)
 
 
 def head_kernel_supported(head_pack: dict, hidden_size: int) -> bool:
@@ -245,7 +321,8 @@ def _launch(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2, kcache, vca
     if Nq != (Hq + 2 * Hkv) * hd or tuple(meta_L.shape) != (L, LAYER_META_LEN) \
             or tuple(ofq_L.shape) != (L, 4, Nq) or tuple(cs.shape) != (B, 2, hd):
         raise ValueError("fused decode kernel: operand shapes")
-    if _attn_smem(hd, S) > SMEM_LIMIT:
+    MR = 1 << (B - 1).bit_length()
+    if not ring_smem(hd, S, K, kmax_of(K, Hq * hd, F), MR)[1]:
         raise NotImplementedError(f"fused decode kernel: S={S} needs too much shared memory")
     lib = _build.lib()
     keep = []
@@ -277,14 +354,13 @@ def _launch(x, pos, cs, ofq_L, attn_norm, qkv, o, mlp_norm, w13, w2, kcache, vca
         a.hoffset = ptr(f32c(head["offset"].reshape(-1)))
         a.fnw = ptr(f32c(final_norm["w"]))
         a.fnb = ptr(f32c(final_norm["b"]))
-    ws = _build.WORKSPACE.get(dev, WS_COUNTERS + B * max(Nq, K, 2 * F, Vp))
     a.x_in, a.x_out, a.kv_new, a.logits = ptr(xin), ptr(out), ptr(kv_new), ptr(logits)
     a.pos, a.cs, a.meta, a.ofq = ptr(pos_), ptr(f32c(cs)), ptr(f32c(meta_L)), ptr(f32c(ofq_L))
     a.anw, a.anb = ptr(f32c(attn_norm["w"])), ptr(f32c(attn_norm["b"]))
     a.mnw, a.mnb = ptr(f32c(mlp_norm["w"])), ptr(f32c(mlp_norm["b"]))
     a.kcache, a.vcache = ptr(kc), ptr(vc)
     a.yq, a.resid, a.a8, a.act8 = ptr(yq), ptr(resid), ptr(a8), ptr(act8)
-    a.ws, a.bar = ptr(ws), ptr(BARRIER.get(dev, 2))
+    a.bar = ptr(BARRIER.get(dev, 4))   # the grid barrier's words
     if trace is not None:
         if trace.dtype != torch.int64 or trace.device != dev or trace.numel() < 2 + 5 * len(layers):
             raise ValueError("trace: an int64 tensor of 2 + 5·layers entries on the device")

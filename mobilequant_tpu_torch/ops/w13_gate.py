@@ -6,10 +6,10 @@ Kernel: csrc/w13_gate.cu, which replaces the JAX package's
 mobilequant_tpu/ops/pallas_mlp.py w13_gate_stacked (_w13_gate_kernel), in
 both of its editions (the weight bits from the pack's shape: W4 (K/2, 2F),
 W8 (K, 2F)). Bound: integer operations of the 2F-wide matmul at prefill M.
-Design: the int8 tile core (templated on the weight bits) with a split column
-map, so one block computes both the w1 and the w3
-column of its gate outputs and the (M, 2F) fp32 intermediate stays in shared
-memory.
+Design: the int8 tensor-core tile core (csrc/tc_tile.cuh: mma.sync m16n8k32
+over a four-stage cp.async ring, templated on the weight bits) with a split
+column map, so one block computes both the w1 and the w3 column of its gate
+outputs and the (M, 2F) fp32 intermediate stays in shared memory.
 
 meta is the JAX engine's _mlp_block_meta vector (entries 0..15 are read:
 MLP-input encoding, w1 output fq, sigmoid fq, act output fq, w3 output fq,
@@ -35,6 +35,24 @@ def w13_gate_supported(K: int, F: int, wbits: int = 4) -> bool:
     """Shapes the kernel takes, W4 or W8 (the tile core reads both as 64-k
     chunks of row pairs k, k + K/2)."""
     return wbits in (4, 8) and K % 64 == 0 and F % 64 == 0
+
+
+TILE_ROWS, TILE_GATES, CHUNK_ROWS = 64, 64, 64   # csrc/tc_tile.cuh TC_BM, TC_BN / 2, TC_KP
+
+
+def w13_gate_plan(M: int, K: int, F: int, sms: int):
+    """(gate tiles, row tiles, K splits, chunks a split) of the kernel's
+    launch (csrc/w13_gate.cu with tc_tile.cuh's tc_pick_split): 64 gate
+    outputs by 64 rows a tile, chunks of 64 packed rows (128 k), split over K
+    only when the tiles leave SMs idle (about two blocks an SM then, at least
+    two chunks a split)."""
+    tn, tm = F // TILE_GATES, -(-M // TILE_ROWS)
+    nch = -(-(K // 2) // CHUNK_ROWS)
+    ks = 1
+    if tn * tm < sms:
+        ks = min(-(-2 * sms // (tn * tm)), max(nch // 2, 1))
+    cps = -(-nch // ks)
+    return tn, tm, -(-nch // cps), cps
 
 
 def _fq(x: torch.Tensor, s: float, o: float, qmax: float) -> torch.Tensor:
@@ -95,8 +113,8 @@ def w13_gate(h8: torch.Tensor, pack: dict, meta: Sequence[float],
     sc, of, cs, b, ss = affine_args(p, N2)
     meta_h = _build.host_floats(list(meta)[:16])
     out = torch.empty((M, F), dtype=torch.int8, device=dev)
-    tiles = (F // 64) * -(-M // 64)
-    ws = _build.WORKSPACE.get(dev, 65 * tiles + M * N2 + 64)
+    tn, tm, ks, _ = w13_gate_plan(M, K, F, _build.sm_count(dev))
+    ws = _build.WORKSPACE.get(dev, 65 * tn * tm + M * N2 + 64 if ks > 1 else 1)
     s_w1, s_sig, s_act, s_w3 = (int(bool(s)) for s in site_on)
     code = lib.mqt_w13_gate(
         x.data_ptr(), w.data_ptr(), sc.data_ptr(), of.data_ptr(), cs.data_ptr(),

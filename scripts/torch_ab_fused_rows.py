@@ -1,7 +1,7 @@
 """Time kernels of one checkout on the card, for an A/B of two checkouts in one
 call (run it on each, parent first and last):
 
-    python3 scripts/torch_ab_fused_rows.py [--rows fused,attn,wonly,dattn] TREE [TREE ...]
+    python3 scripts/torch_ab_fused_rows.py [--rows fused,w13,attn,wonly,dattn] TREE [TREE ...]
 
 For each TREE (a checkout of the repository) it builds that checkout's CUDA
 kernels in a fresh process (a tree named twice reuses its first build), then
@@ -12,6 +12,10 @@ attn and wonly by default):
          the chunk kernel (B = 32, 128, pos0 192, 16 staged columns, with
          the head) and the o-tail (M = 32, 128), on seeded synthetic W4A8/h4
          and W8A8/h8 packs, relaxed policy (rows 6, 7, 8, 11, 18);
+  w13    the w13-gate kernel (row 5), W4 and W8, silu and gelu_tanh, at
+         M = 128 and 1024 on TinyLlama's (2048 -> 2 x 5632) and Gemma-2B's
+         (2048 -> 2 x 16384) widths, the seeded random packs rotated over
+         copies past the 50 MB L2 as chip_smoke.py does (cold_count);
   attn   the prefill attention (row 4): T=128 into S=1024 and T=S=1024
          relaxed and strict (G=8), StableLM's T=128 into S=1024 (G=1);
   wonly  the weight-only matmul (rows 12 / 13): wonly_matmul_stacked at
@@ -131,6 +135,34 @@ for wb in ((4, 8) if "fused" in groups else ()):
         out[f"w{wb} row11 B={Bc}"] = tm(lambda i: fused_model_w4_chunk(*cargs, **fkw), n=5)
         del kc, vc, sk, sv, cargs
     del packed
+    torch.cuda.empty_cache()
+
+if "w13" in groups:
+    from mobilequant_tpu_torch.ops.w13_gate import w13_gate
+    packed, cfg, pol, _ = build_synthetic_packed("tinyllama-1.1b", w_bits=4, head_bits=4,
+                                                 device=dev)
+    pol = relax_16bit(pol)
+    meta = E._mlp_block_meta(E.layer_ranges(packed["ranges"], 1), pol, cfg)
+    so = E._mlp_block_site_on(pol)[1:5]
+    del packed
+    for model, K, F in (("TinyLlama", 2048, 5632), ("Gemma", 2048, 16384)):
+        for wb in (4, 8):
+            rows = K // 2 if wb == 4 else K
+            n = CS.cold_count(rows * 2 * F, 64)
+            lo, hi = (0, 16) if wb == 4 else (-128, 128)
+            st = {"wq": torch.randint(-128, 128, (n, rows, 2 * F), generator=gen, device=dev,
+                                      dtype=torch.int8),
+                  "scale": torch.rand((n, 1, 2 * F), generator=gen, device=dev) * 1e-3 + 1e-4,
+                  "offset": torch.randint(lo, hi, (n, 1, 2 * F), generator=gen,
+                                          device=dev).float(),
+                  "colsum": torch.randn((n, 2 * F), generator=gen, device=dev) * 100.0}
+            for act in ("silu", "gelu_tanh"):
+                for Mr in (128, 1024):
+                    x = torch.randint(-128, 128, (Mr, K), generator=gen, device=dev,
+                                      dtype=torch.int8)
+                    out[f"row5 {model} W{wb} {act} M={Mr}"] = tm(
+                        lambda i: w13_gate(x, st, meta, i % n, act, so), n=max(20, n))
+            del st
     torch.cuda.empty_cache()
 
 if "attn" in groups:
@@ -305,7 +337,7 @@ print(json.dumps(out), flush=True)
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", default="fused,attn,wonly",
-                    help="comma-separated row groups: fused, attn, wonly, dattn")
+                    help="comma-separated row groups: fused, w13, attn, wonly, dattn")
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
