@@ -20,7 +20,12 @@
    attention also on ragged shapes (B=2, T=100, positions from 37, valid
    137 / 120, G = 8 and 1, both policies; checked, not timed); the w13-gate
    kernel also at M = 2, 17 (checked, error 0) and 1024 (timed), W4 and W8
-   (phases 2, 2w; Gemma's widths in 2g); the whole-model kernel's B=1
+   (phases 2, 2w; Gemma's widths in 2g); the W4A8 matmul's tile path (o, w2,
+   the head, and two widths off the 128-column grid, one of them N % 16 != 0
+   for the 4-byte-copy edition, counted on the wrapper) and the qkv epilogue
+   kernel (W4, W8 in 2w, StableLM's bias edition in 2s, Gemma's head-dim-256
+   edition W4 and W8 in 2g, with Gemma's w2 and head) also at M = 9, 17, 65
+   (checked) and 1024 (timed), at their M = 128 rows' tolerances; the whole-model kernel's B=1
    per-stage trace beside its parent's figures (PARENT_STAGE_US);
 3. drives the routes on a W4A8 TinyLlama-1.1B pack (seeded synthetic
    weights, W4 head, int8 KV cache, relaxed policy), counting every kernel's
@@ -650,6 +655,13 @@ def main() -> None:
 
     checks = []                # shapes checked against the plain version, not timed
 
+    def check_row(name, shape, err, ok):
+        print(f"  {name} {shape}: err={err[0]:.3g} ({err[1]:.3g})", flush=True)
+        checks.append({"name": name, "shape": shape, "max_abs_err": err[0], "rel": err[1],
+                       "ok": ok})
+        if not ok:
+            failures.append(f"{name} {shape}: error {err}")
+
     def w13_gate_sweep(sfx, pk, meta, layers, act, so, K, Fw, div, g, tag=""):
         """Row 5 at the engine's other prompt lengths, against its plain
         version at error 0: M = 2 and 17 (ragged row tiles, split K) checked,
@@ -661,17 +673,90 @@ def main() -> None:
             err = int8_err(out, ref)
             shape = f"{tag}M={Mr} {K}->2x{Fw} {act}"
             if Mr < 1024:
-                print(f"  w13_gate{sfx} {shape}: err={err[0]:.3g} ({err[1]:.3g})", flush=True)
-                checks.append({"name": f"w13_gate{sfx}", "shape": shape, "max_abs_err": err[0],
-                               "rel": err[1], "ok": err[0] == 0})
-                if err[0] != 0:
-                    failures.append(f"w13_gate{sfx} {shape}: error {err}")
+                check_row(f"w13_gate{sfx}", shape, err, err[0] == 0)
                 continue
             ms = time_ms(lambda i: w13_gate(x, pk, meta, i % layers, act, so))
             plain_ms = time_ms(lambda i: w13_gate_plain(x, layer_pack(pk, 1), meta, act, so), n=3)
             record(f"w13_gate{sfx}", shape, err, err[0] == 0, ms, plain_ms, None,
                    bound(Mr * K + K // div * 2 * Fw + 2 * Fw * 16 + Mr * Fw,
                          int8_ops=2.0 * Mr * K * 2 * Fw))
+
+    def rand_w4(N, layers, g):
+        """a seeded random stacked W4 pack D -> N (the N-tail shapes)"""
+        return {"wq": torch.randint(-128, 128, (layers, D // 2, N), generator=g, device=dev,
+                                    dtype=torch.int8),
+                "scale": torch.rand((layers, 1, N), generator=g, device=dev) * 1e-3 + 1e-4,
+                "offset": torch.randint(0, 16, (layers, 1, N), generator=g, device=dev).float(),
+                "colsum": torch.randn((layers, N), generator=g, device=dev) * 100.0,
+                "bias": torch.randn((layers, N), generator=g, device=dev)}
+
+    def w4a8_sweep(pk, layers, g, tag="", Ms=(9, 17, 65, 1024)):
+        """Rows 1 / 2 above the decode path (the tile kernel; pk a list of
+        head copies: the head, row 1) at the engine's other prompt lengths,
+        against the plain version at rel 1e-5: M = 9, 17, 65 (ragged 64-row
+        tiles, split K) checked, M = 1024 timed as well. A width N % 16 != 0
+        must launch the 4-byte-copy edition (its count on the wrapper)."""
+        head = isinstance(pk, list)
+        p0 = pk[0] if head else layer_pack(pk, 1)
+        K, N = p0["wq"].shape[0] * 2, p0["wq"].shape[1]
+        wrap, xs, xo = (w4a8_matmul, 1.0, 128.0) if head else (w4a8_matmul_stacked, 0.02, 121.0)
+        edge = N % 16 != 0
+        for Mr in Ms:
+            x = torch.randint(-128, 128, (Mr, K), generator=g, device=dev, dtype=torch.int8)
+
+            def call(i, x=x):
+                if head:
+                    return w4a8_matmul(x, pk[i % len(pk)], xs, xo)
+                return w4a8_matmul_stacked(x, pk, xs, xo, (1 + i) % layers)
+            n_edge = wrap.edge_launches
+            err = float_err(call(0), w4a8_matmul_plain(x, p0["wq"], p0["scale"], p0["offset"],
+                                                       p0["colsum"], p0.get("bias"), xs, xo))
+            ok = err[1] <= 1e-5 and wrap.edge_launches - n_edge == edge
+            shape = f"{tag}M={Mr} {K}->{N}" + (" 4-byte edition" if edge else "")
+            if Mr < 1024:
+                check_row(wrap.__name__, shape, err, ok)
+                continue
+            ms = time_ms(call)
+            plain_ms = time_ms(lambda i, x=x: w4a8_matmul_plain(
+                x, p0["wq"], p0["scale"], p0["offset"], p0["colsum"], p0.get("bias"), xs, xo),
+                n=3)
+            lib_ms = None              # torch._int_mm takes widths N % 8 == 0 only
+            if N % 8 == 0:
+                wus = [qops.unpack_nibbles(pk[j]["wq"] if head else pk["wq"][j]).contiguous()
+                       for j in range(cold_count(K * N, len(pk) if head else layers))]
+                lib_ms = time_ms(lambda i, x=x: torch._int_mm(x, wus[i % len(wus)]))
+                del wus
+            record(wrap.__name__, shape, err, ok, ms, plain_ms, lib_ms,
+                   bound(Mr * K + K // 2 * N + 4 * N * 4 + Mr * N * 4,
+                         int8_ops=2.0 * Mr * K * N))
+
+    def qkv_sweep(sfx, pk, ofq_r, outq_r, layers, c, exact, g, tag="", timed=True):
+        """Row 3 at the engine's other prompt lengths, against its plain
+        version at the tolerance of its M = 128 row: M = 9, 17, 65 (ragged
+        64-row tiles, split K) checked, M = 1024 timed as well (timed)."""
+        hd_, rot_ = c.head_dim_, c.rotary_dim
+        K, Nq_ = c.hidden_size, pk["wq"].shape[2]
+        div = 2 if pk["wq"].shape[1] * 2 == K else 1
+        for Mr in (9, 17, 65, 1024):
+            cos_, sin_ = MM.rope_cos_sin(torch.arange(Mr, device=dev)[None], c)
+            cs_ = E._rope_cs_rows(cos_, sin_, hd_, rot_)
+            x = torch.randint(-128, 128, (Mr, K), generator=g, device=dev, dtype=torch.int8)
+            err = int8_err(qkv_rope(x, pk, ofq_r[1], outq_r[1], cs_, 0.02, 121.0, 1, hd_, rot_),
+                           qkv_rope_plain(x, layer_pack(pk, 1), ofq_r[1], outq_r[1], cs_,
+                                          0.02, 121.0, hd_, rot_))
+            ok = err[0] == 0 if exact else err[0] <= 1 and err[1] <= 1e-3
+            shape = f"{tag}M={Mr} {K}->{Nq_} hd {hd_} rot {rot_}"
+            if Mr < 1024 or not timed:
+                check_row(f"qkv_rope{sfx}", shape, err, ok)
+                continue
+            ms = time_ms(lambda i, x=x, cs_=cs_: qkv_rope(x, pk, ofq_r[i % layers],
+                                                          outq_r[i % layers], cs_, 0.02, 121.0,
+                                                          i % layers, hd_, rot_))
+            plain_ms = time_ms(lambda i, x=x, cs_=cs_: qkv_rope_plain(
+                x, layer_pack(pk, 1), ofq_r[1], outq_r[1], cs_, 0.02, 121.0, hd_, rot_), n=3)
+            record(f"qkv_rope{sfx}", shape, err, ok, ms, plain_ms, None,
+                   bound(Mr * K + K // div * Nq_ + 11 * Nq_ * 4 + Mr * 2 * hd_ * 4 + Mr * Nq_,
+                         int8_ops=2.0 * Mr * K * Nq_))
 
     def attn_bound(nbytes, scores, hd):
         """Row 4's bound: Q·Kᵀ in int8, P·V in fp16 as two split terms, one
@@ -722,6 +807,16 @@ def main() -> None:
                note=None if Mr > 16 else "library: torch._int_mm on rows padded to 32",
                main=(Mr, tag) in ((1, "w13"), (1, "head")))
 
+    # rows 1 / 2 at the tile kernel's other prompt lengths (o, w2, the head)
+    # and at two widths off the 128-column grid (N % 16 = 4: the 4-byte-copy
+    # edition; N % 128 = 16), on a generator of their own
+    pgen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    w4a8_sweep(ly["o_proj"], L, pgen, "o ")
+    w4a8_sweep(ly["w2"], L, pgen, "w2 ")
+    w4a8_sweep(heads, 1, pgen, "head ")
+    for Nt in (500, 1040):
+        w4a8_sweep(rand_w4(Nt, 2, pgen), 2, pgen, "N-tail ", Ms=(9, 17, 65, 128, 1024))
+
     # qkv_rope at M = 128 (the main path's prefill)
     Mr = PROMPT_LEN
     pos = torch.arange(Mr, device=dev)[None]
@@ -743,6 +838,8 @@ def main() -> None:
     nbytes = Mr * D + D // 2 * Nq + 11 * Nq * 4 + Mr * 2 * hd * 4 + Mr * Nq
     record("qkv_rope", f"M={Mr} {D}->{Nq}", err, err[0] <= 1 and err[1] <= 1e-3, ms,
            plain_ms, None, bound(nbytes, int8_ops=2.0 * Mr * D * Nq))
+
+    qkv_sweep("", ly["qkv_proj"], ofq, outq, L, cfg, False, pgen)
 
     # w13_gate at M = 128
     lr0 = E.layer_ranges(packed["ranges"], 0)
@@ -1749,6 +1846,8 @@ def main() -> None:
     record("qkv_rope[w8]", f"M={Mr} {D}->{Nq}", err, err[0] == 0, ms, plain_ms, None,
            bound(Mr * D + D * Nq + 11 * Nq * 4 + Mr * 2 * hd * 4 + Mr * Nq,
                  int8_ops=2.0 * Mr * D * Nq))
+    qkv_sweep("[w8]", qkv8, ofq8, outq8, L, cfg, True,
+              torch.Generator(device=dev).manual_seed(SEED + 22))
     lr8 = E.layer_ranges(packed8["ranges"], 1)
     meta8 = E._mlp_block_meta(lr8, policy8, cfg)
     so8 = E._mlp_block_site_on(policy8)
@@ -2716,6 +2815,8 @@ def main() -> None:
            err[0] <= 1 and err[1] <= 1e-3, ms, plain_ms, None,
            bound(PROMPT_LEN * Ds + Ds // 2 * Nqs + 11 * Nqs * 4 + PROMPT_LEN * 2 * hds * 4
                  + PROMPT_LEN * Nqs, int8_ops=2.0 * PROMPT_LEN * Ds * Nqs))
+    qkv_sweep("", qkv_s, ofq_s, outq_s, Ls, cfg_s, False,
+              torch.Generator(device=dev).manual_seed(SEED + 23), tag="StableLM +bias ")
     meta_as = E._attn_meta(lr0s, pol_s, cfg_s)
     T = PROMPT_LEN
     q8 = torch.randint(-128, 128, (1, Hkvs, Gs, T, hds), generator=sgen, device=dev,
@@ -3156,6 +3257,13 @@ def main() -> None:
            err[0] == 0, ms, plain_ms, None,
            bound(PROMPT_LEN * Dg + Dg // 2 * Nqg + 11 * Nqg * 4 + PROMPT_LEN * 2 * hdg * 4
                  + PROMPT_LEN * Nqg, int8_ops=2.0 * PROMPT_LEN * Dg * Nqg))
+    # and at the other prompt lengths, W4 and W8 (the paired edition, error 0)
+    for wb in (4, 8):
+        pk_w, _, pol_w, _ = gpk[wb]
+        qkv_sweep("[hd256]" if wb == 4 else "[w8,hd256]", pk_w["layers"]["qkv_proj"],
+                  E._qkv_ofq_rows(pk_w, pol_w), E._qkv_outq_rows(pk_w["ranges"], cfg_g, Lg, dev),
+                  Lg, cfg_g, True, torch.Generator(device=dev).manual_seed(SEED + 24 + wb),
+                  tag="Gemma ", timed=wb == 4)
     # row 4: the hd-256 edition (G 8 in a block's 64 rows) at the main path's
     # T=128 and at T=S=1024 in both policies, the hd-128 edition at a
     # llama-3-8b-like shape (8 kv heads, G 4; no model of the port's registry
@@ -3311,6 +3419,9 @@ def main() -> None:
         record(name, f"Gemma M={Mr} {tag} {K}->{N}", err, err[1] <= 1e-5, ms, plain_ms, lib_ms,
                bound(Mr * K + K // 2 * N + 4 * N * 4 + Mr * N * 4, int8_ops=2.0 * Mr * K * N),
                note=None if Mr > 16 else "library: torch._int_mm on rows padded to 32")
+    # rows 1 / 2 at the other prompt lengths: the prefill's w2, the tied head
+    w4a8_sweep(lyg["w2"], Lg, xgen, "Gemma w2 ")
+    w4a8_sweep([hq_g], 1, xgen, "Gemma head ", Ms=(9, 17, 65))
     torch.cuda.empty_cache()
 
     # rows 6 (B = 1, 8, with the head) and 7 (B = 1), W4 and W8, over random

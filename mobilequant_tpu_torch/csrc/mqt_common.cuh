@@ -1,8 +1,8 @@
 // Shared pieces of the port's Hopper kernels: the C export macro, the W4A8 /
-// W8A8 dp4a tile core used by w4a8_matmul (M > 8), w8a8_matmul (M > 8) and
-// qkv_rope (w13_gate runs the tensor-core core of tc_tile.cuh), the split-K
-// reduction through a self-cleaning int32 workspace, and the cp.async /
-// ldmatrix / mma.sync wrappers of the tensor-core kernels
+// W8A8 dp4a tile core used by w8a8_matmul (M > 8; w4a8_matmul (M > 8),
+// qkv_rope and w13_gate run the tensor-core core of tc_tile.cuh), the
+// split-K reduction through a self-cleaning int32 workspace, and the
+// cp.async / ldmatrix / mma.sync wrappers of the tensor-core kernels
 // (prefill_attention.cu, wonly_matmul.cu, tc_tile.cuh).
 //
 // Weight layouts. W4 (unsigned block nibbles, as the JAX package packs it): a
@@ -44,7 +44,6 @@ struct TileSmem {
       int xlo[TBM][TPAD];
       int xhi[TBM][TPAD];
     } mm;
-    float y[TBM][TBN + 1];     // epilogue staging (qkv_rope, w13_gate)
   } u;
   int rsum[TBM];
   int last;

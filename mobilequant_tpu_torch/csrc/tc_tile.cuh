@@ -1,8 +1,8 @@
 // The int8 tensor-core tile core: a 64-row x 128-column W4A8 / W8A8 tile on
 // mma.sync.m16n8k32 (s8 x s8 -> s32), fed by a four-stage cp.async ring of
-// activation and weight chunks. w13_gate.cu runs it; rows 1, 2, 3 and 14
-// (w4a8_matmul, qkv_rope, w8a8_matmul) still run mqt_common.cuh's dp4a
-// tile_mma.
+// activation and weight chunks. w13_gate.cu, w4a8_matmul.cu (M > 8) and
+// qkv_rope.cu run it; w8a8_matmul.cu (M > 8) still runs mqt_common.cuh's
+// dp4a tile_mma.
 //
 // A chunk is 64 packed rows j0.. (W4: low nibbles k = j0.., high nibbles
 // k = K/2 + j0..; W8: rows j0.. and K/2 + j0.., twice the bytes), so both
@@ -24,6 +24,8 @@
 //
 // Warps: 2 (32 rows each, two 16-row A blocks) x 4 (32 columns each).
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "mqt_common.cuh"
 
@@ -58,10 +60,20 @@ __device__ __forceinline__ int tc_col(int c, int e) {
   return (warp & 3) * 32 + 4 * (2 * (lane & 3) + (e & 1)) + c;
 }
 
+// 4 bytes global -> shared (through L1: cp.async.cg copies 16 only); pred
+// false fills them with zeros
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(pred ? 4 : 0));
+}
+
 // Issue the cp.async copies of chunk ch (rows past M, packed rows past K/2
-// and invalid 16-column units are zero-filled). The tile's valid column
-// counts (cm.na, cm.nb) are multiples of 16.
-template <int WB>
+// and invalid column units are zero-filled). V16: the weight rows are
+// 16-byte aligned (N % 16 == 0) and the tile's valid column counts (cm.na,
+// cm.nb) multiples of 16, so weights move in 16-byte units; else (N % 4 == 0
+// only) in 4-byte units into the same layout, the counts multiples of 4.
+template <int WB, bool V16>
 __device__ __forceinline__ void tc_load(int8_t* st, const int8_t* __restrict__ x,
                                         const int8_t* __restrict__ w, int M, int K, int N,
                                         int m0, const ColMap& cm, int ch) {
@@ -74,11 +86,20 @@ __device__ __forceinline__ void tc_load(int8_t* st, const int8_t* __restrict__ x
   }
   constexpr int WR = WB == 4 ? TC_KP : 2 * TC_KP;
   int8_t* ws = st + TC_XB;
-  for (int i = threadIdx.x; i < WR * 8; i += TC_THREADS) {
-    const int r = i >> 3, u = i & 7, j = j0 + (r & (TC_KP - 1));
-    const bool ok = j < K2 && cm.valid(16 * u);
-    const int8_t* src = ok ? w + (size_t)((r < TC_KP ? 0 : K2) + j) * N + cm.gcol(16 * u) : w;
-    cp_async16(ws + r * 128 + ((u ^ (((r >> 2) & 3) << 1)) << 4), src, ok);
+  if constexpr (V16) {
+    for (int i = threadIdx.x; i < WR * 8; i += TC_THREADS) {
+      const int r = i >> 3, u = i & 7, j = j0 + (r & (TC_KP - 1));
+      const bool ok = j < K2 && cm.valid(16 * u);
+      const int8_t* src = ok ? w + (size_t)((r < TC_KP ? 0 : K2) + j) * N + cm.gcol(16 * u) : w;
+      cp_async16(ws + r * 128 + ((u ^ (((r >> 2) & 3) << 1)) << 4), src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < WR * 32; i += TC_THREADS) {
+      const int r = i >> 5, n = 4 * (i & 31), j = j0 + (r & (TC_KP - 1));
+      const bool ok = j < K2 && cm.valid(n);
+      const int8_t* src = ok ? w + (size_t)((r < TC_KP ? 0 : K2) + j) * N + cm.gcol(n) : w;
+      cp_async4(ws + r * 128 + (((n >> 4) ^ (((r >> 2) & 3) << 1)) << 4) + (n & 15), src, ok);
+    }
   }
 }
 
@@ -141,8 +162,8 @@ __device__ __forceinline__ void tc_chunk(const int8_t* st, TcAcc& acc) {
 // acc = x[m0.., chunks [c0, c1)] · W[., tile columns] over the ring in smem
 // (tc_smem_bytes<WB>() bytes); rsum[r] gets the tile rows' partial row sums
 // over the same chunks. Ends with the ring free (every copy landed, every
-// thread past its last read).
-template <int WB>
+// thread past its last read). V16: as tc_load.
+template <int WB, bool V16 = true>
 __device__ void tc_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w, int M,
                         int K, int N, int m0, const ColMap& cm, int c0, int c1,
                         int8_t* smem, int* rsum, TcAcc& acc) {
@@ -156,7 +177,7 @@ __device__ void tc_tile(const int8_t* __restrict__ x, const int8_t* __restrict__
   acc.rs[0] = acc.rs[1] = 0;
 #pragma unroll
   for (int p = 0; p < TC_STAGES - 1; ++p) {
-    if (c0 + p < c1) tc_load<WB>(smem + p * SB, x, w, M, K, N, m0, cm, c0 + p);
+    if (c0 + p < c1) tc_load<WB, V16>(smem + p * SB, x, w, M, K, N, m0, cm, c0 + p);
     cp_async_commit();
   }
   for (int ch = c0; ch < c1; ++ch) {
@@ -164,7 +185,8 @@ __device__ void tc_tile(const int8_t* __restrict__ x, const int8_t* __restrict__
     __syncthreads();
     // the stage of chunk ch - 1, which every thread has finished reading
     const int nx = ch + TC_STAGES - 1;
-    if (nx < c1) tc_load<WB>(smem + ((nx - c0) % TC_STAGES) * SB, x, w, M, K, N, m0, cm, nx);
+    if (nx < c1)
+      tc_load<WB, V16>(smem + ((nx - c0) % TC_STAGES) * SB, x, w, M, K, N, m0, cm, nx);
     cp_async_commit();
     tc_chunk<WB>(smem + ((ch - c0) % TC_STAGES) * SB, acc);
   }
@@ -227,6 +249,86 @@ __device__ __forceinline__ bool tc_splitk_reduce(int* ws, int ntiles, int tile, 
   if (threadIdx.x == 0) cnt[tile] = 0;
   __syncthreads();
   return true;
+}
+
+// The K splits of a tile as one thread-block cluster (rows 1-3; cluster
+// dims (1, 1, ks), ks <= TC_MAX_KS, the portable limit): each block stages
+// its partial tile (tc_stage) and keeps its row sums (tc_tile's rsum) in its
+// shared memory; tc_cluster_reduce then gives block z the totals of rows
+// z, z + ks, ... (tc_rows_of), summed over every split's shared memory
+// (DSMEM), written over its own staged rows, which no other block reads.
+// Integer sums are exact in any order. No workspace, no atomics.
+constexpr int TC_MAX_KS = 8;
+constexpr int TC_LD = TC_BN + 1;    // staged row stride (ints): conflict-free fragment stores
+
+// the fragments as a 64 x TC_BN int tile, row stride TC_LD, in the free ring
+__device__ __forceinline__ void tc_stage(const TcAcc& acc, int* st) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[tc_row(mt, e) * TC_LD + tc_col(c, e)] = acc.d[mt][c][e];
+  __syncthreads();
+}
+
+// the rows a block of split z of ks finishes: z, z + ks, ... (< TC_BM)
+__device__ __forceinline__ int tc_rows_of(int z, int ks) { return (TC_BM - z + ks - 1) / ks; }
+
+__device__ __forceinline__ void tc_cluster_reduce(int* st, int* rsum, int ks) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int z = (int)cluster.block_rank(), nel = tc_rows_of(z, ks) * TC_BN;
+  cluster.sync();                    // every split's tile staged
+  constexpr int U = 4;               // elements a thread has in flight
+  for (int i0 = threadIdx.x; i0 < nel; i0 += U * TC_THREADS) {
+    int v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * TC_THREADS, off = (z + ks * (i / TC_BN)) * TC_LD + i % TC_BN;
+      v[u] = 0;
+#pragma unroll
+      for (int s = 0; s < TC_MAX_KS; ++s)
+        if (i < nel && s < ks) v[u] += cluster.map_shared_rank(st, s)[off];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * TC_THREADS;
+      if (i < nel) st[(z + ks * (i / TC_BN)) * TC_LD + i % TC_BN] = v[u];
+    }
+  }
+  if (threadIdx.x < tc_rows_of(z, ks)) {
+    const int r = z + ks * threadIdx.x;
+    int v = 0;
+#pragma unroll
+    for (int s = 0; s < TC_MAX_KS; ++s)
+      if (s < ks) v += cluster.map_shared_rank(rsum, s)[r];
+    rsum[r] = v;
+  }
+  cluster.sync();                    // every block past its reads of the others
+}
+
+// Launch tile kernel K whose K splits (grid.z <= TC_MAX_KS) are one cluster.
+template <auto K, typename... A>
+int tc_launch_cluster(dim3 grid, int smem, cudaStream_t st, A... args) {
+  static bool set = false;   // the shared-memory opt-in, once per kernel
+  if (!set) {
+    cudaError_t e = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(TC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = grid.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, K, args...);
 }
 
 // The split of nchunks over ks blocks: one split once the tiles fill the SMs,

@@ -6,13 +6,16 @@ Kernel: csrc/qkv_rope.cu, which replaces the JAX package's
 mobilequant_tpu/ops/pallas_qkv.py qkv_rope_stacked (_qkv_rope_kernel), in both
 of its editions: the weight bits come from the pack's shape (W4 (K/2, Nq)
 nibble-packed, W8 (K, Nq)), as in the JAX kernel. Bound: integer operations
-of the matmul at prefill M. Design: the int8 tile core (templated on the
-weight bits) with split-K, the tile staged in shared memory so each output reads its RoPE
-partner column: a 128-column tile holds whole heads up to head_dim 128, and
-at head_dim 256 (full rotary, partner 128 columns away) the columns
-[64 p, 64 p + 64) and [128 + 64 p, 192 + 64 p) of a head; the int8 rows it
-writes are the KV cache, so the epilogue rounds exactly as the plain version
-does.
+of the matmul at prefill M. Design: the int8 tensor-core tile core
+(csrc/tc_tile.cuh: mma.sync on 64 x 128 tiles over a cp.async ring,
+templated on the weight bits) on the launch `tile_plan` gives, split over K
+where the tiles leave SMs idle (the splits of a tile one thread-block
+cluster meeting in shared memory); the tile is then staged in shared memory
+so each output reads its RoPE partner column: a 128-column tile holds whole
+heads up to head_dim 128, and at head_dim 256 (full rotary, partner 128
+columns away) the columns [64 p, 64 p + 64) and [128 + 64 p, 192 + 64 p) of
+a head; the int8 rows it writes are the KV cache, so the
+epilogue rounds exactly as the plain version does.
 
 Operands (as the JAX engine builds them): ofq (4, Nq) = [scale, offset, clip
 max, enabled] of the output fake-quant; outq (3, Nq) = [quant scale, quant
@@ -27,7 +30,8 @@ import torch
 
 from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.w4a8_matmul import (
-    affine_args, check_w48, layer_pack, w4a8_matmul_plain)
+    CHUNK_ROWS, TILE_COLS, TILE_ROWS, affine_args, check_w48, layer_pack, split_k,
+    w4a8_matmul_plain)
 
 
 def pick_block_tn(K2w: int, Nq: int, hd: int) -> int:
@@ -56,6 +60,15 @@ def qkv_rope_kernel_takes(head_dim: int, rotary_dim: int) -> bool:
     (head_dim dividing 128), or at head_dim 256 with full rotary tiles of two
     64-column runs 128 apart, each column beside its RoPE partner."""
     return 128 % head_dim == 0 or (head_dim == 256 and rotary_dim == 256)
+
+
+def tile_plan(M: int, K: int, Nq: int, sms: int) -> tuple:
+    """(column tiles, row tiles, K splits, chunks a split) of the kernel's
+    launch: 128 columns by 64 rows a tile, chunks of 64
+    packed rows (128 k), the split of csrc/tc_tile.cuh (`split_k`); Nq a
+    multiple of 128 and the head shape one `qkv_rope_kernel_takes`."""
+    tn, tm = Nq // TILE_COLS, -(-M // TILE_ROWS)
+    return (tn, tm) + split_k(tn * tm, -(-(K // 2) // CHUNK_ROWS), sms)
 
 
 def qkv_rope_plain(h8: torch.Tensor, pack: dict, ofq: torch.Tensor,
@@ -102,7 +115,7 @@ def qkv_rope(h8: torch.Tensor, pack: dict, ofq: torch.Tensor,
                                   f"rotary_dim {rotary_dim}")
     lib = _build.lib()
     x = _build.aligned(h8)
-    w = _build.aligned(p["wq"], 4)
+    w = _build.aligned(p["wq"], 16)
     sc, of, csum, b, ss = affine_args(p, Nq)
     ofq_ = _build.aligned(ofq.to(torch.float32), 4)
     outq_ = _build.aligned(outq.to(torch.float32), 4)
@@ -110,13 +123,12 @@ def qkv_rope(h8: torch.Tensor, pack: dict, ofq: torch.Tensor,
     if ofq_.shape != (4, Nq) or outq_.shape != (3, Nq) or cs_.shape != (M, 2 * head_dim):
         raise ValueError("qkv_rope: ofq (4, Nq), outq (3, Nq), cs (M, 2 hd)")
     out = torch.empty((M, Nq), dtype=torch.int8, device=dev)
-    tiles = (Nq // 128) * -(-M // 64)
-    ws = _build.WORKSPACE.get(dev, 65 * tiles + M * Nq + 64)
+    _, _, ks, cps = tile_plan(M, K, Nq, _build.sm_count(dev))
     code = lib.mqt_qkv_rope(
         x.data_ptr(), w.data_ptr(), sc.data_ptr(), of.data_ptr(), csum.data_ptr(),
         None if b is None else b.data_ptr(), ofq_.data_ptr(), outq_.data_ptr(),
-        cs_.data_ptr(), out.data_ptr(), ws.data_ptr(), M, K, Nq, ss,
-        float(h_scale), float(h_offset), head_dim, rotary_dim, bits,
+        cs_.data_ptr(), out.data_ptr(), M, K, Nq, ss,
+        float(h_scale), float(h_offset), head_dim, rotary_dim, bits, ks, cps,
         _build.stream_ptr(dev))
     _build.check(code, "qkv_rope")
     qkv_rope.launches += 1

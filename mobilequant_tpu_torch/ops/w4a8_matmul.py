@@ -9,7 +9,13 @@ mobilequant_tpu/ops/pallas_matmul.py w4a8_matmul (_w4a8_kernel; wrapper
 decode (M <= 8: the K/2·N packed weight bytes dominate), integer operations at
 prefill M. Design: the decode path streams each weight byte once, coalesced
 along N, unpacks nibbles in registers and splits K across blocks so that even
-a 2048-wide projection fills the card; prefill runs 64 x 128 dp4a tiles. The
+a 2048-wide projection fills the card; above 8 rows the int8 tensor-core tile
+core (csrc/tc_tile.cuh: mma.sync on 64 x 128 tiles over a cp.async ring)
+runs the launch `tile_plan` gives, split over K where the tiles leave SMs
+idle, the splits of a tile one thread-block cluster that meets in shared
+memory (no workspace). Its weights move in 16-byte copies; a width N that is not a multiple
+of 16 (the rows then not 16-byte aligned) takes the tile's 4-byte-copy
+edition, chosen here by shape and counted apart in `edge_launches`. The
 stacked form of the JAX package becomes a layer offset on the weight pointer,
 so no per-layer weight copy exists to avoid.
 
@@ -114,6 +120,36 @@ def check_w48(x_q: torch.Tensor, wq: torch.Tensor) -> tuple:
     return M, K, N, bits
 
 
+GEMV_ROWS = 8                                      # at most this many rows: the decode path
+TILE_ROWS, TILE_COLS, CHUNK_ROWS = 64, 128, 64     # csrc/tc_tile.cuh TC_BM, TC_BN, TC_KP
+MAX_SPLITS = 8       # TC_MAX_KS: the K splits of a tile are one (portable) thread-block cluster
+
+
+def split_k(tiles: int, nchunks: int, sms: int) -> tuple:
+    """(K splits, chunks a split) of a tile launch (csrc/tc_tile.cuh): one
+    split once the tiles fill the SMs, else about one block an SM, at most
+    MAX_SPLITS and at least four chunks a split (at TinyLlama's M=128 o, w2
+    and qkv on an H100, 4 splits ran faster than 2 or 8: PERF.md §6)."""
+    ks = 1 if tiles >= sms else max(1, min(MAX_SPLITS, -(-sms // tiles), nchunks // 4))
+    cps = -(-nchunks // ks)
+    return -(-nchunks // cps), cps
+
+
+def tile_plan(M: int, K: int, N: int, sms: int) -> tuple:
+    """(column tiles, row tiles, K splits, chunks a split) of the tile
+    kernel's launch above GEMV_ROWS rows: 128 columns by 64 rows a tile,
+    chunks of 64 packed rows (128 k), the last column tile ragged."""
+    tn, tm = -(-N // TILE_COLS), -(-M // TILE_ROWS)
+    return (tn, tm) + split_k(tn * tm, -(-(K // 2) // CHUNK_ROWS), sms)
+
+
+def workspace_ints(M: int, N: int) -> int:
+    """Ints of the decode path's split-K workspace (csrc/mqt_common.cuh's
+    layout): a counter and 64 row sums a 128-column tile, then the (M, N)
+    int32 accumulators."""
+    return 65 * -(-N // TILE_COLS) + M * N
+
+
 def check_w4(x_q: torch.Tensor, wq: torch.Tensor) -> tuple:
     M, K, N, bits = check_w48(x_q, wq)
     if bits != 4:
@@ -150,19 +186,25 @@ def _run(counted, x_q: torch.Tensor, p: dict, x_scale: float,
     dev = _build.require_cuda(x_q, p["wq"])
     lib = _build.lib()
     x = _build.aligned(x_q)
-    w = _build.aligned(p["wq"], 4)
+    tiled = M > GEMV_ROWS
+    edge = tiled and N % 16 != 0
+    w = _build.aligned(p["wq"], 16 if tiled and not edge else 4)
     sc, of, cs, b, ss = affine_args(p, N)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    tiles = -(-N // 128) * -(-M // 64)
-    ws = _build.WORKSPACE.get(dev, 65 * tiles + M * N + 64)
+    if tiled:
+        ws, (_, _, ks, cps) = None, tile_plan(M, K, N, _build.sm_count(dev))
+    else:
+        ws, ks, cps = _build.WORKSPACE.get(dev, workspace_ints(M, N)).data_ptr(), 0, 0
     code = lib.mqt_w4a8_matmul(
         x.data_ptr(), w.data_ptr(), sc.data_ptr(), of.data_ptr(), cs.data_ptr(),
-        None if b is None else b.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        M, K, N, ss, float(x_scale), float(x_offset), _build.stream_ptr(dev))
+        None if b is None else b.data_ptr(), out.data_ptr(), ws,
+        M, K, N, ss, float(x_scale), float(x_offset), ks, cps, _build.stream_ptr(dev))
     _build.check(code, counted.__name__)
     counted.launches += 1
+    counted.edge_launches += edge
     return out
 
 
 w4a8_matmul.launches = w4a8_matmul_stacked.launches = 0
 w4a8_matmul.plain_calls = w4a8_matmul_stacked.plain_calls = 0
+w4a8_matmul.edge_launches = w4a8_matmul_stacked.edge_launches = 0

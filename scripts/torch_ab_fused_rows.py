@@ -1,7 +1,7 @@
 """Time kernels of one checkout on the card, for an A/B of two checkouts in one
 call (run it on each, parent first and last):
 
-    python3 scripts/torch_ab_fused_rows.py [--rows fused,w13,attn,wonly,dattn] TREE [TREE ...]
+    python3 scripts/torch_ab_fused_rows.py [--rows fused,w13,proj,attn,wonly,dattn] TREE [TREE ...]
 
 For each TREE (a checkout of the repository) it builds that checkout's CUDA
 kernels in a fresh process (a tree named twice reuses its first build), then
@@ -16,6 +16,16 @@ attn and wonly by default):
          M = 128 and 1024 on TinyLlama's (2048 -> 2 x 5632) and Gemma-2B's
          (2048 -> 2 x 16384) widths, the seeded random packs rotated over
          copies past the 50 MB L2 as chip_smoke.py does (cold_count);
+  proj   the prefill projection tiles: the W4A8 matmul (rows 1 / 2) at
+         TinyLlama's o, w2 and qkv widths (M = 32, 128; o at 1024 too), the
+         TinyLlama head (Vp 32768) at M = 1 and 32, Gemma-2B's w2 (16384 ->
+         2048) at M = 128 and head (Vp 258048) at M = 32, each head beside
+         torch._int_mm on the unpacked weights; the qkv epilogue kernel
+         (row 3) at M = 128: TinyLlama W4 and W8, StableLM W4 (rotary 16 of
+         64, q/k/v bias), Gemma W4 (head dim 256); seeded random packs
+         rotated over copies past the 50 MB L2; in a tree whose wrappers
+         take a plan (`tile_plan`), TinyLlama's M = 128 rows also at 1, 2,
+         4 and 8 forced K splits;
   attn   the prefill attention (row 4): T=128 into S=1024 and T=S=1024
          relaxed and strict (G=8), StableLM's T=128 into S=1024 (G=1);
   wonly  the weight-only matmul (rows 12 / 13): wonly_matmul_stacked at
@@ -163,6 +173,83 @@ if "w13" in groups:
                     out[f"row5 {model} W{wb} {act} M={Mr}"] = tm(
                         lambda i: w13_gate(x, st, meta, i % n, act, so), n=max(20, n))
             del st
+    torch.cuda.empty_cache()
+
+if "proj" in groups:
+    from mobilequant_tpu_torch.ops import qkv_rope as Q, qops, w4a8_matmul as W
+
+    def w4_stack(rows, N, n, bias=False):
+        """n seeded random W4 (or W8: rows = K) layers of width N"""
+        st = {"wq": torch.randint(-128, 128, (n, rows, N), generator=gen, device=dev,
+                                  dtype=torch.int8),
+              "scale": torch.rand((n, 1, N), generator=gen, device=dev) * 1e-3 + 1e-4,
+              "offset": torch.randint(0, 16, (n, 1, N), generator=gen, device=dev).float(),
+              "colsum": torch.randn((n, N), generator=gen, device=dev) * 100.0}
+        if bias:
+            st["bias"] = torch.randn((n, N), generator=gen, device=dev)
+        return st
+
+    def forced(mod, tag, fn, nch):
+        """fn timed again at forced K splits, in a tree whose wrapper takes a plan"""
+        if not hasattr(mod, "tile_plan"):
+            return
+        plan = mod.tile_plan
+        for want in (1, 2, 4, 8):
+            cps = -(-nch // want)
+            mod.tile_plan = lambda *a, cps=cps: plan(*a)[:2] + (-(-nch // cps), cps)
+            out[f"{tag} ks={-(-nch // cps)}"] = tm(fn)
+        mod.tile_plan = plan
+
+    # rows 1 / 2 (w4a8_matmul / _stacked): (tag, K, N, M, head?)
+    for tag, K, N, Mr, head in (("TinyLlama o", 2048, 2048, 128, False),
+                                ("TinyLlama w2", 5632, 2048, 128, False),
+                                ("TinyLlama qkv", 2048, 2560, 128, False),
+                                ("TinyLlama o", 2048, 2048, 32, False),
+                                ("TinyLlama qkv", 2048, 2560, 32, False),
+                                ("TinyLlama o", 2048, 2048, 1024, False),
+                                ("TinyLlama head", 2048, 32768, 1, True),
+                                ("TinyLlama head", 2048, 32768, 32, True),
+                                ("Gemma w2", 16384, 2048, 128, False),
+                                ("Gemma head", 2048, 258048, 32, True)):
+        n = CS.cold_count(K // 2 * N, 22)
+        st = w4_stack(K // 2, N, n, bias=not head)
+        x = torch.randint(-128, 128, (Mr, K), generator=gen, device=dev, dtype=torch.int8)
+        name = f"row{1 if head else 2} {tag} M={Mr}"
+        if head:
+            hs = [{k: v[j] for k, v in st.items()} for j in range(n)]
+            fn = lambda i: W.w4a8_matmul(x, hs[i % n], 1.0, 128.0)           # noqa: E731
+        else:
+            fn = lambda i: W.w4a8_matmul_stacked(x, st, 0.02, 121.0, i % n)   # noqa: E731
+        out[name] = tm(fn, n=max(20, n))
+        if head and Mr > 16:
+            wus = [qops.unpack_nibbles(st["wq"][j]).contiguous() for j in range(n)]
+            out[name + " _int_mm"] = tm(lambda i: torch._int_mm(x, wus[i % n]), n=max(20, n))
+            del wus
+        if Mr == 128 and tag.startswith("TinyLlama"):
+            forced(W, name, fn, -(-K // 2 // 64))
+        del st
+    # row 3 (qkv_rope): (tag, Nq, head_dim, rotary_dim, bits, bias)
+    for tag, Nq, hd, rot, wb, bias in (("TinyLlama W4", 2560, 64, 64, 4, False),
+                                       ("TinyLlama W8", 2560, 64, 64, 8, False),
+                                       ("StableLM W4", 6144, 64, 16, 4, True),
+                                       ("Gemma W4 hd256", 2560, 256, 256, 4, False)):
+        K, Mr = 2048, 128
+        rows = K // 2 if wb == 4 else K
+        n = CS.cold_count(rows * Nq, 22)
+        st = w4_stack(rows, Nq, n, bias)
+        full = [torch.full((Nq,), v, device=dev) for v in (0.05, 128.0, 255.0, 1.0)]
+        ofq = torch.stack(full)
+        outq = torch.stack(full[:2] + [(torch.arange(Nq, device=dev) < Nq * 2 // 3).float()])
+        cs = torch.rand((Mr, 2 * hd), generator=gen, device=dev)
+        x = torch.randint(-128, 128, (Mr, K), generator=gen, device=dev, dtype=torch.int8)
+        name = f"row3 {tag} M={Mr}"
+
+        def fn(i):
+            return Q.qkv_rope(x, st, ofq, outq, cs, 0.02, 121.0, i % n, hd, rot)
+        out[name] = tm(fn, n=max(20, n))
+        if tag == "TinyLlama W4":
+            forced(Q, name, fn, K // 2 // 64)
+        del st
     torch.cuda.empty_cache()
 
 if "attn" in groups:
@@ -337,7 +424,7 @@ print(json.dumps(out), flush=True)
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", default="fused,attn,wonly",
-                    help="comma-separated row groups: fused, w13, attn, wonly, dattn")
+                    help="comma-separated row groups: fused, w13, proj, attn, wonly, dattn")
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -62,7 +62,7 @@ def _int8_close(a, b, max_frac=1e-3):
     return n_diff
 
 
-@pytest.mark.parametrize("M_", [1, 8, 64])
+@pytest.mark.parametrize("M_", [1, 8, 9, 64, 65])
 def test_w4a8_matmul_plain_matches_pallas_stacked(M_):
     rng = np.random.default_rng(M_)
     K, N, L = 256, 512, 2
@@ -102,10 +102,17 @@ def _rope_rows(T_, hd, rot, B=1):
     return np.array(E._rope_cs_rows(cos, sin, hd, cfg.rotary_dim))
 
 
-@pytest.mark.parametrize("rot", [64, 16], ids=["gqa_full_rotary", "gqa_partial_rotary"])
-def test_qkv_rope_plain_matches_pallas(rot):
-    rng = np.random.default_rng(rot)
-    hd, Hq, Hkv, K, L, M_ = 64, 4, 2, 256, 2, 40
+@pytest.mark.parametrize("rot,hd,M_", [
+    pytest.param(64, 64, 40, id="gqa_full_rotary"),
+    pytest.param(16, 64, 40, id="gqa_partial_rotary"),
+    # the tile kernel's row edges (64-row tiles), and its head-dim-256
+    # edition (a tile of two 64-column runs, each column beside its partner)
+    pytest.param(64, 64, 9, id="gqa_full_rotary_m9"),
+    pytest.param(16, 64, 65, id="gqa_partial_rotary_m65"),
+    pytest.param(256, 256, 65, id="hd256_paired_m65")])
+def test_qkv_rope_plain_matches_pallas(rot, hd, M_):
+    rng = np.random.default_rng(rot if M_ == 40 else (rot, hd, M_))
+    Hq, Hkv, K, L = (4, 2, 256, 2) if hd == 64 else (2, 1, 256, 2)
     Nq = (Hq + 2 * Hkv) * hd
     p = _w4_stack(rng, L, K, Nq)
     x = rng.integers(-128, 128, (M_, K)).astype(np.int8)
