@@ -10,8 +10,10 @@
    version and, where one PyTorch call computes the same function, that call:
    among them staged_append (B=32, 32 staged columns), the o-tail (M=32, 128)
    and the chunk kernel (B=16 staggered, 32, 128; m 0 and 16; both policies),
-   with the chunk step's per-stage times from its %globaltimer trace, both
-   MLP-block kernels (dp4a, row) at M = 1, 2, 4, 8 for the wrapper's fork,
+   with the chunk step's per-stage times from its %globaltimer trace beside
+   its parent's figures (PARENT_CHUNK_STAGE_US; W8, StableLM and Gemma too),
+   the MLP block's row kernel also at M = 17, 65 (checked) and 1024 (timed),
+   both MLP-block kernels (dp4a, row) at M = 1, 2, 4, 8 for the wrapper's fork,
    the kv4 decode attention over the int4 cache (B = 1, 32, 128 at pos0 192
    and a staggered B=32 past S/2; m 0 and 16; both policies; B=1 at pos 3
    with m=0 checked, not timed), the int8 decode attention (B = 1, 32; S =
@@ -263,6 +265,41 @@ def parent_stages(key: str) -> str:
     return ("    parent's kernel: " + ", ".join(
         f"{k} {v:.2f}" for k, v in zip(("qkv", "attention", "o_proj", "w13_gate", "w2", "head"),
                                        PARENT_STAGE_US[key])))
+
+
+# the chunk kernel's per-stage trace on the parent of its matvec stage's move
+# onto the tile core (µs, mean per layer: norm1, qkv, attention, o_proj, the
+# MLP block; then the head's norm and matvec, and the traced step), printed
+# beside this run's: this script at commit ce8b21c on an H100 80GB HBM3 at
+# 700 W, relaxed policy, pos0 192, 16 staged columns
+CHUNK_STAGES = ("norm1", "qkv", "attention", "o_proj", "mlp_block", "head_norm", "head",
+                "step_traced")
+PARENT_CHUNK_STAGE_US = {
+    "W4 B=32": (10.88, 26.21, 44.58, 23.92, 66.45, 8.90, 39.97, 3833.95),
+    "W4 B=128": (10.63, 63.93, 160.27, 88.64, 310.33, 8.42, 85.54, 14037.57),
+    "W8 B=32": (11.18, 31.37, 47.20, 28.12, 81.29, 7.97, 48.83, 4438.27),
+    "StableLM w4 B=32": (13.52, 51.11, 52.89, 28.46, 77.71, 10.11, 92.19, 5470.78),
+    "StableLM w8 B=32": (13.43, 55.71, 52.56, 29.98, 82.78, 10.46, 119.23, 5756.51),
+    "Gemma w4 B=32": (12.14, 29.91, 30.18, 27.94, 114.91, 8.77, 206.34, 4086.62),
+    "Gemma w8 B=32": (11.79, 32.16, 30.17, 28.29, 134.15, 8.22, 268.16, 4534.43)}
+
+
+def chunk_stages(run, L: int, dev, label: str, parent: str) -> dict:
+    """The chunk step's per-stage µs from its %globaltimer trace (run(trace)
+    launches the kernel with it; the second of two runs is read), printed
+    beside the parent's figures."""
+    tr = torch.zeros(3 + 5 * L, dtype=torch.int64, device=dev)
+    for _ in range(2):
+        run(tr)
+    torch.cuda.synchronize()
+    dt = (tr[1:] - tr[:-1]).double().cpu() / 1e3
+    st_us = dict(zip(CHUNK_STAGES, dt[:5 * L].reshape(L, 5).mean(0).tolist()
+                     + [float(dt[5 * L]), float(dt[5 * L + 1]), float(dt.sum())]))
+    print(f"  {label} stage us (mean per layer): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in st_us.items()), flush=True)
+    print("    parent's kernel: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in zip(CHUNK_STAGES, PARENT_CHUNK_STAGE_US[parent])), flush=True)
+    return st_us
 
 
 T_START = time.perf_counter()
@@ -958,7 +995,6 @@ def main() -> None:
         plain_ms = time_ms(lambda i, x=x: mlp_plain(x), n=5)
         record("fused_mlp_block_w4", f"M={Mr} {D}->2x{F}->{D}", err, err[1] <= 2e-3, ms,
                plain_ms, None, mlp_bound(Mr), main=Mr == SHORT_PROMPT)
-
     # the wrapper's fork at mlp_block.DP4A_ROWS: both MLP-block kernels at
     # M = 1..8 (on inputs of their own, so that the later phases' inputs do
     # not depend on this comparison)
@@ -985,6 +1021,21 @@ def main() -> None:
             took = (Mr <= DP4A_ROWS) == (kname == "dp4a")
             record("fused_mlp_block_w4", f"M={Mr} {kname} kernel{' (wrapper)' if took else ''}",
                    err, err[1] <= 2e-3, ms, plain_ms, None, mlp_bound(Mr))
+
+    # one row tile past 16 and 64 rows (checked), and the row kernel's walk
+    # over eight 128-row steps (timed; the wrapper takes at most 128 rows, so
+    # the walk is launched through the kernel's entry), on inputs of their own
+    rgen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for Mr in (17, 65, 1024):
+        x = torch.randn((Mr, D), generator=rgen, device=dev)
+        err = float_err(mlp_entry("row", x, 1), mlp_plain(x))
+        if Mr < 1024:
+            check_row("fused_mlp_block_w4", f"M={Mr} {D}->2x{F}->{D}", err, err[1] <= 2e-3)
+            continue
+        ms = time_ms(lambda i, x=x: mlp_entry("row", x, i % L))
+        plain_ms = time_ms(lambda i, x=x: mlp_plain(x), n=3)
+        record("fused_mlp_block_w4", f"M={Mr} {D}->2x{F}->{D} row kernel", err, err[1] <= 2e-3,
+               ms, plain_ms, None, mlp_bound(Mr))
 
     # whole-layer (B=1) and whole-model (B=1, 8) decode kernels against their
     # plain versions, over a random full-length cache with positions near
@@ -1156,18 +1207,9 @@ def main() -> None:
                        main=(Bc, mst, strict) == (SERVE_B, STAGED_M, False))
                 if mst == STAGED_M and not strict and Bc in (SERVE_B, BIG_B):
                     # per-stage times from the kernel's global-timer trace
-                    tr = torch.zeros(3 + 5 * L, dtype=torch.int64, device=dev)
-                    for _ in range(2):
-                        fused_model_w4_chunk(*cargs, trace=tr, **ckw)
-                    torch.cuda.synchronize()
-                    dt = (tr[1:] - tr[:-1]).double().cpu() / 1e3
-                    per = dt[:5 * L].reshape(L, 5).mean(0).tolist()
-                    st_us = dict(zip(("norm1", "qkv", "attention", "o_proj", "mlp_block"), per))
-                    st_us["head_norm"], st_us["head"] = float(dt[5 * L]), float(dt[5 * L + 1])
-                    st_us["step_traced"] = float(dt.sum())
-                    chunk_stage_us[f"B={Bc}"] = st_us
-                    print(f"  fused_model_w4_chunk B={Bc} m={mst} stage us (mean per layer): "
-                          + ", ".join(f"{k} {v:.2f}" for k, v in st_us.items()), flush=True)
+                    chunk_stage_us[f"B={Bc}"] = chunk_stages(
+                        lambda tr: fused_model_w4_chunk(*cargs, trace=tr, **ckw), L, dev,
+                        f"fused_model_w4_chunk B={Bc} m={mst}", f"W4 B={Bc}")
         del kc, vc, skc, svc, kcs
 
     # ---- the int4-cache pack and the phases' own inputs ---------------------
@@ -1991,18 +2033,9 @@ def main() -> None:
                         f"plain timed with events",
                    main=(Bc, mst, strict) == (SERVE_B, STAGED_M, False))
             if (Bc, mst, strict) == (SERVE_B, STAGED_M, False):
-                tr = torch.zeros(3 + 5 * L, dtype=torch.int64, device=dev)
-                for _ in range(2):
-                    fused_model_w4_chunk(*cargs, trace=tr, **ckw)
-                torch.cuda.synchronize()
-                dt = (tr[1:] - tr[:-1]).double().cpu() / 1e3
-                per = dt[:5 * L].reshape(L, 5).mean(0).tolist()
-                st_us = dict(zip(("norm1", "qkv", "attention", "o_proj", "mlp_block"), per))
-                st_us["head_norm"], st_us["head"] = float(dt[5 * L]), float(dt[5 * L + 1])
-                st_us["step_traced"] = float(dt.sum())
-                chunk_stage_us8[f"B={Bc}"] = st_us
-                print(f"  fused_model_w4_chunk[w8] B={Bc} m={mst} stage us (mean per layer): "
-                      + ", ".join(f"{k} {v:.2f}" for k, v in st_us.items()), flush=True)
+                chunk_stage_us8[f"B={Bc}"] = chunk_stages(
+                    lambda tr: fused_model_w4_chunk(*cargs, trace=tr, **ckw), L, dev,
+                    f"fused_model_w4_chunk[w8] B={Bc} m={mst}", f"W8 B={Bc}")
         del kc, vc, skc, svc, kcs
 
     # ---- phase 3e: W8A8 serving --------------------------------------------
@@ -3000,19 +3033,10 @@ def main() -> None:
                    note=f"kv_new max diff {e_kv[0]} on {e_kv[1]:.3g} of bytes; "
                         f"plain timed with events", main=Bc == SERVE_B)
             if Bc == SERVE_B:
-                tr = torch.zeros(3 + 5 * Ls, dtype=torch.int64, device=dev)
-                for _ in range(2):
-                    fused_model_w4_chunk(*cargs, trace=tr, **skw)
-                torch.cuda.synchronize()
-                dt = (tr[1:] - tr[:-1]).double().cpu() / 1e3
-                per = dt[:5 * Ls].reshape(Ls, 5).mean(0).tolist()
-                st_us = dict(zip(("norm1", "qkv", "attention", "o_proj", "mlp_block"), per))
-                st_us["head_norm"], st_us["head"] = float(dt[5 * Ls]), float(dt[5 * Ls + 1])
-                st_us["step_traced"] = float(dt.sum())
-                chunk_stage_us_s[f"w{wb} B={Bc}"] = st_us
-                print(f"  {ln_name('fused_model_w4_chunk', wb)} B={Bc} m={STAGED_M} stage us "
-                      f"(mean per layer): " + ", ".join(f"{k} {v:.2f}" for k, v in st_us.items()),
-                      flush=True)
+                chunk_stage_us_s[f"w{wb} B={Bc}"] = chunk_stages(
+                    lambda tr: fused_model_w4_chunk(*cargs, trace=tr, **skw), Ls, dev,
+                    f"{ln_name('fused_model_w4_chunk', wb)} B={Bc} m={STAGED_M}",
+                    f"StableLM w{wb} B={Bc}")
             del kc, vc, skc, svc, kcs, cargs
         torch.cuda.empty_cache()
 
@@ -3547,19 +3571,10 @@ def main() -> None:
                    note=f"kv_new max diff {e_kv[0]} on {e_kv[1]:.3g} of bytes; "
                         f"plain timed with events", main=(Bc, strict) == (SERVE_B, False))
             if (Bc, strict) == (SERVE_B, False):
-                tr = torch.zeros(3 + 5 * Lg, dtype=torch.int64, device=dev)
-                for _ in range(2):
-                    fused_model_w4_chunk(*cargs, trace=tr, **ckw)
-                torch.cuda.synchronize()
-                dt = (tr[1:] - tr[:-1]).double().cpu() / 1e3
-                per = dt[:5 * Lg].reshape(Lg, 5).mean(0).tolist()
-                st_us = dict(zip(("norm1", "qkv", "attention", "o_proj", "mlp_block"), per))
-                st_us["head_norm"], st_us["head"] = float(dt[5 * Lg]), float(dt[5 * Lg + 1])
-                st_us["step_traced"] = float(dt.sum())
-                chunk_stage_us_g[f"w{wb} B={Bc}"] = st_us
-                print(f"  {hd_name('fused_model_w4_chunk', wb)} B={Bc} m={STAGED_M} stage us "
-                      f"(mean per layer): " + ", ".join(f"{k} {v:.2f}" for k, v in st_us.items()),
-                      flush=True)
+                chunk_stage_us_g[f"w{wb} B={Bc}"] = chunk_stages(
+                    lambda tr: fused_model_w4_chunk(*cargs, trace=tr, **ckw), Lg, dev,
+                    f"{hd_name('fused_model_w4_chunk', wb)} B={Bc} m={STAGED_M}",
+                    f"Gemma w{wb} B={Bc}")
             del kc, vc, skc, svc, kcs, cargs
         torch.cuda.empty_cache()
 

@@ -40,9 +40,9 @@ MQT_EXPORT int mqt_fused_chunk(const void* args, void* stream) {
   const Args& a = *(const Args*)args;
   const int wb = a.qkv.bits;
   if (!rows_ok(a) || a.hd % 32 || (a.hd > 128 && a.hd != 256) || a.mst < 0 || a.mst > a.ncs
-      || (a.Hq * a.hd) % 64 || a.qkv.n % 4 || a.Hkv < 1 || a.Hq % a.Hkv
+      || (a.Hq * a.hd) % 64 || a.qkv.n % 16 || a.Hkv < 1 || a.Hq % a.Hkv
       || a.o.bits != wb || a.w13.bits != wb || a.w2.bits != wb
-      || (a.logits && a.hbits != 4 && a.hbits != 8))
+      || (a.logits && ((a.hbits != 4 && a.hbits != 8) || a.Vp % 16)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (wb == 8) return a.hd == 256 ? mqt_rows_w8_chunk_hd256(a, st) : mqt_rows_w8_chunk(a, st);

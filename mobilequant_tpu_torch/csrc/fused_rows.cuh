@@ -23,8 +23,7 @@
 // head, per column).
 //
 // The cooperative, persistent launch of fused_layer.cu (fused_common.cuh:
-// grid barrier, split-K meeting in the self-cleaning workspace), with the
-// stages rebuilt for many rows:
+// grid barrier), with the stages rebuilt for many rows:
 //   - a norm is a stage of its own, one block per row (the fp64 sums, the
 //     norm, the quantization), writing int8 rows; a grid barrier follows.
 //     Every norm is RMSNorm, or (StableLM) LayerNorm: a mean pass first,
@@ -32,22 +31,22 @@
 //     chunk and o-tail kernels read the flag a.ln at run time (a branch once
 //     per row), so one instantiation serves both norms; the MLP tiles kernel
 //     has an instantiation for each norm, which its entry picks by a.ln;
-//   - a matvec tile is 128 columns by every row of the launch (at most 128):
-//     per K chunk of
-//     128 k values the block unpacks the tile's weights (W4: 64 packed rows;
-//     W8: 64 rows j and 64 rows kin/2 + j, twice the bytes) into shared
-//     memory once and streams the chunk of every activation row beside
-//     them (at B = 128 a (B, K) int8 activation does not fit an SM, so rows are
-//     never held whole), then the 8 warps run int8 mma.sync (m16n8k32) over
-//     16-row x 16·MI-column pieces of the tile; the next chunk's loads are in
-//     flight meanwhile. Each weight byte is read once per launch, whatever M.
-//     The tile's row sums come from the same activation words; split-K
-//     partials (accumulators and row sums) meet in the workspace, and the last
-//     block of a tile runs the epilogue;
+//   - a matvec stage (rows_matvec) runs the int8 tensor-core tile core of
+//     tc_tile.cuh (w13_gate.cu's, w4a8_matmul.cu's and qkv_rope.cu's): 64-row
+//     x 128-column tiles of mma.sync m16n8k32 over a four-stage cp.async ring
+//     of activation and weight chunks (64 packed rows, 128 k values), the W4
+//     nibbles unpacked in registers, the row sums from the activation words.
+//     Where the tiles leave blocks idle, K is split (about one item a block,
+//     at least 2 chunks a split) and the splits meet without atomics: plain
+//     stores into the workspace's slabs, a grid barrier, then every block
+//     sums the splits of its share of the outputs in split order and runs
+//     the epilogue; an unsplit tile runs it in its own block. The row tiles
+//     of a column tile run side by side, so its weights come once from
+//     device memory and once more from L2;
 //   - the MLP kernels of any M (the per-layer MLP block, fused_mlp, w13 +
-//     gate + w2) walk the rows in 128-row tiles inside the one launch: per
-//     tile the norm (the MLP block), the w13 + gate stage and the w2 stage,
-//     a grid barrier after each; the weights are re-read per row tile (from
+//     gate + w2) walk the rows in 128-row steps inside the one launch: per
+//     step the norm (the MLP block), the w13 + gate stage and the w2 stage,
+//     a grid barrier after each; the weights are re-read per step (from
 //     the 50 MB L2 when a layer's matrices fit it);
 //   - the chunk kernel's attention: one block per (sequence, q head), RoPE
 //     and joint quantization (the group's first q head writes the new K/V
@@ -56,7 +55,7 @@
 //     [0, m) with their column sums computed here, the self term; one shared
 //     max, per-part exp, the denominator (cache + self) + staged; masked rows
 //     add exactly 0 (neg_inf <= -1e4), so only valid rows are read. Above
-//     64 rows (whose tiles leave one block an SM) an item is a (sequence, kv
+//     64 rows, where such items fill the grid, an item is a (sequence, kv
 //     head) with its q heads, so each valid K/V row is read once for them.
 //     The per-head stage comes in two editions (DPL, head dims a lane): 4 up
 //     to hd 128, 8 at hd 256 (Gemma-2B, which the grouped stage does not take).
@@ -80,242 +79,142 @@
 #pragma once
 
 #include "fused_common.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
-constexpr int RN = 128;          // columns of a row tile
-constexpr int RKP = 64;          // packed weight rows per K chunk (128 k values)
-constexpr int XW = 36;           // words per shared activation row (32 + 4: A fragments
-                                 // of the 8 row groups of a warp hit distinct banks)
-constexpr int WW = RN + 8;       // words per shared weight row (B fragments likewise)
-constexpr int SW = RN + 4;       // words per accumulator staging row
-constexpr int MAXR = 128;        // rows a launch takes
-constexpr int RSW = CNT * MAXR;  // workspace: per-tile row-sum partials after the counters
+constexpr int MAXR = 128;        // rows a launch (the MLP tiles kernel: a step of its walk)
+                                 // takes: two 64-row tiles
+constexpr int HALF = TC_BN / 2;  // gate outputs of a tile (its w1 | w3 columns)
 
+// The fixed part of the row kernels' dynamic shared memory; the tile core's
+// ring (where a finished tile is staged) follows at RING_OFF, and the chunk
+// kernel's attention stages lay their arrays over both from byte 0 (the
+// stages are apart: a grid barrier, which starts with __syncthreads, lies
+// between any two).
 struct RowSmem {
-  union {
-    struct {
-      // one K chunk: words [0, 16) of a row hold the k values of the packed
-      // rows' low nibbles, [16, 32) those of their high nibbles (4 k a word)
-      int x[MAXR][XW];           // every row's activation words
-      int w[32][WW];             // the tile's unpacked weights, word-major
-    } mm;
-    int stg[MAXR][SW];           // the tile's accumulators, row-major
-  } u;
-  int rsum[MAXR];                // the tile's row sums (epilogue)
+  int rsum[TC_BM];               // a tile's row sums (tc_tile)
   double dred[NW];
   float fred[NW];
   float meta[48];                // MLP-block / o-tail meta copy
-  int flag;
 };
-
-__device__ __forceinline__ RowSmem& row_smem() {
-  extern __shared__ int4 smem_raw[];
-  return *reinterpret_cast<RowSmem*>(smem_raw);
-}
+constexpr int RING_OFF = 640;    // ops/mlp_block.ROW_RING_OFFSET
+static_assert(sizeof(RowSmem) <= RING_OFF && RING_OFF % 128 == 0, "RowSmem before the ring");
 
 __device__ __forceinline__ char* smem_base() {
   extern __shared__ int4 smem_raw[];
   return reinterpret_cast<char*>(smem_raw);
 }
 
-__device__ __forceinline__ Tile row_tile(int t, int N) {
-  return Tile{t * RN, 0, RN, min(RN, N - t * RN), 0};
+__device__ __forceinline__ RowSmem& row_smem() {
+  return *reinterpret_cast<RowSmem*>(smem_base());
 }
 
-// the w1 and w3 columns of 64 gate outputs (they sit F apart)
-__device__ __forceinline__ Tile row_gate_tile(int t, int F) {
-  constexpr int H = RN / 2;
-  const int n = min(H, F - t * H);
-  return Tile{t * H, F + t * H, H, n, n};
+// dynamic shared memory of a row kernel whose matvec stages read WB-bit weights
+__host__ __device__ constexpr size_t rows_smem(int wb) {
+  return RING_OFF + (wb == 8 ? tc_smem_bytes<8>() : tc_smem_bytes<4>());
 }
 
-// acc[i][j] (row ty + 16 i, tile column tx + 16 j) = x · W[:, tile columns]
-// over K chunks [c0, c1) of 128 k values (64 row pairs j, j + kin/2); thread
-// tid < M adds row tid's sum to rs. x (M, kin) int8 is read through L2 (it
-// may have been written in this launch). Per chunk the block unpacks the
-// tile's weights into shared memory (W4: its 64 packed rows, nibbles 0..15
-// being valid s8 operands; W8: 64 low rows and the 64 high rows kin/2 + j,
-// their bytes as they are) beside every row's 128 activation bytes; warp w
-// then runs int8 mma.sync over rows 16 (w % MI).. and 16·MI columns (MI = 8:
-// all 128) of the tile. The next chunk's global loads (twice the weight words
-// for W8) are issued before this chunk's products, so they are in flight
-// meanwhile. The accumulators meet the epilogues' layout through shared
-// memory at the end.
-template <int MI, int WB>
-__device__ void rows_mma(const int8_t* __restrict__ x, int M, int kin,
-                         const int8_t* __restrict__ w, int N, const Tile& t, int c0, int c1,
-                         RowSmem& s, int (&acc)[MI][8], int& rs) {
-  constexpr int NT = 2 * MI;                  // n8 tiles of a warp
-  constexpr int XL = MI >= 2 ? MI / 2 : 1;    // activation int4 loads per thread
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tg = lane & 3;
-  const int r0 = 16 * (warp % MI), cb = (warp / MI) * 16 * MI;
-  const int k2 = kin >> 1;
-  const int cg = tid & 31, rg = tid >> 5;     // weight loads: 4 columns x 8 packed rows
-  const bool wok = t.valid(cg * 4);
-  const int wcol = t.gcol(cg * 4);
-  int d[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0;
-  constexpr int NWR = WB == 8 ? 16 : 8;      // weight words a thread loads a chunk
-  int wr[NWR];
-  int4 xr[XL];
-  auto load = [&](int ch) {
-    const int j0 = ch * RKP, left = k2 - j0;  // row pairs left: 64, or 32 at a K tail
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      wr[i] = (wok && rg * 8 + i < left) ? ld_i32(w + (size_t)(j0 + rg * 8 + i) * N + wcol) : 0;
-    if constexpr (WB == 8) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        wr[8 + i] = (wok && rg * 8 + i < left)
-                        ? ld_i32(w + (size_t)(k2 + j0 + rg * 8 + i) * N + wcol) : 0;
+// The plan of one matvec stage (mirrored by ops/mlp_block.rows_plan): rt
+// row tiles of 64 rows by ct column tiles (128 columns; a gate tile: the w1
+// and w3 columns of 64 outputs); K in nch chunks of 64 packed rows (128 k
+// values), split ks ways, cps chunks a split, where the tiles alone leave
+// blocks of the grid idle: as many items as blocks at most, at least 2
+// chunks a split (on an H100 a block's first chunk takes ~4 µs in this
+// launch and each later one ~2.3, so more, shorter splits beat fewer, longer
+// ones: scripts/probe_rows_stages.py). Every block computes the same plan
+// from gridDim.
+struct RowPlan {
+  int rt, ct, nch, ks, cps;
+  __device__ RowPlan(int M, int kin, int cols) {
+    rt = (M + TC_BM - 1) / TC_BM;
+    ct = cols;
+    nch = ((kin >> 1) + TC_KP - 1) / TC_KP;
+    const int tiles = rt * ct;
+    ks = 1;
+    if (tiles < (int)gridDim.x) {
+      const int cap = nch / 2 > 1 ? nch / 2 : 1;
+      ks = (int)gridDim.x / tiles;
+      if (ks > cap) ks = cap;
     }
-#pragma unroll
-    for (int q = 0; q < XL; ++q) {
-      const int idx = tid + FT * q, m = idx >> 3, p = idx & 7;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (m < M && m < 16 * MI && 16 * (p & 3) < left)
-        v = __ldcg(reinterpret_cast<const int4*>(x + (size_t)m * kin + (p >= 4 ? k2 : 0) + j0
-                                                 + 16 * (p & 3)));
-      xr[q] = v;
-    }
-  };
-  if (c0 < c1) load(c0);
-  for (int ch = c0; ch < c1; ++ch) {
-    __syncthreads();                          // the previous chunk's reads are done
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {             // row pairs rg·8 + 4h .. + 3: word 2 rg + h
-      int c[4];
-      transpose4x4(wr + 4 * h, c);
-      const int kw = 2 * rg + h;
-      if constexpr (WB == 4) {
-        *reinterpret_cast<int4*>(&s.u.mm.w[kw][cg * 4]) =
-            make_int4(c[0] & (int)NIB, c[1] & (int)NIB, c[2] & (int)NIB, c[3] & (int)NIB);
-        *reinterpret_cast<int4*>(&s.u.mm.w[16 + kw][cg * 4]) = make_int4(
-            (int)(((unsigned)c[0] >> 4) & NIB), (int)(((unsigned)c[1] >> 4) & NIB),
-            (int)(((unsigned)c[2] >> 4) & NIB), (int)(((unsigned)c[3] >> 4) & NIB));
-      } else {
-        int c2[4];
-        transpose4x4(wr + 8 + 4 * h, c2);
-        *reinterpret_cast<int4*>(&s.u.mm.w[kw][cg * 4]) = make_int4(c[0], c[1], c[2], c[3]);
-        *reinterpret_cast<int4*>(&s.u.mm.w[16 + kw][cg * 4]) =
-            make_int4(c2[0], c2[1], c2[2], c2[3]);
+    cps = (nch + ks - 1) / ks;
+    ks = (nch + cps - 1) / cps;
+  }
+};
+
+// One matvec stage on the int8 tensor-core tile core (tc_tile.cuh: 64 x 128
+// tiles of mma.sync m16n8k32 over a four-stage cp.async ring, W4 nibbles
+// unpacked in registers, the products of rows past M skipped): x (M, kin)
+// int8, M <= 128, times the (kin/2, N) W4
+// or (kin, N) W8 matrix w; gate: N = 2F and output j reads columns j (w1) and
+// F + j (w3). epi(r, c, acc, acc3, rowsum) runs once for each output (r, c)
+// of the M rows, c < N (gate: c < F, acc3 the w3 column's sum; else 0), with
+// the row's activation sum. Item it of the stage is row tile it % rt of
+// split (it / rt) % ks of column tile it / (rt ks), so the row tiles of a
+// column tile run side by side and its weights come the second time from L2.
+// An unsplit tile is staged in its block's free ring, whose threads run the
+// epilogue over it, consecutive threads on consecutive columns. A split tile
+// meets without atomics: each split stores its partial sums into its slab
+// (sp, M, N) of the workspace and its row sums after the ks slabs with plain
+// stores; after a grid barrier every block takes outputs of the stage and
+// sums their splits in split order (integer sums, exact in any order). x may
+// have been written in this launch: the ring's copies read it through L2.
+template <int WB, typename Epi>
+__device__ void rows_matvec(const int8_t* x, int M, int kin, const int8_t* w, int N, bool gate,
+                            int* ws, unsigned* bar, RowSmem& s, Epi epi) {
+  const int F = N >> 1;
+  const RowPlan p(M, kin, gate ? F / HALF : (N + TC_BN - 1) / TC_BN);
+  int8_t* ring = reinterpret_cast<int8_t*>(smem_base() + RING_OFF);
+  int* st = reinterpret_cast<int*>(ring);
+  int* wrs = ws + (size_t)p.ks * M * N;                 // the splits' row sums (ks, M)
+  const int tw = gate ? HALF : TC_BN;                   // outputs a tile row
+  for (int it = blockIdx.x; it < p.rt * p.ct * p.ks; it += gridDim.x) {
+    const int y = it % p.rt, sp = (it / p.rt) % p.ks, c = it / (p.rt * p.ks);
+    const int m0 = y * TC_BM;
+    const ColMap cm = gate ? ColMap{c * HALF, F + c * HALF, HALF, HALF, HALF}
+                           : ColMap{c * TC_BN, 0, TC_BN, min(TC_BN, N - c * TC_BN), 0};
+    TcAcc acc;
+    tc_tile<WB, true, true>(x, w, M, kin, N, m0, cm, sp * p.cps, min(p.nch, (sp + 1) * p.cps),
+                            ring, s.rsum, acc);
+    if (p.ks == 1) {
+      tc_stage(acc, st);
+      const int rows = min(TC_BM, M - m0);
+      for (int i = threadIdx.x; i < rows * tw; i += FT) {
+        const int r = i / tw, n = i % tw;
+        if (cm.valid(n))
+          epi(m0 + r, cm.colA + n, st[r * TC_LD + n], gate ? st[r * TC_LD + HALF + n] : 0,
+              s.rsum[r]);
       }
-    }
+    } else {
+      // fragment e of d[mt][0..3] is 4 consecutive columns of one row
+      int* slab = ws + (size_t)sp * M * N;
 #pragma unroll
-    for (int q = 0; q < XL; ++q) {
-      const int idx = tid + FT * q, m = idx >> 3, p = idx & 7;
-      if (m < 16 * MI) *reinterpret_cast<int4*>(&s.u.mm.x[m][4 * p]) = xr[q];
-    }
-    __syncthreads();
-    if (ch + 1 < c1) load(ch + 1);            // in flight during the products below
-    if (tid < M) {
-#pragma unroll 8
-      for (int q = 0; q < 32; ++q)            // rotated start: distinct banks per lane
-        rs = __dp4a(s.u.mm.x[tid][(q + tid) & 31], 0x01010101, rs);
-    }
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int kb = 0; kb < 32; kb += 8) {      // four k32 steps: low 0..63, high 0..63
-      const int a0 = s.u.mm.x[r0 + g][kb + tg], a1 = s.u.mm.x[r0 + g + 8][kb + tg];
-      const int a2 = s.u.mm.x[r0 + g][kb + 4 + tg], a3 = s.u.mm.x[r0 + g + 8][kb + 4 + tg];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int col = cb + 8 * n + g;
-        mma_s8(d[n], a0, a1, a2, a3, s.u.mm.w[kb + tg][col], s.u.mm.w[kb + 4 + tg][col]);
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int gm = m0 + tc_row(mt, e), n = tc_col(0, e);
+          if (gm < M && cm.valid(n))
+            *reinterpret_cast<int4*>(slab + (size_t)gm * N + cm.gcol(n)) = make_int4(
+                acc.d[mt][0][e], acc.d[mt][1][e], acc.d[mt][2][e], acc.d[mt][3][e]);
+        }
+      if (c == 0 && threadIdx.x < TC_BM && m0 + (int)threadIdx.x < M)
+        wrs[sp * M + m0 + threadIdx.x] = s.rsum[threadIdx.x];
     }
+    __syncthreads();                                    // the ring and rsum are free again
   }
-  __syncthreads();                            // the union turns into the staging rows
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int col = cb + 8 * n + 2 * tg;
-    *reinterpret_cast<int2*>(&s.u.stg[r0 + g][col]) = make_int2(d[n][0], d[n][1]);
-    *reinterpret_cast<int2*>(&s.u.stg[r0 + g + 8][col]) = make_int2(d[n][2], d[n][3]);
-  }
-  __syncthreads();
-  const int tx = tid & 15, ty = tid >> 4;
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = s.u.stg[ty + 16 * i][tx + 16 * j];
-}
-
-// Split-K meeting point of tile `tile`: true in the block that then holds
-// the totals (acc, and the row sums in s.rsum); the only block when ks == 1.
-// The last block to arrive reads and zeroes the partials and its counter.
-template <int MI>
-__device__ bool rows_finish(int* ws, int tile, int ks, int M, int N, const Tile& t,
-                            RowSmem& s, int (&acc)[MI][8], int rs) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  if (ks == 1) {
-    if (tid < M) s.rsum[tid] = rs;
-    __syncthreads();
-    return true;
-  }
-  int* wrs = ws + CNT + (size_t)tile * MAXR;
-  int* wacc = ws + CNT + RSW;
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    const int gm = ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = tx + 16 * j;
-      if (t.valid(n)) atomicAdd(&wacc[(size_t)gm * N + t.gcol(n)], acc[i][j]);
+  if (p.ks == 1) return;
+  grid_barrier(bar);
+  const int no = gate ? F : N;
+  for (int i = blockIdx.x * FT + threadIdx.x; i < M * no; i += gridDim.x * FT) {
+    const int r = i / no, cc = i % no;
+    int a0 = 0, a1 = 0, rs = 0;
+    for (int sp = 0; sp < p.ks; ++sp) {
+      const int* row = ws + ((size_t)sp * M + r) * N;
+      a0 += __ldcg(row + cc);
+      if (gate) a1 += __ldcg(row + F + cc);
+      rs += __ldcg(wrs + sp * M + r);
     }
-  }
-  if (tid < M) atomicAdd(&wrs[tid], rs);
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) s.flag = (atomicAdd(&ws[tile], 1) == ks - 1);
-  __syncthreads();
-  if (!s.flag) return false;
-  __threadfence();
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    const int gm = ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = tx + 16 * j;
-      if (t.valid(n)) acc[i][j] = atomicExch(&wacc[(size_t)gm * N + t.gcol(n)], 0);
-    }
-  }
-  if (tid < M) s.rsum[tid] = atomicExch(&wrs[tid], 0);
-  if (tid == 0) ws[tile] = 0;
-  __syncthreads();
-  return true;
-}
-
-// One matvec stage: x (M, kin) int8 times the (kin/2, N) W4 or (kin, N) W8
-// matrix w, over 128-column tiles (gate: the w1|w3 tiles of an F-wide gate),
-// K split over blocks so that tiles·ks is about the grid; epi(tile, acc) runs
-// in the block that completes a tile, with the row sums in s.rsum.
-template <int MI, int WB, typename Epi>
-__device__ void rows_matvec(const int8_t* x, int M, int kin, const int8_t* w, int N,
-                            bool gate, int F, int* ws, RowSmem& s, Epi epi) {
-  const int tiles = gate ? (F + RN / 2 - 1) / (RN / 2) : (N + RN - 1) / RN;
-  const int nch = ((kin >> 1) + RKP - 1) / RKP;       // the last may be a half chunk
-  int ks = (gridDim.x + tiles - 1) / tiles;
-  if (ks > nch) ks = nch;
-  if (ks < 1) ks = 1;
-  const int cps = (nch + ks - 1) / ks;
-  ks = (nch + cps - 1) / cps;
-  for (int it = blockIdx.x; it < tiles * ks; it += gridDim.x) {
-    const int tile = it / ks, sp = it % ks;
-    const Tile t = gate ? row_gate_tile(tile, F) : row_tile(tile, N);
-    int acc[MI][8];
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0;
-    int rs = 0;
-    rows_mma<MI, WB>(x, M, kin, w, N, t, sp * cps, min(nch, (sp + 1) * cps), s, acc, rs);
-    if (!rows_finish<MI>(ws, tile, ks, M, N, t, s, acc, rs)) continue;
-    epi(t, acc);
-    __syncthreads();
+    epi(r, cc, a0, a1, rs);
   }
 }
 
@@ -397,107 +296,72 @@ __device__ void rows_head_norm(const Args& a, RowSmem& s) {
 // o-proj of a.a8 (M, Ko) for layer l -> affine (x scale / offset at mo[0..1])
 // -> o output fq (mo[2..4]) -> resid_add_1 with xin: input (mo[5..7]),
 // input2 (mo[8..10]), output (mo[11..13]) -> a.resid
-template <int MI, int WB>
+template <int WB>
 __device__ void rows_o(const Args& a, RowSmem& s, int l, const float* mo, const float* xin) {
   const int K = a.K, Ko = a.o.kin, M = a.M;
   const float xs = mo[0], ox = mo[1] - 128.0f, kox = (float)Ko * ox;
   const float fo[12] = {mo[2], mo[3], mo[4], mo[5], mo[6], mo[7],
                         mo[8], mo[9], mo[10], mo[11], mo[12], mo[13]};
-  rows_matvec<MI, WB>(a.a8, M, Ko, layer_w<WB>(a.o, l), K, false, 0, a.ws, s,
-                  [&](const Tile& t, int (&acc)[MI][8]) {
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const int r = ty + 16 * i;
-      if (r >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = tx + 16 * j;
-        if (!t.valid(n)) continue;
-        const int col = t.colA + n;
-        float y = affine(a.o, l, acc[i][j], col, (float)s.rsum[r], xs, ox, kox);
-        y = fqm(y, fo[0], fo[1], fo[2]);
-        const float xr = fqm(__ldcg(xin + (size_t)r * K + col), fo[3], fo[4], fo[5]);
-        y = fqm(y, fo[6], fo[7], fo[8]);
-        a.resid[(size_t)r * K + col] = fqm(xr + y, fo[9], fo[10], fo[11]);
-      }
-    }
+  rows_matvec<WB>(a.a8, M, Ko, layer_w<WB>(a.o, l), K, false, a.ws, a.bar, s,
+                  [&](int r, int col, int acc, int, int rs) {
+    float y = affine(a.o, l, acc, col, (float)rs, xs, ox, kox);
+    y = fqm(y, fo[0], fo[1], fo[2]);
+    const float xr = fqm(__ldcg(xin + (size_t)r * K + col), fo[3], fo[4], fo[5]);
+    y = fqm(y, fo[6], fo[7], fo[8]);
+    a.resid[(size_t)r * K + col] = fqm(xr + y, fo[9], fo[10], fo[11]);
   });
 }
 
 // w13 + gate chain of layer l over h (M, K) int8 -> a.act8 (M, F) int8 (the
 // w2 input); mm is the 32-float MLP-block meta (entries 0..15 read).
-template <int MI, int WB>
+template <int WB>
 __device__ void rows_gate(const Args& a, RowSmem& s, int l, const float* mm, const int8_t* h,
                           int M) {
   const int K = a.K, F = a.F;
   const float xs = mm[0], ox = mm[1] - 128.0f, kox = (float)K * ox;
-  rows_matvec<MI, WB>(h, M, K, layer_w<WB>(a.w13, l), 2 * F, true, F,
-                      a.ws, s, [&](const Tile& t, int (&acc)[MI][8]) {
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const int r = ty + 16 * i;
-      if (r >= M) continue;
-      const float rs = (float)s.rsum[r];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = tx + 16 * j;
-        if (n >= t.na) continue;
-        float g1 = affine(a.w13, l, acc[i][j], t.colA + n, rs, xs, ox, kox);
-        g1 = fqm(g1, mm[2], mm[3], mm[4]);
-        float act;
-        if (!a.gelu) {
-          float sig = 1.0f / (1.0f + expf(-g1));
-          sig = fqm(sig, mm[5], mm[6], mm[7]);
-          act = g1 * sig;
-        } else {
-          const float u = 0.7978845608028654f * (g1 + 0.044715f * g1 * g1 * g1);
-          act = 0.5f * g1 * (1.0f + tanhf(u));
-        }
-        act = fqm(act, mm[8], mm[9], mm[10]);
-        float g3 = affine(a.w13, l, acc[i][j + 4], t.colB + n, rs, xs, ox, kox);
-        g3 = fqm(g3, mm[11], mm[12], mm[13]);
-        a.act8[(size_t)r * F + t.colA + n] = (int8_t)(int)quant_u8s(act * g3, mm[14], mm[15]);
-      }
+  rows_matvec<WB>(h, M, K, layer_w<WB>(a.w13, l), 2 * F, true, a.ws, a.bar, s,
+                  [&](int r, int j, int acc1, int acc3, int rsi) {
+    const float rs = (float)rsi;
+    float g1 = affine(a.w13, l, acc1, j, rs, xs, ox, kox);
+    g1 = fqm(g1, mm[2], mm[3], mm[4]);
+    float act;
+    if (!a.gelu) {
+      float sig = 1.0f / (1.0f + expf(-g1));
+      sig = fqm(sig, mm[5], mm[6], mm[7]);
+      act = g1 * sig;
+    } else {
+      const float u = 0.7978845608028654f * (g1 + 0.044715f * g1 * g1 * g1);
+      act = 0.5f * g1 * (1.0f + tanhf(u));
     }
+    act = fqm(act, mm[8], mm[9], mm[10]);
+    float g3 = affine(a.w13, l, acc3, F + j, rs, xs, ox, kox);
+    g3 = fqm(g3, mm[11], mm[12], mm[13]);
+    a.act8[(size_t)r * F + j] = (int8_t)(int)quant_u8s(act * g3, mm[14], mm[15]);
   });
 }
 
 // w2 of layer l over a.act8 (M, F): out(r, col, acc, rowsum) for every output
 // of the M rows, with the raw int32 sum and the act row's sum.
-template <int MI, int WB, typename Out>
+template <int WB, typename Out>
 __device__ void rows_w2(const Args& a, RowSmem& s, int l, int M, Out out) {
-  rows_matvec<MI, WB>(a.act8, M, a.F, layer_w<WB>(a.w2, l), a.K, false, 0, a.ws, s,
-                      [&](const Tile& t, int (&acc)[MI][8]) {
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const int r = ty + 16 * i;
-      if (r >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = tx + 16 * j;
-        if (t.valid(n)) out(r, t.colA + n, acc[i][j], s.rsum[r]);
-      }
-    }
-  });
+  rows_matvec<WB>(a.act8, M, a.F, layer_w<WB>(a.w2, l), a.K, false, a.ws, a.bar, s,
+                  [&](int r, int col, int acc, int, int rs) { out(r, col, acc, rs); });
 }
 
 // The MLP block of layer l over src (M, K) -> out (M, K); mm is the 32-float
 // MLP-block meta; NORM (rows_norm): the norm, NORM_RUNTIME reading a.ln.
 // Three stages, two grid barriers between them.
-template <int MI, int WB, int NORM>
+template <int WB, int NORM>
 __device__ void rows_mlp(const Args& a, RowSmem& s, int l, const float* mm, const float* src,
                          float* out, int M) {
   const int K = a.K, F = a.F;
   rows_norm<NORM>(src, M, K, a.mnw + (size_t)l * K, a.mnb + (size_t)l * K, mm[16], mm[17],
                   mm[18], mm[19], mm[0], mm[1], a.ln, a.h8, s);
   grid_barrier(a.bar);
-  rows_gate<MI, WB>(a, s, l, mm, a.h8, M);
+  rows_gate<WB>(a, s, l, mm, a.h8, M);
   grid_barrier(a.bar);
   const float xs = mm[14], ox = mm[15] - 128.0f, kox = (float)F * ox;
-  rows_w2<MI, WB>(a, s, l, M, [&](int r, int col, int acc, int rs) {
+  rows_w2<WB>(a, s, l, M, [&](int r, int col, int acc, int rs) {
     float y = affine(a.w2, l, acc, col, (float)rs, xs, ox, kox);
     y = fqm(y, mm[20], mm[21], mm[22]);
     const float xr = fqm(__ldcg(src + (size_t)r * K + col), mm[23], mm[24], mm[25]);
@@ -1042,7 +906,7 @@ __device__ __forceinline__ void copy_mlp_meta(const Args& a, RowSmem& s) {
 }
 
 // The MLP kernels of layer a.l0 over a.M rows of any count, walked in
-// 128-row tiles (mlp_meta[0..31]), one instantiation per kind: MLP_BLOCK
+// 128-row steps (mlp_meta[0..31]), one instantiation per kind: MLP_BLOCK
 // x_in (M, K) fp32 -> x_in + MLP(norm(x_in)) in x_out (NORM: NORM_RMS, or
 // NORM_LN, the instantiation that the entry picks when a.ln is set); MLP_RAW
 // h8 (M, K) int8 -> the raw Σ g8·w2 int32 sums as fp32 in x_out (M, K) and
@@ -1050,8 +914,11 @@ __device__ __forceinline__ void copy_mlp_meta(const Args& a, RowSmem& s) {
 // epilogue in x_out. The C entry's mode is the kind.
 constexpr int MLP_BLOCK = 0, MLP_RAW = 1, MLP_W2 = 2;
 
-template <int MI, int WB, int KIND, int NORM>
-__global__ void __launch_bounds__(FT) fused_mlp_tiles_kernel(const Args a, int) {
+// Every row kernel is compiled for two blocks an SM (at most 128 registers
+// a thread): the tile core's accumulators are the same at every row count,
+// and a launch takes one block an SM where two do not fit.
+template <int WB, int KIND, int NORM>
+__global__ void __launch_bounds__(FT, 2) fused_mlp_tiles_kernel(const Args a, int) {
   RowSmem& s = row_smem();
   copy_mlp_meta(a, s);
   const float* mm = s.meta;
@@ -1059,21 +926,21 @@ __global__ void __launch_bounds__(FT) fused_mlp_tiles_kernel(const Args a, int) 
   for (int m0 = 0; m0 < a.M; m0 += MAXR) {
     const int M = min(MAXR, a.M - m0);
     float* out = a.x_out + (size_t)m0 * K;
-    if (m0 > 0) grid_barrier(a.bar);          // the last tile's act8 and workspace are free
+    if (m0 > 0) grid_barrier(a.bar);          // the last step's act8 and slabs are free
     if constexpr (KIND == MLP_BLOCK) {
-      rows_mlp<MI, WB, NORM>(a, s, l, mm, a.x_in + (size_t)m0 * K, out, M);
+      rows_mlp<WB, NORM>(a, s, l, mm, a.x_in + (size_t)m0 * K, out, M);
     } else {
-      rows_gate<MI, WB>(a, s, l, mm, a.h8 + (size_t)m0 * K, M);
+      rows_gate<WB>(a, s, l, mm, a.h8 + (size_t)m0 * K, M);
       grid_barrier(a.bar);
       if constexpr (KIND == MLP_RAW) {
         float* rsum = a.sx + m0;
-        rows_w2<MI, WB>(a, s, l, M, [&](int r, int col, int acc, int rs) {
+        rows_w2<WB>(a, s, l, M, [&](int r, int col, int acc, int rs) {
           out[(size_t)r * K + col] = (float)acc;
           if (col == 0) rsum[r] = (float)rs;
         });
       } else {
         const float xs = mm[14], ox = mm[15] - 128.0f, kox = (float)a.F * ox;
-        rows_w2<MI, WB>(a, s, l, M, [&](int r, int col, int acc, int rs) {
+        rows_w2<WB>(a, s, l, M, [&](int r, int col, int acc, int rs) {
           out[(size_t)r * K + col] = affine(a.w2, l, acc, col, (float)rs, xs, ox, kox);
         });
       }
@@ -1081,26 +948,19 @@ __global__ void __launch_bounds__(FT) fused_mlp_tiles_kernel(const Args a, int) 
   }
 }
 
-// The o-tail and chunk kernels are compiled for two blocks an SM (at most
-// 128 registers a thread) at MI <= 2, and the W4 chunk kernel at MI = 4 too:
-// left to itself ptxas moves these editions between 128 registers (two blocks
-// an SM) and 146-255 (one) with small changes to the code, and the chunk
-// step's time by 25-35% with them.
-template <int MI, int WB>
-__global__ void __launch_bounds__(FT, MI <= 2 ? 2 : 1)
-    fused_otail_kernel(const Args a, int) {
+template <int WB>
+__global__ void __launch_bounds__(FT, 2) fused_otail_kernel(const Args a, int) {
   RowSmem& s = row_smem();
   copy_mlp_meta(a, s);
-  rows_o<MI, WB>(a, s, a.l0, s.meta + 32, a.x_in);
+  rows_o<WB>(a, s, a.l0, s.meta + 32, a.x_in);
   grid_barrier(a.bar);
-  rows_mlp<MI, WB, NORM_RUNTIME>(a, s, a.l0, s.meta, a.resid, a.x_out, a.M);
+  rows_mlp<WB, NORM_RUNTIME>(a, s, a.l0, s.meta, a.resid, a.x_out, a.M);
 }
 
 // DPL: the attention stage's edition (stage_chunk_attention), 4 up to hd
 // 128, 8 at hd 256 (fused_rows_hd256.cu, fused_rows_hd256_w8.cu).
-template <int MI, int WB, int DPL>
-__global__ void __launch_bounds__(FT, (MI <= 2 || (MI == 4 && WB == 4)) ? 2 : 1)
-    fused_chunk_kernel(const Args a, int) {
+template <int WB, int DPL>
+__global__ void __launch_bounds__(FT, 2) fused_chunk_kernel(const Args a, int) {
   RowSmem& s = row_smem();
   const int K = a.K, M = a.M, Nq = a.qkv.n;
   stamp(a, 0);
@@ -1115,38 +975,26 @@ __global__ void __launch_bounds__(FT, (MI <= 2 || (MI == 4 && WB == 4)) ? 2 : 1)
     {
       const float xs = m[4], ox = m[5] - 128.0f, kox = (float)K * ox;
       const float* ofq = a.ofq + (size_t)l * 4 * Nq;
-      rows_matvec<MI, WB>(a.h8, M, K, layer_w<WB>(a.qkv, l), Nq, false, 0, a.ws, s,
-                          [&](const Tile& t, int (&acc)[MI][8]) {
-        const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          const int r = ty + 16 * i;
-          if (r >= M) continue;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int n = tx + 16 * j;
-            if (!t.valid(n)) continue;
-            const int col = t.colA + n;
-            float y = affine(a.qkv, l, acc[i][j], col, (float)s.rsum[r], xs, ox, kox);
-            const float fs = __ldg(ofq + col), fo = __ldg(ofq + Nq + col);
-            const float fc = __ldg(ofq + 2 * Nq + col), fe = __ldg(ofq + 3 * Nq + col);
-            float q = rintf(y / fs) + fo;
-            q = fminf(fmaxf(q, 0.0f), fc);
-            if (fe > 0.5f) y = (q - fo) * fs;
-            a.yq[(size_t)r * Nq + col] = y;
-          }
-        }
+      rows_matvec<WB>(a.h8, M, K, layer_w<WB>(a.qkv, l), Nq, false, a.ws, a.bar, s,
+                      [&](int r, int col, int acc, int, int rs) {
+        float y = affine(a.qkv, l, acc, col, (float)rs, xs, ox, kox);
+        const float fs = __ldg(ofq + col), fo = __ldg(ofq + Nq + col);
+        const float fc = __ldg(ofq + 2 * Nq + col), fe = __ldg(ofq + 3 * Nq + col);
+        float q = rintf(y / fs) + fo;
+        q = fminf(fmaxf(q, 0.0f), fc);
+        if (fe > 0.5f) y = (q - fo) * fs;
+        a.yq[(size_t)r * Nq + col] = y;
       });
     }
     grid_barrier(a.bar);
     stamp(a, ts++);
-    // above 64 rows (one block an SM): one item per (sequence, kv head). The
-    // grouped stage holds at most 4 dims a lane (8 int4 words a K row, 4
-    // outputs a thread), so the hd-256 edition takes the per-head stage at
-    // every B (Gemma-2B has one kv head: B·Hkv <= 128 items never fill the
-    // grid of 132 SMs anyway).
-    if constexpr (MI == 8 && DPL == 4) {
-      if (a.M * a.Hkv >= (int)gridDim.x && GMAX % (a.Hq / a.Hkv) == 0)
+    // above 64 rows: one item per (sequence, kv head) where such items fill
+    // the grid. The grouped stage holds at most 4 dims a lane (8 int4 words
+    // a K row, 4 outputs a thread), so the hd-256 edition takes the per-head
+    // stage at every B (Gemma-2B has one kv head: B·Hkv <= 128 items never
+    // fill the grid anyway).
+    if constexpr (DPL == 4) {
+      if (M > 64 && M * a.Hkv >= (int)gridDim.x && GMAX % (a.Hq / a.Hkv) == 0)
         stage_chunk_attention_grouped(a, l);
       else
         stage_chunk_attention<DPL>(a, l);
@@ -1155,10 +1003,10 @@ __global__ void __launch_bounds__(FT, (MI <= 2 || (MI == 4 && WB == 4)) ? 2 : 1)
     }
     grid_barrier(a.bar);
     stamp(a, ts++);
-    rows_o<MI, WB>(a, s, l, m + 19, xin);
+    rows_o<WB>(a, s, l, m + 19, xin);
     grid_barrier(a.bar);
     stamp(a, ts++);
-    rows_mlp<MI, WB, NORM_RUNTIME>(a, s, l, m + AM, a.resid, a.x_out, M);
+    rows_mlp<WB, NORM_RUNTIME>(a, s, l, m + AM, a.resid, a.x_out, M);
     if (l + 1 < a.l1 || a.logits || a.trace) grid_barrier(a.bar);
     stamp(a, ts++);
   }
@@ -1167,44 +1015,31 @@ __global__ void __launch_bounds__(FT, (MI <= 2 || (MI == 4 && WB == 4)) ? 2 : 1)
     grid_barrier(a.bar);
     stamp(a, ts++);
     const int Vp = a.Vp;
-    auto head_epi = [&](const Tile& t, int (&acc)[MI][8]) {
-      const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const int r = ty + 16 * i;
-        if (r >= M) continue;
-        const float sxr = __ldcg(a.sx + r);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int n = tx + 16 * j;
-          if (!t.valid(n)) continue;
-          const int col = t.colA + n;
-          const float ow = __ldg(a.hoffset + col), sw = __ldg(a.hscale + col);
-          a.logits[(size_t)r * Vp + col] = ((float)acc[i][j] - ow * (float)s.rsum[r]) * (sxr * sw);
-        }
-      }
+    auto head_epi = [&](int r, int col, int acc, int, int rs) {
+      const float ow = __ldg(a.hoffset + col), sw = __ldg(a.hscale + col);
+      a.logits[(size_t)r * Vp + col] = ((float)acc - ow * (float)rs) * (__ldcg(a.sx + r) * sw);
     };
     if (a.hbits == 8)
-      rows_matvec<MI, 8>(a.h8, M, K, a.hwq, Vp, false, 0, a.ws, s, head_epi);
+      rows_matvec<8>(a.h8, M, K, a.hwq, Vp, false, a.ws, a.bar, s, head_epi);
     else
-      rows_matvec<MI, 4>(a.h8, M, K, a.hwq, Vp, false, 0, a.ws, s, head_epi);
+      rows_matvec<4>(a.h8, M, K, a.hwq, Vp, false, a.ws, a.bar, s, head_epi);
     if (a.trace) grid_barrier(a.bar);
     stamp(a, ts);
   }
 }
 
-int mi_of(int M) { return M <= 16 ? 1 : (M <= 32 ? 2 : (M <= 64 ? 4 : 8)); }
-
 bool rows_ok(const Args& a) {
   return a.M >= 1 && a.M <= MAXR && a.K % 128 == 0 && a.F % 64 == 0;
 }
 
-
-// the chunk kernel's shared memory: the row stages', the per-head attention
-// stage's and, up to hd 128 (the editions that may take it), the grouped one's
+// the chunk kernel's shared memory: the tile ring of its widest weights (the
+// layers', or a W8 head's), the per-head attention stage's and, up to hd 128
+// (the editions that may take it), the grouped one's
+template <int WB>
 size_t chunk_smem(const Args& a) {
+  size_t sm = rows_smem(a.logits && a.hbits > WB ? a.hbits : WB);
   const AttnLayout lay(a.hd, a.S, a.ncs, a.hd <= 128 ? 4 : 8);
-  size_t sm = lay.end > sizeof(RowSmem) ? lay.end : sizeof(RowSmem);
+  if (lay.end > sm) sm = lay.end;
   if (a.hd > 128) return sm;
   const GroupLayout glay(a.hd, a.S, a.ncs, a.Hq / a.Hkv <= GMAX ? a.Hq / a.Hkv : 1);
   return glay.end > sm ? glay.end : sm;
@@ -1220,35 +1055,17 @@ bool tiles_ok(const Args& a, int mode) {
 
 template <int WB, int KIND, int NORM = NORM_RMS>
 int launch_mlp_tiles(const Args& a, cudaStream_t st) {
-  const size_t sm = sizeof(RowSmem);
-  switch (mi_of(a.M < MAXR ? a.M : MAXR)) {
-    case 1: return launch_coop(fused_mlp_tiles_kernel<1, WB, KIND, NORM>, a, 0, sm, st);
-    case 2: return launch_coop(fused_mlp_tiles_kernel<2, WB, KIND, NORM>, a, 0, sm, st);
-    case 4: return launch_coop(fused_mlp_tiles_kernel<4, WB, KIND, NORM>, a, 0, sm, st);
-    default: return launch_coop(fused_mlp_tiles_kernel<8, WB, KIND, NORM>, a, 0, sm, st);
-  }
+  return launch_coop(fused_mlp_tiles_kernel<WB, KIND, NORM>, a, 0, rows_smem(WB), st);
 }
 
 template <int WB>
 int launch_otail(const Args& a, cudaStream_t st) {
-  const size_t sm = sizeof(RowSmem);
-  switch (mi_of(a.M)) {
-    case 1: return launch_coop(fused_otail_kernel<1, WB>, a, 0, sm, st);
-    case 2: return launch_coop(fused_otail_kernel<2, WB>, a, 0, sm, st);
-    case 4: return launch_coop(fused_otail_kernel<4, WB>, a, 0, sm, st);
-    default: return launch_coop(fused_otail_kernel<8, WB>, a, 0, sm, st);
-  }
+  return launch_coop(fused_otail_kernel<WB>, a, 0, rows_smem(WB), st);
 }
 
 template <int WB, int DPL = 4>
 int launch_chunk(const Args& a, cudaStream_t st) {
-  const size_t sm = chunk_smem(a);
-  switch (mi_of(a.M)) {
-    case 1: return launch_coop(fused_chunk_kernel<1, WB, DPL>, a, 0, sm, st);
-    case 2: return launch_coop(fused_chunk_kernel<2, WB, DPL>, a, 0, sm, st);
-    case 4: return launch_coop(fused_chunk_kernel<4, WB, DPL>, a, 0, sm, st);
-    default: return launch_coop(fused_chunk_kernel<8, WB, DPL>, a, 0, sm, st);
-  }
+  return launch_coop(fused_chunk_kernel<WB, DPL>, a, 0, chunk_smem<WB>(a), st);
 }
 
 }  // namespace

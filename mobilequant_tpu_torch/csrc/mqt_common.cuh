@@ -1,6 +1,7 @@
 // Shared pieces of the port's Hopper kernels: the C export macro, the W4A8 /
 // W8A8 dp4a tile core used by w8a8_matmul (M > 8; w4a8_matmul (M > 8),
-// qkv_rope and w13_gate run the tensor-core core of tc_tile.cuh), the
+// qkv_rope, w13_gate and the row kernels' matvec stages run the tensor-core
+// core of tc_tile.cuh), the
 // split-K reduction through a self-cleaning int32 workspace, and the
 // cp.async / ldmatrix / mma.sync wrappers of the tensor-core kernels
 // (prefill_attention.cu, wonly_matmul.cu, tc_tile.cuh).

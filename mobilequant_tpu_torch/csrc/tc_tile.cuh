@@ -1,8 +1,8 @@
 // The int8 tensor-core tile core: a 64-row x 128-column W4A8 / W8A8 tile on
 // mma.sync.m16n8k32 (s8 x s8 -> s32), fed by a four-stage cp.async ring of
-// activation and weight chunks. w13_gate.cu, w4a8_matmul.cu (M > 8) and
-// qkv_rope.cu run it; w8a8_matmul.cu (M > 8) still runs mqt_common.cuh's
-// dp4a tile_mma.
+// activation and weight chunks. w13_gate.cu, w4a8_matmul.cu (M > 8),
+// qkv_rope.cu and the matvec stages of the row kernels (fused_rows.cuh) run
+// it; w8a8_matmul.cu (M > 8) still runs mqt_common.cuh's dp4a tile_mma.
 //
 // A chunk is 64 packed rows j0.. (W4: low nibbles k = j0.., high nibbles
 // k = K/2 + j0..; W8: rows j0.. and K/2 + j0.., twice the bytes), so both
@@ -103,9 +103,12 @@ __device__ __forceinline__ void tc_load(int8_t* st, const int8_t* __restrict__ x
   }
 }
 
-// acc += the chunk in stage st
-template <int WB>
-__device__ __forceinline__ void tc_chunk(const int8_t* st, TcAcc& acc) {
+// acc += the chunk in stage st. SKIP: a warp skips the products of its
+// 16-row blocks at or past `rows` (the tile's valid rows: zeros, never read);
+// the row kernels take it (tiles of 16-32 valid rows at B = 16, 32), the
+// prefill tiles do not (the branches slowed their full tiles 1-10% on an H100)
+template <int WB, bool SKIP>
+__device__ __forceinline__ void tc_chunk(const int8_t* st, TcAcc& acc, int rows) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3, wm = warp >> 2, wn = warp & 3;
   const int8_t* ws = st + TC_XB;
@@ -117,6 +120,7 @@ __device__ __forceinline__ void tc_chunk(const int8_t* st, TcAcc& acc) {
                 __dp4a(v.y, 0x01010101, __dp4a(v.x, 0x01010101, acc.rs[p]))));
   }
   const int wofs = ((((2 * wn + (g >> 2)) ^ (t << 1))) << 4) + 4 * (g & 3);
+  if (SKIP && wm * 32 >= rows) return;
 #pragma unroll
   for (int s = 0; s < 2; ++s) {                  // two k32 steps of packed rows
     int bl[2][4], bh[2][4];                      // [b0 / b1][n8 tile]
@@ -145,6 +149,7 @@ __device__ __forceinline__ void tc_chunk(const int8_t* st, TcAcc& acc) {
     }
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
+      if (SKIP && wm * 32 + mt * 16 >= rows) continue;
       const int R = wm * 32 + mt * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
       const int U = 2 * s + (lane >> 4);
       int al[4], ah[4];
@@ -162,8 +167,8 @@ __device__ __forceinline__ void tc_chunk(const int8_t* st, TcAcc& acc) {
 // acc = x[m0.., chunks [c0, c1)] · W[., tile columns] over the ring in smem
 // (tc_smem_bytes<WB>() bytes); rsum[r] gets the tile rows' partial row sums
 // over the same chunks. Ends with the ring free (every copy landed, every
-// thread past its last read). V16: as tc_load.
-template <int WB, bool V16 = true>
+// thread past its last read). V16: as tc_load; SKIP: as tc_chunk.
+template <int WB, bool V16 = true, bool SKIP = false>
 __device__ void tc_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w, int M,
                         int K, int N, int m0, const ColMap& cm, int c0, int c1,
                         int8_t* smem, int* rsum, TcAcc& acc) {
@@ -188,7 +193,7 @@ __device__ void tc_tile(const int8_t* __restrict__ x, const int8_t* __restrict__
     if (nx < c1)
       tc_load<WB, V16>(smem + ((nx - c0) % TC_STAGES) * SB, x, w, M, K, N, m0, cm, nx);
     cp_async_commit();
-    tc_chunk<WB>(smem + ((ch - c0) % TC_STAGES) * SB, acc);
+    tc_chunk<WB, SKIP>(smem + ((ch - c0) % TC_STAGES) * SB, acc, M - m0);
   }
   cp_async_wait<0>();
 #pragma unroll

@@ -25,12 +25,14 @@ the JAX package's mobilequant_tpu/ops/pallas_chunk.py fused_model_w4_chunk
 byte once per step (518 MB for TinyLlama-1.1B with its W4 head, 1,036 MB with
 W8 layers and head) plus the valid cache rows, the staged columns and the K
 column sums. Design: the cooperative persistent launch of ops/fused_layer with
-its grid barrier and self-cleaning split-K workspace, and three changes for B
-rows: the norms are stages of their own (one block per row, writing int8
-rows), the matvec tiles hold every row of the batch so each weight byte is
-read once per step (int8 mma.sync on the tensor cores, the activation rows
-streamed through shared memory K-chunk by K-chunk: at B = 128 a (B, K) int8
-activation does not fit one SM), and the attention runs one block per
+its grid barrier, and three changes for B rows: the norms are stages of their
+own (one block per row, writing int8 rows), the matvec stages run the int8
+tensor-core tile core of csrc/tc_tile.cuh (64-row x 128-column mma.sync tiles
+over a four-stage cp.async ring; the row tiles of a column tile side by side,
+so each weight byte comes once a step from device memory; where the tiles
+leave blocks idle, K splits meet in slabs of a workspace, SLABS, with plain
+stores and a grid barrier: no atomics; mlp_block.rows_plan mirrors the
+plan), and the attention runs one block per
 (sequence, q head) (above 64 rows, one per (sequence, kv head) with its q
 heads, so each K/V row is read once for them), reading only valid rows: the
 cache's K column sums come from kcs (computed once per chunk), the staged
@@ -64,8 +66,8 @@ from mobilequant_tpu_torch.ops.fused_layer import (
     LAYER_META_LEN, head_kernel_supported, layer_kernel_supported, layer_pack_bits,
     layer_tail_plain, qkv_rows_plain)
 from mobilequant_tpu_torch.ops.mlp_block import (
-    BARRIER, MAX_ROWS, FusedArgs, check_norm_kind, layer_norm, ptr, rms_norm, rows_workspace,
-    stacked_w4, sum_f32)
+    BARRIER, MAX_ROWS, FusedArgs, check_norm_kind, layer_norm, ptr, rms_norm, rows_smem,
+    rows_workspace, stacked_w4, sum_f32)
 from mobilequant_tpu_torch.ops.qops import f32, int_dot, int_head_linear, rowsum_i8
 from mobilequant_tpu_torch.ops.w13_gate import _fq
 from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, weight_bits
@@ -97,6 +99,13 @@ def chunk_attn_smem(hd: int, S: int, ncs: int, G: int) -> int:
     part = a16(a16(128 + 2 * (g + 2) * hd * 4) + 8 * 8 * 4 + g * hd)
     grouped = a16(part + 2 * 256 * 8 + g * (S + ncs) * 4) + 256 * hd
     return max(per_head, grouped)
+
+
+def chunk_smem(wbits: int, hbits: int, hd: int, S: int, ncs: int, G: int) -> int:
+    """Dynamic shared memory of the chunk kernel (csrc/fused_rows.cuh
+    chunk_smem): its matvec stages' tile ring at the wider of the layers' and
+    the head's weight bits (hbits 0: no head), or its attention stages."""
+    return max(rows_smem(max(wbits, hbits)), chunk_attn_smem(hd, S, ncs, G))
 
 
 def chunk_kernel_supported(c, max_seq_len: int, B: int) -> bool:
@@ -257,7 +266,8 @@ def fused_model_w4_chunk(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
     if not chunk_head_dim_ok(hd):
         raise NotImplementedError(f"chunk kernel: head_dim {hd} (a multiple of 32 up to "
                                   f"128, or 256)")
-    if chunk_attn_smem(hd, S, ncs, Hq // Hkv) > SMEM_LIMIT:
+    if chunk_smem(weight_bits(qkv["wq"], K), weight_bits(head["wq"], K) if head else 0, hd, S,
+                  ncs, Hq // Hkv) > SMEM_LIMIT:
         raise NotImplementedError(f"chunk kernel: S={S}, {ncs} staged columns need too "
                                   f"much shared memory")
     lib = _build.lib()
@@ -293,7 +303,8 @@ def fused_model_w4_chunk(x: torch.Tensor, pos: torch.Tensor, cs: torch.Tensor,
         a.hoffset = ptr(f32c(head["offset"].reshape(-1)))
         a.fnw = ptr(f32c(final_norm["w"]))
         a.fnb = ptr(f32c(final_norm["b"]))
-    ws = rows_workspace(dev, B, max(Nq, K, 2 * F, Vp))
+    stages = ((K, Nq, False), (Hq * hd, K, False), (K, 2 * F, True), (F, K, False))
+    ws = rows_workspace(dev, (B,), stages + (((K, Vp, False),) if Vp else ()))
     a.x_in, a.x_out, a.kv_new, a.logits = ptr(f32c(x)), ptr(out), ptr(kv_new), ptr(logits)
     pos_ = pos.to(torch.int32).contiguous()
     keep.append(pos_)

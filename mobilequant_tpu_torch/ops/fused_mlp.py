@@ -13,10 +13,10 @@ mqt_fused_mlp_tiles in fused_rows.cu, instantiated in fused_mlp_tiles.cu), which
 replaces the JAX package's mobilequant_tpu/ops/pallas_mlp.py fused_mlp
 (_mlp_kernel). Bound: the bytes of one layer's W8 w1|w3 and w2 (34.6 MB at
 TinyLlama-1.1B's widths, 10.3 us at 3.35 TB/s) at decode M; int8 operations
-at prefill M. Design: the row kernels' w13 + gate stage and w2 stage (int8
-mma.sync tiles over 128 rows, split K), a grid barrier between them, in one
-cooperative launch that walks M in 128-row tiles (the JAX kernel has no row
-limit); the (M, F) int8 g8 stays in a 128-row scratch, and the w2 tiles'
+at prefill M. Design: the row kernels' w13 + gate stage and w2 stage (the
+int8 tensor-core tile core of csrc/tc_tile.cuh, K split where the tiles leave
+blocks idle), a grid barrier between them, in one cooperative launch that
+walks M in 128-row steps (the JAX kernel has no row limit); the (M, F) int8 g8 stays in a 128-row scratch, and the w2 tiles'
 epilogue writes the raw sums and, from the first column tile, the g8 row sums.
 
 meta: 16 floats, the JAX engine's (engine.py mlp_mode): [0..1] the h8

@@ -14,8 +14,8 @@ TPU's broadcast-multiply-reduce matvec at M = 1, bit-identical to "mxu") run
 the same kernel. Bound: the bytes of one layer's W8 w1|w3 and w2 at decode M
 (34.6 MB at TinyLlama-1.1B's widths, 10.3 us at 3.35 TB/s); int8 operations at
 prefill M. Design: the stacked MLP-block row kernel (ops/mlp_block, the
-norm, w13 + gate and w2 stages, int8 mma.sync tiles) walking M in 128-row
-tiles inside one cooperative launch (the JAX kernel has no row limit), on the
+norm, w13 + gate and w2 stages on the int8 tensor-core tile core) walking M in
+128-row steps inside one cooperative launch (the JAX kernel has no row limit), on the
 layer's packs seen as a one-layer stack; its norm stage takes the
 mean-centred LayerNorm too (fp64 sums, as the plain version).
 

@@ -7,9 +7,10 @@
 
 Kernel: csrc/fused_layer.cu (mqt_fused_mlp_block, dp4a, M <= DP4A_ROWS) and
 csrc/fused_rows.cu / fused_rows_w8.cu (mqt_fused_mlp_tiles through
-mlp_tiles: the MLP tiles kernel of fused_rows.cuh in its MLP_BLOCK kind,
-int8 mma.sync, DP4A_ROWS < M <= 128), which replace the JAX package's
-mobilequant_tpu/ops/pallas_mlp.py fused_mlp_block_w4_stacked
+mlp_tiles: the MLP tiles kernel of fused_rows.cuh in its MLP_BLOCK kind, on
+the int8 tensor-core tile core of csrc/tc_tile.cuh, DP4A_ROWS < M), which
+replace the JAX package's mobilequant_tpu/ops/pallas_mlp.py
+fused_mlp_block_w4_stacked
 (_w4_mlp_block_kernel, phase body _w4_mlp_phase) in both of its editions: the
 JAX kernel takes the bit width from the packs' shapes (W4: w13 (L, K/2, 2F),
 w2 (L, F/2, K); W8: (L, K, 2F), (L, F, K)), the port's kernels from the packs'
@@ -25,9 +26,11 @@ quantizes the rows itself, the w13 matvec runs over tiles that hold the w1
 and w3 columns of 64 gate outputs and finishes the gate chain in the block
 that completes a tile; after the barrier the w2 matvec and its
 epilogue write the output. In the row kernel the norm is a stage of its own
-(one block per row) and the matvec tiles hold every row, so each weight byte
-is read once per launch whatever M. The (M, F) int8 gate output is the only
-intermediate that leaves the chip's caches.
+(one block per row) and the matvec stages run 64-row tiles whose row tiles
+of a column tile run side by side, so each weight byte comes once per
+128-row step from device memory; K splits meet in the SLABS workspace with
+plain stores and a grid barrier (rows_plan mirrors the plan). The (M, F)
+int8 gate output is the only intermediate that leaves the chip's caches.
 
 meta is the JAX engine's 32-float _mlp_block_meta (engine._mlp_block_meta):
 [0..1] MLP-input encoding, [2..13] the w1 / sigmoid / act / w3 fake-quant
@@ -81,9 +84,10 @@ class FusedArgs(ctypes.Structure):
                    ("mlp_meta", ctypes.c_float * MLP_META_LEN)])
 
 
-WS_COUNTERS = 8192       # tile counters at the head of the split-K workspace
-WS_ROWSUMS = WS_COUNTERS * 128   # per-tile row-sum partials of the row kernels
+WS_COUNTERS = 8192       # tile counters at the head of the dp4a kernel's split-K workspace
 BARRIER = _build.Workspace()   # per-device grid-barrier words
+SLABS = _build.Workspace()     # per-device split-K slabs of the row kernels (written
+                               # before they are read: never zeroed again)
 MAX_ROWS = 128           # rows of the MLP-block, o-tail and chunk kernels
 # The MLP block takes the dp4a kernel of csrc/fused_layer.cu up to DP4A_ROWS
 # rows and the row kernel of csrc/fused_rows.cu above: on an H100 (80GB HBM3,
@@ -93,10 +97,62 @@ MAX_ROWS = 128           # rows of the MLP-block, o-tail and chunk kernels
 DP4A_ROWS = 2
 
 
-def rows_workspace(dev, M: int, N: int) -> torch.Tensor:
-    """The split-K workspace of csrc/fused_rows.cu for M rows and outputs at
-    most N wide: counters, per-tile row sums, then (M, N) accumulators."""
-    return _build.WORKSPACE.get(dev, WS_COUNTERS + WS_ROWSUMS + M * N)
+# the row kernels' matvec stages (csrc/fused_rows.cuh rows_matvec on the tile
+# core of csrc/tc_tile.cuh): 64-row x 128-column tiles, K in chunks of 64
+# packed rows, at least MIN_SPLIT_CHUNKS chunks a K split
+TILE_ROWS, TILE_COLS, CHUNK_ROWS, MIN_SPLIT_CHUNKS = 64, 128, 64, 2
+ROW_RING_OFFSET = 640    # RowSmem before the tile ring (fused_rows.cuh RING_OFF)
+BLOCKS_PER_SM = 2        # the row kernels' launch bounds: two blocks an SM at most
+
+
+def ring_bytes(wbits: int) -> int:
+    """The tile core's four-stage ring (tc_tile.cuh tc_smem_bytes): a
+    64 x 128-byte activation chunk and 64 (W4) or 128 (W8) 128-byte weight
+    rows a stage."""
+    return 4 * (TILE_ROWS * 128 + (1 if wbits == 4 else 2) * CHUNK_ROWS * TILE_COLS)
+
+
+def rows_smem(wbits: int) -> int:
+    """Dynamic shared memory of the MLP tiles and o-tail kernels (fused_rows.cuh
+    rows_smem)."""
+    return ROW_RING_OFFSET + ring_bytes(wbits)
+
+
+def rows_plan(M: int, kin: int, N: int, gate: bool, grid: int) -> tuple:
+    """(row tiles, column tiles, chunks, K splits, chunks a split) of one
+    matvec stage of M <= 128 rows over kin inputs and N weight columns (gate:
+    N = 2F, 64 gate outputs a tile) on a grid of `grid` blocks, as every
+    block of the launch computes it (fused_rows.cuh RowPlan): K is split
+    only where the tiles leave blocks idle, into as many items as blocks at
+    most, with at least MIN_SPLIT_CHUNKS chunks a split."""
+    rt = -(-M // TILE_ROWS)
+    ct = N // 2 // (TILE_COLS // 2) if gate else -(-N // TILE_COLS)
+    nch = -(-(kin // 2) // CHUNK_ROWS)
+    ks = 1
+    if rt * ct < grid:
+        ks = min(grid // (rt * ct), max(1, nch // MIN_SPLIT_CHUNKS))
+    cps = -(-nch // ks)
+    return rt, ct, nch, -(-nch // cps), cps
+
+
+def slab_ints(M: int, stages, grid: int) -> int:
+    """Ints of the split-K slabs a launch of M <= 128 rows needs over its
+    matvec stages ((kin, N, gate) each): a split stage's ks (M, N) partial
+    slabs and its (ks, M) row sums."""
+    need = 0
+    for kin, N, gate in stages:
+        ks = rows_plan(M, kin, N, gate, grid)[3]
+        if ks > 1:
+            need = max(need, ks * M * (N + 1))
+    return need
+
+
+def rows_workspace(dev, rows, stages) -> torch.Tensor:
+    """The split-K slabs of a row kernel's launch whose steps take the row
+    counts `rows` over its matvec stages ((kin, N, gate) each), at the most
+    blocks a launch takes (a K split never shrinks as the grid grows)."""
+    grid = BLOCKS_PER_SM * _build.sm_count(dev)
+    return SLABS.get(dev, max(slab_ints(M, stages, grid) for M in rows))
 
 
 def ptr(t) -> int:
@@ -303,7 +359,8 @@ def mlp_tiles(mode: int, x: torch.Tensor, w13: dict, w2: dict, meta: Sequence[fl
     act8 = torch.empty((R, F), dtype=torch.int8, device=dev)
     keep += [h8, act8]
     a.x_out, a.h8, a.act8, a.sx = ptr(out), ptr(h8), ptr(act8), ptr(rsum)
-    a.ws = ptr(rows_workspace(dev, R, max(2 * F, K)))
+    steps = {R, M % MAX_ROWS} - {0}
+    a.ws = ptr(rows_workspace(dev, steps, ((K, 2 * F, True), (F, K, False))))
     a.bar = ptr(BARRIER.get(dev, 2))
     a.w13 = stacked_w4(w13, keep, K)
     a.w2 = stacked_w4(w2, keep, F)

@@ -12,10 +12,10 @@ o (L, Ko/2, K), w13 (L, K/2, 2F), w2 (L, F/2, K); W8: (L, Ko, K), (L, K, 2F),
 (L, F, K)) and both norms. Bound: the bytes of the o, w1|w3 and w2 matrices
 at decode-sized M (<= 128 rows; 38.8 MB a W8 TinyLlama-1.1B layer, 11.6 us
 at 3.35 TB/s). Design: the row kernels of the MLP block with a prologue
-stage: the o-proj matvec tiles hold every row (each weight byte
-read once), the block that completes a tile runs the affine epilogue, the
-four optional fake-quant sites and the residual add into a (M, K) buffer; a
-grid barrier, then the MLP block's norm, w13 and w2 stages.
+stage: the o-proj matvec on the int8 tensor-core tile core (csrc/tc_tile.cuh;
+each weight byte once from device memory), whose epilogue runs the affine
+bracket, the four optional fake-quant sites and the residual add into a
+(M, K) buffer; a grid barrier, then the MLP block's norm, w13 and w2 stages.
 
 meta (46 floats) = the JAX engine's _mlp_block_meta (32) then _otail_meta_ext
 (14): [32..33] the a8 encoding (pv_bmm output), [34..36] the o output fq,
@@ -99,7 +99,9 @@ def fused_otail_block_w4(a8: torch.Tensor, x: torch.Tensor, o: dict,
     keep.append(a8c)
     a.a8 = a8c.data_ptr()
     a.o = stacked_w4(o, keep, Ko)
-    a.ws = rows_workspace(dev, M, max(w13["wq"].shape[2], K)).data_ptr()
+    F = w13["wq"].shape[2] // 2
+    a.ws = rows_workspace(dev, (M,), ((Ko, K, False), (K, 2 * F, True),
+                                      (F, K, False))).data_ptr()
     code = lib.mqt_fused_otail(ctypes.addressof(a), _build.stream_ptr(dev))
     _build.check(code, "fused_otail_block_w4")
     fused_otail_block_w4.launches += 1

@@ -11,9 +11,10 @@ JAX package's mobilequant_tpu/ops/pallas_mlp.py w13_gate_w2_stacked (_w13_gate_w
 W4 and W8 (the bits from the packs' shapes). Bound: int8 operations at
 prefill M (1024 rows of a W8 TinyLlama-1.1B layer: 71 G, 36 us at 1,979
 TOP/s), the weight bytes at small M. Design: one cooperative launch that walks
-M in 128-row tiles: per tile the w13 + gate stage (int8 mma.sync row tiles;
-the act8 rows go to a 128-row global scratch that stays in the L2), a grid
-barrier, the w2 stage with its affine epilogue. The split path it is measured
+M in 128-row steps: per step the w13 + gate stage (the row kernels' matvec on
+the int8 tensor-core tile core of csrc/tc_tile.cuh; the act8 rows go to a
+128-row global scratch that stays in the L2), a grid barrier, the w2 stage
+with its affine epilogue. The split path it is measured
 against is two launches: ops/w13_gate then the w2 matmul. The W4 w2 pack
 pairs F rows r and F/2 + r in one byte, as the w4a8 matmul reads it.
 

@@ -8,10 +8,13 @@ kernels in a fresh process (a tree named twice reuses its first build), then
 times on TinyLlama-1.1B's full width the row groups named by --rows (fused,
 attn and wonly by default):
   fused  the RMSNorm editions of the whole-model kernel (B = 1, 8, with the
-         head), the whole-layer kernel, the MLP block (M = 1, 8, 32, 128),
-         the chunk kernel (B = 32, 128, pos0 192, 16 staged columns, with
-         the head) and the o-tail (M = 32, 128), on seeded synthetic W4A8/h4
-         and W8A8/h8 packs, relaxed policy (rows 6, 7, 8, 11, 18);
+         head), the whole-layer kernel, the MLP block (M = 1, 8, 32, 128,
+         1024), the other kinds of its tiles kernel (w13_gate_w2 at M = 128,
+         1024; W8: fused_mlp and fused_mlp_block at M = 128), the chunk
+         kernel (B = 32, 64, 128, pos0 192, 16 staged columns, with the head;
+         at B = 32 and 128 also its %globaltimer stage trace) and the o-tail
+         (M = 32, 128), on seeded synthetic W4A8/h4 and W8A8/h8 packs,
+         relaxed policy (rows 6, 7, 8, 11, 16-19);
   w13    the w13-gate kernel (row 5), W4 and W8, silu and gelu_tanh, at
          M = 128 and 1024 on TinyLlama's (2048 -> 2 x 5632) and Gemma-2B's
          (2048 -> 2 x 16384) widths, the seeded random packs rotated over
@@ -68,8 +71,12 @@ from mobilequant_tpu_torch.models import model as MM
 from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.chunk_model import fused_model_w4_chunk
 from mobilequant_tpu_torch.ops.fused_layer import fused_layer_w4, fused_model_w4
-from mobilequant_tpu_torch.ops.mlp_block import fused_mlp_block_w4
+from mobilequant_tpu_torch.ops.fused_mlp import fused_mlp
+from mobilequant_tpu_torch.ops.fused_mlp_block import fused_mlp_block
+from mobilequant_tpu_torch.ops.mlp_block import MLP_BLOCK, fused_mlp_block_w4, mlp_tiles
 from mobilequant_tpu_torch.ops.otail import fused_otail_block_w4
+from mobilequant_tpu_torch.ops.w13_gate_w2 import w13_gate_w2
+from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack
 from mobilequant_tpu_torch.quant.policy import relax_16bit
 from mobilequant_tpu_torch.runtime import engine as E
 assert _build.__file__.startswith(tree), _build.__file__
@@ -103,10 +110,27 @@ for wb in ((4, 8) if "fused" in groups else ()):
     lr1 = E.layer_ranges(packed["ranges"], 1)
     meta, so = E._mlp_block_meta(lr1, pol, cfg), E._mlp_block_site_on(pol)
     mn, w13, w2, op = ly["mlp_norm"], ly["w13_proj"], ly["w2"], ly["o_proj"]
-    for Mr in (1, 8, 32, 128):
+    for Mr in (1, 8, 32, 128, 1024):
         x = torch.randn((Mr, D), generator=gen, device=dev)
+        if Mr > 128:                # past the wrapper's rows: the row kernel's entry
+            out[f"w{wb} row8 M={Mr}"] = tm(lambda i: mlp_tiles(
+                MLP_BLOCK, x, w13, w2, meta, i % L, cfg.hidden_act, mn["w"], mn["b"]))
+            continue
         out[f"w{wb} row8 M={Mr}"] = tm(lambda i: fused_mlp_block_w4(
             x, mn["w"], mn["b"], w13, w2, meta, i % L, cfg.hidden_act, so))
+    # the other kinds of row 8's tiles kernel: row 19 (W4 and W8), rows 16
+    # and 17 (W8 only, as the JAX package's)
+    for Mr in (128, 1024):
+        h8 = torch.randint(-128, 128, (Mr, D), generator=gen, device=dev, dtype=torch.int8)
+        out[f"w{wb} row19 M={Mr}"] = tm(lambda i: w13_gate_w2(
+            h8, w13, w2, meta, i % L, cfg.hidden_act, so[1:5]))
+        if wb == 8 and Mr == 128:
+            out[f"w8 row16 M={Mr}"] = tm(lambda i: fused_mlp(
+                h8, layer_pack(w13, i % L), layer_pack(w2, i % L), meta[:16], cfg.hidden_act))
+            x = torch.randn((Mr, D), generator=gen, device=dev)
+            out[f"w8 row17 M={Mr}"] = tm(lambda i: fused_mlp_block(
+                x, mn["w"][i % L], mn["b"][i % L], layer_pack(w13, i % L),
+                layer_pack(w2, i % L), meta, cfg.hidden_act))
     omet, oso = meta + E._otail_meta_ext(lr1, pol), E._otail_site_on(pol)
     for Mr in (32, 128):
         x = torch.randn((Mr, D), generator=gen, device=dev)
@@ -129,7 +153,7 @@ for wb in ((4, 8) if "fused" in groups else ()):
         if Bm == 1:
             out[f"w{wb} row7 B=1"] = tm(lambda i: fused_layer_w4(*fargs, i % L, **fkw))
         del kc, vc
-    for Bc in (32, 128):
+    for Bc in (32, 64, 128):
         kc = torch.randint(-128, 128, (L, Bc, Hkv, 1024, hd), generator=gen, device=dev,
                            dtype=torch.int8)
         vc = torch.randint(-128, 128, kc.shape, generator=gen, device=dev, dtype=torch.int8)
@@ -143,6 +167,17 @@ for wb in ((4, 8) if "fused" in groups else ()):
         cargs = (x, pos0, cs, kp["ofq"], ly["attn_norm"], ly["qkv_proj"], op, mn, w13, w2,
                  kc, vc, E.kv_colsums(kc), sk, sv, 16, kp["meta"], *head)
         out[f"w{wb} row11 B={Bc}"] = tm(lambda i: fused_model_w4_chunk(*cargs, **fkw), n=5)
+        if Bc != 64:
+            tr = torch.zeros(3 + 5 * L, dtype=torch.int64, device=dev)
+            for _ in range(2):
+                fused_model_w4_chunk(*cargs, trace=tr, **fkw)
+            torch.cuda.synchronize()
+            dt = (tr[1:] - tr[:-1]).double().cpu() / 1e3
+            per = dt[:5 * L].reshape(L, 5).mean(0).tolist() + [float(dt[5 * L]),
+                                                                float(dt[5 * L + 1])]
+            out[f"w{wb} row11 B={Bc} stage us"] = dict(zip(
+                ("norm1", "qkv", "attention", "o_proj", "mlp_block", "head_norm", "head"),
+                [round(v, 2) for v in per]))
         del kc, vc, sk, sv, cargs
     del packed
     torch.cuda.empty_cache()
