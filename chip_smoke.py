@@ -8,7 +8,9 @@
 2. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (full-width TinyLlama-1.1B) and times kernel, plain
    version and, where one PyTorch call computes the same function, that call:
-   among them staged_append (B=32, 32 staged columns), the o-tail (M=32, 128)
+   among them staged_append (B=32, 32 staged columns; beside the floor of one
+   launch, a 16-byte Tensor.zero_ on the same timer, and a 16-byte
+   Tensor.copy_, which reads its input first), the o-tail (M=32, 128)
    and the chunk kernel (B=16 staggered, 32, 128; m 0 and 16; both policies),
    with the chunk step's per-stage times from its %globaltimer trace beside
    its parent's figures (PARENT_CHUNK_STAGE_US; W8, StableLM and Gemma too),
@@ -70,7 +72,10 @@
      kernels at M = 1, 2, 8, 32, 128, the whole-model kernel with the W8 head
      at B = 1, 8, the whole-layer kernel, the chunk kernel with the W8 head at
      B = 16, 32, 48) and w8a8_matmul (M = 1, 8, 32 on qkv / o / w13 / w2,
-     beside torch._int_mm) against its plain version, then the W8 routes:
+     timed beside torch._int_mm and its parent's kernel, PARENT_W8A8_MS; M =
+     2, 4, 9, 17, 33, 128 checked, and every M on StableLM's qkv width and
+     on a width N % 16 != 0, the 4-byte-copy edition) against its plain
+     version, then the W8 routes:
      B=1 generate_fast (qkv on the plain integer matmul and the W8 w13
      epilogue kernel, one W8 whole-model launch per token), a 32-token
      prompt (the W8 MLP block),
@@ -265,6 +270,26 @@ def parent_stages(key: str) -> str:
     return ("    parent's kernel: " + ", ".join(
         f"{k} {v:.2f}" for k, v in zip(("qkv", "attention", "o_proj", "w13_gate", "w2", "head"),
                                        PARENT_STAGE_US[key])))
+
+
+# row 14 on its parent's kernel (the dp4a gemv at M <= 8, the dp4a tile core
+# above; csrc/w8a8_matmul.cu at commit fff0e15), ms by (M, projection) at
+# TinyLlama's W8 widths, the layers rotated past the L2:
+# scripts/torch_ab_fused_rows.py --rows w8 on that commit, H100 80GB HBM3 at
+# 700 W, the mean of its two runs (parent first and last)
+PARENT_W8A8_MS = {
+    (1, "qkv"): 0.01352,
+    (1, "o"): 0.01182,
+    (1, "w13"): 0.03345,
+    (1, "w2"): 0.02124,
+    (8, "qkv"): 0.02751,
+    (8, "o"): 0.02391,
+    (8, "w13"): 0.07226,
+    (8, "w2"): 0.05073,
+    (32, "qkv"): 0.02869,
+    (32, "o"): 0.02328,
+    (32, "w13"): 0.0653,
+    (32, "w2"): 0.03433}
 
 
 # the chunk kernel's per-stage trace on the parent of its matvec stage's move
@@ -1130,6 +1155,14 @@ def main() -> None:
                plain_ms, lib_ms, bound(4 * L * SERVE_B * Hkv * hd), main=m == 7,
                note="library: two Tensor.copy_ calls (K, V)")
     del sk, sv, kvp
+    # the floor of one launch, with the same timer: a 16-byte Tensor.zero_;
+    # beside it a 16-byte Tensor.copy_, a launch that reads its input first
+    z16, y16 = torch.zeros((2, 4), dtype=torch.int32, device=dev)
+    launch_floor_ms = time_ms(lambda i: z16.zero_(), n=50)
+    copy_floor_ms = time_ms(lambda i: z16.copy_(y16), n=50)
+    print(f"  launch floor: one 16-byte Tensor.zero_ {launch_floor_ms:.4f} ms, one 16-byte "
+          f"Tensor.copy_ {copy_floor_ms:.4f} ms; staged_append m=7 "
+          f"{next(r for r in rows['staged_append'] if r['main'])['ms']:.4f} ms", flush=True)
 
     # o-tail (o-proj + resid_add_1 + the MLP block) at M = 32 and 128
     omet = bmeta + E._otail_meta_ext(lr1, policy)
@@ -1845,10 +1878,12 @@ def main() -> None:
           flush=True)
 
     # row 14 at M = 1, 8, 32 on the four projections (layers rotated while
-    # timing); yardstick: torch._int_mm on the same W8 matrix, rows padded to 32
+    # timing, past the 50 MB L2), beside its parent's kernel (PARENT_W8A8_MS);
+    # yardstick: torch._int_mm on the same W8 matrix, rows padded to 32
+    w8_shapes = (("qkv", ly8["qkv_proj"]), ("o", ly8["o_proj"]), ("w13", ly8["w13_proj"]),
+                 ("w2", ly8["w2"]))
     for Mr in (1, 8, 32):
-        for tag, pk in (("qkv", ly8["qkv_proj"]), ("o", ly8["o_proj"]),
-                        ("w13", ly8["w13_proj"]), ("w2", ly8["w2"])):
+        for tag, pk in w8_shapes:
             K, N = pk["wq"].shape[1], pk["wq"].shape[2]
             lp = layer_pack(pk, 0)
             x = torch.randint(-128, 128, (Mr, K), generator=wgen, device=dev, dtype=torch.int8)
@@ -1863,11 +1898,42 @@ def main() -> None:
             xp = x if Mr == 32 else torch.cat(
                 [x, torch.zeros((32 - Mr, K), dtype=torch.int8, device=dev)])
             lib_ms = time_ms(lambda i, xp=xp, pk=pk: torch._int_mm(xp, pk["wq"][i % L]))
+            parent = PARENT_W8A8_MS[(Mr, tag)]
             record("w8a8_matmul", f"M={Mr} {tag} {K}->{N}", err, err[1] <= 1e-6, ms, plain_ms,
                    lib_ms, bound(Mr * K + K * N + 4 * N * 4 + Mr * N * 4,
                                  int8_ops=2.0 * Mr * K * N),
-                   note=None if Mr == 32 else "library: torch._int_mm on rows padded to 32",
+                   note=f"parent's kernel {parent:.4f} ms ({ms / parent - 1:+.1%})"
+                        + ("" if Mr == 32 else "; library: torch._int_mm on rows padded to 32"),
                    main=(Mr, tag) == (1, "w13"))
+
+    # row 14 at the other row counts, against its plain version at rel 1e-6:
+    # the four projections, StableLM-2-1.6B's qkv width (2048 -> 6144) and a
+    # width off the 16-byte grid (N % 16 != 0: the 4-byte-copy edition, its
+    # count on the wrapper)
+    g14 = torch.Generator(device=dev).manual_seed(SEED + 14)
+    w14 = [(tag + " ", pk, (2, 4, 9, 17, 33, 128)) for tag, pk in w8_shapes]
+    for tag, N in (("StableLM qkv ", 6144), ("", 500)):
+        w14.append((tag, {"wq": torch.randint(-128, 128, (2, D, N), generator=g14, device=dev,
+                                              dtype=torch.int8),
+                          "scale": torch.rand((2, 1, N), generator=g14, device=dev) * 1e-3 + 1e-4,
+                          "offset": torch.randint(-8, 8, (2, 1, N), generator=g14,
+                                                  device=dev).float(),
+                          "colsum": torch.randn((2, N), generator=g14, device=dev) * 100.0,
+                          "bias": torch.randn((2, N), generator=g14, device=dev)},
+                     (1, 2, 4, 8, 9, 17, 32, 33, 128)))
+    for tag, pk, ms_ in w14:
+        lp = layer_pack(pk, 1)
+        K, N = lp["wq"].shape
+        edge = N % 16 != 0
+        for Mr in ms_:
+            x = torch.randint(-128, 128, (Mr, K), generator=g14, device=dev, dtype=torch.int8)
+            n_edge = w8a8_matmul.edge_launches
+            err = float_err(w8a8_matmul(x, pk, 0.02, 121.0, 1),
+                            w8a8_matmul_plain(x, lp["wq"], lp["scale"], lp["offset"],
+                                              lp["colsum"], lp["bias"], 0.02, 121.0))
+            check_row("w8a8_matmul", f"{tag}M={Mr} {K}->{N}" + (" 4-byte edition" if edge else ""),
+                      err, err[1] <= 1e-6 and w8a8_matmul.edge_launches - n_edge == edge)
+    del w14
 
     # the W8 prefill epilogue kernels at M = 128
     Mr = PROMPT_LEN
@@ -3903,6 +3969,7 @@ def main() -> None:
                         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                         "library_ms": head["library_ms"], "shape": head["shape"]})
     report = {"card": card, "build_s": build_s, "phase_start_s": PHASE_START_S,
+              "launch_floor_ms": {"zero_16B": launch_floor_ms, "copy_16B": copy_floor_ms},
               "report_s": time.perf_counter() - T_START, "kernels": kernels, "kernel_rows": rows,
               "kernel_checks": checks,
               "main_path": {"prefill_ms": stats["prefill_s"] * 1e3,

@@ -1,10 +1,9 @@
-// Shared pieces of the port's Hopper kernels: the C export macro, the W4A8 /
-// W8A8 dp4a tile core used by w8a8_matmul (M > 8; w4a8_matmul (M > 8),
-// qkv_rope, w13_gate and the row kernels' matvec stages run the tensor-core
-// core of tc_tile.cuh), the
-// split-K reduction through a self-cleaning int32 workspace, and the
-// cp.async / ldmatrix / mma.sync wrappers of the tensor-core kernels
-// (prefill_attention.cu, wonly_matmul.cu, tc_tile.cuh).
+// Shared pieces of the port's Hopper kernels: the C export macro, the byte
+// transpose and split choice of rows 1 / 2's decode gemv (w4a8_matmul.cu,
+// M <= 8), the tile column map, the fake-quant and warp helpers of the fused
+// kernels, the cp.async / ldmatrix / mma.sync wrappers of the tensor-core
+// kernels (prefill_attention.cu, wonly_matmul.cu and the int8 tile core,
+// tc_tile.cuh) and the affine epilogue of the int8 matmuls.
 //
 // Weight layouts. W4 (unsigned block nibbles, as the JAX package packs it): a
 // (K/2, N) int8 matrix, N contiguous; packed row j holds k = j in its low
@@ -30,25 +29,7 @@
 
 namespace mqt {
 
-constexpr int TBM = 64;        // tile rows
-constexpr int TBN = 128;       // tile columns
-constexpr int TBKP = 32;       // packed weight rows per K chunk (64 k values)
-constexpr int TTHREADS = 256;  // 16 x 16 threads, each 4 rows x 8 columns
-constexpr int TPAD = 9;        // int32 words per smem row (8 + 1 against conflicts)
 constexpr unsigned NIB = 0x0F0F0F0Fu;
-
-struct TileSmem {
-  union {
-    struct {
-      int wlo[TBN][TPAD];
-      int whi[TBN][TPAD];
-      int xlo[TBM][TPAD];
-      int xhi[TBM][TPAD];
-    } mm;
-  } u;
-  int rsum[TBM];
-  int last;
-};
 
 // r[i] holds the 4 column bytes of packed row i; c[j] gets the 4 row bytes of
 // column j (byte i = row i), i.e. 4 consecutive k values ready for __dp4a.
@@ -89,8 +70,8 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // Column map of a tile: local columns [0, split) are global colA + n, local
-// columns [split, TBN) are global colB + (n - split); na / nb are the counts
-// of valid local columns in each part.
+// columns [split, tile width) are global colB + (n - split); na / nb are the
+// counts of valid local columns in each part.
 struct ColMap {
   int colA, colB, split, na, nb;
   __device__ __forceinline__ int gcol(int n) const {
@@ -100,150 +81,6 @@ struct ColMap {
     return n < split ? n < na : (n - split) < nb;
   }
 };
-
-// acc[i][j] (row ty + 16 i, column tx + 16 j) += x[rows] · W[:, cols] over the
-// row pairs (j, j + K/2) of chunks [c0, c1) (32 pairs a chunk); rs gets this
-// block's partial row sums of x (threads 0..63, one row each). WB: the weight
-// bits (4: nibble-packed (K/2, N); 8: (K, N)).
-template <int WB>
-__device__ __forceinline__ void tile_mma(const int8_t* __restrict__ x,
-                                         const int8_t* __restrict__ w,
-                                         int M, int K, int N, int m0,
-                                         const ColMap& cm, int c0, int c1,
-                                         TileSmem& sm, int acc[4][8], int& rs) {
-  static_assert(WB == 4 || WB == 8, "W4 or W8");
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int K2 = K >> 1;
-  const int cg = tid & 31, rg = tid >> 5;
-  const int ncol = cg * 4;
-  const bool wok = cm.valid(ncol);
-  const int wcol = cm.gcol(ncol);
-  for (int ch = c0; ch < c1; ++ch) {
-    const int j0 = ch * TBKP;
-    int r[4], c[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      r[i] = wok ? ld_i32(w + (size_t)(j0 + rg * 4 + i) * N + wcol) : 0;
-    transpose4x4(r, c);
-    if constexpr (WB == 4) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        sm.u.mm.wlo[ncol + i][rg] = c[i] & NIB;
-        sm.u.mm.whi[ncol + i][rg] = (int)(((unsigned)c[i] >> 4) & NIB);
-      }
-    } else {
-      // W8: the bytes are the operands; the high half is rows K/2 + j
-      int rh[4], chi[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        rh[i] = wok ? ld_i32(w + (size_t)(K2 + j0 + rg * 4 + i) * N + wcol) : 0;
-      transpose4x4(rh, chi);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        sm.u.mm.wlo[ncol + i][rg] = c[i];
-        sm.u.mm.whi[ncol + i][rg] = chi[i];
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-      const int idx = tid + TTHREADS * rr;
-      const int m = idx >> 4, part = idx & 15, q = part & 7, hi = part >> 3;
-      const int gm = m0 + m;
-      int v = 0;
-      if (gm < M) v = ld_i32(x + (size_t)gm * K + (hi ? K2 : 0) + j0 + 4 * q);
-      if (hi) sm.u.mm.xhi[m][q] = v; else sm.u.mm.xlo[m][q] = v;
-    }
-    __syncthreads();
-    if (tid < TBM) {
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        rs = __dp4a(sm.u.mm.xlo[tid][q], 0x01010101, rs);
-        rs = __dp4a(sm.u.mm.xhi[tid][q], 0x01010101, rs);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      int xl[4], xh[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        xl[i] = sm.u.mm.xlo[ty + 16 * i][q];
-        xh[i] = sm.u.mm.xhi[ty + 16 * i][q];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int wl = sm.u.mm.wlo[tx + 16 * j][q];
-        const int wh = sm.u.mm.whi[tx + 16 * j][q];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][j] = __dp4a(xl[i], wl, acc[i][j]);
-          acc[i][j] = __dp4a(xh[i], wh, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Split-K workspace layout (int32, all zero between launches):
-//   [0, ntiles)                        arrival counters, one per output tile
-//   [ntiles, ntiles + 64 ntiles)       row-sum partials, 64 per tile
-//   [65 ntiles, 65 ntiles + M·Nws)     accumulator partials, row-major (M, Nws)
-// Every block adds its partials; the last block of a tile to arrive reads the
-// totals back, zeroes what it read and runs the epilogue. Returns false in
-// every block but that one. With ks == 1 nothing is touched.
-__device__ __forceinline__ bool splitk_reduce(int* ws, int ntiles, int tile,
-                                              int ks, int M, int Nws, int m0,
-                                              const ColMap& cm, TileSmem& sm,
-                                              int acc[4][8], int& rs) {
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  if (ks == 1) {
-    if (tid < TBM) sm.rsum[tid] = rs;
-    __syncthreads();
-    return true;
-  }
-  int* cnt = ws;
-  int* wrs = ws + ntiles + tile * TBM;
-  int* wacc = ws + 65 * ntiles;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = tx + 16 * j;
-      if (cm.valid(n)) atomicAdd(&wacc[(size_t)gm * Nws + cm.gcol(n)], acc[i][j]);
-    }
-  }
-  if (tid < TBM) atomicAdd(&wrs[tid], rs);
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) sm.last = (atomicAdd(&cnt[tile], 1) == ks - 1);
-  __syncthreads();
-  if (!sm.last) return false;
-  __threadfence();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = tx + 16 * j;
-      if (!cm.valid(n)) continue;
-      int* p = &wacc[(size_t)gm * Nws + cm.gcol(n)];
-      acc[i][j] = __ldcg(p);
-      *p = 0;
-    }
-  }
-  if (tid < TBM) {
-    sm.rsum[tid] = __ldcg(&wrs[tid]);
-    wrs[tid] = 0;
-  }
-  if (tid == 0) cnt[tile] = 0;
-  __syncthreads();
-  return true;
-}
 
 // Host side: the split count that gives the grid about two blocks per SM,
 // with at least `min_chunks` chunks per split. Returns (ks, chunks per split).

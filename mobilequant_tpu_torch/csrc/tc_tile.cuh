@@ -1,8 +1,9 @@
 // The int8 tensor-core tile core: a 64-row x 128-column W4A8 / W8A8 tile on
 // mma.sync.m16n8k32 (s8 x s8 -> s32), fed by a four-stage cp.async ring of
-// activation and weight chunks. w13_gate.cu, w4a8_matmul.cu (M > 8),
-// qkv_rope.cu and the matvec stages of the row kernels (fused_rows.cuh) run
-// it; w8a8_matmul.cu (M > 8) still runs mqt_common.cuh's dp4a tile_mma.
+// activation and weight chunks: the port's one int8 tile core. w13_gate.cu,
+// qkv_rope.cu, the matvec stages of the row kernels (fused_rows.cuh) and
+// tc_matmul_kernel below (w4a8_matmul.cu above 8 rows, w8a8_matmul.cu at
+// every row count) run it.
 //
 // A chunk is 64 packed rows j0.. (W4: low nibbles k = j0.., high nibbles
 // k = K/2 + j0..; W8: rows j0.. and K/2 + j0.., twice the bytes), so both
@@ -207,12 +208,13 @@ __device__ void tc_tile(const int8_t* __restrict__ x, const int8_t* __restrict__
   __syncthreads();
 }
 
-// Split-K meeting of tc_tile partials, the workspace layout of splitk_reduce
-// (mqt_common.cuh): counters [0, ntiles), row sums [ntiles, 65 ntiles),
-// accumulators (M, Nws) from 65 ntiles. Every block adds its partials; the
-// last block of the tile reads the totals back into acc / rsum and zeroes
-// what it read. False in every other block.
-__device__ __forceinline__ bool tc_splitk_reduce(int* ws, int ntiles, int tile, int M,
+// Split-K meeting of tc_tile partials through a self-cleaning int32
+// workspace (w13_gate.cu), all zero between launches: arrival counters
+// [0, ntiles), row sums [ntiles, 65 ntiles), accumulators (M, Nws) from
+// 65 ntiles. Every block adds its partials; the last block of the tile reads
+// the totals back into acc / rsum and zeroes what it read. False in every
+// other block.
+__device__ __forceinline__ bool tc_workspace_reduce(int* ws, int ntiles, int tile, int M,
                                                  int Nws, int m0, const ColMap& cm,
                                                  TcAcc& acc, int* rsum, int* last, int ks) {
   int* cnt = ws;
@@ -256,13 +258,14 @@ __device__ __forceinline__ bool tc_splitk_reduce(int* ws, int ntiles, int tile, 
   return true;
 }
 
-// The K splits of a tile as one thread-block cluster (rows 1-3; cluster
-// dims (1, 1, ks), ks <= TC_MAX_KS, the portable limit): each block stages
-// its partial tile (tc_stage) and keeps its row sums (tc_tile's rsum) in its
-// shared memory; tc_cluster_reduce then gives block z the totals of rows
-// z, z + ks, ... (tc_rows_of), summed over every split's shared memory
-// (DSMEM), written over its own staged rows, which no other block reads.
-// Integer sums are exact in any order. No workspace, no atomics.
+// The K splits of a tile as one thread-block cluster (rows 1-3 and 14;
+// cluster dims (1, 1, ks), ks <= TC_MAX_KS, the portable limit): each block
+// stages its partial tile (tc_stage) and keeps its row sums (tc_tile's rsum)
+// in its shared memory; tc_cluster_reduce then gives block z the totals of
+// rows z, z + ks, ... below `rows` (tc_rows_of: the tile's valid rows, or
+// all 64), summed over every split's shared memory (DSMEM), written over its
+// own staged rows, which no other block reads. Integer sums are exact in any
+// order. No workspace, no atomics.
 constexpr int TC_MAX_KS = 8;
 constexpr int TC_LD = TC_BN + 1;    // staged row stride (ints): conflict-free fragment stores
 
@@ -277,12 +280,15 @@ __device__ __forceinline__ void tc_stage(const TcAcc& acc, int* st) {
   __syncthreads();
 }
 
-// the rows a block of split z of ks finishes: z, z + ks, ... (< TC_BM)
-__device__ __forceinline__ int tc_rows_of(int z, int ks) { return (TC_BM - z + ks - 1) / ks; }
+// the rows a block of split z of ks finishes: z, z + ks, ... (< rows <= TC_BM)
+__device__ __forceinline__ int tc_rows_of(int z, int ks, int rows = TC_BM) {
+  return (rows - z + ks - 1) / ks;
+}
 
-__device__ __forceinline__ void tc_cluster_reduce(int* st, int* rsum, int ks) {
+__device__ __forceinline__ void tc_cluster_reduce(int* st, int* rsum, int ks,
+                                                  int rows = TC_BM) {
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-  const int z = (int)cluster.block_rank(), nel = tc_rows_of(z, ks) * TC_BN;
+  const int z = (int)cluster.block_rank(), nr = tc_rows_of(z, ks, rows), nel = nr * TC_BN;
   cluster.sync();                    // every split's tile staged
   constexpr int U = 4;               // elements a thread has in flight
   for (int i0 = threadIdx.x; i0 < nel; i0 += U * TC_THREADS) {
@@ -301,7 +307,7 @@ __device__ __forceinline__ void tc_cluster_reduce(int* st, int* rsum, int ks) {
       if (i < nel) st[(z + ks * (i / TC_BN)) * TC_LD + i % TC_BN] = v[u];
     }
   }
-  if (threadIdx.x < tc_rows_of(z, ks)) {
+  if (threadIdx.x < nr) {
     const int r = z + ks * threadIdx.x;
     int v = 0;
 #pragma unroll
@@ -334,6 +340,59 @@ int tc_launch_cluster(dim3 grid, int smem, cudaStream_t st, A... args) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, K, args...);
+}
+
+// x (M, K) × W -> fp32 out (M, N) through the affine epilogue, W a W4
+// (K/2, N) nibble or a W8 (K, N) int8 matrix: the tile matmul of rows 1 / 2
+// above 8 rows (WB 4) and of row 14 (WB 8). Grid (column tiles, row tiles,
+// K splits of cps chunks); the splits of a tile are one cluster
+// (tc_launch_cluster) and meet in shared memory; block z then finishes the
+// tile's valid rows z, z + ks, ..., consecutive threads on consecutive
+// columns. SKIP: tc_chunk's row skip (row 14's tiles hold 1-32 valid rows
+// on its decode route).
+template <int WB, bool V16, bool SKIP>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+tc_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, Affine aff,
+                 float* __restrict__ out, int M, int K, int N, int cps) {
+  extern __shared__ int4 ring_raw[];
+  int8_t* ring = reinterpret_cast<int8_t*>(ring_raw);
+  int* st = reinterpret_cast<int*>(ring_raw);
+  __shared__ int rsum[TC_BM];
+  const int n0 = blockIdx.x * TC_BN, m0 = blockIdx.y * TC_BM;
+  const int ks = gridDim.z, z = blockIdx.z, rows = min(TC_BM, M - m0);
+  const int nchunks = ((K >> 1) + TC_KP - 1) / TC_KP;
+  const int c0 = z * cps, c1 = min(nchunks, c0 + cps);
+  const ColMap cm{n0, 0, TC_BN, min(TC_BN, N - n0), 0};
+  TcAcc acc;
+  tc_tile<WB, V16, SKIP>(x, w, M, K, N, m0, cm, c0, c1, ring, rsum, acc);
+  tc_stage(acc, st);
+  if (ks > 1) tc_cluster_reduce(st, rsum, ks, rows);
+  const int nel = tc_rows_of(z, ks, rows) * TC_BN;
+  for (int i = threadIdx.x; i < nel; i += TC_THREADS) {
+    const int r = z + ks * (i / TC_BN), n = i % TC_BN;
+    if (cm.valid(n))
+      out[(size_t)(m0 + r) * N + n0 + n] = aff(st[r * TC_LD + n], n0 + n, (float)rsum[r]);
+  }
+}
+
+// Launch tc_matmul_kernel on the caller's plan: ks splits (one cluster) of
+// cps chunks a column tile (ops/w4a8_matmul.tile_plan). A width N % 16 != 0
+// (rows not 16-byte aligned) takes the 4-byte-copy edition.
+template <int WB, bool SKIP>
+int tc_matmul(const int8_t* x, const int8_t* w, Affine aff, float* out, int M, int K, int N,
+              int ks, int cps, cudaStream_t st) {
+  const int nchunks = ((K >> 1) + TC_KP - 1) / TC_KP;
+  if (M < 1 || ks < 1 || ks > TC_MAX_KS || cps < 1 || (ks - 1) * cps >= nchunks
+      || ks * cps < nchunks || N % 4)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM, ks);
+  constexpr int smem = tc_smem_bytes<WB>();
+  if (N % 16)
+    return tc_launch_cluster<tc_matmul_kernel<WB, false, SKIP>>(grid, smem, st, x, w, aff, out,
+                                                                M, K, N, cps);
+  if ((uintptr_t)w % 16) return (int)cudaErrorMisalignedAddress;
+  return tc_launch_cluster<tc_matmul_kernel<WB, true, SKIP>>(grid, smem, st, x, w, aff, out, M,
+                                                             K, N, cps);
 }
 
 // The split of nchunks over ks blocks: one split once the tiles fill the SMs,

@@ -58,7 +58,7 @@ w13_gate_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   ColMap cm{j0, F + j0, HALF, HALF, HALF};   // F % 64 == 0 (checked by the caller)
   TcAcc acc;
   tc_tile<WB>(x, w, M, K, N2, m0, cm, c0, c1, ring, rsum, acc);
-  if (ks > 1 && !tc_splitk_reduce(ws, ntiles, tile, M, N2, m0, cm, acc, rsum, &last, ks))
+  if (ks > 1 && !tc_workspace_reduce(ws, ntiles, tile, M, N2, m0, cm, acc, rsum, &last, ks))
     return;
 
   // the affine bracket and the w1 / w3 output sites on the accumulators,

@@ -16,10 +16,10 @@
 // (tc_tile.cuh: mma.sync m16n8k32 on 64 x 128 tiles over a four-stage
 // cp.async ring, the nibbles unpacked in registers), split over K by the
 // caller's plan (ops/w4a8_matmul.tile_plan) where the tiles leave SMs idle:
-// the K splits of a tile are one thread-block cluster and meet in shared
-// memory (tc_cluster_reduce), each block finishing a share of the tile's
-// rows. Weight rows whose width is not a multiple of 16 bytes take the
-// tile's 4-byte-copy edition (V16 false).
+// tc_matmul_kernel, whose K splits of a tile are one thread-block cluster
+// and meet in shared memory (tc_cluster_reduce), each block finishing a
+// share of the tile's rows. Weight rows whose width is not a multiple of 16
+// bytes take the tile's 4-byte-copy edition (V16 false).
 #include "tc_tile.cuh"
 
 namespace {
@@ -97,7 +97,7 @@ w4a8_gemv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
   if (ks > 1) {
     int* cnt = ws;
-    int* wacc = ws + 65 * ntiles;   // same layout as the tile kernels
+    int* wacc = ws + 65 * ntiles;   // tc_workspace_reduce's layout
     if (own)
       for (int m = 0; m < M; ++m) atomicAdd(&wacc[(size_t)m * N + col], tot[m]);
     __threadfence();
@@ -127,32 +127,6 @@ w4a8_gemv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   if (own)
     for (int m = 0; m < M; ++m)
       out[(size_t)m * N + col] = aff(tot[m], col, (float)sm.rsum[m]);
-}
-
-template <bool V16>
-__global__ void __launch_bounds__(TC_THREADS, 2)
-w4a8_tile_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, Affine aff,
-                 float* __restrict__ out, int M, int K, int N, int cps) {
-  extern __shared__ int4 ring_raw[];
-  int8_t* ring = reinterpret_cast<int8_t*>(ring_raw);
-  int* st = reinterpret_cast<int*>(ring_raw);
-  __shared__ int rsum[TC_BM];
-  const int n0 = blockIdx.x * TC_BN, m0 = blockIdx.y * TC_BM;
-  const int ks = gridDim.z, z = blockIdx.z;
-  const int nchunks = ((K >> 1) + TC_KP - 1) / TC_KP;
-  const int c0 = z * cps, c1 = min(nchunks, c0 + cps);
-  const ColMap cm{n0, 0, TC_BN, min(TC_BN, N - n0), 0};
-  TcAcc acc;
-  tc_tile<4, V16>(x, w, M, K, N, m0, cm, c0, c1, ring, rsum, acc);
-  tc_stage(acc, st);
-  if (ks > 1) tc_cluster_reduce(st, rsum, ks);
-  // this block's rows of the tile: consecutive threads on consecutive columns
-  const int nel = tc_rows_of(z, ks) * TC_BN;
-  for (int i = threadIdx.x; i < nel; i += TC_THREADS) {
-    const int r = z + ks * (i / TC_BN), n = i % TC_BN, gm = m0 + r;
-    if (gm < M && cm.valid(n))
-      out[(size_t)gm * N + n0 + n] = aff(st[r * TC_LD + n], n0 + n, (float)rsum[r]);
-  }
 }
 
 template <int MR>
@@ -196,19 +170,6 @@ MQT_EXPORT int mqt_w4a8_matmul(const void* x, const void* w, const void* scale,
   else if (M <= 2) launch_gemv<2>(xp, wp, aff, op, wsp, M, K, N, st);
   else if (M <= 4) launch_gemv<4>(xp, wp, aff, op, wsp, M, K, N, st);
   else if (M <= 8) launch_gemv<8>(xp, wp, aff, op, wsp, M, K, N, st);
-  else {
-    const int nchunks = ((K >> 1) + TC_KP - 1) / TC_KP;
-    if (ks < 1 || ks > TC_MAX_KS || cps < 1 || (ks - 1) * cps >= nchunks
-        || ks * cps < nchunks || N % 4)
-      return (int)cudaErrorInvalidValue;
-    const dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM, ks);
-    constexpr int smem = tc_smem_bytes<4>();
-    if (N % 16)
-      return tc_launch_cluster<w4a8_tile_kernel<false>>(grid, smem, st, xp, wp, aff, op, M, K,
-                                                        N, cps);
-    if ((uintptr_t)w % 16) return (int)cudaErrorMisalignedAddress;
-    return tc_launch_cluster<w4a8_tile_kernel<true>>(grid, smem, st, xp, wp, aff, op, M, K, N,
-                                                     cps);
-  }
+  else return tc_matmul<4, false>(xp, wp, aff, op, M, K, N, ks, cps, st);
   return (int)cudaGetLastError();
 }

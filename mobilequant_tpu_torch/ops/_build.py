@@ -43,7 +43,7 @@ LL = ctypes.c_longlong
 # entry name -> argtypes (restype int for all, the cudaError_t of the launch)
 SIGNATURES = {
     "mqt_w4a8_matmul": [P, P, P, P, P, P, P, P, I, I, I, I, F, F, I, I, P],
-    "mqt_w8a8_matmul": [P, P, P, P, P, P, P, P, I, I, I, I, F, F, P],
+    "mqt_w8a8_matmul": [P, P, P, P, P, P, P, I, I, I, I, F, F, I, I, P],
     "mqt_qkv_rope": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, I, I, I, I, I, P],
     "mqt_w13_gate": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
     "mqt_prefill_attention": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],

@@ -144,9 +144,9 @@ def tile_plan(M: int, K: int, N: int, sms: int) -> tuple:
 
 
 def workspace_ints(M: int, N: int) -> int:
-    """Ints of the decode path's split-K workspace (csrc/mqt_common.cuh's
-    layout): a counter and 64 row sums a 128-column tile, then the (M, N)
-    int32 accumulators."""
+    """Ints of the decode path's split-K workspace (the layout of
+    csrc/tc_tile.cuh's tc_workspace_reduce): a counter and 64 row sums a
+    128-column tile, then the (M, N) int32 accumulators."""
     return 65 * -(-N // TILE_COLS) + M * N
 
 

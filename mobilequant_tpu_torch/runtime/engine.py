@@ -104,7 +104,7 @@ from mobilequant_tpu_torch.ops.w13_gate import w13_gate, w13_gate_supported
 from mobilequant_tpu_torch.ops.w13_gate_w2 import w13_gate_w2, w13_gate_w2_supported
 from mobilequant_tpu_torch.ops.w4a8_matmul import (
     int_affine, layer_pack, w4a8_matmul, w4a8_matmul_stacked, weight_bits)
-from mobilequant_tpu_torch.ops.w8a8_matmul import MAX_ROWS as W8_MAX_ROWS, w8a8_matmul
+from mobilequant_tpu_torch.ops.w8a8_matmul import w8a8_matmul
 from mobilequant_tpu_torch.quant.policy import QPolicy, policy_kv_bits
 from mobilequant_tpu_torch.quant.quantizer import (
     QuantConfig, fake_quant, fake_quant_weight)
@@ -550,6 +550,12 @@ def _is_w4(pack: dict, K: int) -> bool:
     return pack["wq"].shape[-2] * 2 == K
 
 
+# rows up to which kc.w8_matmul sends a W8 projection to w8a8_matmul (the
+# kernel takes any M): the JAX engine's gate (mobilequant_tpu/runtime/
+# engine.py _int_linear)
+W8_MATMUL_ROWS = 32
+
+
 def _int_linear(x_q, r, pack, l, kc: KernelConfig):
     """Integer matmul of layer l of a stacked pack, in the JAX engine's
     order: a W4 pack through the W4A8 kernel under kc.w4_matmul, a W8 pack of
@@ -561,7 +567,7 @@ def _int_linear(x_q, r, pack, l, kc: KernelConfig):
     if kc.w4_matmul and _is_w4(pack, K):
         out = w4a8_matmul_stacked(x_q.reshape(-1, K), pack, r["scale"], r["offset"], l)
         return out.reshape(*lead, out.shape[-1])
-    if kc.w8_matmul and pack["wq"].shape[-2] == K and math.prod(lead) <= W8_MAX_ROWS:
+    if kc.w8_matmul and pack["wq"].shape[-2] == K and math.prod(lead) <= W8_MATMUL_ROWS:
         out = w8a8_matmul(x_q.reshape(-1, K), pack, r["scale"], r["offset"], l)
         return out.reshape(*lead, out.shape[-1])
     p = layer_pack(pack, l)

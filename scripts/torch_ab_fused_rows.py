@@ -1,7 +1,7 @@
 """Time kernels of one checkout on the card, for an A/B of two checkouts in one
 call (run it on each, parent first and last):
 
-    python3 scripts/torch_ab_fused_rows.py [--rows fused,w13,proj,attn,wonly,dattn] TREE [TREE ...]
+    python3 scripts/torch_ab_fused_rows.py [--rows fused,w13,proj,w8,attn,wonly,dattn] TREE [TREE ...]
 
 For each TREE (a checkout of the repository) it builds that checkout's CUDA
 kernels in a fresh process (a tree named twice reuses its first build), then
@@ -29,6 +29,14 @@ attn and wonly by default):
          rotated over copies past the 50 MB L2; in a tree whose wrappers
          take a plan (`tile_plan`), TinyLlama's M = 128 rows also at 1, 2,
          4 and 8 forced K splits;
+  w8     the W8A8 matmul (row 14) at M = 1, 2, 4, 8, 32 on TinyLlama's W8
+         qkv, o, w13 and w2 (seeded random stacked packs rotated over copies
+         past the 50 MB L2), each M beside torch._int_mm on the same weights
+         (rows padded to 32 below 32); in a tree whose wrapper takes a plan
+         (`tile_plan`), M = 1, 8, 32 also at 1, 2, 4 and 8 forced K splits;
+         then the device time of a B=1 decode step on the attn_all() route
+         of a W8A8/h8 pack (128-token prompt, torch.profiler over 4 steps)
+         and row 14's part of it;
   attn   the prefill attention (row 4): T=128 into S=1024 and T=S=1024
          relaxed and strict (G=8), StableLM's T=128 into S=1024 (G=1);
   wonly  the weight-only matmul (rows 12 / 13): wonly_matmul_stacked at
@@ -287,6 +295,59 @@ if "proj" in groups:
         del st
     torch.cuda.empty_cache()
 
+if "w8" in groups:
+    from mobilequant_tpu_torch.ops import w8a8_matmul as W8M
+    for tag, K, N in (("qkv", 2048, 2560), ("o", 2048, 2048), ("w13", 2048, 11264),
+                      ("w2", 5632, 2048)):
+        n = CS.cold_count(K * N, 22)
+        st = {"wq": torch.randint(-128, 128, (n, K, N), generator=gen, device=dev,
+                                  dtype=torch.int8),
+              "scale": torch.rand((n,), generator=gen, device=dev) * 1e-3 + 1e-4,
+              "offset": torch.randint(-8, 8, (n,), generator=gen, device=dev).float(),
+              "colsum": torch.randn((n, N), generator=gen, device=dev) * 100.0,
+              "bias": torch.randn((n, N), generator=gen, device=dev)}
+        for Mr in (1, 2, 4, 8, 32):
+            x = torch.randint(-128, 128, (Mr, K), generator=gen, device=dev, dtype=torch.int8)
+            name = f"row14 {tag} M={Mr}"
+
+            def fn(i, x=x):
+                return W8M.w8a8_matmul(x, st, 0.02, 121.0, i % n)
+            out[name] = tm(fn, n=max(20, n))
+            xp = torch.cat([x, torch.zeros((32 - Mr, K), dtype=torch.int8, device=dev)])
+            out[name + " _int_mm"] = tm(lambda i, xp=xp: torch._int_mm(xp, st["wq"][i % n]),
+                                        n=max(20, n))
+            if Mr in (1, 8, 32) and hasattr(W8M, "tile_plan"):
+                plan, nch = W8M.tile_plan, K // 2 // 64
+                for want in (1, 2, 4, 8):
+                    cps = -(-nch // want)
+                    W8M.tile_plan = lambda *a, cps=cps: plan(*a)[:2] + (-(-nch // cps), cps)
+                    out[f"{name} ks={-(-nch // cps)}"] = tm(fn, n=max(20, n))
+                W8M.tile_plan = plan
+        del st
+    torch.cuda.empty_cache()
+    # the route row 14 serves, attn_all() on a W8A8/h8 pack, B=1 after a
+    # 128-token prompt: device ms of a decode step and row 14's share
+    # (torch.profiler over 4 steps, as the dattn group reads its routes)
+    import dataclasses
+    from mobilequant_tpu_torch.runtime.generate import Generator
+    from mobilequant_tpu_torch.runtime.kernel_config import KernelConfig
+    packed, cfg, pol, ecfg = build_synthetic_packed("tinyllama-1.1b", w_bits=8, head_bits=8,
+                                                    max_seq_len=1024, device=dev)
+    g = Generator(packed, cfg, relax_16bit(pol),
+                  dataclasses.replace(ecfg, use_pallas=KernelConfig.attn_all()), device=dev)
+    pr = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen, device=dev)
+    last, cache = g.prefill(pr, g.init_cache(1))
+    tok = torch.argmax(last, -1)[:, None]
+    start = torch.full((1,), 128, dtype=torch.int32, device=dev)
+    g.decode(tok, cache, start, 4)
+    d_ms, top, n_launch = CS.device_profile(lambda: g.decode(tok, cache, start, 4), top=200)
+    out["attn_all() W8 B=1 step device ms"] = d_ms / 4
+    out["attn_all() W8 B=1 step row14 ms"] = sum(
+        ms for k, ms, _ in top if "w8a8" in k or "tc_matmul" in k) / 4
+    out["attn_all() W8 B=1 step launches"] = n_launch / 4
+    del g, packed, cache
+    torch.cuda.empty_cache()
+
 if "attn" in groups:
     from mobilequant_tpu_torch.ops.prefill_attention import prefill_attention
     packed, cfg, pol, _ = build_synthetic_packed("tinyllama-1.1b", w_bits=4, head_bits=4,
@@ -459,7 +520,7 @@ print(json.dumps(out), flush=True)
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", default="fused,attn,wonly",
-                    help="comma-separated row groups: fused, w13, proj, attn, wonly, dattn")
+                    help="comma-separated row groups: fused, w13, proj, w8, attn, wonly, dattn")
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

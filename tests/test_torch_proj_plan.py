@@ -1,6 +1,7 @@
-"""Launch plans of the prefill projection tiles, checked on the CPU: rows 1 / 2
-(csrc/w4a8_matmul.cu above 8 rows, mirrored by ops/w4a8_matmul.tile_plan)
-and row 3 (csrc/qkv_rope.cu, ops/qkv_rope.tile_plan), both on
+"""Launch plans of the projection tiles, checked on the CPU: rows 1 / 2
+(csrc/w4a8_matmul.cu above 8 rows, mirrored by ops/w4a8_matmul.tile_plan),
+row 3 (csrc/qkv_rope.cu, ops/qkv_rope.tile_plan) and row 14
+(csrc/w8a8_matmul.cu at every row count, ops/w8a8_matmul.tile_plan), all on
 csrc/tc_tile.cuh; the column map and the rows a K split finishes are
 mirrored here from the kernels.
 
@@ -15,6 +16,9 @@ w2 and the head at its padded width Vp), M = 9 .. 2048, SM counts of 132
   - at head_dim 256 every column sits in its tile beside its RoPE partner
     (at head_dim <= 128 a tile holds whole heads);
   - the workspace the decode path (M <= 8) is given covers its layout.
+Row 14 likewise at every W8 width of the three models (qkv, o, w13, w2) and
+the two off-grid widths, at M = 1, 2, 8, 9, 32, 33, 128: its tiles finish
+only the tile's valid rows (tc_rows_of with the row count).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import pytest
 from mobilequant_tpu_torch.models.registry import get_config
 from mobilequant_tpu_torch.ops import qkv_rope as Q
 from mobilequant_tpu_torch.ops import w4a8_matmul as W
+from mobilequant_tpu_torch.ops import w8a8_matmul as W8
 
 MODELS = ("tinyllama-1.1b", "stablelm-2-1.6b", "gemma-2b")
 SMS = (132, 114, 7)
@@ -51,10 +56,13 @@ def _colmap(x, hd):
     return 128 * x, 0, 128, 128, 0
 
 
-def _split_rows(z, ks):
+def _split_rows(z, ks, rows=W.TILE_ROWS):
     """the rows of a tile that K split z of ks finishes after the cluster's
-    meeting (tc_tile.cuh tc_rows_of)"""
-    return range(z, W.TILE_ROWS, ks)
+    meeting (tc_tile.cuh tc_rows_of: z, z + ks, ... below the tile's valid
+    rows)"""
+    n = (rows - z + ks - 1) // ks
+    assert n >= 0
+    return range(z, z + ks * n, ks)
 
 
 def _gcol(cm, n):
@@ -74,19 +82,19 @@ def _check_spans(spans, total):
     assert all(spans[z][1] == spans[z + 1][0] for z in range(len(spans) - 1))
 
 
-def _check_splits(M, K, tiles, ks, cps, sms):
+def _check_splits(M, K, tiles, ks, cps, sms, rows=W.TILE_ROWS):
     """The K splits: chunks [z·cps, min(nch, (z+1)·cps)) cover [0, nch)
     once, none empty; the chunks cover K/2 packed rows; one split once the
     tiles fill the SMs; the splits of a tile fit one portable cluster and,
-    after its meeting, finish each of the tile's rows once."""
+    after its meeting, finish each of the tile's first `rows` rows once."""
     nch = -(-(K // 2) // W.CHUNK_ROWS)
     assert (nch - 1) * W.CHUNK_ROWS < K // 2 <= nch * W.CHUNK_ROWS
     _check_spans([(z * cps, min(nch, (z + 1) * cps)) for z in range(ks)], nch)
     if tiles >= sms:
         assert ks == 1
     assert 1 <= ks <= W.MAX_SPLITS
-    rows = sorted(r for z in range(ks) for r in _split_rows(z, ks))
-    assert rows == list(range(W.TILE_ROWS))
+    done = sorted(r for z in range(ks) for r in _split_rows(z, ks, rows))
+    assert done == list(range(rows))
 
 
 def _check_rows(M, tm):
@@ -149,3 +157,35 @@ def test_qkv_rope_tile_plan_covers_each_output_once(name, sms):
         assert tn_ == tn
         _check_rows(M, tm)
         _check_splits(M, K, tn * tm, ks, cps, sms)
+
+
+W8_MS = (1, 2, 8, 9, 32, 33, 128)
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("name", MODELS + ("tails",))
+def test_w8a8_tile_plan_covers_each_output_once(name, sms):
+    """Row 14 (tc_matmul_kernel<8, V16, SKIP>) at every row count: each
+    output written once by one tile and one K split, the splits of a tile
+    one portable cluster that finishes only the tile's valid rows, the last
+    column tile ragged, and a width N % 16 != 0 (the 4-byte-copy edition's)
+    in whole 4-byte units."""
+    if name == "tails":
+        shapes = {"N%16=4": (2048, 500), "N%128=16": (2048, 1040)}
+    else:
+        c = get_config(name)
+        D, F, hd = c.hidden_size, c.intermediate_size, c.head_dim_
+        shapes = {"qkv": (D, (c.num_heads + 2 * c.num_kv_heads) * hd),
+                  "o": (c.num_heads * hd, D), "w13": (D, 2 * F), "w2": (F, D)}
+    for tag, (K, N) in shapes.items():
+        assert K % 64 == 0 and N % 4 == 0         # the kernel's shape rule
+        for M in W8_MS:
+            tn, tm, ks, cps = W8.tile_plan(M, K, N, sms)
+            # column tile x writes 128 x + [0, na), na = min(128, N - 128 x)
+            spans = [(128 * x, 128 * x + min(128, N - 128 * x)) for x in range(tn)]
+            _check_spans(spans, N)
+            assert spans[-1][1] - spans[-1][0] == (N % 128 or 128)
+            _check_rows(M, tm)
+            for y in range(tm):
+                _check_splits(M, K, tn * tm, ks, cps, sms,
+                              rows=min(W.TILE_ROWS, M - y * W.TILE_ROWS))

@@ -151,9 +151,13 @@ def test_synthetic_w8_builder_matches_the_w8_pack_layout():
     assert packed["head_q"]["wq"].shape[0] == D
 
 
-@pytest.mark.parametrize("M_,layer", [(1, None), (1, 1), (8, 1), (32, 1)],
-                         ids=["M1", "M1_stacked", "M8_stacked", "M32_stacked"])
+@pytest.mark.parametrize("M_,layer", [(1, None), (1, 1), (2, 1), (4, 1), (8, 1), (9, 1),
+                                      (32, 1), (33, 1), (128, 1)],
+                         ids=["M1", "M1_stacked", "M2_stacked", "M4_stacked", "M8_stacked",
+                              "M9_stacked", "M32_stacked", "M33_stacked", "M128_stacked"])
 def test_w8a8_matmul_plain_matches_pallas(M_, layer):
+    """Row 14 at any M, as the JAX kernel takes it (the wrapper's plain
+    version on the CPU; the kernel is held against it on the card)."""
     rng = np.random.default_rng(M_ + (layer or 0))
     K, N, L = 256, 512, 2
     wq = rng.integers(-128, 128, (L, K, N)).astype(np.int8)
@@ -174,11 +178,29 @@ def test_w8a8_matmul_plain_matches_pallas(M_, layer):
                       {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in pack.items()},
                       xs, xo, layer)
     assert w8a8_matmul.plain_calls == before + 1
+    assert out.shape == (M_, N)
     assert _rel(out.numpy(), ref) <= 1e-6
-    with pytest.raises(NotImplementedError):
-        w8a8_matmul(torch.zeros((33, K), dtype=torch.int8),
-                    {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in pack.items()},
-                    xs, xo, layer)
+
+
+@pytest.mark.parametrize("M_", [32, 33])
+def test_w8_projection_route_gate_is_the_jax_gate(M_, monkeypatch):
+    """Under w8_matmul the engine sends a W8 projection of at most 32 rows to
+    w8a8_matmul and 33 to the plain qops.int_linear, as the JAX _int_linear
+    does (engine.W8_MATMUL_ROWS; the kernel itself takes any M); both routes
+    equal the JAX one (its kernel in interpret mode)."""
+    monkeypatch.setattr(PM, "w8a8_matmul", functools.partial(PM.w8a8_matmul, interpret=True))
+    b = _built()
+    K = b["cfg"].hidden_size
+    x = np.random.default_rng(M_).integers(-128, 128, (M_, K)).astype(np.int8)
+    r = {"scale": float(np.float32(0.02)), "offset": 121.0}
+    before = w8a8_matmul.plain_calls
+    out = E._int_linear(torch.from_numpy(x), r, b["packed"]["layers"]["qkv_proj"], 1,
+                        KernelConfig.attn_all())
+    assert w8a8_matmul.plain_calls == before + (M_ <= E.W8_MATMUL_ROWS)
+    jp = jax.tree.map(lambda a: a[1], b["jpacked"]["layers"]["qkv_proj"])
+    ref = JE._int_linear(jnp.asarray(x), r["scale"], r["offset"], jp, jp.get("bias"),
+                         JE.KernelConfig.coerce("attn_all"))
+    assert _rel(out.numpy(), ref) <= 1e-6
 
 
 def test_qkv_rope_w8_plain_matches_pallas():
