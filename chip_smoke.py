@@ -160,8 +160,17 @@
      (W4 KernelConfig.chunk(), W8 the entry config) against the chunk
      kernel's plain version, that plain version on the plain engine's
      numerics, and the plain path;
+   - phase 3q: the port's own quantization pipeline at TinyLlama-1.1B's full
+     width (seeded fp32 params with three outlier embedding channels, 8 x
+     256 synthetic calibration tokens): calibrate, the SmoothQuant LET init,
+     recalibrate, e2equant (8 steps, remat) and omniquant over every layer,
+     finalize, smooth_last and pack (W4A8/h4), with seconds per step and per
+     layer and the peak memory; the LET fold and collect mode against the
+     FP forward, cmd_pack --verify's engine-vs-sim comparison, then the pack
+     served: B=1 generate_fast and the B=32 chunk route, each against the
+     plain path with phase 3s's witnesses;
    the decode-attention rows of phase 2, the int4-cache phase, the attn()
-   phase and phases 2q, 3w, 3f, 2m, 3m, 2s, 3s, 2g and 3g draw their inputs from
+   phase and phases 2q, 3w, 3f, 2m, 3m, 2s, 3s, 2g, 3g and 3q draw their inputs from
    generators of their own, so what they draw moves no input of the other
    checks. No wrapper may run its plain version on the card: every counted
    run checks its plain-call counts;
@@ -186,6 +195,7 @@ import ctypes
 import dataclasses
 import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -452,6 +462,31 @@ def jax_chunk_gate(c, max_seq_len: int, B: int) -> bool:
             and K % 256 == 0 and c.intermediate_size % 256 == 0 and tfh != 0)
 
 
+def run_staged_chunk(E, qops, packed, cfg, policy, kc, cache, toks, pos0, kv4=False):
+    """One staged chunk fed `toks` (decode_loop's chunk body) -> (logits of
+    every step, the flushed cache)."""
+    dev = cache.k.device
+    n = toks.shape[1]
+    colsums, flush = ((qops.kv_colsums_packed, qops.kv_flush_packed) if kv4
+                      else (E.kv_colsums, E._flush))
+    Lc, Bc, Hc = cache.k.shape[:3]
+    shape = (Lc, Bc, Hc, n, cfg.head_dim_)
+    st = E.StagedKVCache(cache.k, cache.v, torch.zeros(shape, dtype=torch.int8, device=dev),
+                         torch.zeros(shape, dtype=torch.int8, device=dev), 0,
+                         colsums(cache.k))
+    lgs = []
+    for i in range(n):
+        st = E._stage_pending(st, kc)
+        p = pos0 + i
+        lg, st = E.forward(packed, toks[:, i:i + 1], cfg, policy, positions=p[:, None],
+                           kv_cache=st, cache_position=pos0, kv_valid_len=p + 1, kc=kc)
+        lgs.append(lg[:, -1])
+    st = E._stage_pending(st, kc)
+    flush(cache.k, st.sk, pos0)
+    flush(cache.v, st.sv, pos0)
+    return torch.stack(lgs, 1), cache
+
+
 def float_err(out, ref):
     d = (out.float() - ref.float()).abs().max().item()
     return d, d / max(ref.float().abs().max().item(), 1e-30)
@@ -460,6 +495,357 @@ def float_err(out, ref):
 def int8_err(out, ref):
     d = (out.to(torch.int32) - ref.to(torch.int32)).abs()
     return d.max().item(), d.gt(0).sum().item() / d.numel()
+
+
+# phase 3q: the port's own quantization pipeline at TinyLlama-1.1B's full width,
+# in the JAX CLI's quantize order, then the pack it makes served on the card
+Q_CALIB, Q_SEQLEN = 8, 256            # calibration sequences (synthetic_tokens)
+Q_E2E_SAMPLES, Q_E2E_EPOCHS = 2, 4    # e2equant: 8 steps of batch 1, remat on
+Q_OMNI_SAMPLES = 2                    # omniquant: one epoch, every layer
+Q_LET_PROMPT, Q_VERIFY_PROMPT, Q_NEW = 64, 12, 16
+Q_OUTLIER_CHANNELS = [3, 17, 40]      # embedding columns x100, as tests/test_train.py
+# The trained pack of a random 22-layer model amplifies rounding: the JAX
+# package's own sim moves its logits by 1.3% when its ranges move by at most
+# 9.2e-7 of themselves (scripts/quant_sim_sensitivity.py: test-llama at
+# hidden 512, 2 layers, on the CPU, where the port's engine and sim equal the
+# JAX package's on the same ranges), so the integer engine (an exact
+# re-expression of the sim in real arithmetic) and the kernels (fp64 sums,
+# the JAX kernels' attention arithmetic) land a few percent from the sim and
+# the plain path. The witnesses hold the kernels and their wiring exactly
+# (each kernel equals its plain version on the pack's own data, and the
+# routes on the plain engine's numerics equal the plain path); the raw gaps
+# are held at about twice the first readings on the card, as phases 3s / 3g
+# hold theirs. Read: engine (prefill kernels) vs sim max_rel 6.71e-2 (the
+# plain engine 7.23e-2; cmd_pack --verify's 5e-2 is not met), B=1 prefill /
+# step vs plain 5.64e-2 / 5.88e-2 with K / V 7 steps apart on 4.95% of the
+# bytes, the 16-step B=32 chunk 0.126 with 16 steps on 28.1% of them.
+Q_VERIFY_MAX_REL = (0.14, 0.15)       # engine with the prefill kernels, plain engine
+Q_B1_VS_PLAIN = (0.12, 15, 0.1)
+Q_CHUNK_VS_PLAIN = (0.26, 32, 0.56)
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    return [tree]
+
+
+class _LineLog:
+    """A logger for the training loops that keeps their lines."""
+
+    def __init__(self):
+        self.lines = []
+
+    def info(self, msg):
+        self.lines.append(msg)
+
+
+def phase_quantize(dev, counted, runs, failures, model="tinyllama-1.1b", prompt_len=PROMPT_LEN,
+                   serve_b=SERVE_B, max_seq=MAX_SEQ, seqlen=Q_SEQLEN) -> dict:
+    """Phase 3q: seeded FP params (outlier embedding channels) -> calibrate ->
+    SmoothQuant LET init (alpha 0.5) -> recalibrate -> stats_to_ranges ->
+    init_qstate -> e2equant (W4A8 strict policy, remat) and, beside it,
+    omniquant over every layer -> finalize -> smooth_last (alpha 0.5) -> pack
+    (W4A8/h4, int8 KV); checks the LET fold (FP logits rel 2e-3), collect mode
+    (the FP forward, rtol 1e-5), finite and falling losses, finite state, the
+    engine's prompt logits under the prefill kernels against the sim through
+    the same head (cmd_pack --verify), and generate_fast at B=1 and on the
+    B=32 chunk route against the plain path, with phase 3s's limits'
+    structure (the witnesses exact, the raw gaps at about twice their
+    readings: see Q_VERIFY_MAX_REL). counted(route, fn) runs fn with every
+    kernel's counts from 0 and keeps them in runs[route]."""
+    from mobilequant_tpu_torch.data.calib import synthetic_tokens
+    from mobilequant_tpu_torch.models import get_config
+    from mobilequant_tpu_torch.models import model as MM
+    from mobilequant_tpu_torch.ops import qops
+    from mobilequant_tpu_torch.ops.chunk_model import fused_model_w4_chunk_plain
+    from mobilequant_tpu_torch.ops.fused_layer import fused_model_w4_plain
+    from mobilequant_tpu_torch.quant import calibrate, qmodel, smooth, train
+    from mobilequant_tpu_torch.quant.policy import default_policy, relax_16bit
+    from mobilequant_tpu_torch.quant.quantizer import QuantConfig
+    from mobilequant_tpu_torch.runtime import engine as E
+    from mobilequant_tpu_torch.runtime.generate import Generator
+    from mobilequant_tpu_torch.runtime.kernel_config import KernelConfig
+
+    cuda = dev.type == "cuda"
+
+    def clock():
+        if cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    phase(f"phase 3q: quantize, {model} W4A8 (calibration, LET, e2equant / omniquant, "
+          f"finalize, smooth_last, pack), then serve the pack")
+    cfg = get_config(model)
+    L = cfg.num_layers
+    if cuda:
+        torch.zeros(1, device=dev)            # the allocator's stats exist from here
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    base_bytes = torch.cuda.memory_allocated(dev) if cuda else 0
+    # the sim and the training run in full fp32: the guard refuses TF32
+    tf32_off = not torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        qmodel.require_fp32_matmuls("cuda")
+        guard_raised = False
+    except RuntimeError:                      # the expected outcome
+        guard_raised = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not (tf32_off and guard_raised):
+        failures.append(f"3q: TF32 was on ({not tf32_off}) or the fp32 guard did not raise")
+
+    t0 = clock()
+    params = MM.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    params["embed"]["w"][:, Q_OUTLIER_CHANNELS] *= 100.0
+    tokens = synthetic_tokens(cfg.vocab_size, nsamples=Q_CALIB, seqlen=seqlen)
+    policy = default_policy(cfg, QuantConfig(bitwidth=4, is_per_channel=True, is_symmetric=True),
+                            QuantConfig(bitwidth=8))
+    init_s = clock() - t0
+    t0 = clock()
+    stats = calibrate.run_calibration(params, tokens, cfg, policy, batch_size=4)
+    let0 = smooth.smoothquant_let_init(cfg, *calibrate.smooth_calib_inputs(stats, dev), params,
+                                       alpha=0.5)
+    stats = calibrate.run_calibration(params, tokens, cfg, policy, let=let0, batch_size=4)
+    ranges = calibrate.stats_to_ranges(stats, policy, dev)
+    calib_s = clock() - t0
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    prompt = torch.randint(0, cfg.vocab_size, (1, Q_LET_PROMPT), generator=g, device=dev)
+    with torch.no_grad():
+        fp, _ = MM.forward(params, prompt, cfg)
+        folded, _ = MM.forward(smooth.fold_let(params, let0, cfg), prompt, cfg)
+        col, _, _ = qmodel.qforward(params, None, prompt, cfg, policy, mode="collect")
+    let_err = float_err(folded, fp)
+    col_err = float_err(col, fp)
+    col_ok = bool(((col - fp).abs() <= 1e-6 + 1e-5 * fp.abs()).all())
+    del folded, col
+    print(f"  FP params {init_s:.1f} s; calibration (two passes of {Q_CALIB} x {seqlen} tokens, "
+          f"the SmoothQuant LET init between) {calib_s:.2f} s; LET fold vs FP logits rel "
+          f"{let_err[1]:.3g}; collect mode vs FP rel {col_err[1]:.3g} (rtol 1e-5: {col_ok})",
+          flush=True)
+    if not let_err[1] <= 2e-3:
+        failures.append(f"3q: the LET fold moved the FP logits by rel {let_err[1]}")
+    if not col_ok:
+        failures.append(f"3q: collect mode is not the FP forward (rel {col_err[1]})")
+
+    tc = train.TrainConfig(epochs=Q_E2E_EPOCHS, batch_size=1, remat=True)
+    stamps = []
+    t0 = clock()
+    qstate, hist = train.e2equant(
+        params, train.init_qstate(params, cfg, policy, tc, ranges, let=let0, device=dev),
+        tokens[:Q_E2E_SAMPLES], cfg, policy, tc,
+        checkpoint_cb=lambda epoch, qs: stamps.append(clock()))
+    e2e_s = clock() - t0
+    step_s = (stamps[-1] - stamps[0]) / ((Q_E2E_EPOCHS - 1) * Q_E2E_SAMPLES)
+    e2e_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    finite_state = all(bool(torch.isfinite(t).all()) for t in _tree_leaves(qstate))
+    print(f"  e2equant ({Q_E2E_SAMPLES} samples x {Q_E2E_EPOCHS} epochs, batch 1, remat): "
+          f"{e2e_s:.2f} s, {step_s:.3f} s a step after the first epoch (teacher and first "
+          f"epoch {stamps[0] - t0:.2f} s); epoch losses {hist}; state finite {finite_state}; "
+          f"peak memory {e2e_peak / 2**30:.2f} GiB", flush=True)
+    if not all(math.isfinite(h) for h in hist) or not hist[-1] < hist[0]:
+        failures.append(f"3q: e2equant losses {hist} not finite or not falling")
+    if not finite_state:
+        failures.append("3q: a quant state leaf is not finite after e2equant")
+
+    log = _LineLog()
+    tc_o = train.TrainConfig(epochs=1, batch_size=1)
+    t0 = clock()
+    q_omni, _ = train.omniquant(params, train.init_qstate(params, cfg, policy, tc_o, ranges,
+                                                          let=let0, device=dev),
+                                tokens[:Q_OMNI_SAMPLES], cfg, policy, tc_o, logger=log)
+    omni_s = clock() - t0
+    losses = [float(m.rsplit(" ", 1)[1]) for m in log.lines if "final loss" in m]
+    print(f"  omniquant ({Q_OMNI_SAMPLES} samples, one epoch): {omni_s:.2f} s, "
+          f"{omni_s / L:.3f} s a layer; layer losses {losses[0]:.3e} .. {losses[-1]:.3e}",
+          flush=True)
+    if len(losses) != L or not all(math.isfinite(x) for x in losses) or not all(
+            bool(torch.isfinite(t).all()) for t in _tree_leaves(q_omni)):
+        failures.append(f"3q: omniquant layer losses {losses}")
+    del q_omni
+
+    t0 = clock()
+    params_f, qfin = train.finalize(params, qstate, cfg, policy)
+    del params
+    am = calibrate.head_input_absmax(params_f, tokens, cfg)
+    s_last = calibrate.smooth_last_scales(am, qmodel.head_weight(params_f, cfg), alpha=0.5)
+    ecfg = E.EngineConfig(model=cfg, max_seq_len=max_seq, kv_bits=8, head_bits=4)
+    packed = E.pack(params_f, qfin["ranges"], cfg, policy, ecfg, device=dev, smooth_last=s_last)
+    pack_s = clock() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+
+    # cmd_pack --verify: the engine's prompt logits under the prefill kernels
+    # against the sim on the finalized params, the sim's hidden through the
+    # same packed head (divided by s_last, which the engine's norm carries);
+    # beside it the plain engine against the sim, and the prefill route on
+    # the plain engine's numerics (prefill_engine_numerics) against the plain
+    # engine, which must be equal
+    T = Q_VERIFY_PROMPT
+    vt = torch.randint(0, cfg.vocab_size, (1, T), generator=g, device=dev)
+
+    def verify_forward(kc):
+        return E.forward(packed, vt, cfg, policy, positions=torch.arange(T, device=dev)[None],
+                         kv_cache=E.init_kv_cache(ecfg, 1, device=dev),
+                         cache_position=torch.zeros(1, dtype=torch.int32, device=dev),
+                         kv_valid_len=torch.full((1,), T, dtype=torch.int32, device=dev),
+                         kc=kc)[0]
+    eng = counted("q_verify", lambda: verify_forward(KernelConfig.prefill()))
+    eng_plain = verify_forward(KernelConfig.none())
+    with patched(prefill_engine_numerics(E, cfg)):
+        eng_wit = counted("q_verify_witness", lambda: verify_forward(KernelConfig.prefill()))
+    with torch.no_grad():
+        h, _, _ = qmodel.qforward_hidden(params_f, qfin, vt, cfg, policy)
+        sim = E.quantized_head_logits(h / s_last, packed["head_q"], cfg.vocab_size,
+                                      use_kernel=False)
+    v_abs, v_rel = float_err(eng, sim)
+    vp_rel, vk_rel = float_err(eng_plain, sim)[1], float_err(eng, eng_plain)[1]
+    vw_rel = float_err(eng_wit, eng_plain)[1]
+    print(f"  finalize + smooth_last + pack {pack_s:.2f} s; peak memory {peak / 2**30:.2f} GiB "
+          f"({(peak - base_bytes) / 2**30:.2f} above the phase's start); verify, {T} tokens: "
+          f"engine (prefill kernels {({k: v for k, v in runs['q_verify'].items() if v})}) vs "
+          f"sim max abs {v_abs:.4g}, max rel {v_rel:.4g}; the plain engine vs sim rel "
+          f"{vp_rel:.4g}; kernels vs plain engine rel {vk_rel:.4g}; the prefill route on the "
+          f"plain engine's numerics vs the plain engine rel {vw_rel:.3g}", flush=True)
+    if not (v_rel < Q_VERIFY_MAX_REL[0] and vp_rel < Q_VERIFY_MAX_REL[1]) \
+            or eng.shape != sim.shape:
+        failures.append(f"3q: engine vs sim max_rel {v_rel} (max abs {v_abs}), the plain "
+                        f"engine {vp_rel}")
+    if vw_rel > 1e-6 or runs["q_verify_witness"]["prefill_attention"]:
+        failures.append(f"3q: verify witness vs the plain engine rel {vw_rel}")
+    del params_f, h, sim, eng, eng_plain, eng_wit
+
+    # serving the pack: B=1 generate_fast; the prefill and one decode step on
+    # the kernels against the plain path, with phase 3s's witnesses (the
+    # prefill route on the plain engine's numerics, and the plain prefill,
+    # then the decode() step with the whole-model kernel's plain version on
+    # them: both equal the plain path)
+    rpol = relax_16bit(policy)
+    g1 = Generator(packed, cfg, rpol, ecfg, device=dev)
+    p1 = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=g, device=dev).cpu().numpy()
+    g1.generate_fast(p1, 4)
+    toks1, st1 = counted("q_main", lambda: g1.generate_fast(p1, Q_NEW, return_stats=True))
+    l1 = runs["q_main"]
+    print(f"  B=1 generate_fast on the pack: prefill {st1['prefill_s'] * 1e3:.2f} ms, decode "
+          f"{st1['decode_tok_s']:.2f} tok/s, launches {({k: v for k, v in l1.items() if v})}",
+          flush=True)
+    if toks1.shape != (1, Q_NEW) or l1["fused_model_w4"] != Q_NEW - 1 \
+            or l1["w4a8_matmul_stacked"] != 2 * L or l1["w4a8_matmul"] != 1 \
+            or l1["qkv_rope"] != L or l1["prefill_attention"] != L:
+        failures.append(f"3q: B=1 launches {l1}")
+    tp = torch.as_tensor(p1, device=dev)
+    wit = {(E, "fused_model_w4"): fused_model_w4_plain, **engine_numerics(E, cfg, rpol)}
+    res, nxt = {}, None
+    for tag, kc_p, kc_d in (("plain", KernelConfig.none(), KernelConfig.none()),
+                            ("kernel", KernelConfig.prefill(), KernelConfig.decode()),
+                            ("witness", KernelConfig.none(), KernelConfig.decode()),
+                            ("prefill_witness", KernelConfig.prefill(), None)):
+        c1 = E.init_kv_cache(ecfg, 1, device=dev)
+        with patched(prefill_engine_numerics(E, cfg) if tag == "prefill_witness" else {}):
+            lg, c1 = counted(f"q_b1_prefill_{tag}", lambda: E.forward(
+                g1.packed, tp, cfg, rpol, kv_cache=c1,
+                cache_position=torch.zeros(1, dtype=torch.int32, device=dev),
+                kv_valid_len=torch.full((1,), prompt_len, dtype=torch.int32, device=dev),
+                kc=kc_p, logits_at=torch.full((1,), prompt_len - 1, device=dev)))
+        if kc_d is None:
+            res[tag] = (lg, None, c1)
+            continue
+        if nxt is None:                       # the plain path's token, fed to every step
+            nxt = torch.argmax(lg[:, -1], -1)[:, None]
+        p = torch.full((1,), prompt_len, dtype=torch.int32, device=dev)
+        with patched(wit if tag == "witness" else {}):
+            lg2, c1 = counted(f"q_b1_step_{tag}", lambda: E.forward(
+                g1.packed, nxt, cfg, rpol, positions=p[:, None], kv_cache=c1,
+                cache_position=p, kv_valid_len=p + 1, kc=kc_d))
+        res[tag] = (lg, lg2, c1)
+    e_pre = float_err(res["kernel"][0], res["plain"][0])
+    e_dec = float_err(res["kernel"][1], res["plain"][1])
+    e_cache = [int8_err(res["kernel"][2].k, res["plain"][2].k),
+               int8_err(res["kernel"][2].v, res["plain"][2].v)]
+    e_wit = float_err(res["witness"][1], res["plain"][1])[1]
+    e_pwit = float_err(res["prefill_witness"][0], res["plain"][0])[1]
+    wit_eq = all(bool(torch.equal(getattr(res[w][2], kv), getattr(res["plain"][2], kv)))
+                 for w in ("witness",) for kv in ("k", "v"))
+    print(f"  B=1 kernels vs plain: prefill logits rel {e_pre[1]:.3g}; decode step (the plain "
+          f"path's token) rel {e_dec[1]:.3g}; K / V after the step {e_cache}; witnesses vs "
+          f"plain: prefill rel {e_pwit:.3g}, step rel {e_wit:.3g}, caches equal {wit_eq}",
+          flush=True)
+    lim = Q_B1_VS_PLAIN
+    if e_pre[1] > lim[0] or e_dec[1] > lim[0] or runs["q_b1_step_kernel"]["fused_model_w4"] != 1:
+        failures.append(f"3q: B=1 kernels vs plain: prefill {e_pre[1]}, step {e_dec[1]}")
+    if max(e[0] for e in e_cache) > lim[1] or max(e[1] for e in e_cache) > lim[2]:
+        failures.append(f"3q: B=1 K / V caches kernel vs plain {e_cache}")
+    if e_wit > 1e-6 or e_pwit > 1e-6 or not wit_eq or runs["q_b1_step_witness"]["fused_model_w4"]:
+        failures.append(f"3q: B=1 witnesses vs plain: prefill {e_pwit}, step {e_wit}, "
+                        f"caches equal {wit_eq}")
+
+    # the serving batch on the chunk route, and one Q_NEW-step chunk fed the
+    # same tokens on it, on it with the kernel's plain version, on that plain
+    # version moved onto the plain engine's numerics (equal to the plain
+    # path), and on the plain path
+    gs = Generator(packed, cfg, rpol, dataclasses.replace(ecfg, use_pallas=KernelConfig.chunk()),
+                   device=dev)
+    pb = torch.randint(0, cfg.vocab_size, (serve_b, prompt_len), generator=g,
+                       device=dev).cpu().numpy()
+    gs.generate_fast(pb, 3)
+    tkb, stb = counted("q_b32_chunk", lambda: gs.generate_fast(pb, Q_NEW, return_stats=True))
+    lb = runs["q_b32_chunk"]
+    print(f"  B={serve_b} chunk route on the pack: decode {stb['decode_tok_s']:.2f} tok/s, "
+          f"launches {({k: v for k, v in lb.items() if v})}", flush=True)
+    if tkb.shape != (serve_b, Q_NEW) or lb["fused_model_w4_chunk"] != Q_NEW - 1 \
+            or lb["staged_append"] != Q_NEW - 1:
+        failures.append(f"3q: B={serve_b} chunk launches {lb}")
+    cb = E.init_kv_cache(ecfg, serve_b, device=dev)
+    _, cb = gs.prefill(torch.as_tensor(pb, device=dev), cb)
+    ftoks = torch.randint(0, cfg.vocab_size, (serve_b, Q_NEW), generator=g, device=dev)
+    fpos = torch.full((serve_b,), prompt_len, dtype=torch.int32, device=dev)
+    chain = {}
+    plain_fn = {(E, "fused_model_w4_chunk"): fused_model_w4_chunk_plain}
+    for tag, kc_c, stand_ins in (
+            ("chunk", KernelConfig.chunk(), {}),
+            ("chunk_plain_fn", KernelConfig.chunk(), plain_fn),
+            ("chunk_engine_numerics", KernelConfig.chunk(),
+             {**plain_fn, **engine_numerics(E, cfg, rpol)}),
+            ("plain", KernelConfig.none(), {})):
+        cc = E.EngineKVCache(cb.k.clone(), cb.v.clone())
+        with patched(stand_ins):
+            chain[tag] = counted(f"q_chain_{tag}", lambda: run_staged_chunk(
+                E, qops, gs.packed, cfg, rpol, kc_c, cc, ftoks, fpos))
+    window = slice(prompt_len, prompt_len + Q_NEW)
+    chain_err = {}
+    for tag, ref, lim in (("chunk", "chunk_plain_fn", (2e-3, 0, 0.0)),
+                          ("chunk_engine_numerics", "plain", (1e-6, 0, 0.0)),
+                          ("chunk", "plain", Q_CHUNK_VS_PLAIN)):
+        e_l = float_err(chain[tag][0], chain[ref][0])
+        e_k = int8_err(chain[tag][1].k[:, :, :, window], chain[ref][1].k[:, :, :, window])
+        e_v = int8_err(chain[tag][1].v[:, :, :, window], chain[ref][1].v[:, :, :, window])
+        fin = bool(torch.isfinite(chain[tag][0]).all())
+        chain_err[f"{tag}_vs_{ref}"] = {"logits_rel": e_l[1], "k_rows": e_k, "v_rows": e_v}
+        print(f"  B={serve_b} {Q_NEW}-step chunk, {tag} vs {ref}: logits rel {e_l[1]:.3g}; "
+              f"flushed K rows {e_k}, V rows {e_v}", flush=True)
+        if not fin or e_l[1] > lim[0] or max(e_k[0], e_v[0]) > lim[1] \
+                or max(e_k[1], e_v[1]) > lim[2]:
+            failures.append(f"3q: {tag} chunk vs {ref}: logits rel {e_l[1]}, rows {e_k} {e_v}")
+    if runs["q_chain_chunk"]["fused_model_w4_chunk"] != Q_NEW \
+            or runs["q_chain_chunk_plain_fn"]["fused_model_w4_chunk"] \
+            or any(runs["q_chain_plain"].values()):
+        failures.append(f"3q: chain launches {runs['q_chain_chunk']}")
+    del g1, gs, packed, cb, chain
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"calibration_s": calib_s, "e2equant_s": e2e_s, "e2equant_s_per_step": step_s,
+            "e2equant_epoch_losses": hist, "e2equant_peak_bytes": e2e_peak,
+            "omniquant_s": omni_s, "omniquant_s_per_layer": omni_s / L,
+            "omniquant_layer_losses": losses, "finalize_pack_s": pack_s,
+            "peak_bytes": peak, "phase_start_bytes": base_bytes,
+            "let_fold_logits_rel": let_err[1], "collect_vs_fp_rel": col_err[1],
+            "verify_max_abs": v_abs, "verify_max_rel": v_rel,
+            "b1_decode_tok_s": st1["decode_tok_s"], "b1_prefill_ms": st1["prefill_s"] * 1e3,
+            "verify_plain_engine_vs_sim_rel": vp_rel, "verify_kernels_vs_plain_rel": vk_rel,
+            "b1_prefill_rel_kernel_vs_plain": e_pre[1],
+            "b1_step_rel_kernel_vs_plain": e_dec[1], "b1_caches_kernel_vs_plain": e_cache,
+            "chunk_decode_tok_s": stb["decode_tok_s"], "chunk": chain_err,
+            "launches": {k: runs[k] for k in ("q_verify", "q_main", "q_b32_chunk")}}
 
 
 def engine_numerics(E, cfg, policy, attention=True, norms=True):
@@ -1645,28 +2031,8 @@ def main() -> None:
     # same tokens fed to every route: logits of every step and the flushed caches
     def staged_chunk(kc_c, cache, toks, pos0, packed_c=None, policy_c=None, kv4=False,
                      cfg_c=None):
-        """One staged chunk fed `toks` (decode_loop's chunk body) -> (logits of
-        every step, the flushed cache)."""
-        packed_c, policy_c, cfg_c = packed_c or gs.packed, policy_c or policy, cfg_c or cfg
-        n = toks.shape[1]
-        colsums, flush = ((qops.kv_colsums_packed, qops.kv_flush_packed) if kv4
-                          else (E.kv_colsums, E._flush))
-        Lc, Bc, Hc = cache.k.shape[:3]
-        shape = (Lc, Bc, Hc, n, cfg_c.head_dim_)
-        st = E.StagedKVCache(cache.k, cache.v, torch.zeros(shape, dtype=torch.int8, device=dev),
-                             torch.zeros(shape, dtype=torch.int8, device=dev), 0,
-                             colsums(cache.k))
-        lgs = []
-        for i in range(n):
-            st = E._stage_pending(st, kc_c)
-            p = pos0 + i
-            lg, st = E.forward(packed_c, toks[:, i:i + 1], cfg_c, policy_c, positions=p[:, None],
-                               kv_cache=st, cache_position=pos0, kv_valid_len=p + 1, kc=kc_c)
-            lgs.append(lg[:, -1])
-        st = E._stage_pending(st, kc_c)
-        flush(cache.k, st.sk, pos0)
-        flush(cache.v, st.sv, pos0)
-        return torch.stack(lgs, 1), cache
+        return run_staged_chunk(E, qops, packed_c or gs.packed, cfg_c or cfg,
+                                policy_c or policy, kc_c, cache, toks, pos0, kv4)
 
     c32 = E.init_kv_cache(ecfg, SERVE_B, device=dev)
     _, c32 = gs.prefill(torch.as_tensor(p32, device=dev), c32)
@@ -3849,6 +4215,8 @@ def main() -> None:
     del gpk
     torch.cuda.empty_cache()
 
+    quant = phase_quantize(dev, counted, runs, failures)
+
     # ---- phase 4: report ---------------------------------------------------
     sources = {"w4a8_matmul": ("csrc/w4a8_matmul.cu",
                                "mobilequant_tpu/ops/pallas_matmul.py:59"),
@@ -4010,6 +4378,7 @@ def main() -> None:
               "stablelm": {"serving": serve_s, "fused_model_stage_us": stage_us_s,
                            "chunk_stage_us": chunk_stage_us_s, "b1_step": b1_s,
                            "chunk_vs_plain": chain_s},
+              "quantize": quant,
               "gemma": {"serving": serve_g, "fused_model_stage_us": stage_us_g,
                         "chunk_stage_us": chunk_stage_us_g, "b1_step": b1_g,
                         "chunk_gate": {str(k): v for k, v in gate_g.items()},

@@ -6,6 +6,9 @@ from_jax_params        a JAX tree of numpy leaves -> the port's, the same keys
                        and shapes: the FP parameter tree (models/model), or
                        the wonly.pack_weight_only output (skeleton, packs,
                        head_q)
+from_jax_qstate        a JAX quant state (the let / lwc / ranges trees of
+                       quant/train.init_qstate, numpy leaves) -> the port's,
+                       fp32 tensors; qstate_to_numpy carries one back
 build_synthetic_packed a full-width W4A8 or W8A8 packed model with seeded
                        random weights and plausible static ranges, made on the
                        target device (real checkpoints are not in the
@@ -48,6 +51,22 @@ def from_jax_params(tree: dict, device="cuda") -> dict:
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device) for k, v in tree.items()}
     return _tensor(tree, device)
+
+
+def from_jax_qstate(tree: dict, device="cuda") -> dict:
+    """A JAX quant state {"let", "lwc", "ranges"} (any subset; None entries
+    dropped) of numpy leaves -> the port's, fp32 tensors on `device`."""
+    if isinstance(tree, dict):
+        return {k: from_jax_qstate(v, device) for k, v in tree.items() if v is not None}
+    return torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
+
+
+def qstate_to_numpy(tree: dict) -> dict:
+    """The port's quant state (or any tree of tensors) -> fp32 numpy leaves,
+    the JAX package's layout."""
+    if isinstance(tree, dict):
+        return {k: qstate_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().to(torch.float32).cpu().numpy()
 
 
 def from_jax_packed(tree: dict, device="cuda") -> dict:

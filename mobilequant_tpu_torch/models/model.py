@@ -10,7 +10,9 @@ Quantization attaches through an `Ops` object: every quantizable op site
 (linear, norm, the two attention matmuls, softmax, act, mul, add, the MoE
 expert projections) goes through `ops.<op>(site, ...)`. `Ops` is plain FP
 math; the weight-only mode (runtime/wonly.py) overrides `linear` and
-`expert_linear` to run each projection against its integer pack.
+`expert_linear` to run each projection against its integer pack, and the
+fake-quant sim (quant/qmodel.py) every site, `transform_layer` (LET) and
+`pop_stats` (calibration statistics).
 
 Behaviour kept from the JAX model, so that the same inputs give the same
 numbers: the additive causal mask value neg_inf = -40000; qk_matmul takes
@@ -27,6 +29,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from mobilequant_tpu_torch.models.config import ModelConfig
 
@@ -42,10 +45,18 @@ class Ops:
 
     `site` is the op's name inside one decoder layer (e.g.
     "self_attn.q_proj"). Subclasses override these; `begin_layer(extras)` is
-    called with the layer's slice of `layer_extras` before each layer runs."""
+    called with the layer's slice of `layer_extras` before each layer runs,
+    `transform_layer` reparameterizes the layer's weights, and `pop_stats`
+    hands over what the layer recorded."""
 
     def begin_layer(self, extras) -> None:
         pass
+
+    def transform_layer(self, lp: Params, config: ModelConfig) -> Params:
+        return lp
+
+    def pop_stats(self) -> dict:
+        return {}
 
     def linear(self, site: str, x, w, b):
         return x @ w + b
@@ -293,6 +304,7 @@ def decoder_layer(ops: Ops, lp: Params, x: torch.Tensor, cos, sin, mask,
                   config: ModelConfig, kv=None, cache_position=None):
     """One pre-norm decoder layer -> (out, (k, v))."""
     c = config
+    lp = ops.transform_layer(lp, c)
     norm_fn = ops.layernorm if c.norm_class == "layernorm" else ops.rmsnorm
     h = norm_fn("input_layernorm", x, lp["attn_norm"]["w"], lp["attn_norm"]["b"], c.norm_eps)
     attn_out, kv_new = attention(ops, lp, h, cos, sin, mask, c, kv, cache_position)
@@ -313,15 +325,28 @@ def _layer_slice(tree, l: int):
     return tree[l]
 
 
+def _stack_stats(per_layer: list):
+    """[layer stats trees] -> one tree whose leaves are stacked over layers."""
+    first = per_layer[0]
+    if isinstance(first, dict):
+        return {k: _stack_stats([t[k] for t in per_layer]) for k in first}
+    return torch.stack(per_layer)
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor, config: ModelConfig,
                    ops: Optional[Ops] = None, positions=None,
                    kv_cache: Optional[KVCache] = None, cache_position=None,
-                   kv_valid_len=None, layer_extras=None):
-    """Backbone forward, the final norm included. tokens (B,T) on the params'
-    device. layer_extras: an optional tree of layer-stacked leaves; each
-    layer's slice goes to ops.begin_layer before the layer runs. kv_cache:
-    written in place at cache_position. -> (hidden (B,T,D), the cache, or the
-    segment's K / V stacks (L,B,T,Hkv,hd) without one)."""
+                   kv_valid_len=None, collect_stats: bool = False, layer_extras=None,
+                   apply_final_norm: bool = True, remat: bool = False):
+    """Backbone forward. tokens (B,T) on the params' device. layer_extras: an
+    optional tree of layer-stacked leaves; each layer's slice goes to
+    ops.begin_layer before the layer runs. kv_cache: written in place at
+    cache_position. collect_stats: gather each layer's ops.pop_stats() and
+    stack them over layers. apply_final_norm: False returns the residual
+    stream before the final norm. remat: recompute each layer on the backward
+    pass (torch.utils.checkpoint), keeping only the layer boundaries.
+    -> (hidden (B,T,D), the cache, or the segment's K / V stacks
+    (L,B,T,Hkv,hd) without one, the stacked stats or None)."""
     c = config
     ops = ops or Ops()
     embed = params["embed"]["w"]
@@ -342,29 +367,42 @@ def forward_hidden(params: Params, tokens: torch.Tensor, config: ModelConfig,
     S = kv_cache.k.shape[2] if kv_cache is not None else T
     mask = causal_mask(positions, S, c.neg_inf, kv_valid_len).to(x.dtype)
 
-    ks, vs = [], []
+    def layer(x, lp, extras, kv):
+        # begin_layer inside the layer, so that a recomputation under remat
+        # sees this layer's extras
+        ops.begin_layer(extras)
+        return decoder_layer(ops, lp, x, cos, sin, mask, c, kv, cache_position)
+
+    ks, vs, stats = [], [], []
     for l in range(c.num_layers):
         lp = _layer_slice(params["layers"], l)
-        ops.begin_layer(_layer_slice(layer_extras, l) if layer_extras is not None else None)
+        extras = _layer_slice(layer_extras, l) if layer_extras is not None else None
         kv = (kv_cache.k[l], kv_cache.v[l]) if kv_cache is not None else None
-        x, (k_l, v_l) = decoder_layer(ops, lp, x, cos, sin, mask, c, kv, cache_position)
+        if remat:
+            x, (k_l, v_l) = torch.utils.checkpoint.checkpoint(
+                layer, x, lp, extras, kv, use_reentrant=False)
+        else:
+            x, (k_l, v_l) = layer(x, lp, extras, kv)
+        if collect_stats:
+            stats.append(ops.pop_stats())
         if kv_cache is None:
             ks.append(k_l)
             vs.append(v_l)
     new_cache = kv_cache if kv_cache is not None else KVCache(torch.stack(ks), torch.stack(vs))
 
     # the final norm and head are never quantized: plain ops
-    plain = Ops()
-    nf = plain.layernorm if c.norm_class == "layernorm" else plain.rmsnorm
-    x = nf("norm", x, params["norm"]["w"], params["norm"]["b"], c.norm_eps)
-    return x, new_cache
+    if apply_final_norm:
+        plain = Ops()
+        nf = plain.layernorm if c.norm_class == "layernorm" else plain.rmsnorm
+        x = nf("norm", x, params["norm"]["w"], params["norm"]["b"], c.norm_eps)
+    return x, new_cache, (_stack_stats(stats) if collect_stats else None)
 
 
 def forward(params: Params, tokens, config: ModelConfig, ops: Optional[Ops] = None,
             positions=None, kv_cache: Optional[KVCache] = None,
             cache_position=None, kv_valid_len=None):
     """Full causal-LM forward -> (logits (B,T,V), the cache or segment K / V)."""
-    x, new_cache = forward_hidden(params, tokens, config, ops, positions,
-                                  kv_cache, cache_position, kv_valid_len)
+    x, new_cache, _ = forward_hidden(params, tokens, config, ops, positions,
+                                     kv_cache, cache_position, kv_valid_len)
     head_w = params["embed"]["w"].T if config.tie_word_embeddings else params["lm_head"]["w"]
     return x @ head_w, new_cache

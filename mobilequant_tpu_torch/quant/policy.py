@@ -88,6 +88,18 @@ def default_policy(config: ModelConfig,
     return policy
 
 
+def policy_to_dict(policy: QPolicy) -> dict:
+    """The policy in default_qcfg.json's per-site schema: site -> role ->
+    QuantConfig.to_dict() (every value a string)."""
+    return {site: {role: cfg.to_dict() for role, cfg in sq.roles()}
+            for site, sq in policy.items()}
+
+
+def policy_from_dict(d: dict) -> QPolicy:
+    return {site: SiteQuant(**{role: QuantConfig.from_dict(cfg) for role, cfg in roles.items()})
+            for site, roles in d.items()}
+
+
 def relax_16bit(policy: QPolicy) -> QPolicy:
     """Disable the 16-bit exception sites (norm I/O, o_proj/w2 outputs, softmax
     I/O, residual adds). On an NPU these sites must be quantized because the

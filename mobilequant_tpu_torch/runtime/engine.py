@@ -184,8 +184,12 @@ def _t(a, device) -> torch.Tensor:
 def host_ranges(ranges: dict) -> dict:
     """ranges tree (array leaves) -> {site: {role: {"scale", "offset"}}} of
     fp32 numpy (L,) arrays."""
-    return {site: {role: {k: np.asarray(so[k], dtype=np.float32).reshape(-1)
-                          for k in ("scale", "offset")}
+    def host(v):
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        return np.asarray(v, dtype=np.float32).reshape(-1)
+
+    return {site: {role: {k: host(so[k]) for k in ("scale", "offset")}
                    for role, so in roles.items()}
             for site, roles in ranges.items()}
 
@@ -210,14 +214,24 @@ def _check_policy(policy: QPolicy) -> None:
                                   "fake-quant sites on")
 
 
+@torch.no_grad()
 def pack(params: dict, ranges: dict, config: ModelConfig, policy: QPolicy,
-         ecfg: Optional[EngineConfig] = None, device="cuda") -> dict:
+         ecfg: Optional[EngineConfig] = None, device="cuda", smooth_last=None) -> dict:
     """Finalized params (numpy or torch, layer-stacked) + learned ranges ->
     the packed model on `device`, bit-identical to the JAX engine's pack on
-    its canonical keys (qkv_proj / o_proj / w13_proj / w2 / norms / head_q)."""
+    its canonical keys (qkv_proj / o_proj / w13_proj / w2 / norms / head_q).
+
+    smooth_last: an optional (D,) equalization vector for the quantized head
+    (calibrate.smooth_last_scales): the packed final norm's weight and bias
+    are divided by it and the head's input rows multiplied by it before the
+    per-channel quantization, which keeps the FP outputs; it needs head_bits
+    4 or 8 (an fp head may be the embedding table, which cannot be
+    rescaled)."""
     ecfg = ecfg or EngineConfig(model=config)
     c = config
     _check_config(c)
+    if smooth_last is not None and ecfg.head_bits not in (4, 8):
+        raise ValueError("smooth_last requires a quantized head (head_bits 4 or 8)")
     dev = torch.device(device)
     rr = host_ranges(ranges)
     L = c.num_layers
@@ -275,16 +289,22 @@ def pack(params: dict, ranges: dict, config: ModelConfig, policy: QPolicy,
     layers["attn_norm"] = bake_norm("attn_norm", "input_layernorm")
     layers["mlp_norm"] = bake_norm("mlp_norm", "post_attention_layernorm")
 
+    norm_w = _t(params["norm"]["w"], dev).to(torch.float32)
+    norm_b = _t(params["norm"]["b"], dev).to(torch.float32)
+    if smooth_last is not None:
+        s_last = _t(smooth_last, dev).to(torch.float32)
+        norm_w, norm_b = norm_w / s_last, norm_b / s_last
     packed = {
         "embed": _t(params["embed"]["w"], dev).to(torch.float32),
         "layers": layers,
         "ranges": rr,
-        "norm": {"w": _t(params["norm"]["w"], dev).to(torch.float32),
-                 "b": _t(params["norm"]["b"], dev).to(torch.float32)},
+        "norm": {"w": norm_w, "b": norm_b},
     }
     if ecfg.head_bits in (4, 8):
         head_w = (_t(params["embed"]["w"], dev).T if c.tie_word_embeddings
                   else _t(params["lm_head"]["w"], dev))
+        if smooth_last is not None:
+            head_w = head_w * s_last[:, None]
         packed["head_q"] = pack_head(head_w, QuantConfig(
             bitwidth=ecfg.head_bits, is_symmetric=True, is_per_channel=True))
     elif not c.tie_word_embeddings:

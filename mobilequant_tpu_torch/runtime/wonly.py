@@ -165,9 +165,9 @@ def forward(packed: dict, tokens, config: ModelConfig, policy=None, positions=No
     sk = packed["skeleton"]
     ops = WeightOnlyOps(packed["packs"], use_kernel=use_kernel)
     extras = {"li": range(c.num_layers)}
-    x, new_cache = M.forward_hidden(sk, tokens, c, ops, positions=positions,
-                                    kv_cache=kv_cache, cache_position=cache_position,
-                                    kv_valid_len=kv_valid_len, layer_extras=extras)
+    x, new_cache, _ = M.forward_hidden(sk, tokens, c, ops, positions=positions,
+                                       kv_cache=kv_cache, cache_position=cache_position,
+                                       kv_valid_len=kv_valid_len, layer_extras=extras)
     if logits_at is not None:
         B = x.shape[0]
         idx = torch.as_tensor(logits_at, device=x.device).to(torch.long)
