@@ -169,8 +169,22 @@
      FP forward, cmd_pack --verify's engine-vs-sim comparison, then the pack
      served: B=1 generate_fast and the B=32 chunk route, each against the
      plain path with phase 3s's witnesses;
+   - phase 3v: serving on TinyLlama-1.1B W4A8/h4 (int8 KV, relaxed, S 1024)
+     through the entry points: (a) a ContinuousBatcher of 8 slots (buckets
+     32 / 128 / 512, chunk_decode 16) serving 24 requests (prompts 17-480,
+     budgets 8-64; half greedy, a quarter at temperature 0.8, a quarter
+     top-k 40 / top-p 0.9); (b) 32 slots (chunk_prefill 128, chunk_decode
+     16, KernelConfig.chunk()) serving 64; (c) spec_k 4 on a repeated prompt
+     and generate_speculative_fast at B=1 with prompt lookup and a 4-layer
+     self-draft; (d) an InferenceServer over HTTP loopback with 8 client
+     threads: requests/s, tok/s, time to first token, read-backs and the
+     device's idle share a tick, tokens per verify; a second run with the
+     same seed must repeat every stream; every greedy stream must equal the
+     sequential Generator's with every kernel on the plain engine's numerics
+     (serve_witness), and on the kernel routes the agreeing share is
+     reported;
    the decode-attention rows of phase 2, the int4-cache phase, the attn()
-   phase and phases 2q, 3w, 3f, 2m, 3m, 2s, 3s, 2g, 3g and 3q draw their inputs from
+   phase and phases 2q, 3w, 3f, 2m, 3m, 2s, 3s, 2g, 3g, 3q and 3v draw their inputs from
    generators of their own, so what they draw moves no input of the other
    checks. No wrapper may run its plain version on the card: every counted
    run checks its plain-call counts;
@@ -846,6 +860,394 @@ def phase_quantize(dev, counted, runs, failures, model="tinyllama-1.1b", prompt_
             "b1_step_rel_kernel_vs_plain": e_dec[1], "b1_caches_kernel_vs_plain": e_cache,
             "chunk_decode_tok_s": stb["decode_tok_s"], "chunk": chain_err,
             "launches": {k: runs[k] for k in ("q_verify", "q_main", "q_b32_chunk")}}
+
+
+# phase 3v: serving through the continuous batcher, speculative decoding and
+# the HTTP server, on TinyLlama-1.1B W4A8/h4 at full width (int8 KV, relaxed
+# policy, S 1024)
+V_SEED = 7                                  # the requests' own generator
+V_PROMPTS, V_BUDGETS = (17, 480), (8, 64)   # prompt lengths, new-token budgets
+V_A = dict(batch_slots=8, prefill_buckets=(32, 128, 512), chunk_decode=16)
+V_B = dict(batch_slots=32, chunk_prefill=128, chunk_decode=16)
+V_A_REQUESTS, V_B_REQUESTS = 24, 64
+V_SPEC_K, V_SPEC_NEW, V_SELF_DRAFT, V_SELF_DRAFT_NEW = 4, 64, 4, 32
+V_HTTP_CLIENTS, V_HTTP_PER_CLIENT = 8, 2
+# The witnesses run the plain versions at full width, so they serve a
+# shorter load of the same shapes: (a) the first 12 requests, (b) 40 requests a quarter greedy, (c)
+# V_WITNESS_NEW tokens, each budget cut to at most V_WITNESS_BUDGET. A cut
+# budget ends in the first chunked tick, so (b)'s witness leads with
+# V_WITNESS_LONG greedy requests of budget V_WITNESS_LONG_BUDGET: once the
+# short ones have drained (two ticks), they are left alone with more than a
+# chunk_decode to go, and run pipelined ticks (decode loops chained on the
+# device, _last_tokens handed across ticks), overlapped refills having run
+# behind them; the witness fails if no pipelined tick ran.
+V_WITNESS_A, V_WITNESS_B, V_WITNESS_BUDGET, V_WITNESS_NEW = 12, 40, 12, 24
+V_WITNESS_LONG, V_WITNESS_LONG_BUDGET = 3, 64
+# The witnesses serve the pack's first layer only: at full depth the random
+# model's greedy streams are one repeated token (12027 in (c); the main
+# runs report their count of distinct greedy tokens), which a wrong token or
+# position would not change; one layer's streams follow their inputs, and a
+# witness whose streams hold one token fails. The 4-layer
+# self-draft is then the whole 1-layer model: the CPU tests hold the
+# rejected-draft path.
+V_WITNESS_LAYERS = 1
+# On the kernel routes the batch's kernels (B = 8 whole-model steps, B = 32
+# chunk steps, T = k verifies) could round differently from the sequential
+# B = 1 Generator's, and on random weights a near-tie would then turn a
+# greedy stream; the share of greedy tokens before each stream's first
+# difference is reported and held. The first reading (H100 80GB HBM3, 700 W)
+# was 1.0 on every route ((a), (b), (c) x 3, (d)): a gap of 0, so "about
+# twice the gap" leaves no room, and 0.95 is held, which lets a late flip
+# through and stops a route that has lost its equality. The witnesses
+# (every kernel its plain version on the plain engine's numerics) hold the
+# wiring exactly.
+V_KERNEL_PREFIX_MIN = 0.95
+
+
+def _prefix_share(outs, refs) -> float:
+    """The share of tokens that lie before each stream's first difference
+    from its reference."""
+    agree = total = 0
+    for o, r in zip(outs, refs):
+        n = next((i for i, (a, b) in enumerate(zip(o, r)) if a != b), min(len(o), len(r)))
+        agree += n
+        total += len(r)
+    return agree / max(total, 1)
+
+
+def serve_witness(E, cfg, policy):
+    """{(module, name): stand-in} that puts every kernel the serving routes
+    launch onto the plain engine's numerics: the prefill kernels
+    (prefill_engine_numerics), the whole-model, whole-layer and chunk kernels'
+    plain versions with the engine's attention and fp32 norms
+    (engine_numerics), staged_append's plain version, and the MLP-block
+    kernel's plain version on the engine's fp32 norms. Under it a batcher and
+    the sequential Generator compute the plain engine's function, so their
+    greedy streams must be equal: what is left between them is the batcher's
+    wiring (slots, buckets, chunks at an offset, the adopt copies, ragged
+    positions, the verify)."""
+    from mobilequant_tpu_torch.ops import mlp_block
+    from mobilequant_tpu_torch.ops.chunk_model import fused_model_w4_chunk_plain
+    from mobilequant_tpu_torch.ops.fused_layer import fused_layer_w4_plain, fused_model_w4_plain
+    from mobilequant_tpu_torch.ops.staged_append import staged_append_plain
+    from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack
+
+    def mlp(x, norm_w, norm_b, w13, w2, meta, layer, act_kind="silu", site_on=(True,) * 9,
+            norm_kind="rmsnorm"):
+        return mlp_block.fused_mlp_block_w4_plain(x, norm_w[layer], norm_b[layer],
+                                                  layer_pack(w13, layer), layer_pack(w2, layer),
+                                                  meta, act_kind, site_on, norm_kind)
+    return {**prefill_engine_numerics(E, cfg), **engine_numerics(E, cfg, policy),
+            (E, "fused_model_w4"): fused_model_w4_plain,
+            (E, "fused_layer_w4"): fused_layer_w4_plain,
+            (E, "fused_model_w4_chunk"): fused_model_w4_chunk_plain,
+            (E, "staged_append"): staged_append_plain,
+            (E, "fused_mlp_block_w4"): mlp}
+
+
+def phase_serve(dev, counted, runs, failures, model="tinyllama-1.1b", max_seq=MAX_SEQ,
+                n_a=V_A_REQUESTS, n_b=V_B_REQUESTS, prompts=V_PROMPTS, budgets=V_BUDGETS,
+                cfg_a=V_A, cfg_b=V_B, spec_new=V_SPEC_NEW, rep_len=200,
+                witness_long=(V_WITNESS_LONG, V_WITNESS_LONG_BUDGET),
+                witness_layers=V_WITNESS_LAYERS) -> dict:
+    """Phase 3v: the serving path through its entry points on the card.
+    (a) ContinuousBatcher, 8 slots, buckets, chunk_decode 16: n_a requests,
+    half greedy, a quarter at temperature 0.8, a quarter top-k 40 / top-p
+    0.9 (single-token ticks while one is live: the whole-model kernel at
+    B = 8, ragged positions); (b) 32 slots, chunk_prefill 128, chunk_decode
+    16 on KernelConfig.chunk(): n_b greedy / temperature requests (the chunk
+    kernel and staged_append each step, the prefill kernels at start > 0);
+    (c) spec_k 4 on a repetitive prompt, and generate_speculative_fast at
+    B = 1 with prompt lookup and with a 4-layer self-draft; (d) an
+    InferenceServer over HTTP loopback with 8 client threads. Requests/s,
+    tok/s, time to first token (p50 / p99), read-backs per tick, the
+    device's idle share per tick (the device time from torch.profiler over a
+    second run of the same seed, which must repeat every stream, sampled
+    ones too, over the first run's unprofiled wall time; the profiled run's
+    own share is kept beside it) and tokens per verify. Every greedy stream
+    equals the sequential Generator's under serve_witness, on the pack cut
+    to witness_layers layers; on the kernel routes the agreeing share is
+    reported (V_KERNEL_PREFIX_MIN)."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from mobilequant_tpu_torch.convert import build_synthetic_packed
+    from mobilequant_tpu_torch.quant.policy import relax_16bit
+    from mobilequant_tpu_torch.runtime import engine as E
+    from mobilequant_tpu_torch.runtime.generate import Generator, _cut
+    from mobilequant_tpu_torch.runtime.kernel_config import KernelConfig
+    from mobilequant_tpu_torch.runtime.sampling import SamplerConfig
+    from mobilequant_tpu_torch.runtime.serve import ContinuousBatcher
+    from mobilequant_tpu_torch.runtime.server import InferenceServer, make_http_server
+
+    phase(f"phase 3v: serving, {model} W4A8/h4, int8 KV, relaxed (batcher, speculative, "
+          f"HTTP)")
+    packed, cfg, policy, ecfg = build_synthetic_packed(model, w_bits=4, head_bits=4,
+                                                       max_seq_len=max_seq, seed=SEED,
+                                                       device=dev)
+    policy = relax_16bit(policy)
+    ecfg_b = dataclasses.replace(ecfg, use_pallas=KernelConfig.chunk())
+    rng = np.random.default_rng(V_SEED)
+    V = cfg.vocab_size
+    greedy = SamplerConfig(greedy=True)
+    mix_a = [greedy, SamplerConfig(temperature=0.8), greedy,
+             SamplerConfig(temperature=0.8, top_k=40, top_p=0.9)]
+    mix_b = [greedy, SamplerConfig(temperature=0.8)]
+
+    def draw(n, mix):
+        return [(rng.integers(0, V, int(rng.integers(prompts[0], prompts[1] + 1))
+                              ).astype(np.int32),
+                 int(rng.integers(budgets[0], budgets[1] + 1)), mix[i % len(mix)])
+                for i in range(n)]
+    reqs_a, reqs_b = draw(n_a, mix_a), draw(n_b, mix_b)
+    rep = np.tile(rng.integers(0, V, 24), -(-rep_len // 24))[:rep_len].astype(np.int32)
+    reqs_c = [(rep, spec_new, greedy)]
+    reqs_d = draw(V_HTTP_CLIENTS * V_HTTP_PER_CLIENT, [greedy])
+
+    def serve(reqs, ecfg_, kw, seed=SEED, model=None):
+        pk, c = model or (packed, cfg)
+        cb = ContinuousBatcher(pk, c, policy, ecfg_, device=dev, seed=seed, **kw)
+        rids = [cb.submit(p, n, sampler=s) for p, n, s in reqs]
+        outs = cb.run()
+        torch.cuda.synchronize()
+        return [outs[r] for r in rids], cb
+
+    gen = Generator(packed, cfg, policy, ecfg, device=dev)
+
+    def sequential(reqs, g=None):
+        return [(g or gen).generate(p[None], n)[0].tolist() for p, n, s in reqs if s.greedy]
+
+    def greedy_of(reqs, outs):
+        return [o for (p, n, s), o in zip(reqs, outs) if s.greedy]
+
+    serve(draw(2, [greedy]), ecfg, cfg_a)                 # warm-up (allocator, clocks)
+    out = {}
+    for tag, reqs, ecfg_, kw, must in (
+            ("a", reqs_a, ecfg, cfg_a, ("fused_model_w4",)),
+            ("b", reqs_b, ecfg_b, cfg_b, ("fused_model_w4_chunk", "staged_append", "qkv_rope",
+                                          "prefill_attention", "w13_gate",
+                                          "w4a8_matmul_stacked"))):
+        outs, cb = counted(f"serve_{tag}", lambda: serve(reqs, ecfg_, kw))
+        st = dict(cb.stats)
+        box = {}
+
+        def again():
+            t0 = time.perf_counter()
+            box["outs"], box["cb"] = serve(reqs, ecfg_, kw)
+            box["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        dev_ms, top, n_k = device_profile(again)
+        ticks = box["cb"].stats["ticks"]
+        wall_ms = st["wall_s"] * 1e3 / st["ticks"]              # unprofiled, a tick
+        st.update({"requests": len(reqs), "ticks_profiled": ticks,
+                   "device_ms_per_tick": dev_ms / ticks,
+                   "wall_ms_per_tick": wall_ms,
+                   "wall_ms_per_tick_profiled": box["wall_ms"] / ticks,
+                   "idle_share": 1.0 - dev_ms / ticks / wall_ms,
+                   "idle_share_profiled": 1.0 - dev_ms / box["wall_ms"],
+                   "kernel_launches_per_tick": n_k / ticks,
+                   "host_syncs_per_tick": st["host_syncs"] / st["ticks"],
+                   "launches_per_tick": {k: v / st["ticks"]
+                                         for k, v in runs[f"serve_{tag}"].items() if v},
+                   "top_kernels": [(k, ms / ticks, n / ticks) for k, ms, n in top],
+                   "repeats": box["outs"] == outs and ticks == st["ticks"]})
+        seq = sequential(reqs)
+        st["greedy_prefix_share"] = _prefix_share(greedy_of(reqs, outs), seq)
+        st["greedy_distinct_tokens"] = len({t for o in seq for t in o})
+        out[tag] = {"stats": st, "outs": outs, "seq": seq}
+        print(f"  ({tag}) {len(reqs)} requests, {kw}: {st['requests_s']:.2f} req/s, "
+              f"{st['tok_s']:.1f} tok/s, TTFT p50 {st['ttft_p50_s'] * 1e3:.1f} ms p99 "
+              f"{st['ttft_p99_s'] * 1e3:.1f} ms, {st['ticks']} ticks, read-backs / tick "
+              f"{st['host_syncs_per_tick']:.2f}, pipelined ticks {st['pipelined_ticks']}; "
+              f"device {dev_ms / ticks:.3f} ms / tick (profiled rerun) of {wall_ms:.3f} wall, "
+              f"idle share {st['idle_share']:.3f} (against the profiled rerun's "
+              f"{box['wall_ms'] / ticks:.3f} ms wall: {st['idle_share_profiled']:.3f}); "
+              f"same seed repeats every stream: {st['repeats']}; "
+              f"greedy tokens before the first difference from the sequential Generator: "
+              f"{st['greedy_prefix_share']:.4f} ({st['greedy_distinct_tokens']} distinct "
+              f"greedy tokens); launches / tick "
+              f"{ {k: round(v, 2) for k, v in st['launches_per_tick'].items()} }", flush=True)
+        if not st["repeats"]:
+            failures.append(f"3v ({tag}): a second run with the same seed differs")
+        if any(len(o) != n for o, (p, n, s) in zip(outs, reqs)):
+            failures.append(f"3v ({tag}): a stream is not its budget long")
+        if any(min(o) < 0 or max(o) >= V for o in outs):
+            failures.append(f"3v ({tag}): token ids out of range")
+        for k in must:
+            if runs[f"serve_{tag}"][k] <= 0:
+                failures.append(f"3v ({tag}): {k} was not launched {runs[f'serve_{tag}']}")
+        del box
+
+    # (c) speculative: the batcher's tail ticks and generate_speculative_fast
+    outs_c, cb_c = counted("serve_spec", lambda: serve(reqs_c, ecfg, dict(cfg_a, spec_k=V_SPEC_K)))
+    spec = {"batcher": dict(cb_c.stats)}
+    for tag, sdl, n_new in (("lookup", 0, spec_new),
+                            ("self_draft", V_SELF_DRAFT, min(spec_new, V_SELF_DRAFT_NEW))):
+        gen.generate_speculative_fast(rep[None], 8, k=V_SPEC_K, self_draft_layers=sdl)
+        toks, stc = counted(f"spec_{tag}", lambda: gen.generate_speculative_fast(
+            rep[None], n_new, k=V_SPEC_K, self_draft_layers=sdl, return_stats=True))
+        stc["tokens"] = toks[0].tolist()
+        stc["host_syncs_per_chunk"] = stc["host_syncs"] / max(-(-stc["verify_calls"] // 8), 1)
+        spec[tag] = stc
+    box = {}
+
+    def spec_prof():
+        t0 = time.perf_counter()
+        box["stats"] = gen.generate_speculative_fast(rep[None], 32, k=V_SPEC_K,
+                                                     return_stats=True)[1]
+        torch.cuda.synchronize()
+        box["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    spec_prof()                                         # the same call, unprofiled
+    wall_ms = box["wall_ms"]
+    dev_ms, top, n_k = device_profile(spec_prof)
+    nv = box["stats"]["verify_calls"]
+    spec["profiled"] = {"verify_calls": nv, "wall_ms": wall_ms,
+                        "wall_ms_profiled": box["wall_ms"], "device_ms": dev_ms,
+                        "idle_share": 1.0 - dev_ms / wall_ms,
+                        "idle_share_profiled": 1.0 - dev_ms / box["wall_ms"],
+                        "kernel_launches_per_verify": n_k / nv,
+                        "top_kernels": [(k, ms / nv, n / nv) for k, ms, n in top]}
+    print(f"  (c) prompt-lookup call (prefill and {nv} verifies): wall {wall_ms:.2f} ms "
+          f"(profiled {box['wall_ms']:.2f}), device {dev_ms:.2f} ms, idle share "
+          f"{spec['profiled']['idle_share']:.3f} (against the profiled wall "
+          f"{spec['profiled']['idle_share_profiled']:.3f}), {n_k / nv:.1f} kernel launches a "
+          f"verify", flush=True)
+    seq_c = sequential(reqs_c)[0]
+    t0 = time.perf_counter()
+    gen.generate(rep[None], spec_new)
+    seq_c_s = time.perf_counter() - t0
+    spec["sequential_decode_tok_s"] = spec_new / seq_c_s
+    spec["prefix_share"] = {
+        "batcher": _prefix_share(outs_c, [seq_c]),
+        "lookup": _prefix_share([spec["lookup"]["tokens"]], [seq_c]),
+        "self_draft": _prefix_share([spec["self_draft"]["tokens"]],
+                                    [seq_c[:len(spec["self_draft"]["tokens"])]])}
+    if runs["spec_lookup"]["w4a8_matmul_stacked"] <= 0 or runs["spec_self_draft"]["fused_layer_w4"] <= 0:
+        failures.append(f"3v (c): verify / self-draft kernels not launched "
+                        f"{runs['spec_lookup']} {runs['spec_self_draft']}")
+    print(f"  (c) spec_k {V_SPEC_K} batcher: {cb_c.stats['tok_s']:.1f} tok/s, "
+          f"{cb_c.stats['ticks']} ticks; generate_speculative_fast B=1: prompt lookup "
+          f"{spec['lookup']['decode_tok_s']:.1f} tok/s, {spec['lookup']['tokens_per_verify']:.3f} "
+          f"tokens / verify, {spec['lookup']['host_syncs']} read-backs; {V_SELF_DRAFT}-layer "
+          f"self-draft {spec['self_draft']['decode_tok_s']:.1f} tok/s, "
+          f"{spec['self_draft']['tokens_per_verify']:.3f} tokens / verify; sequential generate "
+          f"{spec['sequential_decode_tok_s']:.1f} tok/s; agreeing prefix with the sequential "
+          f"stream {spec['prefix_share']}", flush=True)
+    out["c"] = spec
+
+    # (d) the HTTP server: V_HTTP_CLIENTS client threads over loopback
+    cb_d = ContinuousBatcher(packed, cfg, policy, ecfg, device=dev, seed=SEED, **cfg_a)
+    srv = InferenceServer(cb_d).start()
+    httpd = make_http_server(srv, port=0)
+    port = httpd.server_address[1]
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    res, errs = [None] * len(reqs_d), []
+
+    def client(c):
+        for j in range(V_HTTP_PER_CLIENT):
+            i = c * V_HTTP_PER_CLIENT + j
+            p, n, _ = reqs_d[i]
+            body = json.dumps({"prompt_ids": [int(t) for t in p], "max_new_tokens": n,
+                               "temperature": 0.0}).encode()
+            try:
+                with urllib.request.urlopen(urllib.request.Request(
+                        f"http://127.0.0.1:{port}/generate", data=body,
+                        headers={"Content-Type": "application/json"}), timeout=300) as r:
+                    res[i] = json.loads(r.read())["completion_ids"]
+            except Exception as e:                        # noqa: BLE001
+                errs.append(repr(e))
+    try:
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,)) for c in range(V_HTTP_CLIENTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        wall_d = time.perf_counter() - t0
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=30) as r:
+            stats_d = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+    seq_d = sequential(reqs_d)
+    done = [r for r in res if r is not None]
+    out["d"] = {"requests": len(reqs_d), "errors": errs, "wall_s": wall_d,
+                "requests_s": len(done) / wall_d,
+                "tok_s": sum(len(r) for r in done) / wall_d,
+                "host_syncs": stats_d["host_syncs"],
+                "prefix_share": _prefix_share([r or [] for r in res], seq_d)}
+    print(f"  (d) HTTP, {V_HTTP_CLIENTS} clients x {V_HTTP_PER_CLIENT}: {len(done)} of "
+          f"{len(reqs_d)} answered in {wall_d:.2f} s ({out['d']['requests_s']:.2f} req/s, "
+          f"{out['d']['tok_s']:.1f} tok/s), errors {errs}, agreeing prefix with the "
+          f"sequential Generator {out['d']['prefix_share']:.4f}", flush=True)
+    if errs or len(done) != len(reqs_d):
+        failures.append(f"3v (d): HTTP requests failed {errs}")
+
+    # the witnesses: every kernel on the plain engine's numerics, on the
+    # pack's first witness_layers layers (the full-depth random model gives
+    # every prompt the same greedy token, a stream that would hide a wrong
+    # token or position; a cut model's streams follow their inputs); the
+    # batcher's greedy streams must equal the sequential Generator's
+    wit = {}
+    wpacked = {k: v for k, v in packed.items() if k != "kernel_prep"}
+    wpacked["layers"] = _cut(packed["layers"], witness_layers)
+    wpacked["ranges"] = _cut(packed["ranges"], witness_layers)
+    wcfg = dataclasses.replace(cfg, num_layers=witness_layers)
+    wecfg, wecfg_b = (dataclasses.replace(e, model=wcfg) for e in (ecfg, ecfg_b))
+    wmodel = (wpacked, wcfg)
+    gen_w = Generator(wpacked, wcfg, policy, wecfg, device=dev)
+
+    def short(reqs):
+        return [(p, min(n, V_WITNESS_BUDGET), s) for p, n, s in reqs]
+    wit_a = short(reqs_a[:V_WITNESS_A])
+    wit_b = [(p, witness_long[1], greedy) for p, n, s in reqs_b[:witness_long[0]]]
+    wit_b += short([(p, n, greedy if i % 4 == 0 else mix_b[1])
+                    for i, (p, n, s) in enumerate((reqs_b + reqs_a)[:V_WITNESS_B])])
+    wit_new = min(spec_new, V_WITNESS_NEW)
+    with patched(serve_witness(E, wcfg, policy)):
+        for tag, reqs, ecfg_, kw in (("a", wit_a, wecfg, cfg_a), ("b", wit_b, wecfg_b, cfg_b),
+                                     ("c", [(rep, wit_new, greedy)], wecfg,
+                                      dict(cfg_a, spec_k=V_SPEC_K))):
+            outs, cb_w = counted(f"serve_witness_{tag}",
+                                 lambda: serve(reqs, ecfg_, kw, model=wmodel))
+            seq = sequential(reqs, gen_w)
+            got = greedy_of(reqs, outs)
+            if tag == "c":
+                for sdl in (0, V_SELF_DRAFT):
+                    got.append(gen_w.generate_speculative_fast(
+                        rep[None], wit_new, k=V_SPEC_K, self_draft_layers=sdl)[0].tolist())
+                    seq.append(seq[0])
+            wit[tag] = {"streams": len(seq), "equal": sum(a == b for a, b in zip(got, seq)),
+                        "prefix_share": _prefix_share(got, seq),
+                        "distinct_tokens": len({t for o in seq for t in o}),
+                        "pipelined_ticks": cb_w.stats["pipelined_ticks"]}
+            if tag == "b" and not cb_w.stats["pipelined_ticks"]:
+                failures.append(f"3v witness (b): no pipelined tick ran {cb_w.stats}")
+            if wit[tag]["distinct_tokens"] < 2:
+                failures.append(f"3v witness ({tag}): the greedy streams hold one token")
+            if any(runs[f"serve_witness_{tag}"].values()):
+                failures.append(f"3v witness ({tag}) launched kernels "
+                                f"{runs[f'serve_witness_{tag}']}")
+            if wit[tag]["equal"] != wit[tag]["streams"]:
+                failures.append(f"3v witness ({tag}): {wit[tag]}")
+    print(f"  witnesses (every kernel on the plain engine's numerics), greedy streams equal "
+          f"to the sequential Generator's: {wit}", flush=True)
+    out["witness"] = wit
+    shares = {"a": out["a"]["stats"]["greedy_prefix_share"],
+              "b": out["b"]["stats"]["greedy_prefix_share"], "d": out["d"]["prefix_share"],
+              **{f"c_{k}": v for k, v in spec["prefix_share"].items()}}
+    out["kernel_prefix_share"] = shares
+    if V_KERNEL_PREFIX_MIN is not None and min(shares.values()) < V_KERNEL_PREFIX_MIN:
+        failures.append(f"3v: greedy tokens agreeing with the sequential Generator on the "
+                        f"kernel routes {shares} < {V_KERNEL_PREFIX_MIN}")
+    for tag in ("a", "b"):
+        out[tag] = out[tag]["stats"]
+    del packed, gen, wpacked, gen_w
+    torch.cuda.empty_cache()
+    return out
 
 
 def engine_numerics(E, cfg, policy, attention=True, norms=True):
@@ -4216,6 +4618,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     quant = phase_quantize(dev, counted, runs, failures)
+    serving_v = phase_serve(dev, counted, runs, failures)
 
     # ---- phase 4: report ---------------------------------------------------
     sources = {"w4a8_matmul": ("csrc/w4a8_matmul.cu",
@@ -4379,6 +4782,7 @@ def main() -> None:
                            "chunk_stage_us": chunk_stage_us_s, "b1_step": b1_s,
                            "chunk_vs_plain": chain_s},
               "quantize": quant,
+              "serving_batcher": serving_v,
               "gemma": {"serving": serve_g, "fused_model_stage_us": stage_us_g,
                         "chunk_stage_us": chunk_stage_us_g, "b1_step": b1_g,
                         "chunk_gate": {str(k): v for k, v in gate_g.items()},

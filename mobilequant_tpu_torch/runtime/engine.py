@@ -1208,7 +1208,7 @@ def decode_loop(packed: dict, first_token: torch.Tensor, kv_cache: EngineKVCache
                 start_pos: torch.Tensor, n_steps: int, config: ModelConfig,
                 policy: QPolicy, kc=None,
                 temperature=0.0, generator: Optional[torch.Generator] = None,
-                staging_chunk: int = 32):
+                staging_chunk: int = 32, max_start: Optional[int] = None):
     """n_steps of decode, one T=1 forward per step. first_token (B, 1),
     start_pos (B,) -> (tokens (B, n_steps), cache, last logits (B, V)).
 
@@ -1228,8 +1228,13 @@ def decode_loop(packed: dict, first_token: torch.Tensor, kv_cache: EngineKVCache
     are written into the cache at the chunk-start positions (on the int4
     cache, merged into its nibbles by qops.kv_flush_packed). The chunk's
     rows must fit the cache: start_pos + n_steps <= max_seq_len, checked once
-    per call (start_pos.max() is read back to the host: one synchronisation
-    per call, before the first step)."""
+    per call against max_start, the caller's host copy of start_pos.max()
+    (a continuous batcher knows it); without it start_pos.max() is read back
+    to the host: one synchronisation per call, before the first step.
+
+    temperature: a float (0 = greedy) or a per-row (B,) tensor, where rows
+    at 0 take the argmax and the others draw from `generator`
+    (sampling.loop_next_token)."""
     from mobilequant_tpu_torch.runtime.sampling import loop_next_token
     B = first_token.shape[0]
     if not isinstance(kc, KernelConfig):
@@ -1261,7 +1266,7 @@ def decode_loop(packed: dict, first_token: torch.Tensor, kv_cache: EngineKVCache
     colsums = qops.kv_colsums_packed if kv4 else kv_colsums
     cs = staging_chunk if (n_steps > staging_chunk and n_steps % staging_chunk == 0) \
         else n_steps
-    end = int(start_pos.max()) + n_steps
+    end = (int(start_pos.max()) if max_start is None else int(max_start)) + n_steps
     if end > S:
         raise ValueError(f"decode_loop: {n_steps} steps from position "
                          f"{end - n_steps} pass the cache's {S} rows")

@@ -183,11 +183,15 @@ def forward(packed: dict, tokens, config: ModelConfig, policy=None, positions=No
 
 def decode_loop(packed: dict, first_token: torch.Tensor, kv_cache: M.KVCache,
                 start_pos: torch.Tensor, n_steps: int, config: ModelConfig, policy=None,
-                kc=None, temperature: float = 0.0,
-                generator: Optional[torch.Generator] = None):
+                kc=None, temperature=0.0,
+                generator: Optional[torch.Generator] = None,
+                max_start: Optional[int] = None):
     """n_steps of decode, one T = 1 forward a step (the cache written in
     place). first_token (B, 1), start_pos (B,) -> (tokens (B, n_steps), cache,
-    last logits (B, V)); greedy, or a draw at `temperature` from `generator`.
+    last logits (B, V)); greedy, or a draw from `generator` at `temperature`,
+    a float or a per-row (B,) tensor (0 = greedy; sampling.loop_next_token).
+    max_start is taken for engine.decode_loop's signature (nothing here
+    reads start_pos back).
     Signature-compatible with engine.decode_loop: kc takes a KernelConfig
     or a legacy use_pallas value (None is True, the kernels on), read as in
     forward."""
