@@ -1,4 +1,5 @@
-"""Packed models carried across from the JAX package, or made synthetically.
+"""Packed models carried across from the JAX package, or made synthetically
+(an HF checkpoint is read by models/convert.py).
 
 from_jax_packed        the JAX engine's pack() output (as a tree of numpy
                        arrays) -> the port's packed dict, canonical keys only
@@ -95,9 +96,13 @@ def build_synthetic_packed(model_name: str = "tinyllama-1.1b", w_bits: int = 4,
     (L,) for o / w2 and per column (L, 1, N) for the fused qkv / w13 packs, as
     engine.pack lays them out. Either way every projection keeps O(1)
     outputs. Static ranges span ±4 at each site's bitwidth; the head is a
-    seeded N(0, 0.02²) matrix, or for a tied model (Gemma) the embedding's
-    transpose, through pack_head (head_bits 4 or 8), or the fp head (16; a
-    tied model reads the embedding). Norm weights are 1 and every bias 0, except that a LayerNorm
+    seeded N(0, 0.02²) matrix, or for a tied model (Gemma-2B, Qwen2-1.5B)
+    the embedding's transpose, through pack_head (head_bits 4 or 8; the
+    vocabulary padded to a multiple of 4096 as the JAX pack pads it:
+    151,936 -> 155,648), or the fp head (16; a tied model reads the
+    embedding). Any registry model the engine serves (the Phi family and MoE
+    configurations are refused) builds at its full width: on the card a
+    Llama-3-8B W4 pack is ~6 GB. Norm weights are 1 and every bias 0, except that a LayerNorm
     model (StableLM) gets norm weights 1 + N(0, 0.05²) and biases N(0,
     0.02²) (every layer's two norms and the final norm) and a model with a
     q/k/v bias one of N(0, 0.1²), drawn after the weights from a second

@@ -15,7 +15,8 @@
 // the host, so a step stays one asynchronous launch); a block whose stripe is
 // empty still joins every cluster barrier.
 //   * scores: a thread per (row, query head), the head fixed by the thread
-//     (its q row in registers), the row's K bytes in 16-byte loads, dp4a dots
+//     (its q row in registers; dc::ScoreMap: lane l takes head l % G, so at
+//     G = 6 lanes 30 and 31 idle), the row's K bytes in 16-byte loads, dp4a dots
 //     (exact) and the JAX kernel's fp32 epilogue in its order, into fp64
 //     slots of shared memory (which later hold P);
 //   * softmax in two phases, no online rescaling: the block maxima meet over
@@ -120,13 +121,14 @@ __global__ void __launch_bounds__(dc::THREADS) decode_attn_kernel(
       vpre[u][h] = r < nr ? ld_lane<DPT>(vb + (size_t)r * HD, lane) : lane_zero<DPT>();
     }
 
-  // ---- scores: a thread per (row, query head), head g = tid % G ---------------
-  const int g = tid % G;
+  // ---- scores: a thread per (row, query head) (dc::ScoreMap) -----------------
+  using SM = dc::ScoreMap<G>;
+  const int g = SM::head();
   int qw[HW];
   const float qsf = (float)dc::load_q_row<HD>(q8 + ((size_t)bh * G + g) * HD, qw);
   float mloc = -3.4028235e38f;
-  for (int it = tid; it < nr * G; it += dc::THREADS) {
-    const int r = it / G;
+  for (int it = SM::start(); it < SM::end(nr); it += SM::STEP) {
+    const int r = SM::slot(it);
     int ks;
     const int acc = dc::row_dot<HD>(kb + (size_t)r * HD, qw, ks);
     float t = (float)acc - k.ok * qsf;
@@ -148,8 +150,9 @@ __global__ void __launch_bounds__(dc::THREADS) decode_attn_kernel(
   cluster.sync();
   const float mg = dc::cluster_max(cluster, &st.mx[g], ncl);
   double dl = 0.0;
-  for (int it = tid; it < nr * G; it += dc::THREADS) {
-    double* s = pd + g * W + it / G;
+  for (int it = SM::start(); it < SM::end(nr); it += SM::STEP) {
+    const int r = SM::slot(it);
+    double* s = pd + g * W + r;
     const float e = expf((float)*s - mg);
     *s = e;
     dl += e;
@@ -163,8 +166,9 @@ __global__ void __launch_bounds__(dc::THREADS) decode_attn_kernel(
 
   // ---- P = e / den [fq16], partial ΣP ---------------------------------------
   double pl = 0.0;
-  for (int it = tid; it < nr * G; it += dc::THREADS) {
-    double* s = pd + g * W + it / G;
+  for (int it = SM::start(); it < SM::end(nr); it += SM::STEP) {
+    const int r = SM::slot(it);
+    double* s = pd + g * W + r;
     float p = (float)*s / denf;
     if (k.pm > 0.5f) p = fq16(p, k.ps, k.po, k.pm);
     *s = p;
@@ -236,7 +240,7 @@ int launch(const void* q8, const void* k8, const void* v8, const void* valid, vo
 
 // q8 (B, hkv, G, hd); k8 / v8 (B, hkv, S, hd); valid (B,); out (B, hkv, G, hd)
 // fp32; consts: 14 host floats (DaConsts). hd 64, 128 or 256, G in {1, 2, 4,
-// 8, 16}; ncl blocks (one cluster) a (sequence, kv head), a power of two <= 8.
+// 6, 8, 16}; ncl blocks (one cluster) a (sequence, kv head), a power of two <= 8.
 MQT_EXPORT int mqt_decode_attention(const void* q8, const void* k8, const void* v8,
                                     const void* valid, void* out, const float* consts, int B,
                                     int hkv, int G, int hd, int S, int skip, int ncl,
@@ -258,6 +262,7 @@ MQT_EXPORT int mqt_decode_attention(const void* q8, const void* k8, const void* 
     MQT_DA_CASE(1)
     MQT_DA_CASE(2)
     MQT_DA_CASE(4)
+    MQT_DA_CASE(6)
     MQT_DA_CASE(8)
     MQT_DA_CASE(16)
     default:

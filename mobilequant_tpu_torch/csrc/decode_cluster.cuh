@@ -27,17 +27,55 @@ constexpr int MAX_CLUSTER = 8;       // blocks a (sequence, kv head): Hopper's p
 
 using Cluster = cooperative_groups::cluster_group;
 
+// The largest divisor of g that is at most cap.
+__host__ __device__ constexpr int divisor_upto(int g, int cap) {
+  int d = cap < g ? cap : g;
+  while (g % d) --d;
+  return d;
+}
+
 // P·V: lanes along hd (DPT values a lane), warps along the positions; a
-// thread keeps fp64 partials of GPT query heads, the heads split over NGW
-// warp groups where G·DPT would pass 32 partials; NCW warps a group.
+// thread keeps fp64 partials of GPT query heads (the largest divisor of G
+// with GPT·DPT <= 32), the heads split over NGW warp groups; NCW warps a
+// group.
 template <int G, int HD>
 struct PvLayout {
   static_assert(HD == 64 || HD == 128 || HD == 256, "hd 64, 128 or 256");
-  static_assert(G >= 1 && G <= 16 && (G & (G - 1)) == 0, "G a power of two <= 16");
+  static_assert(G >= 1 && G <= 16, "G <= 16");
   static constexpr int DPT = HD / 32;
-  static constexpr int GPT = G * DPT <= 32 ? G : 32 / DPT;
+  static constexpr int GPT = divisor_upto(G, 32 / DPT);
   static constexpr int NGW = G / GPT;
+  static_assert(WARPS % NGW == 0, "the head groups split the warps evenly");
   static constexpr int NCW = WARPS / NGW;
+};
+
+// The scores' thread map: lane l < LG = RPW·G of a warp takes query head
+// l % G and slot (row, or word of four columns) warp·RPW + l / G of every
+// sweep of RPS slots; lanes LG..31 (two at G = 6) take no slot. A loop walks
+// it = start(); it < end(n); it += STEP over slot(it). Where G divides 32
+// (P2) this is the power-of-two editions' own walk: thread tid on head
+// tid % G, it over [tid, n·G) in steps of THREADS, slot it / G.
+template <int G>
+struct ScoreMap {
+  static constexpr int RPW = 32 / G;
+  static constexpr int LG = RPW * G;
+  static constexpr bool P2 = 32 % G == 0;
+  static constexpr int STEP = P2 ? THREADS : WARPS * RPW;
+  __device__ static int head() {
+    if constexpr (P2) return (int)threadIdx.x % G;
+    else return (int)(threadIdx.x & 31) % G;
+  }
+  // the first slot (a slot past every stripe for an idle lane)
+  __device__ static int start() {
+    if constexpr (P2) {
+      return (int)threadIdx.x;
+    } else {
+      const int lane = threadIdx.x & 31;
+      return lane < LG ? (int)(threadIdx.x >> 5) * RPW + lane / G : 1 << 30;
+    }
+  }
+  __device__ static int end(int n) { return P2 ? n * G : n; }
+  __device__ static int slot(int it) { return P2 ? it / G : it; }
 };
 
 // What a block shows the rest of its cluster (and its own warp partials),
@@ -97,25 +135,42 @@ __device__ __forceinline__ int row_dot(const int8_t* row, const int (&qw)[HD / 4
   return acc;
 }
 
-// max / fp64 sum over the lanes of a warp with equal lane % G (G divides 32):
-// every lane gets its head's value
+// max / fp64 sum over the lanes l < ScoreMap<G>::LG of a warp with equal
+// l % G: every lane gets the value of head lane % G. A power of two G folds
+// by a butterfly; another G (6) gathers the lanes h, h + G, ... in order.
 template <int G>
 __device__ __forceinline__ float group_max(float v) {
+  if constexpr ((G & (G - 1)) == 0) {
 #pragma unroll
-  for (int o = 16; o >= G; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+    for (int o = 16; o >= G; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+  } else {
+    const int h = (threadIdx.x & 31) % G;
+    float a = __shfl_sync(0xffffffffu, v, h);
+#pragma unroll
+    for (int j = 1; j < ScoreMap<G>::RPW; ++j) a = fmaxf(a, __shfl_sync(0xffffffffu, v, h + j * G));
+    return a;
+  }
 }
 template <int G>
 __device__ __forceinline__ double group_sum(double v) {
+  if constexpr ((G & (G - 1)) == 0) {
 #pragma unroll
-  for (int o = 16; o >= G; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+    for (int o = 16; o >= G; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+  } else {
+    const int h = (threadIdx.x & 31) % G;
+    double a = __shfl_sync(0xffffffffu, v, h);
+#pragma unroll
+    for (int j = 1; j < ScoreMap<G>::RPW; ++j) a += __shfl_sync(0xffffffffu, v, h + j * G);
+    return a;
+  }
 }
 
 // The block's value for head threadIdx.x (threads < G; the others get the
-// fold's start), from every thread's v for head threadIdx.x % G: warps folded
-// in index order. Ends with the block's threads synchronised after the warp
-// values were written.
+// fold's start), from every thread's v for its head (ScoreMap<G>::head();
+// idle lanes hold the fold's start): warps folded in index order. Ends with
+// the block's threads synchronised after the warp values were written.
 template <int G>
 __device__ __forceinline__ float block_max(float v, float* wmx) {
   v = group_max<G>(v);

@@ -114,15 +114,17 @@ __global__ void __launch_bounds__(dc::THREADS) kv4_attn_kernel(
     vpre[jd] = cw < nwr ? (unsigned)mqt::ld_i32(vbase + (size_t)(lane + 32 * jd) * S2 + 4 * cw)
                         : 0u;
 
-  // ---- scores, head g = tid % G --------------------------------------------------
-  const int g = tid % G;
+  // ---- scores: a thread per (slot, query head) (dc::ScoreMap) -------------------
+  using SM = dc::ScoreMap<G>;
+  const int g = SM::head();
   int qw[HW];
   const float qsf = (float)dc::load_q_row<HD>(q8 + ((size_t)bh * G + g) * HD, qw);
   float mloc = -3.4028235e38f;
 
   // cache columns, both nibble planes: a thread per (word, query head)
-  for (int it = tid; it < nwr * G; it += dc::THREADS) {
-    const int jj = it / G, c0 = 4 * (w0 + jj);
+  for (int it = SM::start(); it < SM::end(nwr); it += SM::STEP) {
+    const int jj = SM::slot(it);
+    const int c0 = 4 * (w0 + jj);
     const bool do_hi = c0 < nhi;
     int alo[4] = {0, 0, 0, 0}, ahi[4] = {0, 0, 0, 0};
 #pragma unroll
@@ -158,8 +160,8 @@ __global__ void __launch_bounds__(dc::THREADS) kv4_attn_kernel(
   }
 
   // staged columns (the last block): a thread per (row, query head)
-  for (int it = tid; it < ncs * G; it += dc::THREADS) {
-    const int jj = it / G;
+  for (int it = SM::start(); it < SM::end(ncs); it += SM::STEP) {
+    const int jj = SM::slot(it);
     int ks;
     const int acc = dc::row_dot<HD>(sk + (slab * cst + jj) * HD, qw, ks);
     float t = (float)acc - k.oks * qsf;
@@ -193,8 +195,8 @@ __global__ void __launch_bounds__(dc::THREADS) kv4_attn_kernel(
   // every fp64 slot this thread owns: its cache and staged columns, and the
   // self column of head tid (threads < G of the last block)
   auto each_slot = [&](auto&& f) {
-    for (int it = tid; it < nwr * G; it += dc::THREADS) {
-      const int jj = it / G;
+    for (int it = SM::start(); it < SM::end(nwr); it += SM::STEP) {
+      const int jj = SM::slot(it);
       double* s = pd + g * LDC + 4 * jj;
 #pragma unroll
       for (int x = 0; x < 4; ++x) f(s + x);
@@ -202,7 +204,8 @@ __global__ void __launch_bounds__(dc::THREADS) kv4_attn_kernel(
 #pragma unroll
         for (int x = 0; x < 4; ++x) f(s + WC + x);
     }
-    for (int it = tid; it < ncs * G; it += dc::THREADS) f(pd + g * LDC + 2 * WC + it / G);
+    for (int it = SM::start(); it < SM::end(ncs); it += SM::STEP)
+      f(pd + g * LDC + 2 * WC + SM::slot(it));
     if (last && tid < G) f(pd + tid * LDC + SELF);
   };
 
@@ -342,7 +345,7 @@ int launch(const void* q8, const void* kp, const void* vp, const void* kcs, cons
 // q8 (BH, G, hd); kp / vp (L, BH, hd, S2); kcs (L, BH, 2 S2) fp32; sk / sv
 // (L, BH, cs, hd); kn / vn (BH, hd); pos (B,) with B = BH / hkv; out (BH, G, hd)
 // fp32; consts: 18 host floats (Kv4Consts). hd 64 or 128, S2 % 4 == 0,
-// G in {1, 2, 4, 8, 16}; ncl blocks (one cluster) a (sequence, kv head), a
+// G in {1, 2, 4, 6, 8, 16}; ncl blocks (one cluster) a (sequence, kv head), a
 // power of two <= 8.
 MQT_EXPORT int mqt_kv4_decode_attention(const void* q8, const void* kp, const void* vp,
                                         const void* kcs, const void* sk, const void* sv,
@@ -367,6 +370,7 @@ MQT_EXPORT int mqt_kv4_decode_attention(const void* q8, const void* kp, const vo
     MQT_KV4_CASE(1)
     MQT_KV4_CASE(2)
     MQT_KV4_CASE(4)
+    MQT_KV4_CASE(6)
     MQT_KV4_CASE(8)
     MQT_KV4_CASE(16)
     default:

@@ -16,8 +16,11 @@
 // are few (a tile is read once per query tile, from L2 after the first). The
 // scalar edition this replaces ran Q·Kᵀ as dp4a and P·V as fp32 FMAs on the
 // CUDA cores, two threads a row. Design: one block per (batch, kv head, query
-// tile of 64 / G positions, the longest rows first), the G query heads of the
-// kv head packed into the tile's 64 rows: four row warps of 16 rows, twice
+// tile of BQ = ⌊64 / G⌋ positions, the longest rows first), the G query heads
+// of the kv head packed into the tile's first G·BQ rows (all 64 where G
+// divides 64; 60 at G = 6, the last 4 idle: no q loaded, every column
+// masked, nothing written, as the JAX kernel's padded queries at position
+// −1): four row warps of 16 rows, twice
 // (two column groups: tile 2 i to one, 2 i + 1 to the other, their row
 // states merged at the end). K/V tiles of 64 columns stream a pair at a time
 // through a four-stage cp.async ring (rows padded to 80 bytes: conflict-free
@@ -66,7 +69,7 @@
 
 namespace {
 
-constexpr int ROWS = 64;             // G · BQ query rows a block, 16 a row warp
+constexpr int ROWS = 64;             // G · BQ (<= 64) live query rows a block, 16 a row warp
 constexpr int THREADS = 256;         // 4 row warps x 2 column groups
 constexpr int BS = 64;               // K/V columns a tile
 constexpr int NST = 4;               // cp.async ring stages: two pairs of tiles
@@ -103,6 +106,7 @@ struct Ed {
   static constexpr int CPR = HD / 16;          // 16-byte chunks a row
   static constexpr size_t RING = (size_t)NST * BS * RB;
   // K ring, V ring, the column groups' exchange (xch), the rows' positions
+  // (-1 for an idle row or one past T)
   static constexpr size_t SMEM = 2 * RING + 2 * 4 * 32 * 2 * sizeof(double) + ROWS * 4;
 };
 
@@ -165,11 +169,15 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3, cg = tid >> 7;
   const int gq = lane >> 2, tq = lane & 3;
-  const int BQ = ROWS / G;
+  const int BQ = ROWS / G, GB = G * BQ;               // rows >= GB are idle
   const int bh = blockIdx.x, b = bh / Hkv, h = bh % Hkv;
   const int t0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // the longest rows first
 
-  if (tid < BQ) pos_s[tid] = (t0 + tid < T) ? positions[(size_t)b * T + t0 + tid] : -1;
+  // row r: query head r / BQ at position t0 + r % BQ
+  if (tid < ROWS) {
+    const int rt = t0 + tid % BQ;
+    pos_s[tid] = (tid < GB && rt < T) ? positions[(size_t)b * T + rt] : -1;
+  }
   __syncthreads();
   int pmax = -1;
   for (int i = 0; i < BQ; ++i) pmax = max(pmax, pos_s[i]);
@@ -185,9 +193,10 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = 16 * warp + gq + 8 * i, rt = t0 + r % BQ;
-    const bool ok = rt < T;
-    const int rpos = ok ? pos_s[r % BQ] : -1;
-    const int8_t* qp = q + b * qs.b + h * qs.h + (r / BQ) * qs.g + (long long)(ok ? rt : 0) * qs.t;
+    const bool ok = r < GB && rt < T;
+    const int rpos = pos_s[r];
+    const int8_t* qp = q + b * qs.b + h * qs.h + (ok ? r / BQ : 0) * qs.g
+                       + (long long)(ok ? rt : 0) * qs.t;
     int s = 0;
 #pragma unroll
     for (int kk = 0; kk < KST; ++kk) {
@@ -291,9 +300,9 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
         float x = ((i2f(acc[e]) - okq[i]) - oqk[c] + hdoo) * sqk;
         if (QK_FQ) x = fq16(x, mt.qks, mt.qko, mt.qkq);
         x = x * inv_sqrt;
-        if (!full) {          // the row's position: from shared memory (-1 past T)
+        if (!full) {          // the row's position: from shared memory (-1 if idle)
           const int r = 16 * warp + gq + 8 * i, col = s0 + 32 * hh + 8 * n + 2 * tq + c;
-          const int rpos = t0 + r % BQ < T ? pos_s[r % BQ] : -1;
+          const int rpos = pos_s[r];
           x = x + ((col <= rpos && col < vb) ? 0.0f : mt.neg_inf);
         }
         sc[n][e] = x;
@@ -504,7 +513,7 @@ prefill_attn_kernel(const int8_t* __restrict__ q, Strides qs,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = 16 * warp + gq + 8 * i, rt = t0 + r % BQ;
-    if (rt >= T) continue;
+    if (r >= GB || rt >= T) continue;
     float y[2 * NT];
     const float linv = 1.0f / fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -559,8 +568,8 @@ int launch_hd(bool qk_fq, bool pv_fq, dim3 grid, cudaStream_t st, const int8_t* 
 // [sq, oq, sk, ok, sv, ov, qk_out s, o, qmax, pv_in s, o, qmax, neg_inf]
 // (offsets unshifted, as there), then the fp32 of 1 / √hd. q_strides /
 // o_strides: 4 int64 element strides each (b, kv head, group, t) of q and
-// out; out's dims contiguous and 16-byte aligned. hd 64, 128 or 256; G
-// divides 64.
+// out; out's dims contiguous and 16-byte aligned. hd 64, 128 or 256;
+// 1 <= G <= 64 (a block takes ⌊64 / G⌋ positions of each query head).
 MQT_EXPORT int mqt_prefill_attention(const void* q, const void* q_strides,
                                      const void* k, const void* v,
                                      const void* positions, const void* valid,
@@ -568,7 +577,7 @@ MQT_EXPORT int mqt_prefill_attention(const void* q, const void* q_strides,
                                      const void* meta_host, int B, int Hkv,
                                      int G, int T, int S, int hd, int qk_fq,
                                      int pv_fq, void* stream) {
-  if ((hd != 64 && hd != 128 && hd != 256) || G < 1 || ROWS % G != 0)
+  if ((hd != 64 && hd != 128 && hd != 256) || G < 1 || G > ROWS)
     return (int)cudaErrorInvalidValue;
   const float* mh = (const float*)meta_host;
   const long long* qsp = (const long long*)q_strides;

@@ -112,8 +112,10 @@ def chunk_kernel_supported(c, max_seq_len: int, B: int) -> bool:
     """Static shape gate of the chunk kernel (the JAX package's
     chunk_kernel_supported): 8 < B <= 128, B % 8 == 0, a sequence's K slab
     at most 4 MiB, and the whole-layer kernels' gate (head_dim a multiple of
-    32 up to 256; the registry's models have 64 or 256, which the kernel's
-    two attention editions take)."""
+    32 up to 256: the registry's head dims 64, 128 and 256 take the kernel's
+    two attention editions, 4 dims a lane up to 128, 8 at 256). Llama-2-7B
+    (32 kv heads of 128) passes the slab rule at S 1024 (4 MiB) and fails it
+    at S 2048."""
     per_seq = c.num_kv_heads * max_seq_len * c.head_dim_
     return (8 < B <= MAX_ROWS and B % 8 == 0 and per_seq <= 4 * 1024 * 1024
             and layer_kernel_supported(c, max_seq_len))

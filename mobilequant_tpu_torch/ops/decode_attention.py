@@ -64,9 +64,18 @@ def _stats_bytes(G: int, hd: int) -> int:
     return -(-(8 * (G * hd + 10 * G) + 4 * 9 * G) // 16) * 16
 
 
+# the group sizes the kernels are instantiated for (csrc/decode_attention.cu,
+# csrc/kv4_attention.cu); 6 is Qwen2-1.5B's 12 q heads over 2 kv heads
+GROUPS = (1, 2, 4, 6, 8, 16)
+
+
 def _pv_heads(G: int, hd: int) -> int:
-    """Query heads of a thread in P·V (decode_cluster.cuh PvLayout::GPT)."""
-    return G if G * (hd // 32) <= 32 else 32 // (hd // 32)
+    """Query heads of a thread in P·V (decode_cluster.cuh PvLayout::GPT): the
+    largest divisor of G with GPT·hd/32 <= 32."""
+    d = min(G, 32 // (hd // 32))
+    while G % d:
+        d -= 1
+    return d
 
 
 def decode_attn_smem(G: int, S: int, hd: int, ncl: int) -> int:
@@ -148,7 +157,7 @@ def decode_attention(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         decode_attention.plain_calls += 1
         return decode_attention_plain(q8, k8, v8, meta, valid_len)
     dev = _build.require_cuda(q8, k8, v8, valid_len)
-    if hd not in (64, 128, 256) or G not in (1, 2, 4, 8, 16) or q8.dtype != torch.int8 \
+    if hd not in (64, 128, 256) or G not in GROUPS or q8.dtype != torch.int8 \
             or k8.dtype != torch.int8:
         raise NotImplementedError(f"decode_attention kernel: hd {hd}, G {G}")
     ncl = cluster_size(B, Hkv, S, _build.sm_count(dev), G, hd)

@@ -157,9 +157,10 @@ def ring_stream(dims: tuple, nlayers: int, G: int, block: int, head: bool):
 def layer_kernel_supported(c, max_seq_len: int) -> bool:
     """Static shape gate of the whole-layer and whole-model kernels: head_dim
     a multiple of 32 up to 256 (the attention stage's 4- and 8-dims-a-lane
-    editions; the JAX gate takes hd % 128 == 0, but its Ko % 512 term is not
-    copied: it would move test-llama-256 off the kernel routes), and at
-    B = 8 two ring slots beside the attention stage's shared memory."""
+    editions: the registry's head dims 64 and 128 take the first, Gemma-2B's
+    256 the second; the JAX gate takes hd % 128 == 0, but its Ko % 512 term
+    is not copied: it would move test-llama-256 off the kernel routes), and
+    at B = 8 two ring slots beside the attention stage's shared memory."""
     hd, Hq, Hkv = c.head_dim_, c.num_heads, c.num_kv_heads
     if Hkv < 1 or Hq % Hkv:
         return False

@@ -63,7 +63,7 @@ import torch
 
 from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.decode_attention import (
-    SMEM_LIMIT, WARPS, _pv_heads, _stats_bytes, pick_cluster)
+    GROUPS, SMEM_LIMIT, WARPS, _pv_heads, _stats_bytes, pick_cluster)
 from mobilequant_tpu_torch.ops.qops import f32, int_dot, rowsum_i8
 from mobilequant_tpu_torch.ops.w13_gate import _fq
 
@@ -203,7 +203,7 @@ def kv4_decode_attention(q8: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
         return kv4_decode_attention_plain(q8, kp, vp, kcs, sk, sv, k_new, v_new, meta, pos,
                                           mst, layer, **kw)
     dev = _build.require_cuda(q8, kp, vp, kcs, sk, sv, k_new, v_new, pos)
-    if hd not in (64, 128) or S2 % 4 or G not in (1, 2, 4, 8, 16) or q8.dtype != torch.int8 \
+    if hd not in (64, 128) or S2 % 4 or G not in GROUPS or q8.dtype != torch.int8 \
             or kp.dtype != torch.int8 or kcs.dtype != torch.float32:
         raise NotImplementedError(f"kv4_decode_attention kernel: hd {hd}, S/2 {S2}, G {G}")
     ncl = kv4_cluster_size(B, BH // B, S2, cs, _build.sm_count(dev), G, hd)

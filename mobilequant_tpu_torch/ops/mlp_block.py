@@ -54,6 +54,7 @@ from mobilequant_tpu_torch.ops import _build
 from mobilequant_tpu_torch.ops.qops import quantize_act
 from mobilequant_tpu_torch.ops.w4a8_matmul import layer_pack, w4a8_matmul_plain, weight_bits
 from mobilequant_tpu_torch.ops.w13_gate import _fq, w13_gate_plain
+from mobilequant_tpu_torch.quant.quantizer import true_div
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -192,14 +193,19 @@ def sum_f32(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 
 def rms_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
-    """x / sqrt(mean(x²) + eps), the sum of squares by sum_f32."""
-    return x * (1.0 / torch.sqrt(sum_f32(x * x) / x.shape[-1] + eps))
+    """x / sqrt(mean(x²) + eps), the sum of squares by sum_f32, the mean one
+    true division by K as in the kernels (true_div: on the card PyTorch
+    divides by a host scalar as a multiply by its reciprocal, which for a K
+    that is not a power of two, Qwen2-1.5B's 1536, moves the norm by an ulp
+    and an int8 rounding at a tie by a step)."""
+    return x * (1.0 / torch.sqrt(true_div(sum_f32(x * x), x.shape[-1]) + eps))
 
 
 def layer_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
-    """(x − mean(x)) / sqrt(mean((x − mean)²) + eps), both sums by sum_f32."""
-    d = x - sum_f32(x) / x.shape[-1]
-    return d * (1.0 / torch.sqrt(sum_f32(d * d) / x.shape[-1] + eps))
+    """(x − mean(x)) / sqrt(mean((x − mean)²) + eps), both sums by sum_f32,
+    both means true divisions (rms_norm)."""
+    d = x - true_div(sum_f32(x), x.shape[-1])
+    return d * (1.0 / torch.sqrt(true_div(sum_f32(d * d), x.shape[-1]) + eps))
 
 
 def mlp_block_supported(K: int, F: int) -> bool:

@@ -16,7 +16,10 @@ so every score is the float the plain version makes); P·V is fp16 mma.sync
 on V made fp16 exactly and P split into two fp16 terms (22 bits, so the
 output differs from the plain version's fp32 P·V by about 2^-22 of Σ p·|v|).
 Head dims 64, 128 and 256 (a template on the head dim; at 256 the block's two
-column groups split the head dim rather than the K/V tiles).
+column groups split the head dim rather than the K/V tiles). Any group size
+G <= 64: a block's 64 query rows hold ⌊64 / G⌋ positions of each of the G
+query heads (at G = 6, Qwen2-1.5B's, 60 rows; the other 4 idle and masked,
+as the JAX kernel masks its padded queries).
 The relaxed policy runs an online softmax; the strict one three passes over
 recomputed scores (row max, denominator in fp64, then normalised,
 fake-quantized probabilities into P·V), since the prob fake-quant needs the
@@ -41,8 +44,9 @@ from mobilequant_tpu_torch.ops.qops import f32, int_dot, rowsum_i8
 from mobilequant_tpu_torch.ops.w13_gate import _fq
 
 # the kernel's head-dim editions; the G query heads of a kv head share a
-# block's 64 rows, so G divides 64
+# block's 64 rows, ⌊64 / G⌋ positions each, so G is at most 64
 HEAD_DIMS = (64, 128, 256)
+MAX_GROUP = 64
 
 
 def prefill_attention_plain(q8: torch.Tensor, k8: torch.Tensor,
@@ -99,7 +103,7 @@ def prefill_attention(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         return prefill_attention_plain(q8, k8, v8, meta, positions, valid,
                                        qk_fq, pv_fq)
     dev = _build.require_cuda(q8, k8, v8, positions, valid)
-    if hd not in HEAD_DIMS or 64 % G:
+    if hd not in HEAD_DIMS or not 1 <= G <= MAX_GROUP:
         raise NotImplementedError(f"prefill_attention kernel: head_dim {hd}, "
                                   f"group {G}")
     if q8.stride(-1) != 1 or q8.data_ptr() % 4 or any(s % 4 for s in q8.stride()[:4]):

@@ -203,10 +203,12 @@ def int_linear(x_q: torch.Tensor, x_scale: float, x_offset: float, pack: dict,
 
 
 def dynamic_quantize_act(x: torch.Tensor):
-    """Per-row symmetric dynamic int8 quantization: (q int8, scale (..., 1))."""
+    """Per-row symmetric dynamic int8 quantization: (q int8, scale (..., 1));
+    the scale max|x| / 127 one true division (true_div), as the kernels that
+    fold the head compute it."""
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+    scale = true_div(torch.clamp(amax, min=1e-8), 127.0)
     q = torch.clamp(torch.round(xf / scale), -127.0, 127.0)
     return q.to(torch.int8), scale
 

@@ -8,13 +8,14 @@ int4 cache) split the positions of one (sequence, kv head) over a
 thread-block cluster whose size the wrappers pick from the shapes
 (chip_smoke.py checks that choice). This script forces every size the
 kernels take (1, 2, 4, 8 blocks) on every (G, hd) edition (G = 1, 2, 4,
-8, 16; hd = 64, 128, and 256 for the int8 cache), at valid lengths and chunk
+6, 8, 16; hd = 64, 128, and 256 for the int8 cache), at valid lengths and chunk
 starts that leave stripes empty, on both sides of S/2 for the int4 cache,
 with 0, 5 and all staged columns, in the relaxed policy, the strict one and
 a strict meta whose fq16(0) is not 0 (every position read); and TinyLlama's
-shapes (Hkv 4, G 8, hd 64, S 1024) at B = 1, 4, 32, and Gemma-2B's on the
-int8 cache (Hkv 1, G 8, hd 256, S 1024) at B = 1, 4, 32. Every output must equal the plain version's
-(error 0). It builds the checkout's kernels (build/mqt_kernels), prints the
+shapes (Hkv 4, G 8, hd 64, S 1024) at B = 1, 4, 32, Gemma-2B's on the
+int8 cache (Hkv 1, G 8, hd 256, S 1024) at B = 1, 4, 32, and Qwen2-1.5B's
+(Hkv 2, G 6, hd 128, S 1024) at B = 1, 4, 32 on both caches. Every output
+must equal the plain version's (error 0). It builds the checkout's kernels (build/mqt_kernels), prints the
 card's name and power limit, the number of checks and any that differ, and
 exits 1 if one does.
 """
@@ -95,7 +96,7 @@ def main() -> None:
               KV.kv4_decode_attention_plain(*args, qk_fq_on=strict, pv_fq_on=strict))
 
     for policy in SITES:
-        for G in (1, 2, 4, 8, 16):
+        for G in DA.GROUPS:
             for hd in (64, 128, 256):
                 for B, Hkv, valid, pos in ((1, 2, [5], [3]), (3, 1, [5, 256, 77], [3, 240, 130])):
                     int8_cache(B, Hkv, G, hd, 256, valid, policy)
@@ -112,6 +113,12 @@ def main() -> None:
         for B, pos, mst in ((1, [192], 16), (1, [3], 0), (4, [0, 511, 512, 992], 32),
                             (32, [480 + 3 * b for b in range(32)], 16)):
             int4_cache(B, 4, 8, 64, 1024, 32, pos, mst, policy)
+        # Qwen2-1.5B's shapes (two kv heads of 128, G 6)
+        for B, valid in ((1, [193]), (1, [5]), (4, [1, 15, 16, 17]), (32, [193] * 32)):
+            int8_cache(B, 2, 6, 128, 1024, valid, policy)
+        for B, pos, mst in ((1, [192], 16), (1, [3], 0), (4, [0, 511, 512, 992], 32),
+                            (32, [480 + 3 * b for b in range(32)], 16)):
+            int4_cache(B, 2, 6, 128, 1024, 32, pos, mst, policy)
     print(f"decode attention checks: {n_checks}, differing: {len(bad)}", flush=True)
     for line in bad[:20]:
         print(f"  {line}")

@@ -38,7 +38,9 @@ attn and wonly by default):
          of a W8A8/h8 pack (128-token prompt, torch.profiler over 4 steps)
          and row 14's part of it;
   attn   the prefill attention (row 4): T=128 into S=1024 and T=S=1024
-         relaxed and strict (G=8), StableLM's T=128 into S=1024 (G=1);
+         relaxed and strict (G=8), StableLM's T=128 into S=1024 (G=1),
+         Llama-3-8B's (hd 128, 8 kv heads, G=4) T=128 into S=1024 relaxed
+         and strict;
   wonly  the weight-only matmul (rows 12 / 13): wonly_matmul_stacked at
          M = 1, 8 on the W4 g128 projections and the W8 per-channel w1 / k
          (bf16 rows), w4a16_matmul at M = 1, 8, 128 (fp32 rows), the weights
@@ -49,14 +51,20 @@ attn and wonly by default):
          B = 1, 32, 128 from pos0 192 and at B = 32 from 480 + 3b (the high
          plane), 16 of 32 staged columns, relaxed (and strict at 480 + 3b);
          each beside SDPA on bf16 over the same valid rows (kv heads
-         expanded), the library yardstick of chip_smoke.py; in a tree whose
+         expanded), the library yardstick of chip_smoke.py; row 15 also at
+         G = 1 (32 kv heads of 64) and G = 4 (8 kv heads of 128) at B = 1,
+         32 relaxed, and row 10 at G = 4, hd 128 at B = 1, 32 relaxed; in a
+         tree whose
          wrappers pick a cluster size, the B = 1 shapes also at clusters of
          4 and 8 blocks a (sequence, kv head); then the device time of
          a B=1 decode step on the int4-cache route and on the attn() route
          (128-token prompt, torch.profiler over 4 steps) and the attention
          kernel's part of it.
 Each number is the least of three means over calls replayed from one CUDA
-graph (chip_smoke.time_ms). It prints one JSON line a tree, and the card's
+graph (chip_smoke.time_ms). The attn and dattn rows also print a digest of
+their output bytes ("<row> digest": the inputs come from one seeded
+generator in the same order in every tree), so that two trees' outputs can
+be held equal byte for byte. It prints one JSON line a tree, and the card's
 name and power limit first; the build's ptxas lines (registers, spills) go
 to chiprun_out/ab_build_<n>.txt, n the tree's place in the list.
 """
@@ -69,7 +77,7 @@ import sys
 from pathlib import Path
 
 CHILD = r'''
-import contextlib, io, json, sys, time
+import contextlib, hashlib, io, json, sys, time
 tree, log_path, groups = sys.argv[1], sys.argv[2], sys.argv[3].split(",")
 sys.path.insert(0, tree)
 import torch
@@ -104,6 +112,11 @@ gen = torch.Generator(device=dev).manual_seed(0)
 
 def tm(fn, n=20):
     return min(CS.time_ms(fn, n=n) for _ in range(3))
+
+
+def digest(t):
+    return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()[:16]
 
 
 for wb in ((4, 8) if "fused" in groups else ()):
@@ -354,23 +367,27 @@ if "attn" in groups:
                                                  device=dev)
     ameta = E._attn_meta(E.layer_ranges(packed["ranges"], 0), relax_16bit(pol), cfg)
     del packed
-    for tag, Hkv, G, T, S, strict in (("T=128 S=1024 relaxed", 4, 8, 128, 1024, False),
-                                      ("T=S=1024 relaxed", 4, 8, 1024, 1024, False),
-                                      ("T=S=1024 strict", 4, 8, 1024, 1024, True),
-                                      ("StableLM G=1 T=128 S=1024 relaxed", 32, 1, 128, 1024,
-                                       False)):
+    for tag, Hkv, G, T, S, strict, hd in (
+            ("T=128 S=1024 relaxed", 4, 8, 128, 1024, False, 64),
+            ("T=S=1024 relaxed", 4, 8, 1024, 1024, False, 64),
+            ("T=S=1024 strict", 4, 8, 1024, 1024, True, 64),
+            ("StableLM G=1 T=128 S=1024 relaxed", 32, 1, 128, 1024, False, 64),
+            ("Llama-3 hd 128 G=4 T=128 S=1024 relaxed", 8, 4, 128, 1024, False, 128),
+            ("Llama-3 hd 128 G=4 T=128 S=1024 strict", 8, 4, 128, 1024, True, 128)):
         meta = list(ameta)
         if strict:
             meta[6:12] = [80.0 / 65535, 32768.0, 65535.0, 1.0 / 65535, 0.0, 65535.0]
-        q8 = torch.randint(-128, 128, (1, Hkv, G, T, 64), generator=gen, device=dev,
+        q8 = torch.randint(-128, 128, (1, Hkv, G, T, hd), generator=gen, device=dev,
                            dtype=torch.int8)
-        k8 = torch.randint(-128, 128, (1, Hkv, S, 64), generator=gen, device=dev,
+        k8 = torch.randint(-128, 128, (1, Hkv, S, hd), generator=gen, device=dev,
                            dtype=torch.int8)
         v8 = torch.randint(-128, 128, k8.shape, generator=gen, device=dev, dtype=torch.int8)
         posi = torch.arange(T, device=dev, dtype=torch.int32)[None]
         valid = torch.full((1,), T, device=dev, dtype=torch.int32)
         out[f"row4 {tag}"] = tm(lambda i: prefill_attention(q8, k8, v8, meta, posi, valid,
                                                             strict, strict))
+        out[f"row4 {tag} digest"] = digest(prefill_attention(q8, k8, v8, meta, posi, valid,
+                                                             strict, strict))
     torch.cuda.empty_cache()
 
 if "wonly" in groups:
@@ -429,7 +446,7 @@ if "dattn" in groups:
         del packed
     L, Hkv, G, hd, S, cst = cfg.num_layers, cfg.num_kv_heads, 8, 64, 1024, 32
 
-    def sdpa(Bq, valid):
+    def sdpa(Bq, valid, Hkv=Hkv, G=G, hd=hd):
         qd = torch.randn((Bq, Hkv * G, 1, hd), generator=gen, device=dev).to(torch.bfloat16)
         kd = torch.randn((Bq, Hkv, 1, valid, hd), generator=gen, device=dev).to(torch.bfloat16)
         kd = kd.expand(Bq, Hkv, G, valid, hd).reshape(Bq, Hkv * G, valid, hd)
@@ -462,9 +479,28 @@ if "dattn" in groups:
         def call(i):
             return decode_attention(q8, kc[i % L], vc[i % L], meta, vl)
         out[tag] = tm(call)
+        out[tag + " digest"] = digest(call(1))
         out[tag + " SDPA"] = sdpa(Bd, 193)
         forced(tag, call, Bd)
         del kc, vc
+    # row 15 at the other group sizes of the parent's editions (G = 1 at hd
+    # 64, G = 4 at hd 128), 8 layers rotated
+    for Gx, Hkx, hdx in ((1, 32, 64), (4, 8, 128)):
+        for Bd in (1, 32):
+            kc = torch.randint(-128, 128, (8, Bd, Hkx, S, hdx), generator=gen, device=dev,
+                               dtype=torch.int8)
+            vc = torch.randint(-128, 128, kc.shape, generator=gen, device=dev, dtype=torch.int8)
+            q8 = torch.randint(-128, 128, (Bd, Hkx, Gx, hdx), generator=gen, device=dev,
+                               dtype=torch.int8)
+            vl = torch.full((Bd,), 193, dtype=torch.int32, device=dev)
+            tag = f"row15 G={Gx} hd={hdx} B={Bd} valid=193 relaxed"
+
+            def call(i, kc=kc, vc=vc, q8=q8, vl=vl):
+                return decode_attention(q8, kc[i % 8], vc[i % 8], metas[8][False], vl)
+            out[tag] = tm(call)
+            out[tag + " digest"] = digest(call(1))
+            out[tag + " SDPA"] = sdpa(Bd, 193, Hkx, Gx, hdx)
+            del kc, vc
     for Bk, stag, strict in ((1, False, False), (32, False, False), (128, False, False),
                              (32, True, False), (32, True, True)):
         BH = Bk * Hkv
@@ -486,8 +522,33 @@ if "dattn" in groups:
             return kv4_decode_attention(q8, kp, vp, kcs, sk, sv, kn, vn, meta, pos, 16, i % L,
                                         qk_fq_on=strict, pv_fq_on=strict)
         out[tag] = tm(call)
+        out[tag + " digest"] = digest(call(1))
         out[tag + " SDPA"] = sdpa(Bk, int(pos.max()) + 17)
         forced(tag, call, Bk)
+        del kp, vp, kcs, sk, sv
+    # row 10 at G = 4, hd 128 (8 kv heads), 8 layers rotated
+    Hkx, Gx, hdx = 8, 4, 128
+    for Bk in (1, 32):
+        BH = Bk * Hkx
+        kp = torch.randint(-128, 128, (8, BH, hdx, S // 2), generator=gen, device=dev,
+                           dtype=torch.int8)
+        vp = torch.randint(-128, 128, kp.shape, generator=gen, device=dev, dtype=torch.int8)
+        kcs = qops.kv_colsums_packed(kp)
+        sk, sv = (torch.randint(-128, -112, (8, BH, cst, hdx), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in "kv")
+        kn, vn = (torch.randint(-128, -112, (BH, hdx), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in "kv")
+        q8 = torch.randint(-128, 128, (BH, Gx, hdx), generator=gen, device=dev,
+                           dtype=torch.int8)
+        pos = torch.full((Bk,), 192, dtype=torch.int32, device=dev)
+        tag = f"row10 G={Gx} hd={hdx} B={Bk} pos0=192 m=16 relaxed"
+
+        def call(i, kp=kp, vp=vp, kcs=kcs, sk=sk, sv=sv, kn=kn, vn=vn, q8=q8, pos=pos):
+            return kv4_decode_attention(q8, kp, vp, kcs, sk, sv, kn, vn, metas[4][False], pos,
+                                        16, i % 8)
+        out[tag] = tm(call)
+        out[tag + " digest"] = digest(call(1))
+        out[tag + " SDPA"] = sdpa(Bk, 209, Hkx, Gx, hdx)
         del kp, vp, kcs, sk, sv
     torch.cuda.empty_cache()
     # the routes these kernels serve, B=1 after a 128-token prompt: device ms

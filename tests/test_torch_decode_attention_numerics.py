@@ -117,7 +117,7 @@ def _da_model(q8, k8, v8, meta, valid, ncl):
 
 
 @pytest.mark.parametrize("policy", list(POLICIES))
-@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("G", [1, 6, 8])
 @pytest.mark.parametrize("ncl", CLUSTERS)
 def test_decode_attention_model_matches_plain(ncl, G, policy):
     B, Hkv, S, hd = 2, 2, 64, 64
@@ -227,7 +227,7 @@ def _kv4_model(q8, kp, vp, kcs, sk, sv, k_new, v_new, meta, pos, mst, layer, qk_
 
 
 @pytest.mark.parametrize("policy", list(POLICIES))
-@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("G", [1, 6, 8])
 @pytest.mark.parametrize("ncl", CLUSTERS)
 def test_kv4_attention_model_matches_plain(ncl, G, policy):
     L, B, Hkv, S, hd, cs, layer = 2, 2, 2, 128, 64, 8, 1

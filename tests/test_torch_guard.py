@@ -160,18 +160,18 @@ def _digest(packed: dict) -> str:
 
 
 @pytest.mark.parametrize("head_bits", [4, 8, 16])
-@pytest.mark.parametrize("name", ["test-gemma", "gemma-2b"])
+@pytest.mark.parametrize("name", ["test-gemma", "gemma-2b", "qwen2-1.5b"])
 def test_synthetic_tied_pack_heads_from_the_embedding(name, head_bits, monkeypatch):
     """A tied config's synthetic pack takes its head from the embedding it
     draws, as the JAX pack does: the quantized head is pack_head of the
     embedding's transpose, and the fp head is the embedding itself (no
-    lm_head). gemma-2b keeps its widths, cut to 1 layer and a 1,024-token
-    vocabulary so that it builds on the CPU."""
+    lm_head). gemma-2b and qwen2-1.5b keep their widths, cut to 1 layer and
+    a 1,024-token vocabulary so that they build on the CPU."""
     from mobilequant_tpu_torch import convert
     from mobilequant_tpu_torch.models import get_config
     from mobilequant_tpu_torch.quant.quantizer import QuantConfig
     from mobilequant_tpu_torch.runtime import engine as E
-    if name == "gemma-2b":
+    if name != "test-gemma":
         monkeypatch.setattr(convert, "get_config", lambda n: get_config(n).replace(
             num_layers=1, vocab_size=1024))
     packed, cfg, policy, ecfg = convert.build_synthetic_packed(
@@ -179,6 +179,10 @@ def test_synthetic_tied_pack_heads_from_the_embedding(name, head_bits, monkeypat
     assert cfg.tie_word_embeddings and "lm_head" not in packed
     if name == "gemma-2b":
         assert (cfg.hidden_size, cfg.head_dim_, cfg.num_kv_heads) == (2048, 256, 1)
+    if name == "qwen2-1.5b":
+        assert (cfg.hidden_size, cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads) == \
+            (1536, 128, 12, 2)
+        assert packed["layers"]["qkv_proj"]["bias"].abs().max() > 0     # the q/k/v bias
     if head_bits == 16:
         assert "head_q" not in packed
         return
@@ -202,3 +206,27 @@ def test_synthetic_untied_packs_keep_their_bits(name, w_bits, head_bits, want):
     packed, _, _, _ = build_synthetic_packed(name, w_bits=w_bits, head_bits=head_bits,
                                              max_seq_len=32, device="cpu")
     assert _digest(packed) == want
+
+
+@pytest.mark.parametrize("name", ["llama-3-8b", "llama-2-7b"])
+def test_synthetic_untied_hd128_packs(name, monkeypatch):
+    """The untied head-dim-128 models' synthetic packs at their widths (cut to
+    1 layer and a 1,024-token vocabulary): the fused q|k|v and w1|w3 packs,
+    the drawn W4 head, no bias (neither model has one)."""
+    from mobilequant_tpu_torch import convert
+    from mobilequant_tpu_torch.models import get_config
+    monkeypatch.setattr(convert, "get_config", lambda n: get_config(n).replace(
+        num_layers=1, vocab_size=1024))
+    packed, cfg, _, _ = convert.build_synthetic_packed(name, max_seq_len=32, device="cpu")
+    ly = packed["layers"]
+    D, F, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_
+    assert (D, hd) == (4096, 128) and not cfg.tie_word_embeddings
+    assert ly["qkv_proj"]["wq"].shape == (1, D // 2, (cfg.num_heads + 2 * cfg.num_kv_heads) * hd)
+    assert ly["w13_proj"]["wq"].shape == (1, D // 2, 2 * F)
+    assert ly["qkv_proj"]["bias"].abs().max() == 0
+    assert packed["head_q"]["wq"].shape == (D // 2, 4096)
+
+
+def test_hf_converter_imports_neither_safetensors_nor_transformers():
+    mods = {m.split(".")[0] for m in _imports(PORT / "models" / "convert.py")}
+    assert not mods & {"safetensors", "transformers"}, mods

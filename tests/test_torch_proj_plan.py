@@ -30,7 +30,8 @@ from mobilequant_tpu_torch.ops import qkv_rope as Q
 from mobilequant_tpu_torch.ops import w4a8_matmul as W
 from mobilequant_tpu_torch.ops import w8a8_matmul as W8
 
-MODELS = ("tinyllama-1.1b", "stablelm-2-1.6b", "gemma-2b")
+MODELS = ("tinyllama-1.1b", "stablelm-2-1.6b", "gemma-2b", "qwen2-1.5b", "llama-3-8b",
+          "llama-2-7b")
 SMS = (132, 114, 7)
 MS = (9, 17, 32, 63, 64, 65, 128, 1024, 2048)
 

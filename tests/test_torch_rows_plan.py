@@ -32,7 +32,8 @@ from mobilequant_tpu_torch.models.registry import get_config
 from mobilequant_tpu_torch.ops import chunk_model as C
 from mobilequant_tpu_torch.ops import mlp_block as MB
 
-MODELS = ("tinyllama-1.1b", "stablelm-2-1.6b", "gemma-2b")
+MODELS = ("tinyllama-1.1b", "stablelm-2-1.6b", "gemma-2b", "qwen2-1.5b", "llama-3-8b",
+          "llama-2-7b")
 BS = (16, 17, 32, 33, 48, 64, 65, 128)
 SMS = (132, 114, 7)
 FT = 256                        # threads a block (fused_common.cuh)
